@@ -1,0 +1,249 @@
+"""The port's kernel layer (``repro_torch.kernels``) against the JAX package.
+
+On the CPU the port runs its kernels' plain PyTorch versions; they are held
+against ``repro.kernels.ref`` and against the Pallas kernels in interpret
+mode (``repro.kernels.ops.*(force_kernel=True)``) on the same numpy inputs,
+over the shape sweeps of ``tests/test_coded_matmul.py`` and
+``tests/test_kernels.py``, in float32 and bfloat16.  The ``cuda`` cases
+hold each hand-written CUDA kernel against its plain version and skip
+without a card.  JAX is imported inside the helpers, so the card's cases
+also run where JAX is not installed:
+``python -m pytest -q tests/test_torch_kernels.py -k cuda``.
+
+Tolerances are relative to the reference output's max |value|:
+
+* float32, 2e-5 — both sides accumulate in float32, in different orders
+  (sums over d <= 1000 here: a few ulp of the largest terms);
+* bfloat16, 2e-2 — both sides round their output to bfloat16 (2^-8
+  relative); a different summation order can move a value across a
+  rounding boundary, one bfloat16 ulp.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DTYPES = ["float32", "bfloat16"]
+
+# tests/test_coded_matmul.py:28-37 — (N, J, blk, d, n_out)
+CM_SHAPES = [
+    (30, 27, 22, 512, 256),     # fig-3 scale: N=30, J=K+T=24+3
+    (10, 4, 64, 64, 32),
+    (12, 5, 16, 48, 10),        # K=3, T=2
+    (3, 3, 7, 130, 17),         # ragged everything
+    (8, 8, 128, 256, 128),      # fully aligned
+    (33, 33, 5, 1000, 3),
+]
+# tests/test_kernels.py:80-83 — (Q, J, M)
+BC_SHAPES = [(8, 6, 1000), (20, 8, 4096), (3, 3, 77), (64, 32, 2048),
+             (1, 1, 129)]
+
+
+def _torch(x, dtype: str, device="cpu"):
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        device=device, dtype=getattr(torch, dtype))
+
+
+def _jax(x, dtype: str):
+    import jax.numpy as jnp
+    return jnp.asarray(np.asarray(x, np.float32), getattr(jnp, dtype))
+
+
+def _np(x) -> np.ndarray:
+    """float32 numpy copy of a torch or JAX array."""
+    if torch.is_tensor(x):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x.astype("float32"))
+
+
+def _rel(got, want) -> float:
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    return float(np.max(np.abs(got - want)) /
+                 max(float(np.max(np.abs(want))), 1e-30))
+
+
+def _inputs_cm(shape, seed):
+    n, j, blk, d, nout = shape
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, j)), rng.standard_normal((j, blk, d)),
+            rng.standard_normal((d, nout)))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# --------------------------------------------------------------------------
+# CPU: the plain versions against the JAX package
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", CM_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_coded_matmul_plain_matches_reference(shape, dtype):
+    from repro.kernels import ops as jops, ref as jref
+    w, a, b = _inputs_cm(shape, seed=sum(shape))
+    got = ops.coded_matmul(_torch(w, "float32"), _torch(a, dtype),
+                           _torch(b, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    jw, ja, jb = _jax(w, "float32"), _jax(a, dtype), _jax(b, dtype)
+    assert _rel(got, jref.coded_matmul(jw, ja, jb)) <= TOL[dtype]
+    assert _rel(got, jops.coded_matmul(jw, ja, jb, force_kernel=True)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", BC_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_berrut_combine_plain_matches_reference(shape, dtype):
+    from repro.kernels import ops as jops, ref as jref
+    q, j, m = shape
+    rng = np.random.default_rng(q * 1000 + j)
+    w, b = rng.standard_normal((q, j)), rng.standard_normal((j, m))
+    got = ops.berrut_combine(_torch(w, "float32"), _torch(b, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    jw, jb = _jax(w, "float32"), _jax(b, dtype)
+    assert _rel(got, jref.berrut_combine(jw, jb)) <= TOL[dtype]
+    assert _rel(got, jops.berrut_combine(jw, jb, force_kernel=True)) \
+        <= TOL[dtype]
+
+
+def test_berrut_combine_keeps_the_payload_layout():
+    """(J, ...) payloads are flattened and the trailing shape restored."""
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(1)
+    w, b = rng.standard_normal((5, 7)), rng.standard_normal((7, 3, 11, 2))
+    got = ops.berrut_combine(_torch(w, "float32"), _torch(b, "float32"))
+    assert tuple(got.shape) == (5, 3, 11, 2)
+    want = jops.berrut_combine(_jax(w, "float32"), _jax(b, "float32"),
+                               force_kernel=False)
+    assert _rel(got, want) <= TOL["float32"]
+
+
+def test_prefix_decode_matches_reference():
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(2)
+    w, r = rng.standard_normal((6, 4, 9)), rng.standard_normal((9, 5, 8))
+    got = ops.prefix_decode(w, _torch(r, "float32"))
+    assert tuple(got.shape) == (6, 4, 5, 8)
+    want = jops.prefix_decode(_jax(w, "float32"), _jax(r, "float32"),
+                              force_kernel=False)
+    assert _rel(got, want) <= TOL["float32"]
+
+
+# --------------------------------------------------------------------------
+# dispatch rules
+# --------------------------------------------------------------------------
+
+def _small():
+    rng = np.random.default_rng(3)
+    return (_torch(rng.standard_normal((4, 3)), "float32"),
+            _torch(rng.standard_normal((3, 5, 6)), "float32"),
+            _torch(rng.standard_normal((6, 7)), "float32"))
+
+
+@pytest.mark.parametrize("force_kernel", [None, False])
+def test_cpu_tensors_run_the_plain_version(force_kernel):
+    w, a, b = _small()
+    before = ops.kernel_launches()
+    got = ops.coded_matmul(w, a, b, force_kernel=force_kernel)
+    torch.testing.assert_close(got, ref.coded_matmul(w, a, b), rtol=0, atol=0)
+    dw = w.T[:2]                                  # (2, 4) decode weights
+    dec = ops.berrut_combine(dw, got, force_kernel=force_kernel)
+    torch.testing.assert_close(
+        dec, ref.berrut_combine(dw, got.reshape(4, -1)).reshape(2, 5, 7),
+        rtol=0, atol=0)
+    assert ops.kernel_launches() == before       # nothing was launched
+
+
+def test_force_kernel_on_cpu_tensors_raises():
+    w, a, b = _small()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.coded_matmul(w, a, b, force_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.berrut_combine(w, a, force_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.prefix_decode(torch.ones(2, 2, 4), torch.ones(4, 3),
+                          force_kernel=True)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    w, a, b = _small()
+    with pytest.raises(ValueError, match="CUDA"):
+        coded_matmul_kernel(w, a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        berrut_encode_kernel(w, a.reshape(3, -1))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_build_names_a_library_by_its_source_and_flags():
+    target = _build._target("coded_matmul")
+    assert target.parent == _build.BUILD_DIR
+    assert target.name.startswith("libcoded_matmul-")
+    assert target != _build._target("berrut_combine")
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_plain_paths_build_nothing():
+    w, a, b = _small()
+    before = _build.build_count
+    ops.berrut_combine(w.T[:2], ops.coded_matmul(w, a, b))
+    assert _build.build_count == before
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+# --------------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", CM_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_coded_matmul_kernel_matches_plain(cuda, shape, dtype):
+    w, a, b = _inputs_cm(shape, seed=sum(shape))
+    w, a, b = (_torch(w, "float32", cuda), _torch(a, dtype, cuda),
+               _torch(b, dtype, cuda))
+    before = coded_matmul_kernel.launches
+    got = ops.coded_matmul(w, a, b)                  # None -> the kernel
+    torch.cuda.synchronize()
+    assert coded_matmul_kernel.launches == before + 1
+    assert got.dtype == a.dtype and got.is_cuda
+    assert _rel(got, ops.coded_matmul(w, a, b, force_kernel=False)) \
+        <= TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", BC_SHAPES + [(24, 30, 5632), (8, 200, 1003),
+                                               (40, 30, 777)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_berrut_kernel_matches_plain(cuda, shape, dtype):
+    q, j, m = shape
+    rng = np.random.default_rng(q * 1000 + j)
+    w = _torch(rng.standard_normal((q, j)), "float32", cuda)
+    b = _torch(rng.standard_normal((j, m)), dtype, cuda)
+    before = berrut_encode_kernel.launches
+    got = ops.berrut_combine(w, b)
+    torch.cuda.synchronize()
+    assert berrut_encode_kernel.launches == before + 1
+    assert got.dtype == b.dtype and got.is_cuda
+    assert _rel(got, ops.berrut_combine(w, b, force_kernel=False)) \
+        <= TOL[dtype]
+
+
+def test_cuda_kernels_build_once(cuda):
+    w, a, b = (t.to(cuda) for t in _small())
+    for _ in range(3):
+        ops.berrut_combine(w.T[:2], ops.coded_matmul(w, a, b))
+    torch.cuda.synchronize()
+    assert _build.build_count == 1

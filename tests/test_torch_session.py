@@ -1,0 +1,143 @@
+"""The slice as a whole: ``repro_torch.api.Session`` against
+``repro.api.Session`` on the CPU.
+
+Same spec, same inputs (numpy, from a seed), the reference's noise handed
+in: the outputs must agree to 1e-4 relative to their max |value| (float32
+rounds through different libraries, and the Berrut decode weights sum
+terms of both signs), and the round's plan must be exactly equal —
+responders, decode mask, policy and the arrival order of the workers.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.api as port_api
+from repro_torch.api import ClusterSpec, Session
+
+OUT_TOL = 1e-4
+JOBS = [("fig3_backprop", 512, 10, 256), ("fig3_wide", 1536, 256, 512)]
+
+
+def _presets(api):
+    c = api.ClusterSpec
+    return [c.paper_fig3(), c.paper_fig3(n_stragglers=0), c.anytime_bench(),
+            c.serve_deadline(), c.serve_deadline(backend="threads"), c(),
+            c(code=api.CodeSpec(n_workers=12, k_blocks=3, use_kernel=False),
+              straggler=api.StragglerSpec(n_stragglers=2, mode="markov"),
+              wait=api.WaitSpec(policy="first_k", k=9), seed=7,
+              pipeline_encode=True)]
+
+
+@pytest.mark.parametrize("job", JOBS, ids=[j[0] for j in JOBS])
+def test_session_matches_reference_round_for_round(job):
+    import repro.api as ref_api
+    _, m, d, n_out = job
+    ref_spec = ref_api.ClusterSpec.paper_fig3()
+    spec = ClusterSpec.from_dict(ref_spec.to_dict())
+    rng = np.random.default_rng(m)
+    a = rng.standard_normal((m, d)).astype(np.float32)
+    b = rng.standard_normal((d, n_out)).astype(np.float32)
+    with ref_api.Session(ref_spec) as rs, Session(spec, device="cpu") as ps:
+        noise = np.asarray(rs.engine.scheme.make_noise((-(-m // 24), d)))
+        for _ in range(3):
+            want, wst = rs.matmul(a, b)
+            got, gst = ps.matmul(a, b, noise=noise)
+            assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+            assert tuple(got.shape) == (m, n_out)
+            rel = float(np.max(np.abs(got.numpy() - want)) /
+                        np.max(np.abs(want)))
+            assert rel <= OUT_TOL, rel
+            assert gst.n_waited == wst.n_waited == 23
+            assert gst.decode_mask == wst.decode_mask
+            assert gst.policy == wst.policy
+            assert [w for _, w in gst.arrivals] == \
+                [w for _, w in wst.arrivals]
+            assert gst.decode_s == wst.decode_s == 0.0
+            assert gst.dispatches == 0      # the CPU runs the plain versions
+    assert len(ps.round_stats) == 3
+
+
+def test_every_preset_loads_in_both_packages():
+    import repro.api as ref_api
+    for ref_spec, port_spec in zip(_presets(ref_api), _presets(port_api)):
+        d = ref_spec.to_dict()
+        assert port_spec.to_dict() == d
+        assert ClusterSpec.from_dict(d) == port_spec
+        assert ref_api.ClusterSpec.from_dict(port_spec.to_dict()) == ref_spec
+        assert ClusterSpec.from_json(ref_spec.to_json()) == port_spec
+
+
+def test_spec_has_no_device_field():
+    assert "device" not in ClusterSpec().to_dict()
+    with pytest.raises(ValueError, match="unknown key"):
+        ClusterSpec.from_dict({"device": "cuda"})
+
+
+def test_session_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session(ClusterSpec.paper_fig3())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session(ClusterSpec.paper_fig3(), device="cuda")
+    assert Session(ClusterSpec.paper_fig3(), device="cpu").device.type == \
+        "cpu"
+
+
+def _unported_specs():
+    api = port_api
+    base = dict(code=api.CodeSpec(n_workers=8, k_blocks=4))
+    return {
+        "fault": ClusterSpec(fault=api.FaultSpec(handle=True), **base),
+        "error_target": ClusterSpec(wait=api.WaitSpec(policy="error_target",
+                                                      eps=0.1), **base),
+        "encrypt_modeled": ClusterSpec(
+            crypto=api.CryptoSpec(encrypt="modeled"), **base),
+        "encrypt_real": ClusterSpec(crypto=api.CryptoSpec(encrypt="real"),
+                                    **base),
+        "loop_round": ClusterSpec(code=api.CodeSpec(n_workers=8, k_blocks=4,
+                                                    fused=False)),
+        "threads": ClusterSpec(transport=api.TransportSpec(backend="threads"),
+                               **base),
+        "adaptive": ClusterSpec(adaptive=api.AdaptiveSpec(policy="adaptive"),
+                                **base),
+    }
+
+
+@pytest.mark.parametrize("path", sorted(_unported_specs()))
+def test_unported_round_paths_raise(path):
+    spec = _unported_specs()[path]
+    with Session(spec, device="cpu") as s:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            s.matmul(np.ones((8, 3), np.float32), np.ones((3, 2), np.float32))
+
+
+@pytest.mark.parametrize("method,args", [
+    ("anytime_curve", (np.ones((8, 3)), np.ones((3, 2)))),
+    ("init_mlp", ((4, 3, 2),)), ("train_step", (None, None)), ("serve", ())])
+def test_unported_session_methods_raise(method, args):
+    with Session(ClusterSpec(), device="cpu") as s:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            getattr(s, method)(*args)
+
+
+def test_lifecycle_round_counter_and_pipelining():
+    spec = dataclasses.replace(ClusterSpec(), pipeline_encode=True)
+    s = Session(spec, device="cpu")
+    a, b = np.ones((9, 5), np.float32), np.ones((5, 4), np.float32)
+    out, st0 = s.matmul(a, b)
+    _, st1 = s.matmul(a, b)
+    assert tuple(out.shape) == (9, 4) and bool(torch.isfinite(out).all())
+    assert st0.pipelined_s == 0.0 and st1.pipelined_s >= 0.0
+    assert st0.arrivals != st1.arrivals          # a new straggler draw
+    _, replay = s.matmul(a, b, round_idx=0)
+    assert replay.arrivals[0][1] == st0.arrivals[0][1]
+    s.close()
+    s.close()                                    # idempotent
+    assert s.closed
+    with pytest.raises(RuntimeError, match="closed"):
+        s.matmul(a, b)
+    assert json.dumps(ClusterSpec().to_dict())

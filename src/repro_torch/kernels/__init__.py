@@ -1,10 +1,14 @@
 """Hand-written CUDA kernels for Hopper (+ plain PyTorch versions) for the
-perf-critical hot spots: the SPACDC Berrut contraction and the fused coded
-matmul.  Ports ``repro/kernels``.  Importing this package builds nothing:
-the kernels are compiled by ``nvcc`` at their first launch."""
+perf-critical hot spots: the SPACDC Berrut contraction, the fused coded
+matmul and the MEA-ECC mask add.  Ports ``repro/kernels``.  Importing this
+package builds nothing: the kernels are compiled by ``nvcc`` at their first
+launch."""
 
-from .ops import berrut_combine, coded_matmul, kernel_launches, prefix_decode
+from .ops import (berrut_combine, coded_matmul, encrypted_coded_matmul,
+                  fused_wire, kernel_launches, mask_add, mea_decrypt_core,
+                  mea_encrypt_core, prefix_decode)
 from . import ref
 
-__all__ = ["berrut_combine", "coded_matmul", "kernel_launches",
-           "prefix_decode", "ref"]
+__all__ = ["berrut_combine", "coded_matmul", "encrypted_coded_matmul",
+           "fused_wire", "kernel_launches", "mask_add", "mea_decrypt_core",
+           "mea_encrypt_core", "prefix_decode", "ref"]

@@ -41,6 +41,9 @@ _ENTRY = {
                        [_VP, _VP, _VP, _I, _I, _I64, _I, _VP]),
     "coded_matmul": ("coded_matmul_launch",
                      [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP]),
+    "mask_add": ("mask_add_launch",
+                 [_VP, _VP, _VP, _I64, _I, _I64,
+                  ctypes.POINTER(ctypes.c_uint32), _I, _I, _VP]),
 }
 
 build_count = 0

@@ -1,7 +1,8 @@
 """Device-dispatching wrappers for the port's CUDA kernels.
 
-Ports ``repro/kernels/ops.py`` (``berrut_combine``, ``prefix_decode`` and
-``coded_matmul``).  ``force_kernel`` keeps the reference's tri-state, read
+Ports ``repro/kernels/ops.py`` (``berrut_combine``, ``prefix_decode``,
+``coded_matmul``, ``mask_add`` with the MEA-ECC cipher cores, and the
+encrypted round).  ``force_kernel`` keeps the reference's tri-state, read
 for the device instead of the TPU:
 
 * ``None`` — the hand-written CUDA kernel for CUDA tensors, the plain
@@ -21,9 +22,11 @@ import torch
 from . import ref
 from .berrut_encode import berrut_encode_kernel
 from .coded_matmul import coded_matmul_kernel
+from .mask_add import mask_add_kernel
 
-__all__ = ["berrut_combine", "prefix_decode", "coded_matmul",
-           "kernel_launches"]
+__all__ = ["berrut_combine", "prefix_decode", "coded_matmul", "mask_add",
+           "mea_encrypt_core", "mea_decrypt_core", "encrypted_coded_matmul",
+           "fused_wire", "kernel_launches"]
 
 
 def _use_kernel(t: torch.Tensor, force_kernel) -> bool:
@@ -38,7 +41,8 @@ def _use_kernel(t: torch.Tensor, force_kernel) -> bool:
 def kernel_launches() -> int:
     """Launches of the port's kernels so far in this process (the sum of
     the wrappers' counters)."""
-    return berrut_encode_kernel.launches + coded_matmul_kernel.launches
+    return (berrut_encode_kernel.launches + coded_matmul_kernel.launches +
+            mask_add_kernel.launches)
 
 
 def berrut_combine(weights, blocks, *, force_kernel: bool | None = None):
@@ -89,3 +93,139 @@ def coded_matmul(weights, blocks, rhs, *, force_kernel: bool | None = None):
         return coded_matmul_kernel(weights.contiguous(), blocks.contiguous(),
                                    rhs.contiguous())
     return ref.coded_matmul(weights, blocks, rhs)
+
+
+def _mask_rows(mask: torch.Tensor, shape) -> torch.Tensor:
+    """A mask broadcast against limbs of ``shape`` (..., L) -> the (G, L)
+    rows the kernel spreads over the flattened payload.  A mask that
+    matches the leading dims and is 1 on the rest (paper mode's per-channel
+    Ψ, a scalar mask) keeps its G rows; any other broadcast is expanded."""
+    nd = len(shape)
+    mask = mask.view(torch.int32)
+    mask = mask.reshape((1,) * (nd - mask.dim()) + tuple(mask.shape))
+    k = 0
+    while k < nd - 1 and mask.shape[k] == shape[k]:
+        k += 1
+    if all(mask.shape[i] == 1 for i in range(k, nd - 1)):
+        g = 1
+        for dim in shape[:k]:
+            g *= dim
+        return mask.reshape(g, shape[-1]).contiguous()
+    return mask.expand(tuple(shape)).reshape(-1, shape[-1]).contiguous()
+
+
+def _limb_ready(limbs, mask, q: int, use_kernel: bool, subtract: bool):
+    """Shared tail of the cipher cores and the general wire: (limbs ± mask)
+    mod q over (..., L) 32-bit limbs, ``mask`` broadcast against them,
+    through the CUDA kernel or its plain version.  Returns
+    ``torch.uint32``."""
+    from ..crypto import field
+    q_limbs = tuple(int(v) for v in field.int_to_limbs(q, limbs.shape[-1]))
+    if not use_kernel:
+        return ref.mask_add(limbs, mask, q_limbs, subtract=subtract)
+    shape = tuple(limbs.shape)
+    # int32 views of the words: every copy below then runs on int32
+    out = mask_add_kernel(limbs.view(torch.int32).reshape(-1, shape[-1])
+                          .contiguous(), _mask_rows(mask, shape), q_limbs,
+                          subtract=subtract)
+    return out.reshape(shape).view(torch.uint32)
+
+
+def mask_add(payload, mask, q: int, *, subtract=False,
+             force_kernel: bool | None = None):
+    """MEA-ECC mask add/sub with kernel dispatch.
+
+    (payload ± mask) mod q over 32-bit limb planes ``(..., L)`` — the
+    encrypt/decrypt step of the cipher (``crypto.mea_ecc``).  ``q`` is the
+    modulus as a python int.  ``mask`` broadcasts against ``payload``
+    (paper mode passes one mask element).  numpy uint32 arrays are taken
+    as CPU tensors.  Returns ``torch.uint32`` on the payload's device.
+    """
+    from ..crypto import field
+    payload = field.as_u32_tensor(payload)
+    mask = field.as_u32_tensor(mask, payload.device)
+    return _limb_ready(payload, mask, q, _use_kernel(payload, force_kernel),
+                       subtract)
+
+
+def _core_mask(mask_material, mode: str, n: int, n_limbs: int):
+    from ..crypto import field
+    if mode == "stream":
+        # mask_material = (8,) uint32 PRF seed words
+        return field.stream_mask_traced(mask_material, n, n_limbs)
+    return mask_material                       # paper: (L,) psi limbs
+
+
+def mea_encrypt_core(data, mask_material, *, q: int, frac_bits: int,
+                     mode: str, codec: str, n_limbs: int,
+                     force_kernel: bool | None = None):
+    """One MEA-ECC encrypt: codec embed + mask PRF + limb add.
+
+    ``data`` is (n,) float (codec="fixed") or (n,) 32-bit raw words
+    (codec="bits"); returns the (n, L) ``torch.uint32`` payload limbs on
+    the data's device.  The limb add is the CUDA ``mask_add`` kernel for
+    CUDA tensors.
+    """
+    from ..crypto import field
+    if codec == "fixed":
+        limbs = field.fixed_encode_traced(data, q, frac_bits, n_limbs)
+    else:
+        limbs = field.embed_limbs(field.as_u32_tensor(data), n_limbs)
+    mask = _core_mask(field.as_u32_tensor(mask_material, limbs.device), mode,
+                      limbs.shape[0], n_limbs)
+    return _limb_ready(limbs, mask, q, _use_kernel(limbs, force_kernel),
+                       subtract=False)
+
+
+def mea_decrypt_core(payload, mask_material, *, q: int, frac_bits: int,
+                     mode: str, codec: str,
+                     force_kernel: bool | None = None):
+    """One MEA-ECC decrypt: limb subtract + codec extract.
+
+    Returns (n,) float32 (codec="fixed") or (n,) ``torch.uint32`` raw words
+    (codec="bits").
+    """
+    from ..crypto import field
+    payload = field.as_u32_tensor(payload)
+    n, n_limbs = payload.shape
+    mask = _core_mask(field.as_u32_tensor(mask_material, payload.device),
+                      mode, n, n_limbs)
+    unmasked = _limb_ready(payload, mask, q,
+                           _use_kernel(payload, force_kernel), subtract=True)
+    if codec == "fixed":
+        return field.fixed_decode_traced(unmasked, q, frac_bits)
+    return unmasked.view(torch.int32)[:, 0].contiguous().view(torch.uint32)
+
+
+def encrypted_coded_matmul(weights, blocks, rhs, material_out, material_back,
+                           *, q: int, mode: str,
+                           force_kernel: bool | None = None,
+                           return_wire: bool = False):
+    """The encrypted round with kernel dispatch: encode -> MEA-ECC wire-out
+    -> worker products -> MEA-ECC wire-back (``kernels.encrypted_round``).
+
+    On the kernel path (CUDA tensors) the wires are the general cipher
+    through the CUDA ``mask_add`` kernel, the encode ``berrut_combine`` and
+    the products ``coded_matmul``; the plain path runs the fast wires
+    between plain matmuls.  ``return_wire`` also returns the (N, W, L)
+    out/back ciphertext limbs.
+    """
+    from .encrypted_round import encrypted_coded_matmul as _impl
+    return _impl(weights, blocks, rhs, material_out, material_back, q=q,
+                 mode=mode, use_kernel=_use_kernel(blocks, force_kernel),
+                 return_wire=return_wire)
+
+
+def fused_wire(words, material, *, q: int, mode: str,
+               force_kernel: bool | None = None):
+    """A standalone wire round trip (encrypt + decrypt) over (N, W) 32-bit
+    payload words; returns the (N, W) ``torch.uint32`` words.  The
+    reference pads W to power-of-two buckets to bound its jit compiles;
+    eager PyTorch compiles nothing per shape, so W stays as it is."""
+    from ..crypto import field
+    from .encrypted_round import wire_roundtrip
+    words = field.as_u32_tensor(words)
+    x = words.view(torch.int32).view(torch.float32)
+    out = wire_roundtrip(x, material, q=q, mode=mode,
+                         use_kernel=_use_kernel(words, force_kernel))
+    return out.view(torch.int32).view(torch.uint32)

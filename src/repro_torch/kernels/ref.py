@@ -1,18 +1,20 @@
 """Plain PyTorch versions of the port's kernels (the correctness ground truth).
 
-Ports ``repro/kernels/ref.py`` (``berrut_combine`` and ``coded_matmul``).
-The CPU tests hold these against the JAX package, and ``chip_smoke.py``
-holds each hand-written CUDA kernel against them on the card.  Both
-accumulate in float32 and return the blocks' dtype.  A float32 product on
-the card is full IEEE float32 only while
-``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default).
+Ports ``repro/kernels/ref.py`` (``berrut_combine``, ``coded_matmul``,
+``mask_add`` and ``encrypted_coded_matmul``).  The CPU tests hold these
+against the JAX package, and ``chip_smoke.py`` holds each hand-written CUDA
+kernel against them on the card.  The float versions accumulate in float32
+and return the blocks' dtype.  A float32 product on the card is full IEEE
+float32 only while ``torch.backends.cuda.matmul.allow_tf32`` is False
+(PyTorch's default).  The limb versions compute in int64 and are bit-exact.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["berrut_combine", "coded_matmul"]
+__all__ = ["berrut_combine", "coded_matmul", "mask_add",
+           "encrypted_coded_matmul"]
 
 
 def berrut_combine(weights: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -36,3 +38,53 @@ def coded_matmul(weights: torch.Tensor, blocks: torch.Tensor,
     coded = torch.matmul(weights.to(torch.float32), flat)
     coded = coded.reshape((weights.shape[0],) + tuple(blocks.shape[1:]))
     return torch.matmul(coded, rhs.to(torch.float32)).to(blocks.dtype)
+
+
+def mask_add(payload, mask, q_limbs, *, subtract: bool = False) -> torch.Tensor:
+    """MEA-ECC mask add/sub: (payload ± mask) mod q over 32-bit limb planes
+    ``(..., L)``, ``mask`` broadcast against ``payload`` — the carry chain
+    and single conditional subtract of ``crypto.field`` (int64 arithmetic,
+    bit-exact with the reference's uint32 chains).  Returns
+    ``torch.uint32``."""
+    from ..crypto import field
+    op = field.sub_mod if subtract else field.add_mod
+    return op(field.as_u32_tensor(payload), field.as_u32_tensor(mask),
+              q_limbs)
+
+
+def encrypted_coded_matmul(weights, blocks, rhs, material_out, material_back,
+                           *, q: int, mode: str) -> torch.Tensor:
+    """The encrypted round computed naively: encode, run every wire through
+    the *general* limb cipher (bits embed -> full-width ``add_mod`` mask add
+    -> ``sub_mod``), the worker products, and the wire back.  The same
+    torch ops in the same order as :func:`coded_matmul`, so the output is
+    bit-identical to it: the cipher round trips are lossless.
+
+    weights (N, J); blocks (J, blk, d); rhs (d, n_out); ``material_*`` are
+    per-channel (N, 8) PRF seed words (stream) or (N, L) Ψ limbs (paper).
+    """
+    from ..crypto import field
+    n_limbs = max(-(-q.bit_length() // 32), 1)
+    q_limbs = field.int_to_limbs(q, n_limbs)
+
+    def wire(x, material):
+        words = x.reshape(x.shape[0], -1).to(torch.float32).contiguous()
+        limbs = field.embed_limbs(words.view(torch.int32), n_limbs)
+        material = field.as_u32_tensor(material, x.device)
+        if mode == "stream":
+            mask = torch.stack([field.stream_mask_traced(
+                s, words.shape[1], n_limbs).view(torch.int32)
+                for s in material.view(torch.int32)]).view(torch.uint32)
+        else:
+            mask = material[:, None, :]
+        ct = field.add_mod(limbs, mask, q_limbs)
+        out = field.sub_mod(ct, mask, q_limbs).view(torch.int32)[..., 0]
+        out = out.contiguous()
+        return out.view(torch.int32).view(torch.float32).reshape(x.shape)
+
+    flat = blocks.reshape(blocks.shape[0], -1).to(torch.float32)
+    coded = torch.matmul(weights.to(torch.float32), flat)
+    coded = coded.reshape((weights.shape[0],) + tuple(blocks.shape[1:]))
+    coded = wire(coded, material_out)
+    out = torch.matmul(coded, rhs.to(torch.float32))
+    return wire(out, material_back).to(blocks.dtype)

@@ -1,13 +1,27 @@
 """The coded-round engine behind ``repro_torch.api.Session``.
 
-Ports the plain fused round of ``repro/runtime/engine.py``: ``RoundStats``,
-``RoundEngine.__init__``, the virtual-clock latency model
-(``_worker_compute_time``, ``_round_compute_time``,
-``_virtual_round_plan``), the encode-pipelining credit and
-``_matmul_fused``.  One round is encode → all N worker matmuls → masked
-decode on the engine's device: one ``coded_matmul`` launch and one
-``berrut_combine`` launch of the port's CUDA kernels (their plain PyTorch
-versions on the CPU).
+Ports the fused rounds of ``repro/runtime/engine.py``: ``RoundStats``,
+``RoundEngine.__init__`` with its crypto setup, the virtual-clock latency
+model (``_worker_compute_time``, ``_round_compute_time``,
+``_virtual_round_plan``), the encode-pipelining credit, and three round
+paths on the engine's device:
+
+* **fused** (``_matmul_fused``): encode → all N worker matmuls → masked
+  decode, one ``coded_matmul`` and one ``berrut_combine`` launch of the
+  port's CUDA kernels (their plain PyTorch versions on the CPU).  With
+  ``encrypt="modeled"`` it also prices ``crypto_s`` from a measured
+  per-element MEA-ECC rate (``_crypto_overhead_elems``).
+* **fused real** (``_matmul_real_fused``, the default of
+  ``encrypt="real"``): the same round with the MEA-ECC wire inside it
+  (``kernels.ops.encrypted_coded_matmul``): on the card one
+  ``berrut_combine`` encode, four ``mask_add`` launches (encrypt and
+  decrypt of the shards out and of the results back), one ``coded_matmul``
+  and the ``berrut_combine`` decode.  ``crypto_s`` is the wire work timed
+  alone once per shape class (``_fused_crypto_time``).
+* **staged real** (``crypto.fused=False``, ``_matmul_real``): the round
+  split at its wire boundaries; every shard and every responder's result
+  crosses as a genuine ``MEAECC`` ciphertext (``_wire``), two ``mask_add``
+  launches per transfer.
 
 Differences from the reference, by design:
 
@@ -22,21 +36,28 @@ Differences from the reference, by design:
   the reference returns a host numpy array.  The host copy is the caller's,
   so the round's timer does not include it.
 * **``RoundStats.dispatches``** counts the round's launches of the port's
-  own kernels: 2 on the fused path on the card, 0 on the CPU.
+  own kernels: 2 on the fused path on the card, 7 on the fused real path,
+  3 + 2·(N + responders) on the staged real path, 0 on the CPU.
+* **The cipher** follows the spec's ``code.use_kernel`` like the schemes do
+  (the reference's ``MEAECC`` always took its own default), and the
+  ``crypto_s`` probe times the wire the round runs (the reference timed
+  its fast wires when ``use_kernel`` was unset).
 * The timers synchronise the device before each stop, where the reference
   calls ``block_until_ready``.
 
-Every other path of the reference (loop rounds, real transports, anytime,
-encryption, fault handling, adaptive redundancy) raises
+Every other path of the reference (loop rounds, real transports, anytime
+with or without encryption, fault handling, adaptive redundancy) raises
 ``NotImplementedError`` until its slice is ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..kernels.ops import kernel_launches
@@ -77,7 +98,9 @@ class RoundStats:
                                      # previous round's wait window
     # launches of the port's own CUDA kernels this round (counted by the
     # wrappers): 2 for a fused round on the card (coded_matmul +
-    # berrut_combine), 0 on the CPU, where the plain versions run
+    # berrut_combine), 7 for an encrypted fused round (+ 4 mask_add and the
+    # berrut_combine encode), 3 + 2·(N + n_waited) for a staged encrypted
+    # round; 0 on the CPU, where the plain versions run
     dispatches: int = 0
     # --- fault-tolerant round fields (kept for parity; a later slice) ----
     retries: int = 0
@@ -121,6 +144,40 @@ class RoundEngine:
         self.fault = spec.fault
         self._worker_t = {}                 # shapes -> per-worker seconds
         self._encode_t = {}                 # shapes -> encode-only seconds
+        self._crypto = None
+        self._crypto_per_elem = {}          # (dtype, mode) -> seconds/element
+        mode = self.encrypt
+        use_kernel = self.scheme.use_kernel
+        if mode is not None:
+            from ..crypto import MEAECC, generate_keypair
+            # per-element rate sample for the modeled estimate (in "real"
+            # mode it rides along as a cross-check)
+            self._crypto = (MEAECC(mode=spec.crypto.cipher_mode,
+                                   use_kernel=use_kernel, device=self.device),
+                            generate_keypair())
+        if mode == "real":
+            from ..crypto.ecc import shared_secret
+            # the transport cipher: lossless bits codec + static session
+            # keys, so decrypt(encrypt(x)) is bit-identical to x and the
+            # per-message EC cost is one cached shared-point lookup
+            self._mea = MEAECC(mode=spec.crypto.cipher_mode, codec="bits",
+                               use_kernel=use_kernel, device=self.device)
+            self._master_kp = generate_keypair()
+            self._worker_kps = [generate_keypair() for _ in range(self.n)]
+            self._nonce = itertools.count(1)
+            # ECDH is symmetric: one cached shared point per worker covers
+            # both directions of the fused round's wires
+            self._shared_pts = [shared_secret(self._mea.curve,
+                                              self._master_kp, kp.pk)
+                                for kp in self._worker_kps]
+            cf = spec.crypto.fused
+            self._crypto_fused = self.use_fused if cf is None else bool(cf)
+            if spec.crypto.cipher_mode == "paper":
+                # paper mode: one static Ψ per channel, reused every round
+                self._psi_limbs = np.stack(
+                    [self._mea._mask_material(pt, None, "paper")
+                     for pt in self._shared_pts])
+            self._fused_crypto_t = {}       # shapes -> measured wire seconds
 
     def close(self):
         """Nothing long-lived to release on the virtual clock.  Idempotent."""
@@ -190,6 +247,84 @@ class RoundEngine:
         kw.setdefault("decode_at_s", decode_at_s)
         return RoundStats(**kw)
 
+    # ------------------------------------------------------------- crypto
+    def _crypto_cost_per_elem(self, dtype) -> float:
+        """MEA-ECC seconds per matrix element, measured once per (dtype,
+        mode) on a 64×64 sample on the engine's device and cached.  A
+        warm-up round trip runs first so one-time costs (the EC tables, the
+        kernel build) never leak into the extrapolated rate."""
+        mea, kp = self._crypto
+        key = (str(dtype), mea.mode)
+        if key not in self._crypto_per_elem:
+            m = torch.zeros((64, 64), dtype=dtype, device=self.device)
+            mea.decrypt(mea.encrypt(m, kp.pk), kp)      # warm
+            _sync(self.device)
+            t0 = time.perf_counter()
+            mea.decrypt(mea.encrypt(m, kp.pk), kp)
+            _sync(self.device)
+            self._crypto_per_elem[key] = (time.perf_counter() - t0) / m.numel()
+        return self._crypto_per_elem[key]
+
+    def _crypto_overhead_elems(self, total_elems: int, dtype) -> float:
+        """Modeled MEA-ECC cost: master encrypt + worker decrypt + result
+        encrypt (3 passes) over ``total_elems`` shard elements."""
+        if not self._crypto:
+            return 0.0
+        return self._crypto_cost_per_elem(dtype) * total_elems * 3
+
+    def _wire(self, arr: torch.Tensor, sender_kp, recipient_kp) -> torch.Tensor:
+        """One real master↔worker transfer: MEA-ECC encrypt to the
+        recipient's public key, decrypt with its private key at the other
+        end (two ``mask_add`` launches on the card).  The bits codec makes
+        the round trip bit-identical."""
+        ct = self._mea.encrypt(arr, recipient_kp.pk, sender=sender_kp,
+                               nonce=next(self._nonce))
+        return self._mea.decrypt(ct, recipient_kp)
+
+    def _fused_mask_material(self):
+        """Per-round mask material for the fused encrypted round:
+        (material_out, material_back), each (N, 8) PRF seed words (stream —
+        a fresh nonce per channel per direction, from the same nonce stream
+        the staged ``_wire`` draws from) or the static (N, L) Ψ limb stack
+        (paper), as ``torch.uint32`` on the engine's device."""
+        from ..crypto.field import as_u32_tensor, seed_words
+        if self._mea.mode == "paper":
+            out = back = self._psi_limbs
+        else:
+            out = np.stack([seed_words(pt.x, pt.y, next(self._nonce))
+                            for pt in self._shared_pts])
+            back = np.stack([seed_words(pt.x, pt.y, next(self._nonce))
+                             for pt in self._shared_pts])
+        return (as_u32_tensor(out, self.device),
+                as_u32_tensor(back, self.device))
+
+    def _fused_crypto_time(self, blk: int, d: int, n_out: int) -> float:
+        """Measured wall seconds of the round's wire work alone: the two
+        cipher applications (shards out, results back) at this round's
+        payload shapes, through the wire the round runs (the ``mask_add``
+        kernel on the card), timed once per shape class and cached.  The
+        fused round's ``crypto_s``: its wires have no timer of their own,
+        so the cost is measured where it can be isolated.  The round that
+        calls this has just run the same shapes, so nothing is left to
+        warm up."""
+        key = (blk, d, n_out)
+        if key not in self._fused_crypto_t:
+            from ..kernels.encrypted_round import wire_roundtrip
+            from ..kernels.ops import _use_kernel
+            mode = self._mea.mode
+            q = self._mea.curve.q
+            mat_out, mat_back = self._fused_mask_material()
+            x_out = torch.zeros((self.n, blk, d), device=self.device)
+            x_back = torch.zeros((self.n, blk, n_out), device=self.device)
+            kern = _use_kernel(x_out, self.scheme.use_kernel)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            wire_roundtrip(x_out, mat_out, q=q, mode=mode, use_kernel=kern)
+            wire_roundtrip(x_back, mat_back, q=q, mode=mode, use_kernel=kern)
+            _sync(self.device)
+            self._fused_crypto_t[key] = time.perf_counter() - t0
+        return self._fused_crypto_t[key]
+
     # --------------------------------------------------------------- rounds
     def _matmul_fused(self, a: torch.Tensor, b: torch.Tensor, round_idx: int,
                       noise=None):
@@ -204,14 +339,127 @@ class RoundEngine:
         _sync(self.device)
         t_master = time.perf_counter() - t0
         launches = kernel_launches() - launches0
+        crypto_s = self._crypto_overhead_elems(self.n * blk * a.shape[1],
+                                               torch.float32)
         hideable = (0.0 if self._pipeline is None else
                     min(t_master, self._encode_only_time(a.shape)))
         stats = self._stats(plan.events, plan.wait_s, encode_s=t_master,
                             compute_wait_s=plan.wait_s, decode_s=0.0,
-                            n_waited=len(plan.responders),
+                            crypto_s=crypto_s, n_waited=len(plan.responders),
                             dispatches=launches,
                             pipelined_s=self._account_encode(hideable,
                                                              plan.wait_s))
+        return out, stats
+
+    def _matmul_real_fused(self, a: torch.Tensor, b: torch.Tensor,
+                           round_idx: int, noise=None):
+        """The encrypted round with the wire inside the fused round: encode
+        → wire-out → worker products → wire-back → masked decode
+        (``kernels.ops.encrypted_coded_matmul`` + the scheme's masked
+        decode).  The bits-codec wire is lossless, so the output equals the
+        plain fused round's.  ``crypto_s`` is the wire work timed alone
+        (:meth:`_fused_crypto_time`) and taken out of the master's time;
+        the modeled estimate rides along in ``crypto_modeled_s``."""
+        from ..kernels.ops import encrypted_coded_matmul
+        scheme = self.scheme
+        blk, plan = self._virtual_round_plan(a.shape, b.shape, round_idx)
+        mat_out, mat_back = self._fused_mask_material()
+        mask = torch.from_numpy(plan.mask)
+        launches0 = kernel_launches()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        dec = scheme.decode_matrix_masked(mask).to(a.device)
+        results = encrypted_coded_matmul(
+            scheme.fused_encoder_matrix(), scheme.fused_blocks(a, noise), b,
+            mat_out, mat_back, q=self._mea.curve.q, mode=self._mea.mode,
+            force_kernel=scheme.use_kernel)
+        decoded = scheme._combine(dec, results)
+        del results
+        out = scheme.reconstruct_matmul(decoded, a.shape[0], b.shape[-1])
+        _sync(self.device)
+        t_master = time.perf_counter() - t0
+        launches = kernel_launches() - launches0
+        crypto_s = min(self._fused_crypto_time(blk, a.shape[1], b.shape[-1]),
+                       t_master)
+        modeled = self._crypto_overhead_elems(self.n * blk * a.shape[1],
+                                              torch.float32)
+        encode_s = t_master - crypto_s
+        hideable = (0.0 if self._pipeline is None else
+                    min(encode_s, self._encode_only_time(a.shape)))
+        stats = self._stats(plan.events, plan.wait_s, encode_s=encode_s,
+                            compute_wait_s=plan.wait_s, decode_s=0.0,
+                            crypto_s=crypto_s, n_waited=len(plan.responders),
+                            crypto_modeled_s=modeled, dispatches=launches,
+                            pipelined_s=self._account_encode(hideable,
+                                                             plan.wait_s))
+        return out, stats
+
+    def _staged_stage1(self, a, b, noise=None):
+        """Encode, wire every coded shard to its worker (MEA-ECC), run the
+        worker products on the decrypted (bit-identical) shards through
+        ``coded_matmul`` with identity weights.  Returns (results,
+        master_compute_s, crypto_out_s); responder slots of ``results`` are
+        overwritten in place with their wired-back values."""
+        from ..kernels.ops import coded_matmul
+        _sync(self.device)
+        t0 = time.perf_counter()
+        enc = self.scheme.encode(a, noise)               # (N, blk, d)
+        _sync(self.device)
+        t_enc = time.perf_counter() - t0
+        # wire out: each worker receives (and decrypts) its coded shard
+        t0 = time.perf_counter()
+        shards = torch.stack([self._wire(enc[i], self._master_kp,
+                                         self._worker_kps[i])
+                              for i in range(self.n)])
+        _sync(self.device)
+        crypto_out = time.perf_counter() - t0
+        del enc
+        t0 = time.perf_counter()
+        eye = torch.eye(self.n, dtype=torch.float32, device=self.device)
+        results = coded_matmul(eye, shards, b,
+                               force_kernel=self.scheme.use_kernel)
+        _sync(self.device)
+        t_enc += time.perf_counter() - t0
+        return results, t_enc, crypto_out
+
+    def _matmul_real(self, a: torch.Tensor, b: torch.Tensor, round_idx: int,
+                     noise=None):
+        """The staged encrypted round: every shard is MEA-ECC-encrypted to
+        its worker and decrypted there, every responder's product is
+        encrypted back to the master — ``crypto_s`` is the measured wall
+        time of those transfers (the modeled estimate rides along in
+        ``crypto_modeled_s``).  The output equals the plain fused round's.
+        """
+        blk, plan = self._virtual_round_plan(a.shape, b.shape, round_idx)
+        resp, wait_s = plan.responders, plan.wait_s
+        launches0 = kernel_launches()
+        results, t_enc, crypto_s = self._staged_stage1(a, b, noise)
+        # wire back: the responders' products return encrypted (stragglers
+        # never answer; their slots carry weight 0 in the masked decode)
+        t0 = time.perf_counter()
+        for i in resp:
+            results[i] = self._wire(results[i], self._worker_kps[i],
+                                    self._master_kp)
+        _sync(self.device)
+        crypto_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec = self.scheme.decode_matrix_masked(
+            torch.from_numpy(plan.mask)).to(a.device)
+        out = self.scheme.reconstruct_matmul(
+            self.scheme._combine(dec, results), a.shape[0], b.shape[-1])
+        _sync(self.device)
+        t_dec = time.perf_counter() - t0
+        launches = kernel_launches() - launches0
+        modeled = self._crypto_overhead_elems(self.n * blk * a.shape[1],
+                                              torch.float32)
+        hideable = (0.0 if self._pipeline is None else
+                    min(t_enc, self._encode_only_time(a.shape)))
+        stats = self._stats(plan.events, wait_s, encode_s=t_enc,
+                            compute_wait_s=wait_s, decode_s=t_dec,
+                            crypto_s=crypto_s, n_waited=len(resp),
+                            crypto_modeled_s=modeled, dispatches=launches,
+                            pipelined_s=self._account_encode(hideable,
+                                                             wait_s))
         return out, stats
 
     def _unported_path(self) -> Optional[str]:
@@ -222,8 +470,6 @@ class RoundEngine:
             return "the adaptive redundancy controller (AdaptiveSpec)"
         if self.spec.transport.backend != "virtual":
             return f"transport {self.spec.transport.backend!r}"
-        if self.encrypt is not None:
-            return f"encrypt={self.encrypt!r}"
         if not self.use_fused:
             return f"the loop round ({self.name!r}, not fused)"
         if self.policy.needs_proxy:
@@ -248,4 +494,8 @@ class RoundEngine:
                 f"{what} comes in a later slice of the port; see ROADMAP.md")
         a = torch.as_tensor(a, dtype=torch.float32, device=self.device)
         b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
+        if self.encrypt == "real":
+            if self._crypto_fused:
+                return self._matmul_real_fused(a, b, round_idx, noise)
+            return self._matmul_real(a, b, round_idx, noise)
         return self._matmul_fused(a, b, round_idx, noise)

@@ -47,7 +47,10 @@ def test_the_scan_sees_every_port_module():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for must in ("src/repro_torch/api/session.py",
                  "src/repro_torch/runtime/engine.py",
-                 "src/repro_torch/kernels/ops.py", "chip_smoke.py"):
+                 "src/repro_torch/kernels/ops.py",
+                 "src/repro_torch/crypto/mea_ecc.py",
+                 "src/repro_torch/kernels/encrypted_round.py",
+                 "chip_smoke.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
@@ -62,7 +65,8 @@ def test_no_port_file_imports_jax_or_the_reference(path):
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.api, repro_torch.kernels, "
-            "repro_torch.runtime.engine\n"
+            "repro_torch.runtime.engine, repro_torch.crypto, "
+            "repro_torch.kernels.encrypted_round\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -26,6 +26,7 @@ import torch
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.berrut_encode import berrut_encode_kernel
 from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+from repro_torch.kernels.mask_add import mask_add_kernel
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DTYPES = ["float32", "bfloat16"]
@@ -194,6 +195,9 @@ def test_build_names_a_library_by_its_source_and_flags():
     assert target.parent == _build.BUILD_DIR
     assert target.name.startswith("libcoded_matmul-")
     assert target != _build._target("berrut_combine")
+    assert _build._target("mask_add").name.startswith("libmask_add-")
+    assert set(_build._ENTRY) == {"berrut_combine", "coded_matmul",
+                                  "mask_add"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -247,3 +251,75 @@ def test_cuda_kernels_build_once(cuda):
         ops.berrut_combine(w.T[:2], ops.coded_matmul(w, a, b))
     torch.cuda.synchronize()
     assert _build.build_count == 1
+
+
+def _secp256k1():
+    from repro_torch.crypto import CURVE_SECP256K1, field
+    q = CURVE_SECP256K1.q
+    return q, tuple(int(v) for v in field.int_to_limbs(q, 8))
+
+
+def _limbs(shape, seed, device):
+    """Random 32-bit limbs; 8 random limbs are a secp256k1 field element but
+    with probability ~2^-224."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                         generator=g).to(device).view(torch.uint32)
+
+
+@pytest.mark.parametrize("m", [1, 100, 513, 4096])
+@pytest.mark.parametrize("subtract", [False, True])
+def test_cuda_mask_add_kernel_matches_plain(cuda, m, subtract):
+    q, _ = _secp256k1()
+    a, b = _limbs((m, 8), m, cuda), _limbs((m, 8), m + 1, cuda)
+    before = mask_add_kernel.launches
+    got = ops.mask_add(a, b, q, subtract=subtract)   # None -> the kernel
+    torch.cuda.synchronize()
+    assert mask_add_kernel.launches == before + 1
+    assert got.dtype == torch.uint32 and got.is_cuda
+    want = ops.mask_add(a, b, q, subtract=subtract, force_kernel=False)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_mask_add_edges_and_shared_mask_rows(cuda):
+    from repro_torch.crypto import field
+    q, ql = _secp256k1()
+    vals = [0, 1, 2, q - 1, q - 2, (1 << 255) % q, 0xFFFFFFFF]
+    a = field.as_u32_tensor([field.int_to_limbs(v, 8) for v in vals], cuda)
+    for other in (0, 1, q - 1):
+        b = field.as_u32_tensor(field.int_to_limbs(other, 8), cuda)
+        for subtract in (False, True):
+            got = ops.mask_add(a, b, q, subtract=subtract).cpu().numpy()
+            for g, x in zip(field.limbs_to_int(got), vals):
+                assert int(g) == ((x - other) if subtract else
+                                  (x + other)) % q
+    a = _limbs((3, 50, 8), 7, cuda)
+    for mask in (_limbs((3, 1, 8), 8, cuda), _limbs((8,), 9, cuda),
+                 _limbs((1, 50, 8), 10, cuda)):
+        got = ops.mask_add(a, mask, q)
+        assert torch.equal(got.view(torch.int32),
+                           ref.mask_add(a, mask, ql).view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["stream", "paper"])
+def test_cuda_encrypted_round_matches_plain(cuda, mode):
+    q, _ = _secp256k1()
+    w, a, b = _inputs_cm((6, 5, 9, 40, 33), seed=11)
+    w, a, b = (_torch(w, "float32", cuda), _torch(a, "float32", cuda),
+               _torch(b, "float32", cuda))
+    material = _limbs((2, 6, 8), 12, cuda)
+    if mode == "paper":
+        material.view(torch.int32)[..., 7] &= 0x7FFFFFFF       # Ψ < q
+    counters = (berrut_encode_kernel, mask_add_kernel, coded_matmul_kernel)
+    before = [k.launches for k in counters]
+    got, ct_out, ct_back = ops.encrypted_coded_matmul(
+        w, a, b, material[0], material[1], q=q, mode=mode, return_wire=True)
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(counters, before)] == [1, 4, 1]
+    assert tuple(ct_out.shape) == (6, 9 * 40, 8)
+    assert tuple(ct_back.shape) == (6, 9 * 33, 8)
+    want = ops.coded_matmul(w, a, b)
+    assert _rel(got, want) <= TOL["float32"]
+    plain = ops.encrypted_coded_matmul(w, a, b, material[0], material[1], q=q,
+                                       mode=mode, force_kernel=False)
+    assert torch.equal(plain, ref.coded_matmul(w, a, b))

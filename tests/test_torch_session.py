@@ -94,10 +94,14 @@ def _unported_specs():
         "fault": ClusterSpec(fault=api.FaultSpec(handle=True), **base),
         "error_target": ClusterSpec(wait=api.WaitSpec(policy="error_target",
                                                       eps=0.1), **base),
-        "encrypt_modeled": ClusterSpec(
-            crypto=api.CryptoSpec(encrypt="modeled"), **base),
-        "encrypt_real": ClusterSpec(crypto=api.CryptoSpec(encrypt="real"),
-                                    **base),
+        # encryption runs now on the fused rounds; it still raises with the
+        # anytime pipeline and on the loop round
+        "encrypt_real_error_target": ClusterSpec(
+            crypto=api.CryptoSpec(encrypt="real"),
+            wait=api.WaitSpec(policy="error_target", eps=0.1), **base),
+        "encrypt_real_loop_round": ClusterSpec(
+            crypto=api.CryptoSpec(encrypt="real", fused=False),
+            code=api.CodeSpec(n_workers=8, k_blocks=4, fused=False)),
         "loop_round": ClusterSpec(code=api.CodeSpec(n_workers=8, k_blocks=4,
                                                     fused=False)),
         "threads": ClusterSpec(transport=api.TransportSpec(backend="threads"),

@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Two main paths, each one SPACDC coded round through
+Three main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -18,17 +18,26 @@ K=24 blocks, T=3 noise blocks, S=7 stragglers):
   encrypted and decrypted through the ``mask_add`` kernel, the worker
   products through ``coded_matmul``, the decode through ``berrut_combine``.
 
+The third is the dense decoder LM's full-sequence forward (prefill):
+``repro_torch.models.build_model(get_config("qwen2-7b")).forward(tokens)``
+at full width (28 layers, d_model 3584, 28 heads over 4 KV heads, d_ff
+18944, vocab 152064; float32 weights from a seeded generator, bfloat16
+compute) on 1 x 4096 tokens, every attention layer through the ``flash_
+attention`` kernel.
+
 Phases, one JSON line each:
 
 1. device and build: the card's name and power limit (``nvidia-smi``), TF32
-   off, all three kernels built by ``nvcc`` from
+   off, all four kernels built by ``nvcc`` from
    ``src/repro_torch/kernels/csrc``;
 2. each kernel against its plain PyTorch version on the card (float32 and
    bfloat16, ragged shapes and the main path's shapes; ``mask_add`` exactly,
    at ragged M, the field's edge values, broadcast masks and both wires' full
-   M), with its time, the plain version's time and one PyTorch call's time
-   where one computes the same function (``library_ms``, a yardstick the
-   port never calls);
+   M; ``flash_attention`` at ragged and unequal Sq, Skv, every head dim it
+   pads, G in {1, 7}, softcap 20, causal and full), with its time, the
+   plain version's time and one PyTorch call's time where one computes the
+   same function (``library_ms``, a yardstick the port never calls:
+   ``scaled_dot_product_attention`` for ``flash_attention``);
 3. the SHA-256 keystream (plain PyTorch) against ``hashlib``, and its time
    at the full-width wire-back;
 4. the plain main path: three rounds each of the fig-3 backprop job,
@@ -41,7 +50,16 @@ Phases, one JSON line each:
    with exact launch counts; then, outside the counted window, each round
    against the plain kernel round (same noise and mask), and each job's
    wires: decrypted bits against the sent bits on every channel, and the
-   ciphertext limbs of 2 channels against the plain ``mask_add``.
+   ciphertext limbs of 2 channels against the plain ``mask_add``;
+6. the model main path: (a) three timed forwards of the full-width
+   qwen2-7b, exactly 28 ``flash_attention`` launches each and none of any
+   other kernel, then one profiled forward split into the flash kernel,
+   matmuls and the rest; (b) the same forward through the plain attention,
+   logits within 5e-2 of max |plain| and their argmax agreement; (d) the
+   forward's logits of the first 16 tokens against 16 teacher-forced
+   ``decode_step`` calls (atol = rtol = 0.05, the reference's own test);
+   (c) a 2-layer full-width model in float32 compute, kernel against plain
+   to 1e-4; with the peak memory and the phase's time.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -139,6 +157,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.berrut_encode import berrut_encode_kernel
     from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.mask_add import mask_add_kernel
 
     # ---------------------------------------------------- 1. device, build
@@ -226,6 +245,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mask_rows = check_mask_add(torch, gen, dev)
     torch.cuda.empty_cache()
+    flash_row = check_flash(torch, gen, dev)
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------ 3. the keystream
     check_keystream(torch, gen, dev)
@@ -238,6 +259,7 @@ def main() -> int:
     berrut_encode_kernel.launches = 0
     coded_matmul_kernel.launches = 0
     mask_add_kernel.launches = 0
+    flash_attention_kernel.launches = 0
     for name, m, d, n_out in MAIN_SHAPES:
         a = randn(m, d)
         b = randn(d, n_out)
@@ -292,6 +314,12 @@ def main() -> int:
     enc_launches = encrypted_main_path(torch, randn, gen, dev)
     for kname, count in enc_launches.items():
         launches[kname] = launches.get(kname, 0) + count
+    assert flash_attention_kernel.launches == 0, "a round launched flash"
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 6. model main path
+    launches["flash_attention"] = model_main_path(torch, dev)[
+        "flash_attention"]
 
     # --------------------------------------------------------- summary
     n, j, (m, d, n_out) = 30, 27, FULL
@@ -307,7 +335,10 @@ def main() -> int:
              "src/repro/kernels/berrut_encode.py:61"),
             ("mask_add", mask_rows[WIRE_BACK_M],
              "src/repro_torch/kernels/csrc/mask_add.cu",
-             "src/repro/kernels/mask_add.py:100")):
+             "src/repro/kernels/mask_add.py:100"),
+            ("flash_attention", flash_row,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:84")):
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[kname],
                         "max_abs_err": row["max_abs_err"],
@@ -356,6 +387,298 @@ def check_combine(torch, emit, w, payload) -> dict:
     emit(row)
     assert rel <= TOL[dname], row
     return row
+
+
+# flash_attention cases, (B, Sq, Skv, H, KV, hd, causal, softcap): ragged
+# and unequal Sq, Skv, every head dim the kernel pads, G in {1, 7}, softcap
+FLASH_CASES = [(1, 65, 130, 2, 2, 48, False, 0.0),
+               (1, 65, 130, 2, 2, 48, True, 0.0),
+               (2, 130, 65, 14, 2, 96, True, 0.0),
+               (1, 256, 256, 4, 4, 128, False, 0.0),
+               (1, 300, 300, 8, 2, 64, True, 20.0)] + \
+    [(2, 200, 200, 7, 1, hd, True, 0.0) for hd in (16, 32, 48, 64, 96, 128)]
+# qwen2-7b prefill: B = 1, S = 4096, H = 28, KV = 4, hd = 128, causal
+FLASH_MAIN = (1, 4096, 4096, 28, 4, 128, True, 0.0)
+MODEL_TOKENS = 4096
+# forward logits, kernel against plain: bfloat16 compute (28 layers of
+# bfloat16 activations) and float32 compute (2 layers), of max |plain|
+LOGIT_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+
+
+def flash_work(b, sq, skv, h, kv, hd, causal, elt) -> tuple:
+    """(bytes, FLOP) of one attention forward: q, k, v read and out written
+    once; both products over the (query, key) pairs the mask keeps."""
+    pairs = sum(min(skv, i + 1) for i in range(sq)) if causal else sq * skv
+    return (elt * (2 * b * sq * h * hd + 2 * b * skv * kv * hd),
+            4 * b * h * hd * pairs)
+
+
+def check_flash(torch, gen, dev) -> dict:
+    """flash_attention kernel vs ``ref.mha_reference`` over FLASH_CASES in
+    float32 and bfloat16, then at the qwen2-7b prefill shape in bfloat16,
+    timed beside the plain version and ``scaled_dot_product_attention``.
+    Returns the main shape's row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    def inputs(case, dt):
+        b, sq, skv, h, kv, hd = case[:6]
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
+                     for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                                   (b, skv, kv, hd)))
+
+    worst = {}
+    for case in FLASH_CASES + [FLASH_MAIN]:
+        for dt in (torch.float32, torch.bfloat16):
+            if case is FLASH_MAIN and dt == torch.float32:
+                continue
+            dname = str(dt).split(".")[-1]
+            causal, softcap = case[6], case[7]
+            q, k, v = inputs(case, dt)
+            n0 = flash_attention_kernel.launches
+            got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
+            launched = flash_attention_kernel.launches - n0
+            want = ref.mha_reference(q, k, v, causal=causal, softcap=softcap)
+            torch.cuda.synchronize()
+            assert launched == 1, launched
+            assert got.shape == want.shape and got.dtype == want.dtype
+            assert bool(torch.isfinite(got.float()).all())
+            err, rel = rel_diff(torch, got, want)
+            row = {"phase": "kernel_vs_plain", "kernel": "flash_attention",
+                   "shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd",
+                                      "causal", "softcap"), case)),
+                   "dtype": dname, "max_abs_err": err, "rel_err": rel,
+                   "tol": TOL[dname], "launches": launched}
+            worst[dname] = max(worst.get(dname, 0.0), rel)
+            if case is not FLASH_MAIN:
+                assert rel <= TOL[dname], row
+                continue
+            k_ms = timed_ms(torch, lambda: flash_attention_kernel(
+                q, k, v, causal=causal))
+            p_ms = timed_ms(torch, lambda: ref.mha_reference(
+                q, k, v, causal=causal))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+            nbytes, flops = flash_work(*case[:7], q.element_size())
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            row.update(kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, flop=flops,
+                       bytes=nbytes, worst_rel_err_by_dtype=worst)
+            emit(row)
+            assert rel <= TOL[dname], row
+            del q, k, v, got, want
+            return row
+
+
+def model_main_path(torch, dev) -> dict:
+    """Phase 6: the full-width qwen2-7b forward, counted from zero, then its
+    checks outside the count.  Returns the kernel launches of (a)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.models import build_model
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel}
+
+    def counts() -> dict:
+        return {k: f.launches for k, f in kernels.items()}
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen2-7b")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)                   # on the card
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MODEL_TOKENS),
+                           generator=gen, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_layers = cfg.n_layers
+    want_launch = {"coded_matmul": 0, "berrut_combine": 0, "mask_add": 0,
+                   "flash_attention": n_layers}
+
+    # ---- (a) the main path: three forwards through the kernel
+    for f in kernels.values():
+        f.launches = 0
+    forward_s = []
+    with torch.inference_mode():
+        for r in range(3):
+            c0 = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, aux = model(tokens)
+            torch.cuda.synchronize()
+            forward_s.append(time.perf_counter() - t)
+            c1 = counts()
+            got = {k: c1[k] - c0[k] for k in kernels}
+            assert got == want_launch, (r, got)
+        launches = counts()
+    assert launches["flash_attention"] == 3 * n_layers, launches
+    assert tuple(logits.shape) == (1, MODEL_TOKENS, cfg.vocab_size)
+    assert logits.dtype == torch.bfloat16
+    assert bool(torch.isfinite(logits).all())
+    assert float(aux["lb_loss"]) == float(aux["z_loss"]) == 0.0
+    forward_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    with torch.inference_mode():
+        try:
+            breakdown = profile_forward(torch, model, tokens)
+        except Exception as exc:          # a measurement, not a check
+            breakdown = {"profiler_error": repr(exc)}
+        # the per-use weight casts alone: every weight the forward casts
+        cast = [p for n, p in model.named_parameters()
+                if p.dim() > 1 and n != "embedding.table"]
+        breakdown["weight_casts_alone_ms"] = timed_ms(
+            torch, lambda: [p.to(torch.bfloat16) for p in cast],
+            max_iters=5)
+        # the forward's matmul work: q, k, v, o and the swiglu FFN per
+        # layer, and the unembedding, over every token
+        hd = cfg.head_dim_
+        per_layer = 2 * cfg.d_model * hd * (cfg.n_heads + cfg.n_kv_heads) + \
+            3 * cfg.d_model * cfg.d_ff
+        mm_flop = 2 * MODEL_TOKENS * (n_layers * per_layer +
+                                      cfg.d_model * cfg.vocab_size)
+        mm_ms = breakdown.get("device_ms_by_class", {}).get("matmul")
+        breakdown["matmul_flop"] = mm_flop
+        breakdown["matmul_tflop_per_s"] = (mm_flop / mm_ms / 1e9
+                                           if mm_ms else None)
+
+        # ---- (b) the same forward through the plain attention
+        c0 = counts()
+        plain, _ = model(tokens, force_kernel=False)
+        torch.cuda.synchronize()
+        assert counts() == c0, "the plain forward launched a kernel"
+        err_b, rel_b = rel_diff(torch, logits, plain)
+        argmax_agree = float((logits.argmax(-1) == plain.argmax(-1))
+                             .float().mean())
+        plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del plain
+
+        # forward against decode in bfloat16 compute: reported, not held
+        err_d_bf16, excess_d_bf16 = forward_vs_decode(torch, model, tokens)
+    del logits, model
+    torch.cuda.empty_cache()
+
+    # ---- (d) forward against teacher-forced decode, first 16 tokens: the
+    # same seeded weights in float32 compute, as the reference's own test
+    # (tests/test_models.py) holds the contract
+    model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                        seed=0)
+    with torch.inference_mode():
+        err_d, excess_d = forward_vs_decode(torch, model, tokens)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- (c) 2 full-width layers in float32 compute, kernel vs plain
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    model2 = build_model(cfg2, seed=0)
+    with torch.inference_mode():
+        c0 = counts()
+        got2, _ = model2(tokens)
+        assert counts()["flash_attention"] - c0["flash_attention"] == 2
+        want2, _ = model2(tokens, force_kernel=False)
+        torch.cuda.synchronize()
+    err_c, rel_c = rel_diff(torch, got2, want2)
+    del got2, want2, model2
+    torch.cuda.empty_cache()
+
+    row = {"phase": "model_main_path", "arch": cfg.name,
+           "tokens": [1, MODEL_TOKENS], "params": n_params,
+           "layers": n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "compute_dtype": cfg.compute_dtype,
+           "build_s": build_s, "forward_s": forward_s,
+           "launches_per_forward": want_launch, "launches": launches,
+           "breakdown": breakdown,
+           "b_kernel_vs_plain_max_abs": err_b,
+           "b_kernel_vs_plain_rel": rel_b, "b_tol": LOGIT_TOL["bfloat16"],
+           "b_argmax_agreement": argmax_agree,
+           "c_f32_2_layers_max_abs": err_c, "c_f32_2_layers_rel": rel_c,
+           "c_tol": LOGIT_TOL["float32"],
+           "d_forward_vs_decode_max_abs": err_d,
+           "d_excess_over_atol_rtol_0.05": excess_d,
+           "d_compute_dtype": "float32",
+           "bf16_forward_vs_decode_max_abs": err_d_bf16,
+           "bf16_excess_over_atol_rtol_0.05": excess_d_bf16,
+           "peak_memory_gb": {"forward": forward_peak_gb,
+                              "with_plain_forward": plain_peak_gb},
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    assert rel_b <= LOGIT_TOL["bfloat16"], row
+    assert rel_c <= LOGIT_TOL["float32"], row
+    assert excess_d <= 0.0, row
+    return launches
+
+
+def forward_vs_decode(torch, model, tokens, n: int = 16) -> tuple:
+    """The forward's logits on the first n tokens against n teacher-forced
+    ``decode_step`` calls: (max |diff|, max of |diff| - (0.05 + 0.05 *
+    |forward|)), which is <= 0 when they agree to atol = rtol = 0.05."""
+    full, _ = model(tokens[:, :n])
+    cache = model.init_cache(1, n)
+    steps = []
+    for t in range(n):
+        step, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+        steps.append(step[:, 0])
+    inc = torch.stack(steps, dim=1).float()
+    full = full.float()
+    diff = (inc - full).abs()
+    return float(diff.max()), float((diff - (0.05 + 0.05 * full.abs())).max())
+
+
+def profile_forward(torch, model, tokens) -> dict:
+    """One forward under ``torch.profiler``: device time by kernel class
+    (the flash kernel, cuBLAS matmuls, casts and copies, the rest) and the
+    device's idle share of the span from its first kernel's start to its
+    last kernel's end.  Outside the counted main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model(tokens)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    classes = {"flash_attention": 0.0, "matmul": 0.0, "casts": 0.0,
+               "other": 0.0}
+    top = {}
+    first, last = float("inf"), float("-inf")
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        first = min(first, e.time_range.start)
+        last = max(last, e.time_range.end)
+        name = e.name
+        low = name.lower()
+        if "flash_fwd" in low:
+            key = "flash_attention"
+        elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            key = "matmul"
+        elif "copy_kernel" in low:      # dtype casts and layout copies
+            key = "casts"
+        else:
+            key = "other"
+        classes[key] += us / 1e3
+        top[name[:90]] = top.get(name[:90], 0.0) + us / 1e3
+    busy = sum(classes.values())
+    span_ms = (last - first) / 1e3 if busy else 0.0
+    return {"device_ms_by_class": classes, "device_busy_ms": busy,
+            "device_span_ms": span_ms, "profiled_wall_ms": wall_ms,
+            "idle_share_of_span": 1.0 - busy / span_ms if busy else None,
+            "top_kernels_ms": dict(sorted(top.items(),
+                                          key=lambda kv: -kv[1])[:8])}
 
 
 def q_limbs_secp256k1():

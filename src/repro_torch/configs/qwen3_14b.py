@@ -1,0 +1,20 @@
+"""qwen3-14b [hf:Qwen/Qwen3-14B] — dense GQA (kv=8) with per-head qk-norm.
+
+40L, d_model=5120, 40H (kv=8), d_ff=17408, vocab=151936, head_dim=128.
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=17408,
+    vocab_size=151936,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+)

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # C entry point of each source: (name, argtypes); every one returns the
 # launch's cudaError_t as an int
 _ENTRY = {
@@ -44,6 +45,10 @@ _ENTRY = {
     "mask_add": ("mask_add_launch",
                  [_VP, _VP, _VP, _I64, _I, _I64,
                   ctypes.POINTER(ctypes.c_uint32), _I, _I, _VP]),
+    "flash_attention": ("flash_attention_launch",
+                        [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                         ctypes.POINTER(ctypes.c_int64), _F, _F, _I, _I,
+                         _VP]),
 }
 
 build_count = 0

@@ -1,0 +1,97 @@
+"""Causal or full GQA flash attention (forward) as a hand-written CUDA
+kernel.
+
+Ports ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
+``flash_attention_kernel``).  The kernel itself is
+``csrc/flash_attention.cu``; its source note says what bounds it on the
+H100 and why it reads q, k and v in place where the TPU wrapper broadcast
+k and v per group and padded hd in HBM.  Its plain version is
+``kernels.ref.mha_reference``.
+
+  q   (B, Sq, H, hd)    float32 or bfloat16, unit stride along hd
+  k/v (B, Skv, KV, hd)  q's dtype; H = KV * G, query head h reads kv head
+                        h // G (the reference's (B, S, KV, G, hd) grouping)
+  out (B, Sq, H, hd)    contiguous, in q's dtype
+
+Scores are ``(q * scale) . k`` with ``scale = 1/sqrt(hd)`` in float32 (the
+model path's rounding: the Pallas wrapper rounded ``q * scale`` back to q's
+dtype first), optionally soft-capped; key j of query i is masked when
+``j > i`` (causal; both positions start at 0).  There is no backward: an
+input that requires grad raises, so nothing trains through the kernel
+silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["flash_attention_kernel", "MAX_HEAD_DIM"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128      # hd is padded to 16, 32, 64 or 128 in shared memory
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """q (B, Sq, H, hd), k and v (B, Skv, KV, hd), one dtype (float32 or
+    bfloat16) on one CUDA device, each with unit stride along hd
+    -> (B, Sq, H, hd) attention output in q's dtype.
+
+    Launches the kernel on the current stream and adds one to
+    ``flash_attention_kernel.launches``.  There is no CPU path: a CPU tensor
+    raises (``kernels.ops.flash_attention`` picks the plain version for
+    those), and so does an input that requires grad.
+    """
+    tensors = (q, k, v)
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError("flash_attention_kernel has no backward: call it "
+                           "under torch.no_grad() or torch.inference_mode()")
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("flash_attention_kernel runs on CUDA tensors only "
+                         f"(got {[str(t.device) for t in tensors]})")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("q, k and v must share one device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must all be float32 or all bfloat16, "
+                        f"got {q.dtype}, {k.dtype} and {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"need q (B, Sq, H, hd) and k, v (B, Skv, KV, hd); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads do not split into groups over "
+                         f"{kvh} kv heads")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_kernel takes 1 <= hd <= "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+    if any(t.stride(3) != 1 for t in tensors):
+        raise ValueError("flash_attention_kernel needs unit stride along hd")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention_kernel takes B * H <= 65535, got "
+                         f"{b * h}")
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_int64 * 9)(*(s for t in tensors
+                                     for s in t.stride()[:3]))
+    launch = _build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     b, sq, skv, h, kvh, hd, strides, 1.0 / hd ** 0.5,
+                     float(softcap), int(bool(causal)), _DTYPES[q.dtype],
+                     stream)
+    _build.check(err, "flash_attention")
+    flash_attention_kernel.launches += 1
+    return out
+
+
+flash_attention_kernel.launches = 0

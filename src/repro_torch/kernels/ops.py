@@ -1,9 +1,9 @@
 """Device-dispatching wrappers for the port's CUDA kernels.
 
 Ports ``repro/kernels/ops.py`` (``berrut_combine``, ``prefix_decode``,
-``coded_matmul``, ``mask_add`` with the MEA-ECC cipher cores, and the
-encrypted round).  ``force_kernel`` keeps the reference's tri-state, read
-for the device instead of the TPU:
+``coded_matmul``, ``mask_add`` with the MEA-ECC cipher cores, the
+encrypted round, and ``flash_attention``).  ``force_kernel`` keeps the
+reference's tri-state, read for the device instead of the TPU:
 
 * ``None`` — the hand-written CUDA kernel for CUDA tensors, the plain
   PyTorch version (``kernels.ref``) for CPU tensors;
@@ -22,11 +22,12 @@ import torch
 from . import ref
 from .berrut_encode import berrut_encode_kernel
 from .coded_matmul import coded_matmul_kernel
+from .flash_attention import flash_attention_kernel
 from .mask_add import mask_add_kernel
 
 __all__ = ["berrut_combine", "prefix_decode", "coded_matmul", "mask_add",
            "mea_encrypt_core", "mea_decrypt_core", "encrypted_coded_matmul",
-           "fused_wire", "kernel_launches"]
+           "fused_wire", "flash_attention", "kernel_launches"]
 
 
 def _use_kernel(t: torch.Tensor, force_kernel) -> bool:
@@ -42,7 +43,7 @@ def kernel_launches() -> int:
     """Launches of the port's kernels so far in this process (the sum of
     the wrappers' counters)."""
     return (berrut_encode_kernel.launches + coded_matmul_kernel.launches +
-            mask_add_kernel.launches)
+            mask_add_kernel.launches + flash_attention_kernel.launches)
 
 
 def berrut_combine(weights, blocks, *, force_kernel: bool | None = None):
@@ -229,3 +230,19 @@ def fused_wire(words, material, *, q: int, mode: str,
     out = wire_roundtrip(x, material, q=q, mode=mode,
                          use_kernel=_use_kernel(words, force_kernel))
     return out.view(torch.int32).view(torch.uint32)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
+                    force_kernel: bool | None = None):
+    """GQA attention forward with kernel dispatch.
+
+    q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype;
+    positions are implicit, ``arange`` from 0 for both q and k.  On the
+    kernel path the CUDA flash kernel reads q, k and v in place through
+    their strides (unit stride along hd); the plain version is the dense
+    ``ref.mha_reference``.
+    """
+    if _use_kernel(q, force_kernel):
+        return flash_attention_kernel(q, k, v, causal=causal,
+                                      softcap=softcap)
+    return ref.mha_reference(q, k, v, causal=causal, softcap=softcap)

@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the correctness ground truth).
 
 Ports ``repro/kernels/ref.py`` (``berrut_combine``, ``coded_matmul``,
-``mask_add`` and ``encrypted_coded_matmul``).  The CPU tests hold these
-against the JAX package, and ``chip_smoke.py`` holds each hand-written CUDA
-kernel against them on the card.  The float versions accumulate in float32
-and return the blocks' dtype.  A float32 product on the card is full IEEE
+``mask_add``, ``encrypted_coded_matmul`` and ``mha_reference``).  The CPU
+tests hold these against the JAX package, and ``chip_smoke.py`` holds each
+hand-written CUDA kernel against them on the card.  The float versions
+accumulate in float32 and return the blocks' dtype.  A float32 product on the card is full IEEE
 float32 only while ``torch.backends.cuda.matmul.allow_tf32`` is False
 (PyTorch's default).  The limb versions compute in int64 and are bit-exact.
 """
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["berrut_combine", "coded_matmul", "mask_add",
-           "encrypted_coded_matmul"]
+           "encrypted_coded_matmul", "mha_reference"]
 
 
 def berrut_combine(weights: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -88,3 +88,28 @@ def encrypted_coded_matmul(weights, blocks, rhs, material_out, material_back,
     coded = wire(coded, material_out)
     out = torch.matmul(coded, rhs.to(torch.float32))
     return wire(out, material_back).to(blocks.dtype)
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, softcap: float = 0.0) -> torch.Tensor:
+    """Dense multi-head attention oracle: the plain version of the flash
+    attention kernel.  q (B,Sq,H,hd) k/v (B,Skv,KV,hd) -> (B,Sq,H,hd).
+
+    GQA by grouping q as (B,Sq,KV,G,hd): query head h reads kv head h // G.
+    The (Sq, Skv) scores and probabilities are materialised in float32; the
+    output is cast to q's dtype.  Causal masks key j of query i when j > i,
+    both positions counted from 0.
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd).to(torch.float32) / (hd ** 0.5)
+    s = torch.einsum("bqkgd,bckd->bqkgc", qg, k.to(torch.float32))
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    if causal:
+        keep = (torch.arange(skv, device=q.device)[None, :] <=
+                torch.arange(sq, device=q.device)[:, None])
+        s = s.masked_fill(~keep[None, :, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgc,bckd->bqkgd", p, v.to(torch.float32))
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)

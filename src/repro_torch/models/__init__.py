@@ -1,0 +1,9 @@
+"""Model zoo: the dense decoder-only LM (layers, GQA attention through the
+flash kernel, the transformer) and its weight converter.  Ports
+``repro/models`` for the dense attention architectures."""
+
+from .convert import load_jax_params
+from .transformer import TransformerLM
+from .zoo import build_model
+
+__all__ = ["build_model", "load_jax_params", "TransformerLM"]

@@ -1,0 +1,183 @@
+"""Shared model building blocks: plain functions on tensors, with
+parameters held in ``nn.ParameterDict``s keyed as the reference's nested
+dicts.
+
+Ports ``repro/models/layers.py``: ``dtype_of``, ``dense_init``,
+``init_norm``/``apply_norm``, ``rms_normalize``, ``init_ffn``/``apply_ffn``,
+``init_embedding``/``embed``/``unembed`` and the NeoX RoPE.  The sharding
+``*_specs``, ``chunked_scan``, ``sinusoidal_positions`` and M-RoPE are not
+on the dense decoder's path and are not ported here.
+
+Conventions, as in the reference: activations flow in
+``cfg.compute_dtype`` (bf16 by default); parameters and norm math are
+float32; every weight is cast to the compute dtype where it is used
+(``w.to(cd)``), so the master weights stay float32.  Random init draws from
+an explicit ``torch.Generator`` with the reference's distributions; the
+numbers differ from ``jax.random``'s, so parity tests carry the reference's
+parameters across (``models.convert``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ModelConfig
+
+__all__ = ["dtype_of", "dense_init", "const_init", "init_norm", "apply_norm",
+           "rms_normalize", "init_ffn", "apply_ffn", "init_embedding",
+           "embed", "unembed", "apply_rope"]
+
+
+# --------------------------------------------------------------------------
+# init helpers
+# --------------------------------------------------------------------------
+
+def dtype_of(cfg: ModelConfig, kind: str = "param") -> torch.dtype:
+    return getattr(torch, cfg.param_dtype if kind == "param"
+                   else cfg.compute_dtype)
+
+
+def dense_init(gen: torch.Generator, shape, dtype,
+               scale: Optional[float] = None) -> nn.Parameter:
+    """N(0, 1) * scale on the generator's device; ``scale`` defaults to
+    1/sqrt(fan_in) with fan_in = shape[0], as the reference."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(max(shape[0], 1))
+    w = torch.randn(tuple(shape), generator=gen, device=gen.device)
+    return nn.Parameter(w.mul_(scale).to(dtype))
+
+
+def const_init(gen: torch.Generator, shape, value: float,
+               dtype) -> nn.Parameter:
+    """A constant (biases 0, norm scales 1) on the generator's device."""
+    return nn.Parameter(torch.full(tuple(shape), value, dtype=dtype,
+                                   device=gen.device))
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def init_norm(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
+    d = cfg.d_model
+    p = {"scale": const_init(gen, (d,), 1.0, dtype_of(cfg))}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = const_init(gen, (d,), 0.0, dtype_of(cfg))
+    return nn.ParameterDict(p)
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """rmsnorm or layernorm in float32, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p["scale"].to(torch.float32) + \
+            p["bias"].to(torch.float32)
+    else:
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + cfg.norm_eps) * \
+            p["scale"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def rms_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Scale-free rmsnorm (qk-norm); eps is 1e-6, not ``cfg.norm_eps``."""
+    xf = x.to(torch.float32)
+    out = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# feed-forward
+# --------------------------------------------------------------------------
+
+def init_ffn(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
+    d, ff = cfg.d_model, cfg.d_ff
+    pd = dtype_of(cfg)
+    if cfg.activation == "swiglu":
+        return nn.ParameterDict({"w_gate": dense_init(gen, (d, ff), pd),
+                                 "w_up": dense_init(gen, (d, ff), pd),
+                                 "w_down": dense_init(gen, (ff, d), pd)})
+    return nn.ParameterDict({"w_up": dense_init(gen, (d, ff), pd),
+                             "w_down": dense_init(gen, (ff, d), pd)})
+
+
+def apply_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """swiglu, gelu (the tanh approximation, as ``jax.nn.gelu``) or
+    relu_sq, in the compute dtype."""
+    cd = dtype_of(cfg, "compute")
+    x = x.to(cd)
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(cd)) * (x @ p["w_up"].to(cd))
+    else:
+        u = x @ p["w_up"].to(cd)
+        if cfg.activation == "relu_sq":
+            h = torch.square(F.relu(u))
+        else:
+            h = F.gelu(u, approximate="tanh")
+    return h @ p["w_down"].to(cd)
+
+
+# --------------------------------------------------------------------------
+# embeddings / unembedding
+# --------------------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator,
+                   cfg: ModelConfig) -> nn.ParameterDict:
+    pd = dtype_of(cfg)
+    p = {"table": dense_init(gen, (cfg.vocab_size, cfg.d_model), pd,
+                             scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), pd)
+    return nn.ParameterDict(p)
+
+
+def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gather from the float32 table, then cast to the compute dtype."""
+    return p["table"][tokens].to(dtype_of(cfg, "compute"))
+
+
+def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cd = dtype_of(cfg, "compute")
+    w = p["table"].T if cfg.tie_embeddings else p["unembed"]
+    logits = x.to(cd) @ w.to(cd)
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits
+
+
+# --------------------------------------------------------------------------
+# positions: RoPE
+# --------------------------------------------------------------------------
+
+def _rope_angles(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> torch.Tensor:
+    """positions (..., S) -> angles (..., S, head_dim//2) in float32."""
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32,
+                            device=positions.device) / half
+    inv_freq = 1.0 / (theta ** exponent)
+    return positions[..., None].to(torch.float32) * inv_freq
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (..., hd) with angles (..., hd/2): GPT-NeoX half rotation, float32
+    math, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    half = x.shape[-1] // 2
+    x1, x2 = xf[..., :half], xf[..., half:]
+    c, s = torch.cos(angles), torch.sin(angles)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (B, S, H, hd), positions (B, S)."""
+    angles = _rope_angles(positions, x.shape[-1], theta)      # (B, S, hd/2)
+    return _rotate(x, angles[..., None, :])                   # broadcast heads

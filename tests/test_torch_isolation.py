@@ -50,6 +50,9 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/kernels/ops.py",
                  "src/repro_torch/crypto/mea_ecc.py",
                  "src/repro_torch/kernels/encrypted_round.py",
+                 "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/kernels/flash_attention.py",
+                 "src/repro_torch/configs/base.py",
                  "chip_smoke.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
@@ -66,7 +69,8 @@ def test_no_port_file_imports_jax_or_the_reference(path):
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.api, repro_torch.kernels, "
             "repro_torch.runtime.engine, repro_torch.crypto, "
-            "repro_torch.kernels.encrypted_round\n"
+            "repro_torch.kernels.encrypted_round, repro_torch.models, "
+            "repro_torch.configs\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

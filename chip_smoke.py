@@ -29,15 +29,20 @@ Phases, one JSON line each:
 
 1. device and build: the card's name and power limit (``nvidia-smi``), TF32
    off, all four kernels built by ``nvcc`` from
-   ``src/repro_torch/kernels/csrc``;
+   ``src/repro_torch/kernels/csrc``, with ptxas's registers, shared memory
+   and spills for every kernel function;
 2. each kernel against its plain PyTorch version on the card (float32 and
-   bfloat16, ragged shapes and the main path's shapes; ``mask_add`` exactly,
-   at ragged M, the field's edge values, broadcast masks and both wires' full
-   M; ``flash_attention`` at ragged and unequal Sq, Skv, every head dim it
-   pads, G in {1, 7}, softcap 20, causal and full), with its time, the
-   plain version's time and one PyTorch call's time where one computes the
-   same function (``library_ms``, a yardstick the port never calls:
-   ``scaled_dot_product_attention`` for ``flash_attention``);
+   bfloat16, ragged shapes and the main path's shapes; ``coded_matmul``'s
+   full-width worker 0 x 64 rows also against a float64 product, within 4x
+   the plain version's error; ``mask_add`` exactly, at ragged M, the field's
+   edge values, broadcast masks and both wires' full M;
+   ``flash_attention`` at ragged and unequal Sq, Skv, every head dim it
+   pads, hd 20 (whose bf16 rows TMA cannot load), G in {1, 7}, softcap 20,
+   causal and full), with its time, the plain version's time and one
+   PyTorch call's time where one computes the same function
+   (``library_ms``, a yardstick the port never calls:
+   ``scaled_dot_product_attention`` for ``flash_attention``); the two
+   tensor-core kernels' rows add their achieved TFLOP/s;
 3. the SHA-256 keystream (plain PyTorch) against ``hashlib``, and its time
    at the full-width wire-back;
 4. the plain main path: three rounds each of the fig-3 backprop job,
@@ -48,9 +53,10 @@ Phases, one JSON line each:
 5. the encrypted main path: three stream-mode rounds of each job, one
    paper-mode and one staged (``crypto.fused=False``) round of fig3_wide,
    with exact launch counts; then, outside the counted window, each round
-   against the plain kernel round (same noise and mask), and each job's
-   wires: decrypted bits against the sent bits on every channel, and the
-   ciphertext limbs of 2 channels against the plain ``mask_add``;
+   against the plain kernel round (same noise and mask, bit-identical),
+   and each job's wires: decrypted bits against the sent bits on every
+   channel, and the ciphertext limbs of 2 channels against the plain
+   ``mask_add``;
 6. the model main path: (a) three timed forwards of the full-width
    qwen2-7b, exactly 28 ``flash_attention`` launches each and none of any
    other kernel, then one profiled forward split into the flash kernel,
@@ -71,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -79,10 +86,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (see PERF.md): device memory and float32 on the
-# CUDA cores; bf16 dense tensor-core rate for bfloat16 inputs
+# CUDA cores; bf16 dense tensor-core rate for bfloat16 inputs; TF32 dense
+# tensor-core rate, of which float32 coded_matmul's 3xTF32 split gets a third
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
+SPLIT_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
 
 # kernel vs plain version, relative to the plain output's max |value|:
 # float32 sums run in another order than cuBLAS's (over d up to 3584),
@@ -137,6 +147,50 @@ def rel_diff(torch, got, want) -> tuple:
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
+def ptxas_report(log: str) -> dict:
+    """nvcc's ``-Xptxas -v`` log -> {kernel<template args>: "Used N
+    registers, ...; N bytes stack frame, N bytes spill stores, ..."}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(_Z\w+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.split("ptxas info    :")[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def kernel_name(mangled: str) -> str:
+    """The last name and template arguments of an Itanium-mangled kernel
+    symbol, e.g. ``flash_fwd_wgmma_kernel<2>``."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    ident = mangled
+    while s[:1].isdigit():
+        digits = re.match(r"\d+", s).group()
+        n = int(digits)
+        ident, s = s[len(digits):len(digits) + n], s[len(digits) + n:]
+    args = []
+    if s.startswith("I"):
+        s = s[1:]
+        while s and s[0] != "E":
+            m = re.match(r"Li(-?\d+)E", s)
+            d = re.match(r"\d+", s)
+            if s[0] == "f":
+                args.append("float")
+                s = s[1:]
+            elif m:
+                args.append(m.group(1))
+                s = s[m.end():]
+            elif d:
+                n = int(d.group())
+                args.append(s[d.end():d.end() + n])
+                s = s[d.end() + n:]
+            else:
+                break
+    return f"{ident}<{', '.join(args)}>" if args else ident
+
+
 def bound(nbytes: float, flops: float, flop_rate: float) -> tuple:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -170,8 +224,7 @@ def main() -> int:
     _build.library("coded_matmul")
     build_s = time.perf_counter() - t0
     assert _build.build_count == 1, _build.build_count
-    ptxas = {stem: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {stem: ptxas_report(log)
              for stem, log in _build.build_log.items()}
     emit({"phase": "device_and_build", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
@@ -220,16 +273,42 @@ def main() -> int:
         elt = a.element_size()
         nbytes = 4 * n * j + elt * (j * blk * d + d * n_out + n * blk * n_out)
         flops = 2 * n * j * blk * d + 2 * n * blk * d * n_out
-        b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S
-                           if dt == torch.float32 else BF16_FLOP_PER_S)
+        # float32: the 3xTF32 split's tensor-core rate (the float32 CUDA-core
+        # bound beside it); bfloat16 inputs keep bf16's rate
+        if dt == torch.float32:
+            b_ms, b_by = bound(nbytes, flops, SPLIT_3XTF32_FLOP_PER_S)
+            rate = "3xTF32 tensor cores, 495/3 TFLOP/s"
+        else:
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+            rate = "bf16 tensor cores, 989 TFLOP/s"
         row = {"phase": "kernel_vs_plain", "kernel": "coded_matmul",
                "shape": {"N": n, "J": j, "blk": blk, "d": d, "n_out": n_out},
                "dtype": dname, "max_abs_err": err, "rel_err": rel,
                "tol": TOL[dname], "kernel_ms": k_ms, "plain_ms": p_ms,
                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_rate": rate,
+               "bound_ms_f32_cuda_cores": bound(nbytes, flops,
+                                                F32_FLOP_PER_S)[0],
+               "tflop_per_s": flops / k_ms / 1e9,
                "launches": launched}
+        if (blk, d, n_out) == (512, *FULL[1:]):
+            # worker 0 x 64 rows against a float64 product: the split's
+            # error no worse than 4x the plain float32 version's
+            exact = (w[:1].double() @ a[:, :64].reshape(j, -1).double()
+                     ).reshape(64, d) @ b.double()
+            f64 = {"kernel_max_abs": float((got[0, :64].double() - exact)
+                                           .abs().max()),
+                   "plain_max_abs": float((want[0, :64].double() - exact)
+                                          .abs().max())}
+            f64["ratio"] = f64["kernel_max_abs"] / max(f64["plain_max_abs"],
+                                                       1e-300)
+            row["f64_slice"] = f64
+            row["ptxas"] = ptxas["coded_matmul"]
+            del exact
         emit(row)
         assert rel <= TOL[dname], row
+        if "f64_slice" in row:
+            assert row["f64_slice"]["ratio"] <= 4.0, row
         results[("coded_matmul", n, j, blk, d, n_out, dname)] = row
 
         # the decode of these worker results (the 24 x 30 fig-3 decode when
@@ -246,6 +325,7 @@ def main() -> int:
     mask_rows = check_mask_add(torch, gen, dev)
     torch.cuda.empty_cache()
     flash_row = check_flash(torch, gen, dev)
+    flash_row["ptxas"] = ptxas["flash_attention"]
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 3. the keystream
@@ -264,6 +344,7 @@ def main() -> int:
         a = randn(m, d)
         b = randn(d, n_out)
         exact = torch.matmul(a, b)
+        torch.cuda.reset_peak_memory_stats()
         with Session(spec, device="cuda") as sk, \
                 Session(plain_spec, device="cuda") as sp:
             for r in range(3):
@@ -298,7 +379,9 @@ def main() -> int:
                        "launches": {"coded_matmul": c1[0] - c0[0],
                                     "berrut_combine": c1[1] - c0[1]},
                        "stats_kernel": dataclasses.asdict(st_k),
-                       "stats_plain": dataclasses.asdict(st_p)}
+                       "stats_plain": dataclasses.asdict(st_p),
+                       "peak_memory_gb": torch.cuda.max_memory_allocated()
+                       / 1e9}
                 emit(row)
                 assert rel <= ROUND_TOL, row
                 assert abs(rel_k - rel_p) <= ROUND_TOL, row
@@ -327,6 +410,9 @@ def main() -> int:
     cm = results[("coded_matmul", n, j, blk, d, n_out, "float32")]
     bc = results[("berrut_combine", n, blk * n_out, "float32")]
     kernels = []
+    rates = {"coded_matmul": "3xTF32 tensor cores, 495/3 TFLOP/s",
+             "berrut_combine": "HBM, 3.35 TB/s", "mask_add": "HBM, 3.35 TB/s",
+             "flash_attention": "bf16 tensor cores, 989 TFLOP/s"}
     for kname, row, src, repl in (
             ("coded_matmul", cm, "src/repro_torch/kernels/csrc/coded_matmul.cu",
              "src/repro/kernels/coded_matmul.py:71"),
@@ -345,6 +431,7 @@ def main() -> int:
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
+                        "bound_rate": rates[kname],
                         "library_ms": row["library_ms"]})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
@@ -396,7 +483,8 @@ FLASH_CASES = [(1, 65, 130, 2, 2, 48, False, 0.0),
                (2, 130, 65, 14, 2, 96, True, 0.0),
                (1, 256, 256, 4, 4, 128, False, 0.0),
                (1, 300, 300, 8, 2, 64, True, 20.0)] + \
-    [(2, 200, 200, 7, 1, hd, True, 0.0) for hd in (16, 32, 48, 64, 96, 128)]
+    [(2, 200, 200, 7, 1, hd, True, 0.0)
+     for hd in (16, 20, 32, 48, 64, 96, 128)]
 # qwen2-7b prefill: B = 1, S = 4096, H = 28, KV = 4, hd = 128, causal
 FLASH_MAIN = (1, 4096, 4096, 28, 4, 128, True, 0.0)
 MODEL_TOKENS = 4096
@@ -420,7 +508,8 @@ def check_flash(torch, gen, dev) -> dict:
     Returns the main shape's row."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     load_width)
 
     def inputs(case, dt):
         b, sq, skv, h, kv, hd = case[:6]
@@ -450,6 +539,10 @@ def check_flash(torch, gen, dev) -> dict:
                                       "causal", "softcap"), case)),
                    "dtype": dname, "max_abs_err": err, "rel_err": rel,
                    "tol": TOL[dname], "launches": launched}
+            if dt == torch.bfloat16:
+                width = load_width(q, k, v)
+                row["loads"] = ("tma" if width == 16 else
+                                f"plain {width}-byte")
             worst[dname] = max(worst.get(dname, 0.0), rel)
             if case is not FLASH_MAIN:
                 assert rel <= TOL[dname], row
@@ -465,7 +558,8 @@ def check_flash(torch, gen, dev) -> dict:
             b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
             row.update(kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by, flop=flops,
-                       bytes=nbytes, worst_rel_err_by_dtype=worst)
+                       bytes=nbytes, tflop_per_s=flops / k_ms / 1e9,
+                       worst_rel_err_by_dtype=worst)
             emit(row)
             assert rel <= TOL[dname], row
             del q, k, v, got, want
@@ -994,6 +1088,7 @@ def encrypted_main_path(torch, randn, gen, dev) -> dict:
                          wire_checks[(rec["job"], rec["mode"])])}
         emit(row)
         assert rel <= ROUND_TOL, row
+        assert row["bitwise_equal_plain_round"], row
         assert row["arrivals_equal_plain"], row
     del records, plain, inputs
     torch.cuda.empty_cache()

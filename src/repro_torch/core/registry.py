@@ -88,8 +88,7 @@ class SchemeDefaults:
 
     def fused_round(self, a, b, mask, noise=None):
         """The whole round on the device: encode the input blocks and run
-        all N worker matmuls in one ``coded_matmul`` launch (the coded shards
-        never reach device memory on the kernel path), then the masked
+        all N worker matmuls in one ``coded_matmul`` launch, then the masked
         decode in one ``berrut_combine`` launch.  Returns the decoded
         (K, blk, n_out) blocks (``reconstruct_matmul`` undoes the layout).
         ``noise`` optionally supplies the T noise blocks (see

@@ -4,10 +4,14 @@ with ``ctypes``.
 Every source under ``csrc/`` is compiled by its own ``nvcc`` process, all
 started together, into a shared library with a plain C interface under
 ``build/kernels/`` at the repository root (``.gitignore`` lists it).  A
-library's file name carries a hash of its source and flags, so an
-up-to-date build from an earlier process is loaded as it is and an edited
-source is rebuilt.  Nothing here runs when the module is imported: the CPU
-tests import every module, and the CPU has no ``nvcc``.
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an up-to-date build from an earlier
+process is loaded as it is and an edited source or header is rebuilt.
+The tensor-core kernels reach the driver's ``cuTensorMapEncodeTiled``
+through the runtime's ``cudaGetDriverEntryPointByVersion``
+(``csrc/hopper.cuh``), so nothing links ``-lcuda``.  Nothing here runs
+when the module is imported: the CPU tests import every module, and the
+CPU has no ``nvcc``.
 
 ``build_count`` counts how often this process resolved the libraries
 (compiled or loaded).  It stays at 1 for the life of a process: a new
@@ -41,13 +45,14 @@ _ENTRY = {
     "berrut_combine": ("berrut_combine_launch",
                        [_VP, _VP, _VP, _I, _I, _I64, _I, _VP]),
     "coded_matmul": ("coded_matmul_launch",
-                     [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP]),
+                     [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _VP]),
     "mask_add": ("mask_add_launch",
                  [_VP, _VP, _VP, _I64, _I, _I64,
                   ctypes.POINTER(ctypes.c_uint32), _I, _I, _VP]),
     "flash_attention": ("flash_attention_launch",
                         [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                         ctypes.POINTER(ctypes.c_int64), _F, _F, _I, _I,
+                         ctypes.POINTER(ctypes.c_int64), _F, _F, _I, _I, _I,
                          _VP]),
 }
 
@@ -70,7 +75,9 @@ def _nvcc() -> str:
 
 
 def _target(stem: str) -> Path:
-    src = (CSRC / f"{stem}.cu").read_bytes()
+    # the source, the shared headers it may include, and the flags
+    src = (CSRC / f"{stem}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{stem}-{digest[:16]}.so"
 

@@ -1,38 +1,87 @@
-"""Causal or full GQA flash attention (forward) as a hand-written CUDA
-kernel.
+"""Causal or full GQA flash attention (forward) as hand-written CUDA
+kernels.
 
 Ports ``repro/kernels/flash_attention.py`` (the Pallas TPU kernel
-``flash_attention_kernel``).  The kernel itself is
-``csrc/flash_attention.cu``; its source note says what bounds it on the
-H100 and why it reads q, k and v in place where the TPU wrapper broadcast
-k and v per group and padded hd in HBM.  Its plain version is
-``kernels.ref.mha_reference``.
+``flash_attention_kernel``).  The kernels are ``csrc/flash_attention.cu``;
+its source note says what bounds them on the H100 and why they read q, k
+and v in place where the TPU wrapper broadcast k and v per group and
+padded hd in HBM.  Their plain version is ``kernels.ref.mha_reference``.
 
   q   (B, Sq, H, hd)    float32 or bfloat16, unit stride along hd
   k/v (B, Skv, KV, hd)  q's dtype; H = KV * G, query head h reads kv head
                         h // G (the reference's (B, S, KV, G, hd) grouping)
   out (B, Sq, H, hd)    contiguous, in q's dtype
 
-Scores are ``(q * scale) . k`` with ``scale = 1/sqrt(hd)`` in float32 (the
-model path's rounding: the Pallas wrapper rounded ``q * scale`` back to q's
-dtype first), optionally soft-capped; key j of query i is masked when
-``j > i`` (causal; both positions start at 0).  There is no backward: an
-input that requires grad raises, so nothing trains through the kernel
+The kernel is chosen by dtype; neither is a fallback of the other:
+
+* bfloat16 runs on the tensor cores (wgmma, K and V streamed by TMA
+  through a ring of shared-memory stages).  Scores are ``scale * (q . k)``:
+  the product in float32, then the scale.  P, the softmax numerators, is
+  rounded to bfloat16 for the ``P . V`` product (the row sums stay float32).
+  Where a base address or stride of q, k or v is not 16-byte aligned (hd 20
+  in bfloat16 is a 40-byte row), TMA cannot load the tiles, and the same
+  kernel loads them with the widest plain loads they allow
+  (:func:`load_width`).
+* float32 runs on the CUDA cores in float32 arithmetic: scores are
+  ``(q * scale) . k`` (the model path's rounding: the Pallas wrapper
+  rounded ``q * scale`` back to q's dtype first).
+
+``scale = 1/sqrt(hd)``, optionally soft-capped; key j of query i is masked
+when ``j > i`` (causal; both positions start at 0).  There is no backward:
+an input that requires grad raises, so nothing trains through the kernel
 silently.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
 
-__all__ = ["flash_attention_kernel", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention_kernel", "load_width", "MAX_HEAD_DIM"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128      # hd is padded to 16, 32, 64 or 128 in shared memory
+MAX_HEAD_DIM = 128      # hd is padded in shared memory (64 or 128 in bf16)
+
+
+def _strides(t: torch.Tensor) -> tuple:
+    """(batch, sequence, head) strides of a (B, S, heads, hd) tensor.  A
+    dimension of size 1 is never stepped, so its stride is free: it is set
+    to the dense value rounded up to 16 bytes, so that neither a view's odd
+    stride there nor an odd hd keeps the tiles from TMA."""
+    b, s, h, hd = t.shape
+    sb, ss, sh, _ = t.stride()
+    unit = 16 // t.element_size()
+
+    def up(x):
+        return -(-x // unit) * unit
+    sh = up(hd) if h == 1 else sh
+    ss = up(h * sh) if s == 1 else ss
+    sb = up(s * ss) if b == 1 else sb
+    return sb, ss, sh
+
+
+def load_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """How the bfloat16 kernel loads the tiles of q, k and v: 16 by TMA,
+    when every base address and (batch, sequence, head) stride is 16-byte
+    aligned and the strides nest (head inside sequence inside batch, as in
+    a contiguous or fused-projection layout); else the widest plain load,
+    8, 4 or 2 bytes, that divides every address, stride and the hd row."""
+    elt = q.element_size()
+    parts, nested = [], True
+    for t in (q, k, v):
+        sb, ss, sh = _strides(t)
+        parts += [t.data_ptr(), sb * elt, ss * elt, sh * elt]
+        nested = nested and sh * t.shape[2] <= ss and \
+            ss * t.shape[1] <= sb
+    g = math.gcd(16, *parts)
+    if g == 16 and nested:
+        return 16
+    g = math.gcd(g, 8, q.shape[3] * elt)
+    return 8 if g % 8 == 0 else 4 if g % 4 == 0 else 2
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,14 +130,15 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     strides = (ctypes.c_int64 * 9)(*(s for t in tensors
-                                     for s in t.stride()[:3]))
+                                     for s in _strides(t)))
+    width = load_width(q, k, v) if q.dtype == torch.bfloat16 else 0
     launch = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      b, sq, skv, h, kvh, hd, strides, 1.0 / hd ** 0.5,
                      float(softcap), int(bool(causal)), _DTYPES[q.dtype],
-                     stream)
+                     width, stream)
     _build.check(err, "flash_attention")
     flash_attention_kernel.launches += 1
     return out

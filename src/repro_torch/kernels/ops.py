@@ -85,8 +85,9 @@ def coded_matmul(weights, blocks, rhs, *, force_kernel: bool | None = None):
 
     out[n] = (weights @ blocks)[n] @ rhs — the round hot path of every
     linear data-coded scheme (``SchemeDefaults.fused_round``).  On the
-    kernel path the coded shards never reach device memory; the plain
-    version computes the same contraction unfused.
+    kernel path one launch encodes the coded shards once into TF32 split
+    planes and runs the worker products on the tensor cores at float32
+    accuracy; the plain version computes the same contraction unfused.
     """
     weights = torch.as_tensor(weights).to(device=blocks.device,
                                           dtype=torch.float32)

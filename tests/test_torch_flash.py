@@ -13,21 +13,31 @@ bfloat16.  The ``cuda`` cases hold the hand-written CUDA kernel against its
 plain version and skip without a card; they import no JAX:
 ``python -m pytest -q tests/test_torch_flash.py -k cuda``.
 
+The bfloat16 CUDA kernel has rounding points of its own (``scale`` applied
+to the float32 product, P rounded to bfloat16 before ``P . V``, the
+online softmax over 128-key tiles).  A plain emulation of them,
+``_emulate_bf16_kernel``, is held against the same JAX references on the
+CPU; it is a test helper, not a kernel.
+
 Tolerances:
 
 * float32, 3e-5 absolute: the reference's own bar for its kernel against
   its oracle (outputs are convex combinations of unit normals);
 * bfloat16, 2e-2 of max |reference|: both sides round q, k, v and the
   output to bfloat16 (2^-8 relative), and the Pallas wrapper also rounds
-  ``q * scale`` to bfloat16 where the port scales in float32.
+  ``q * scale`` to bfloat16 where the port scales in float32; the bf16
+  kernel's P adds one more bfloat16 rounding of weights that sum to 1.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                 load_width)
 
 DTYPES = ["float32", "bfloat16"]
 F32_ATOL = 3e-5
@@ -107,6 +117,97 @@ def _jax_reference(name: str, q, k, v, *, causal: bool, softcap: float):
                        causal=causal, softcap=softcap)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_reference_np(name: str, case: tuple, dtype: str) -> np.ndarray:
+    """``_jax_reference`` on ``_inputs(case)`` as float32 numpy, computed
+    once per (reference, case, dtype) for the tests that share it."""
+    import jax.numpy as jnp
+    q, k, v = _inputs(case, seed=sum(case[:6]))
+    jq, jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v))
+    return _np(_jax_reference(name, jq, jk, jv, causal=case[6],
+                              softcap=case[7]))
+
+
+def _emulate_bf16_kernel(q, k, v, *, causal: bool, softcap: float,
+                         bkv: int) -> torch.Tensor:
+    """The bfloat16 CUDA kernel's arithmetic in plain PyTorch: S = q . k in
+    float32 from bfloat16 inputs, then ``scale`` (and the softcap), the
+    online softmax over tiles of ``bkv`` keys with the row sum of the
+    float32 P, P rounded to bfloat16 for ``P . V``, the output rounded to
+    bfloat16.  q (B, Sq, H, hd), k/v (B, Skv, KV, hd)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    bf = torch.bfloat16
+    qf = q.to(bf).float()
+    kf = k.to(bf).float().repeat_interleave(h // kvh, dim=2)
+    vf = v.to(bf).float().repeat_interleave(h // kvh, dim=2)
+    scale = 1.0 / hd ** 0.5
+    m = torch.full((b, h, sq), -1e30)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, hd))
+    qi = torch.arange(sq)[:, None]
+    for j0 in range(0, skv, bkv):
+        j1 = min(j0 + bkv, skv)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, j0:j1]) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        if causal:
+            s = s.masked_fill(torch.arange(j0, j1)[None, :] > qi, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(bf).float(), vf[:, j0:j1])
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(bf)
+
+
+@pytest.mark.parametrize("reference", ["pallas", "oracle"])
+@pytest.mark.parametrize("bkv", [64, 128])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_bf16_kernel_numerics_match_reference(case, bkv, reference):
+    """The bf16 kernel's rounding points stay within bfloat16's 2e-2 of the
+    Pallas kernel (interpret mode) and of the dense oracle."""
+    causal, softcap = case[6], case[7]
+    q, k, v = (_torch(x, "bfloat16") for x in _inputs(case,
+                                                       seed=sum(case[:6])))
+    got = _emulate_bf16_kernel(q, k, v, causal=causal, softcap=softcap,
+                               bkv=bkv)
+    _check(got, _jax_reference_np(reference, case, "bfloat16"), "bfloat16")
+
+
+def test_load_width_picks_tma_only_for_aligned_nested_strides():
+    """16 (TMA) for contiguous and fused-projection layouts at every hd of
+    16-byte rows; else the widest plain load the rows allow."""
+    bf = torch.bfloat16
+
+    def qkv(hd, h=4, kv=2, s=8, b=2):
+        return (torch.zeros(b, s, h, hd, dtype=bf),
+                torch.zeros(b, s, kv, hd, dtype=bf),
+                torch.zeros(b, s, kv, hd, dtype=bf))
+
+    assert load_width(*qkv(128)) == 16
+    assert load_width(*qkv(8)) == 16
+    assert load_width(*qkv(20)) == 8           # 40-byte rows
+    assert load_width(*qkv(18)) == 4           # 36-byte rows
+    assert load_width(*qkv(21)) == 2           # 42-byte rows
+    fused = torch.zeros(2, 8, 4 + 2 * 2, 64, dtype=bf)
+    assert load_width(fused[:, :, :4], fused[:, :, 4:6],
+                      fused[:, :, 6:]) == 16
+    padded = [t[..., :20] for t in qkv(24)]    # 48-byte strides
+    assert load_width(*padded) == 16
+    padded = [t[..., :20] for t in qkv(24, kv=1)]   # one kv head
+    assert load_width(*padded) == 16
+    # a batch of one: its stride is never stepped
+    q, k, v = qkv(64, b=1)
+    assert load_width(q.transpose(0, 1).transpose(0, 1), k, v) == 16
+    # heads outside the sequence: strides that do not nest
+    q = torch.zeros(2, 4, 8, 64, dtype=bf).transpose(1, 2)
+    assert load_width(q, *qkv(64, s=8)[1:]) == 8
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -182,7 +283,7 @@ def test_the_wrapper_refuses_inputs_that_require_grad():
 
 def test_the_build_table_names_the_flash_entry():
     name, argtypes = _build._ENTRY["flash_attention"]
-    assert name == "flash_attention_launch" and len(argtypes) == 16
+    assert name == "flash_attention_launch" and len(argtypes) == 17
     assert _build._target("flash_attention").name.startswith(
         "libflash_attention-")
 
@@ -191,13 +292,15 @@ def test_the_build_table_names_the_flash_entry():
 # on the card: the CUDA kernel against its plain version
 # --------------------------------------------------------------------------
 
-# every hd the kernel pads (16, 32, 48, 64, 96, 128), G in {1, 7}, ragged
+# every hd the kernel pads (16, 32, 48, 64, 96, 128), G in {1, 7}, ragged,
+# and hd 20, whose 40-byte bf16 rows TMA cannot load
 CUDA_CASES = CASES + [
     (1, 200, 200, 7, 1, 128, True, 0.0),
     (2, 130, 65, 14, 2, 96, True, 0.0),
     (1, 257, 257, 28, 4, 128, True, 0.0),
     (1, 65, 130, 7, 7, 16, False, 0.0),
     (1, 33, 33, 4, 4, 8, True, 0.0),
+    (2, 200, 200, 7, 1, 20, True, 0.0),
 ]
 
 
@@ -229,6 +332,25 @@ def test_cuda_kernel_reads_strided_heads_in_place(cuda):
                              causal=True)
     torch.cuda.synchronize()
     _check(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_bf16_hd20_on_both_load_paths(cuda, causal):
+    """hd 20 in bfloat16: contiguous, its 40-byte rows go through the plain
+    loads; as views into 24-wide rows (48-byte strides), through TMA with
+    zero fill past hd.  Both agree with the plain version."""
+    rng = np.random.default_rng(13)
+    b, s, h, kv = 2, 200, 7, 1
+    padded = [_torch(rng.standard_normal((b, s, n, 24)), "bfloat16", cuda)
+              for n in (h, kv, kv)]
+    views = [t[..., :20] for t in padded]
+    dense = [t.contiguous() for t in views]
+    assert load_width(*dense) == 8 and load_width(*views) == 16
+    want = ref.mha_reference(*dense, causal=causal)
+    for q, k, v in (dense, views):
+        got = flash_attention_kernel(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        _check(got, want, "bfloat16")
 
 
 def test_cuda_kernel_refuses_grad_and_mixed_dtypes(cuda):

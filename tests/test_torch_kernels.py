@@ -10,6 +10,12 @@ without a card.  JAX is imported inside the helpers, so the card's cases
 also run where JAX is not installed:
 ``python -m pytest -q tests/test_torch_kernels.py -k cuda``.
 
+The coded_matmul kernel runs its worker products as an error-compensated
+3xTF32 product on the tensor cores.  A plain emulation of that split,
+``_emulate_3xtf32``, is held against a float64 product and the JAX
+package's ``ref.coded_matmul`` on the CPU; it is a test helper, not a
+kernel.
+
 Tolerances are relative to the reference output's max |value|:
 
 * float32, 2e-5 — both sides accumulate in float32, in different orders
@@ -25,7 +31,7 @@ import torch
 
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.berrut_encode import berrut_encode_kernel
-from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+from repro_torch.kernels.coded_matmul import coded_matmul_kernel, padded_shape
 from repro_torch.kernels.mask_add import mask_add_kernel
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -140,6 +146,85 @@ def test_prefix_decode_matches_reference():
 
 
 # --------------------------------------------------------------------------
+# CPU: the numerics of the 3xTF32 coded_matmul kernel, emulated
+# --------------------------------------------------------------------------
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 as the kernel does: to nearest, ties away from
+    zero, at 10 mantissa bits, the 13 low bits zeroed (finite values)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    finite = (bits & 0x7F800000) != 0x7F800000
+    bits = torch.where(finite, (bits + 0x1000) & 0xFFFFE000, bits)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _emulate_3xtf32(w, a, b, k_slice: int = 32) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: the encode as the j-ordered
+    fmaf chain from zero (float64 holds each w * x exactly), hi/lo TF32
+    splits of the shards and of B, per 32-wide k-slice the sum
+    lo.hi + hi.lo + hi.hi (products of TF32 values are exact) rounded to
+    float32, and the slices added in float32."""
+    coded = torch.zeros((w.shape[0],) + tuple(a.shape[1:]))
+    for j in range(w.shape[1]):
+        coded = (w[:, j, None, None].double() * a[j].double() +
+                 coded.double()).float()
+    a_hi = _tf32(coded)
+    a_lo = _tf32(coded - a_hi)
+    b_hi = _tf32(b.float())
+    b_lo = _tf32(b.float() - b_hi)
+    out = torch.zeros(coded.shape[:2] + (b.shape[1],))
+    for k0 in range(0, a.shape[2], k_slice):
+        ks = slice(k0, k0 + k_slice)
+        part = (a_lo[..., ks].double() @ b_hi[ks].double() +
+                a_hi[..., ks].double() @ b_lo[ks].double() +
+                a_hi[..., ks].double() @ b_hi[ks].double())
+        out = out + part.float()
+    return out
+
+
+def test_tf32_split_keeps_22_bits():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.standard_normal(4096) *
+                          10.0 ** rng.integers(-20, 20, 4096))
+                         .astype(np.float32))
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all(lo.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all((x - hi).abs() <= x.abs() * 2.0 ** -11)
+    resid = (x.double() - hi.double() - lo.double()).abs()
+    assert torch.all(resid <= x.abs().double() * 2.0 ** -22)
+
+
+@pytest.mark.parametrize("shape", CM_SHAPES)
+def test_coded_matmul_3xtf32_numerics(shape):
+    """The split product is no worse than 4x the plain float32 version
+    against a float64 product, and within float32's tolerance of the JAX
+    package's ``ref.coded_matmul``."""
+    from repro.kernels import ref as jref
+    w, a, b = _inputs_cm(shape, seed=sum(shape))
+    w, a, b = (_torch(x, "float32") for x in (w, a, b))
+    got = _emulate_3xtf32(w, a, b)
+    n, j, blk, d, _ = shape
+    exact = (w.double() @ a.double().reshape(j, -1)).reshape(n, blk, d) @ \
+        b.double()
+    err = float((got.double() - exact).abs().max())
+    err_plain = float((ref.coded_matmul(w, a, b).double() - exact)
+                      .abs().max())
+    assert err <= 4 * err_plain, (err, err_plain)
+    want = jref.coded_matmul(_jax(w, "float32"), _jax(a, "float32"),
+                             _jax(b, "float32"))
+    assert _rel(got, want) <= TOL["float32"]
+
+
+def test_padded_shape_rounds_up_to_the_tiles():
+    assert padded_shape(30, 512, 3584, 18944) == (15360, 3584, 18944)
+    assert padded_shape(3, 7, 130, 17) == (128, 160, 128)
+    assert padded_shape(33, 5, 1000, 3) == (256, 1024, 128)
+
+
+# --------------------------------------------------------------------------
 # dispatch rules
 # --------------------------------------------------------------------------
 
@@ -226,6 +311,45 @@ def test_cuda_coded_matmul_kernel_matches_plain(cuda, shape, dtype):
     assert got.dtype == a.dtype and got.is_cuda
     assert _rel(got, ops.coded_matmul(w, a, b, force_kernel=False)) \
         <= TOL[dtype]
+
+
+# chip_smoke.py's ragged coded_matmul cases: d below one 32-wide k-slice,
+# n_out below one 128-wide tile, rows of N * blk off the 128-row tile
+CM_CUDA_SHAPES = [(30, 27, 22, 10, 256), (30, 27, 64, 256, 512),
+                  (3, 3, 7, 130, 17), (33, 33, 5, 1000, 3)]
+
+
+@pytest.mark.parametrize("shape", CM_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_coded_matmul_ragged_shapes(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    n, j, blk, d, n_out = shape
+    w = torch.randn((n, j), generator=g, device=cuda)
+    a = torch.randn((j, blk, d), generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    b = torch.randn((d, n_out), generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    got = coded_matmul_kernel(w, a, b)
+    torch.cuda.synchronize()
+    assert got.shape == (n, blk, n_out) and got.dtype == a.dtype
+    assert _rel(got, ref.coded_matmul(w, a, b)) <= TOL[dtype]
+
+
+def test_cuda_coded_matmul_float64_slice(cuda):
+    """Against a float64 product over d = 3584: the 3xTF32 kernel's error
+    is no worse than 4x the plain float32 version's (worker 0, 64 rows)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n, j, blk, d, n_out = 30, 27, 64, 3584, 512
+    w = torch.randn((n, j), generator=g, device=cuda)
+    a = torch.randn((j, blk, d), generator=g, device=cuda)
+    b = torch.randn((d, n_out), generator=g, device=cuda)
+    got = coded_matmul_kernel(w, a, b)
+    plain = ref.coded_matmul(w, a, b)
+    exact = (w[:1].double() @ a.reshape(j, -1).double()).reshape(blk, d) \
+        @ b.double()
+    err = float((got[0].double() - exact).abs().max())
+    err_plain = float((plain[0].double() - exact).abs().max())
+    assert err <= 4 * err_plain, (err, err_plain)
 
 
 @pytest.mark.parametrize("shape", BC_SHAPES + [(24, 30, 5632), (8, 200, 1003),
@@ -320,6 +444,9 @@ def test_cuda_encrypted_round_matches_plain(cuda, mode):
     assert tuple(ct_back.shape) == (6, 9 * 33, 8)
     want = ops.coded_matmul(w, a, b)
     assert _rel(got, want) <= TOL["float32"]
+    # the same encode chain, a lossless wire and identity weights: the
+    # kernel round and the encrypted kernel round agree bit for bit
+    assert torch.equal(got, want)
     plain = ops.encrypted_coded_matmul(w, a, b, material[0], material[1], q=q,
                                        mode=mode, force_kernel=False)
     assert torch.equal(plain, ref.coded_matmul(w, a, b))

@@ -85,14 +85,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (see PERF.md): device memory and float32 on the
-# CUDA cores; bf16 dense tensor-core rate for bfloat16 inputs; TF32 dense
-# tensor-core rate, of which float32 coded_matmul's 3xTF32 split gets a third
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
-TF32_FLOP_PER_S = 495e12
-SPLIT_3XTF32_FLOP_PER_S = TF32_FLOP_PER_S / 3
+# H100 SXM data-sheet peaks (see PERF.md), (label, rate): device memory;
+# float32 on the CUDA cores; the bf16 dense tensor-core rate for bfloat16
+# inputs; a third of the TF32 dense tensor-core rate for float32
+# coded_matmul's 3xTF32 split
+HBM = ("HBM, 3.35 TB/s", 3.35e12)
+F32_CUDA = ("f32 CUDA cores, 67 TFLOP/s", 67e12)
+BF16_TC = ("bf16 tensor cores, 989 TFLOP/s", 989e12)
+SPLIT_3XTF32 = ("3xTF32 tensor cores, 495/3 TFLOP/s", 495e12 / 3)
 
 # kernel vs plain version, relative to the plain output's max |value|:
 # float32 sums run in another order than cuBLAS's (over d up to 3584),
@@ -148,53 +148,38 @@ def rel_diff(torch, got, want) -> tuple:
 
 
 def ptxas_report(log: str) -> dict:
-    """nvcc's ``-Xptxas -v`` log -> {kernel<template args>: "Used N
+    """nvcc's ``-Xptxas -v`` log -> {mangled kernel symbol: "Used N
     registers, ...; N bytes stack frame, N bytes spill stores, ..."}."""
     out, name = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(_Z\w+)'", ln)
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = kernel_name(m.group(1))
+            name = m.group(1)
             out[name] = []
         elif name and ("registers" in ln or "spill" in ln):
             out[name].append(ln.split("ptxas info    :")[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def kernel_name(mangled: str) -> str:
-    """The last name and template arguments of an Itanium-mangled kernel
-    symbol, e.g. ``flash_fwd_wgmma_kernel<2>``."""
-    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
-    ident = mangled
-    while s[:1].isdigit():
-        digits = re.match(r"\d+", s).group()
-        n = int(digits)
-        ident, s = s[len(digits):len(digits) + n], s[len(digits) + n:]
-    args = []
-    if s.startswith("I"):
-        s = s[1:]
-        while s and s[0] != "E":
-            m = re.match(r"Li(-?\d+)E", s)
-            d = re.match(r"\d+", s)
-            if s[0] == "f":
-                args.append("float")
-                s = s[1:]
-            elif m:
-                args.append(m.group(1))
-                s = s[m.end():]
-            elif d:
-                n = int(d.group())
-                args.append(s[d.end():d.end() + n])
-                s = s[d.end() + n:]
-            else:
-                break
-    return f"{ident}<{', '.join(args)}>" if args else ident
+def demangled(report: dict, cu_filt: str) -> dict:
+    """The report with its symbols demangled by the toolkit's ``cu++filt``
+    without parameter lists, e.g. ``void flash_fwd_wgmma_kernel<2>``."""
+    if not report:
+        return {}
+    names = subprocess.run([cu_filt, "-p", *report], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    assert len(names) == len(report), names
+    return dict(zip(names, report.values()))
 
 
-def bound(nbytes: float, flops: float, flop_rate: float) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def bound(nbytes: float, flops: float, rate: tuple) -> dict:
+    """The least time for the work: bytes over HBM's rate or operations
+    over ``rate`` (label, FLOP/s), whichever is longer, and which it was."""
+    t_bytes, t_ops = nbytes / HBM[1], flops / rate[1]
+    by_bytes = t_bytes >= t_ops
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes else "operations",
+            "bound_rate": HBM[0] if by_bytes else rate[0]}
 
 
 def main() -> int:
@@ -224,7 +209,9 @@ def main() -> int:
     _build.library("coded_matmul")
     build_s = time.perf_counter() - t0
     assert _build.build_count == 1, _build.build_count
-    ptxas = {stem: ptxas_report(log)
+    # every source's log, whether this process compiled it or found it built
+    cu_filt = str(Path(_build._nvcc()).with_name("cu++filt"))
+    ptxas = {stem: demangled(ptxas_report(log), cu_filt)
              for stem, log in _build.build_log.items()}
     emit({"phase": "device_and_build", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
@@ -275,20 +262,15 @@ def main() -> int:
         flops = 2 * n * j * blk * d + 2 * n * blk * d * n_out
         # float32: the 3xTF32 split's tensor-core rate (the float32 CUDA-core
         # bound beside it); bfloat16 inputs keep bf16's rate
-        if dt == torch.float32:
-            b_ms, b_by = bound(nbytes, flops, SPLIT_3XTF32_FLOP_PER_S)
-            rate = "3xTF32 tensor cores, 495/3 TFLOP/s"
-        else:
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-            rate = "bf16 tensor cores, 989 TFLOP/s"
         row = {"phase": "kernel_vs_plain", "kernel": "coded_matmul",
                "shape": {"N": n, "J": j, "blk": blk, "d": d, "n_out": n_out},
                "dtype": dname, "max_abs_err": err, "rel_err": rel,
                "tol": TOL[dname], "kernel_ms": k_ms, "plain_ms": p_ms,
-               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "bound_rate": rate,
+               "library_ms": lib_ms,
+               **bound(nbytes, flops, SPLIT_3XTF32
+                       if dt == torch.float32 else BF16_TC),
                "bound_ms_f32_cuda_cores": bound(nbytes, flops,
-                                                F32_FLOP_PER_S)[0],
+                                                F32_CUDA)["bound_ms"],
                "tflop_per_s": flops / k_ms / 1e9,
                "launches": launched}
         if (blk, d, n_out) == (512, *FULL[1:]):
@@ -324,8 +306,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mask_rows = check_mask_add(torch, gen, dev)
     torch.cuda.empty_cache()
-    flash_row = check_flash(torch, gen, dev)
-    flash_row["ptxas"] = ptxas["flash_attention"]
+    flash_row = check_flash(torch, gen, dev, ptxas["flash_attention"])
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 3. the keystream
@@ -410,9 +391,6 @@ def main() -> int:
     cm = results[("coded_matmul", n, j, blk, d, n_out, "float32")]
     bc = results[("berrut_combine", n, blk * n_out, "float32")]
     kernels = []
-    rates = {"coded_matmul": "3xTF32 tensor cores, 495/3 TFLOP/s",
-             "berrut_combine": "HBM, 3.35 TB/s", "mask_add": "HBM, 3.35 TB/s",
-             "flash_attention": "bf16 tensor cores, 989 TFLOP/s"}
     for kname, row, src, repl in (
             ("coded_matmul", cm, "src/repro_torch/kernels/csrc/coded_matmul.cu",
              "src/repro/kernels/coded_matmul.py:71"),
@@ -431,7 +409,7 @@ def main() -> int:
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "bound_rate": rates[kname],
+                        "bound_rate": row["bound_rate"],
                         "library_ms": row["library_ms"]})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
@@ -464,13 +442,13 @@ def check_combine(torch, emit, w, payload) -> dict:
               if dt == torch.float32 else None)
     elt = payload.element_size()
     nbytes = 4 * q * j + elt * (j * m + q * m)
-    b_ms, b_by = bound(nbytes, 2 * q * j * m, F32_FLOP_PER_S
-                       if dt == torch.float32 else BF16_FLOP_PER_S)
     row = {"phase": "kernel_vs_plain", "kernel": "berrut_combine",
            "shape": {"Q": q, "J": j, "M": m}, "dtype": dname,
            "max_abs_err": err, "rel_err": rel, "tol": TOL[dname],
            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "launches": launched}
+           **bound(nbytes, 2 * q * j * m,
+                   F32_CUDA if dt == torch.float32 else BF16_TC),
+           "launches": launched}
     emit(row)
     assert rel <= TOL[dname], row
     return row
@@ -501,11 +479,11 @@ def flash_work(b, sq, skv, h, kv, hd, causal, elt) -> tuple:
             4 * b * h * hd * pairs)
 
 
-def check_flash(torch, gen, dev) -> dict:
+def check_flash(torch, gen, dev, ptxas: dict) -> dict:
     """flash_attention kernel vs ``ref.mha_reference`` over FLASH_CASES in
     float32 and bfloat16, then at the qwen2-7b prefill shape in bfloat16,
     timed beside the plain version and ``scaled_dot_product_attention``.
-    Returns the main shape's row."""
+    Returns the main shape's row, which carries the kernel's ptxas report."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
@@ -555,11 +533,10 @@ def check_flash(torch, gen, dev) -> dict:
             lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
             nbytes, flops = flash_work(*case[:7], q.element_size())
-            b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
             row.update(kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by, flop=flops,
+                       **bound(nbytes, flops, BF16_TC), flop=flops,
                        bytes=nbytes, tflop_per_s=flops / k_ms / 1e9,
-                       worst_rel_err_by_dtype=worst)
+                       worst_rel_err_by_dtype=worst, ptxas=ptxas)
             emit(row)
             assert rel <= TOL[dname], row
             del q, k, v, got, want
@@ -860,18 +837,18 @@ def check_mask_add(torch, gen, dev) -> dict:
             k_ms = timed_ms(torch, lambda: mask_add_kernel(a, b, ql,
                                                            subtract=sub))
             nbytes = 3 * m * 8 * 4       # payload and mask read, out written
-            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
             key = "subtract" if sub else "add"
             row[key] = {"max_abs_err": float(err), "kernel_ms": k_ms,
-                        "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": "bytes"}
+                        "plain_ms": p_ms, **bound(nbytes, 0, HBM)}
             assert err == 0, row
         emit(row)
         rows[m] = {"max_abs_err": max(row["add"]["max_abs_err"],
                                       row["subtract"]["max_abs_err"]),
                    "kernel_ms": row["add"]["kernel_ms"],
                    "plain_ms": row["add"]["plain_ms"],
-                   "bound_ms": row["add"]["bound_ms"], "bound_by": "bytes",
+                   "bound_ms": row["add"]["bound_ms"],
+                   "bound_by": row["add"]["bound_by"],
+                   "bound_rate": row["add"]["bound_rate"],
                    "library_ms": None}
         del a, b
         torch.cuda.empty_cache()

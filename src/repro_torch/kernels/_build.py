@@ -7,6 +7,9 @@ started together, into a shared library with a plain C interface under
 library's file name carries a hash of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an up-to-date build from an earlier
 process is loaded as it is and an edited source or header is rebuilt.
+nvcc's output (ptxas's ``-v`` register report) is kept beside each library
+as ``lib<stem>-<hash>.log``, so ``build_log`` holds every source's report
+whether this process compiled it or loaded it.
 The tensor-core kernels reach the driver's ``cuTensorMapEncodeTiled``
 through the runtime's ``cudaGetDriverEntryPointByVersion``
 (``csrc/hopper.cuh``), so nothing links ``-lcuda``.  Nothing here runs
@@ -28,7 +31,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["library", "build_count", "build_log", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["library", "function", "build_count", "build_log", "BUILD_DIR",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -46,7 +50,7 @@ _ENTRY = {
                        [_VP, _VP, _VP, _I, _I, _I64, _I, _VP]),
     "coded_matmul": ("coded_matmul_launch",
                      [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _I, _VP]),
+                      _I, _VP]),
     "mask_add": ("mask_add_launch",
                  [_VP, _VP, _VP, _I64, _I, _I64,
                   ctypes.POINTER(ctypes.c_uint32), _I, _I, _VP]),
@@ -55,10 +59,15 @@ _ENTRY = {
                          ctypes.POINTER(ctypes.c_int64), _F, _F, _I, _I, _I,
                          _VP]),
 }
+# further C functions of a source: name -> (source stem, argtypes)
+_HELPERS = {
+    "coded_matmul_scratch": ("coded_matmul",
+                             [_I, _I, _I, _I, ctypes.POINTER(_I64)]),
+}
 
 build_count = 0
-build_log: dict = {}     # source stem -> nvcc's stderr (ptxas register report)
-_libs: dict = {}
+build_log: dict = {}     # source stem -> nvcc's output (ptxas register report)
+_libs: dict = {}         # C function name -> bound function
 _lock = threading.Lock()
 
 
@@ -98,34 +107,49 @@ def _build_all() -> dict:
     failed = []
     for stem, (proc, tmp, target) in procs.items():
         out, err = proc.communicate()
-        build_log[stem] = (out or "") + (err or "")
+        log = (out or "") + (err or "")
         if proc.returncode != 0:
-            failed.append(f"{stem}.cu (nvcc exit {proc.returncode}):\n"
-                          f"{build_log[stem]}")
+            failed.append(f"{stem}.cu (nvcc exit {proc.returncode}):\n{log}")
         else:
+            # the log first: a library on disk always has its log beside it
+            _log_path(target).write_text(log)
             os.replace(tmp, target)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    entries = {name: (stem, argtypes)
+               for stem, (name, argtypes) in _ENTRY.items()}
+    entries.update(_HELPERS)
+    dlls = {stem: ctypes.CDLL(str(target)) for stem, target in targets.items()}
     libs = {}
-    for stem, target in targets.items():
-        lib = ctypes.CDLL(str(target))
-        name, argtypes = _ENTRY[stem]
-        fn = getattr(lib, name)
+    for name, (stem, argtypes) in entries.items():
+        fn = getattr(dlls[stem], name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        libs[stem] = fn
+        libs[name] = fn
+    for stem, target in targets.items():
+        log = _log_path(target)
+        build_log[stem] = log.read_text() if log.exists() else ""
     return libs
 
 
-def library(stem: str):
-    """The bound C launch function of ``csrc/<stem>.cu``, building every
-    kernel library on the first call of the process."""
+def _log_path(target: Path) -> Path:
+    return target.with_suffix(".log")
+
+
+def function(name: str):
+    """The bound C function ``name`` of one of ``csrc/*.cu``, building
+    every kernel library on the first call of the process."""
     global build_count, _libs
     with _lock:
         if not _libs:
             _libs = _build_all()
             build_count += 1
-    return _libs[stem]
+    return _libs[name]
+
+
+def library(stem: str):
+    """The bound C launch function of ``csrc/<stem>.cu``."""
+    return function(_ENTRY[stem][0])
 
 
 def check(err: int, what: str) -> None:

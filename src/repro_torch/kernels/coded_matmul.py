@@ -16,30 +16,22 @@ One C entry point runs three passes: the encode (each coded value the
 j-ordered fmaf chain of ``berrut_combine``) split into TF32 hi and lo
 planes, the split of B^T, and an error-compensated 3xTF32 GEMM on the
 tensor cores with float32 accumulation.  The coded shards reach device
-memory once, as the two planes; this wrapper allocates the planes, padded
-to the GEMM's tiles (about 1 GB at the full qwen2-7b FFN width).
+memory once, as the two planes; this wrapper allocates the planes at the
+extents the source's ``coded_matmul_scratch`` gives (its GEMM's tiles,
+about 1 GB at the full qwen2-7b FFN width).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 
-__all__ = ["coded_matmul_kernel", "padded_shape"]
+__all__ = ["coded_matmul_kernel"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROW_TILE = 128      # GEMM rows (of N * blk) per thread block
-COL_TILE = 128      # GEMM columns (of n_out) per thread block
-K_TILE = 32         # the GEMM's k-slice (of d)
-
-
-def padded_shape(n: int, blk: int, d: int, n_out: int) -> tuple:
-    """(m_pad, d_pad, n_pad): N * blk, d and n_out rounded up to the GEMM's
-    tiles, the shape of the kernel's split planes."""
-    def up(x, t):
-        return -(-x // t) * t
-    return up(n * blk, ROW_TILE), up(d, K_TILE), up(n_out, COL_TILE)
 
 
 def coded_matmul_kernel(weights: torch.Tensor, blocks: torch.Tensor,
@@ -74,17 +66,17 @@ def coded_matmul_kernel(weights: torch.Tensor, blocks: torch.Tensor,
     n, j = weights.shape
     _, blk, d = blocks.shape
     n_out = rhs.shape[1]
-    m_pad, d_pad, n_pad = padded_shape(n, blk, d, n_out)
-    if m_pad >= 2 ** 31 or n_pad >= 2 ** 31 or d_pad // K_TILE > 65535:
-        raise ValueError(f"coded_matmul_kernel takes N * blk, n_out < 2^31 "
-                         f"and d <= {K_TILE * 65535}; got N * blk = "
-                         f"{n * blk}, d = {d}, n_out = {n_out}")
     out = torch.empty((n, blk, n_out), dtype=blocks.dtype,
                       device=blocks.device)
     if out.numel() == 0:
         return out
     if d == 0 or j == 0:
         return out.zero_()
+    pad = (ctypes.c_int64 * 3)()
+    if _build.function("coded_matmul_scratch")(n, blk, d, n_out, pad) != 0:
+        raise ValueError(f"coded_matmul_kernel refuses N * blk = {n * blk}, "
+                         f"d = {d}, n_out = {n_out}: past its grids' limits")
+    m_pad, d_pad, n_pad = pad
     # the split planes (hi, lo) of the coded shards and of B^T
     a_planes = torch.empty((2, m_pad, d_pad), dtype=torch.float32,
                            device=blocks.device)
@@ -95,9 +87,8 @@ def coded_matmul_kernel(weights: torch.Tensor, blocks: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(weights.data_ptr(), blocks.data_ptr(), rhs.data_ptr(),
                      out.data_ptr(), a_planes.data_ptr(),
-                     b_planes.data_ptr(), n, j, blk, d, n_out, m_pad, d_pad,
-                     n_pad, _DTYPES[blocks.dtype], _DTYPES[rhs.dtype],
-                     stream)
+                     b_planes.data_ptr(), n, j, blk, d, n_out,
+                     _DTYPES[blocks.dtype], _DTYPES[rhs.dtype], stream)
     _build.check(err, "coded_matmul")
     coded_matmul_kernel.launches += 1
     return out

@@ -53,8 +53,8 @@
 //     never spans more than 32 terms of d.  The store is masked to
 //     (N * blk, n_out), in A's dtype.
 //
-// The wrapper allocates the planes (torch.empty); this file allocates
-// nothing.  Plain C interface (bound with ctypes): the launch returns the
+// The wrapper allocates the planes (torch.empty) at the extents that
+// coded_matmul_scratch returns; this file allocates nothing.  Plain C interface (bound with ctypes): the launch returns the
 // first CUDA error (or the tensor-map error) so the Python wrapper can
 // raise on a refused launch.
 
@@ -287,6 +287,20 @@ gemm_3xtf32_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
+// the split planes' extents {m_pad, d_pad, n_pad}: N * blk, d and n_out
+// rounded up to the GEMM's tiles.  False for an empty shape or one past the
+// grids' limits.
+bool scratch_extents(int n_workers, int blk, int d, int n_out, int64_t* pad) {
+  if (n_workers <= 0 || blk <= 0 || d <= 0 || n_out <= 0) return false;
+  auto up = [](int64_t x, int64_t t) { return (x + t - 1) / t * t; };
+  pad[0] = up(static_cast<int64_t>(n_workers) * blk, kBM);
+  pad[1] = up(d, kBK);
+  pad[2] = up(n_out, kBN);
+  return pad[0] <= 0x7fffffff && pad[2] <= 0x7fffffff &&
+         (pad[0] / kBM) * (pad[2] / kBN) <= 0x7fffffff &&
+         pad[1] / kBK <= 65535;
+}
+
 // 3-d map (d_pad, rows, 2 planes) over float32 planes, boxes of 32 x 128 x 2
 int make_plane_map(CUtensorMap* map, const float* planes, int rows,
                    int d_pad) {
@@ -351,23 +365,30 @@ int launch_typed(const float* w, const void* a, const void* b, void* out,
 
 }  // namespace
 
+// {m_pad, d_pad, n_pad} into pad: the launch's scratch planes are
+// a_planes (2, m_pad, d_pad) and b_planes (2, n_pad, d_pad), float32.
+// Returns cudaErrorInvalidValue for a shape the launch refuses.
+extern "C" int coded_matmul_scratch(int n_workers, int blk, int d, int n_out,
+                                    int64_t* pad) {
+  return scratch_extents(n_workers, blk, d, n_out, pad)
+             ? 0
+             : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // a_dtype / b_dtype: 0 = float32, 1 = bfloat16.  out has A's dtype.
-// a_planes: (2, m_pad, d_pad) and b_planes: (2, n_pad, d_pad) float32
-// scratch, with m_pad >= N * blk a multiple of 128, d_pad >= d a multiple
-// of 32 and n_pad >= n_out a multiple of 128.
+// a_planes and b_planes: scratch of coded_matmul_scratch's extents.
 extern "C" int coded_matmul_launch(const float* w, const void* a,
                                    const void* b, void* out, float* a_planes,
                                    float* b_planes, int n_workers, int j,
-                                   int blk, int d, int n_out, int m_pad,
-                                   int d_pad, int n_pad, int a_dtype,
+                                   int blk, int d, int n_out, int a_dtype,
                                    int b_dtype, void* stream) {
   cudaGetLastError();  // clear any stale error so the return value is ours
-  if (n_workers <= 0 || j <= 0 || blk <= 0 || d <= 0 || n_out <= 0 ||
-      static_cast<int64_t>(n_workers) * blk > m_pad || m_pad % kBM != 0 ||
-      d_pad < d || d_pad % kBK != 0 || n_pad < n_out || n_pad % kBN != 0 ||
-      static_cast<int64_t>(m_pad / kBM) * (n_pad / kBN) > 0x7fffffff ||
-      d_pad / 32 > 65535)
+  int64_t pad[3];
+  if (j <= 0 || !scratch_extents(n_workers, blk, d, n_out, pad))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int m_pad = static_cast<int>(pad[0]);
+  const int d_pad = static_cast<int>(pad[1]);
+  const int n_pad = static_cast<int>(pad[2]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a_dtype * 2 + b_dtype) {
     case 0:

@@ -25,13 +25,18 @@ Tolerances are relative to the reference output's max |value|:
   rounding boundary, one bfloat16 ulp.
 """
 
+import ctypes
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.berrut_encode import berrut_encode_kernel
-from repro_torch.kernels.coded_matmul import coded_matmul_kernel, padded_shape
+from repro_torch.kernels.coded_matmul import coded_matmul_kernel
 from repro_torch.kernels.mask_add import mask_add_kernel
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -218,12 +223,6 @@ def test_coded_matmul_3xtf32_numerics(shape):
     assert _rel(got, want) <= TOL["float32"]
 
 
-def test_padded_shape_rounds_up_to_the_tiles():
-    assert padded_shape(30, 512, 3584, 18944) == (15360, 3584, 18944)
-    assert padded_shape(3, 7, 130, 17) == (128, 160, 128)
-    assert padded_shape(33, 5, 1000, 3) == (256, 1024, 128)
-
-
 # --------------------------------------------------------------------------
 # dispatch rules
 # --------------------------------------------------------------------------
@@ -284,6 +283,90 @@ def test_build_names_a_library_by_its_source_and_flags():
     assert set(_build._ENTRY) == {"berrut_combine", "coded_matmul",
                                   "mask_add", "flash_attention"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# a stand-in for nvcc: writes the library named after -o and prints a
+# ptxas report for one kernel, as ``nvcc -Xptxas -v`` does
+_FAKE_NVCC = """#!{python}
+import sys
+out = sys.argv[sys.argv.index("-o") + 1]
+open(out, "w").close()
+print("ptxas info    : Compiling entry function '_Z6kernelv' for 'sm_90a'",
+      file=sys.stderr)
+print("ptxas info    : Used 40 registers, 0 bytes smem", file=sys.stderr)
+"""
+
+
+class _FakeDLL:
+    """ctypes.CDLL's stand-in: every attribute is a settable function."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __getattr__(self, name):
+        fn = type("fn", (), {})()
+        setattr(self, name, fn)
+        return fn
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_build_keeps_each_ptxas_report_beside_its_library(monkeypatch,
+                                                          tmp_path):
+    """A process that finds every library built (a second run in the same
+    checkout) still has every source's ptxas report: nvcc's output is kept
+    beside the library and read back."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("PATH", str(nvcc.parent))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(ctypes, "CDLL", _FakeDLL)
+    monkeypatch.setattr(_build, "build_log", {})
+    libs = _build._build_all()                       # compiles every source
+    assert set(libs) == {name for name, _ in _build._ENTRY.values()} | \
+        set(_build._HELPERS)
+    first = dict(_build.build_log)
+    assert set(first) == set(_build._ENTRY)
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))    # no nvcc now
+    monkeypatch.setattr(_build, "build_log", {})
+    _build._build_all()                              # loads them as built
+    assert _build.build_log == first
+    report = _chip_smoke().ptxas_report(_build.build_log["coded_matmul"])
+    assert report == {"_Z6kernelv": "Used 40 registers, 0 bytes smem"}
+
+
+def test_build_reports_nothing_for_a_library_without_its_log(monkeypatch,
+                                                              tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(ctypes, "CDLL", _FakeDLL)
+    monkeypatch.setattr(_build, "build_log", {})
+    for stem in _build._ENTRY:
+        _build._target(stem).touch()
+    _build._build_all()
+    assert _build.build_log == {stem: "" for stem in _build._ENTRY}
+    assert _chip_smoke().ptxas_report(_build.build_log["flash_attention"]) \
+        == {}
+
+
+def test_chip_smoke_bound_names_the_rate_that_binds():
+    smoke = _chip_smoke()
+    # 1 GB and 1 GFLOP: bytes bind on the CUDA cores' float32 rate ...
+    got = smoke.bound(1e9, 1e9, smoke.F32_CUDA)
+    assert got == {"bound_ms": 1e9 / 3.35e12 * 1e3, "bound_by": "bytes",
+                   "bound_rate": smoke.HBM[0]}
+    # ... and operations bind at 1 TFLOP on the 3xTF32 split's rate
+    got = smoke.bound(1e9, 1e12, smoke.SPLIT_3XTF32)
+    assert got["bound_by"] == "operations"
+    assert got["bound_rate"] == smoke.SPLIT_3XTF32[0]
+    assert got["bound_ms"] == pytest.approx(1e12 / (495e12 / 3) * 1e3)
 
 
 def test_plain_paths_build_nothing():
@@ -367,6 +450,22 @@ def test_cuda_berrut_kernel_matches_plain(cuda, shape, dtype):
     assert got.dtype == b.dtype and got.is_cuda
     assert _rel(got, ops.berrut_combine(w, b, force_kernel=False)) \
         <= TOL[dtype]
+
+
+def test_cuda_coded_matmul_scratch_extents(cuda):
+    """The kernel's split planes: N * blk, d and n_out rounded up to its
+    GEMM's 128 x 128 tiles and 32-wide k-slices; refused past its grids."""
+    scratch = _build.function("coded_matmul_scratch")
+
+    def extents(*shape):
+        pad = (ctypes.c_int64 * 3)()
+        return scratch(*shape, pad), tuple(pad)
+
+    assert extents(30, 512, 3584, 18944) == (0, (15360, 3584, 18944))
+    assert extents(3, 7, 130, 17) == (0, (128, 160, 128))
+    assert extents(33, 5, 1000, 3) == (0, (256, 1024, 128))
+    assert extents(1, 1, 32 * 65536, 1)[0] != 0
+    assert extents(1, 1, 0, 1)[0] != 0
 
 
 def test_cuda_kernels_build_once(cuda):

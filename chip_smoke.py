@@ -36,6 +36,12 @@ Phases, one JSON line each:
    full-width worker 0 x 64 rows also against a float64 product, within 4x
    the plain version's error; ``mask_add`` exactly, at ragged M, the field's
    edge values, broadcast masks and both wires' full M;
+   ``berrut_combine`` at the decode of every ``coded_matmul`` case, J =
+   200, Q = 40, the full-width encode (30, 27, 1,835,008), the prefix
+   decode (720, 30, 2^20), M = 1,000,003 in both dtypes and a view 4 bytes
+   in, each row with its load path (TMA or bulk copies), TB/s, device
+   time by ``torch.profiler`` (small shapes are host-bound under CUDA
+   events) and ptxas line;
    ``flash_attention`` at ragged and unequal Sq, Skv, every head dim it
    pads, hd 20 (whose bf16 rows TMA cannot load), G in {1, 7}, softcap 20,
    causal and full), with its time, the plain version's time and one
@@ -138,6 +144,25 @@ def timed_ms(torch, fn, min_total_s: float = 0.3, max_iters: int = 50) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(torch, fn, kernel: str, calls: int = 20):
+    """Mean device time in ms of the kernels whose name holds ``kernel``
+    over ``calls`` calls of ``fn``, from ``torch.profiler``, after one
+    warm-up call: unlike ``timed_ms`` it leaves out the host's time per
+    call, which sets ``timed_ms`` for small shapes.  None when the
+    profiler records no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
 
 
 def rel_diff(torch, got, want) -> tuple:
@@ -297,12 +322,26 @@ def main() -> int:
         # N = 30; N = 33 walks Q = 31 > 24 rows)
         q_w = dec_w if n == 30 else randn(max(n - 2, 1), n)
         results[("berrut_combine", n, blk * n_out, dname)] = check_combine(
-            torch, emit, q_w, got.reshape(n, -1))
+            torch, emit, q_w, got.reshape(n, -1), ptxas["berrut_combine"])
         del got, want, a, b
     # a J = 200 slab walk and a Q > 32 chunk walk
-    check_combine(torch, emit, randn(8, 200), randn(200, 100003))
+    check_combine(torch, emit, randn(8, 200), randn(200, 100003),
+                  ptxas["berrut_combine"])
     check_combine(torch, emit, randn(40, 30),
-                  randn(30, 5000, dtype=torch.bfloat16))
+                  randn(30, 5000, dtype=torch.bfloat16),
+                  ptxas["berrut_combine"])
+    # the full-width encode, the fig-3 prefix decode (30 prefixes x K = 24
+    # rows), payloads TMA cannot load (M = 3 mod 8; a view 4 bytes in)
+    spread = torch.randn(30 * 1000000 + 1, generator=gen, device=dev)
+    for name, w, payload in (
+            ("encode", randn(30, 27), randn(27, 512 * FULL[1])),
+            ("prefix", randn(720, 30), randn(30, 1 << 20)),
+            ("unaligned", dec_w, randn(30, 1000003)),
+            ("unaligned", dec_w, randn(30, 1000003, dtype=torch.bfloat16)),
+            ("offset_view", dec_w, spread[1:].view(30, 1000000))):
+        check_combine(torch, emit, w, payload, ptxas["berrut_combine"],
+                      case=name)
+    del spread, w, payload
     torch.cuda.empty_cache()
     mask_rows = check_mask_add(torch, gen, dev)
     torch.cuda.empty_cache()
@@ -419,10 +458,14 @@ def main() -> int:
     return 0
 
 
-def check_combine(torch, emit, w, payload) -> dict:
-    """berrut_combine kernel vs plain version on one (Q, J) x (J, M) case."""
+def check_combine(torch, emit, w, payload, ptxas: dict,
+                  case: str = "decode") -> dict:
+    """berrut_combine kernel vs plain version on one (Q, J) x (J, M) case,
+    with its load path, achieved TB/s, device time and its instantiation's
+    ptxas line."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.berrut_encode import (berrut_encode_kernel,
+                                                   kernel_name, load_path)
     q, j = w.shape
     m = payload.shape[1]
     dt = payload.dtype
@@ -437,18 +480,26 @@ def check_combine(torch, emit, w, payload) -> dict:
     assert bool(torch.isfinite(got.float()).all())
     err, rel = rel_diff(torch, got, want)
     k_ms = timed_ms(torch, lambda: berrut_encode_kernel(w, payload))
+    k_dev_ms = device_ms(torch, lambda: berrut_encode_kernel(w, payload),
+                         "berrut_stream_kernel")
     p_ms = timed_ms(torch, lambda: ref.berrut_combine(w, payload))
     lib_ms = (timed_ms(torch, lambda: torch.matmul(w, payload))
               if dt == torch.float32 else None)
     elt = payload.element_size()
     nbytes = 4 * q * j + elt * (j * m + q * m)
+    kname = kernel_name(q, payload)
+    lines = [v for k, v in ptxas.items() if kname in k]
+    assert len(lines) == 1, (kname, list(ptxas))
     row = {"phase": "kernel_vs_plain", "kernel": "berrut_combine",
-           "shape": {"Q": q, "J": j, "M": m}, "dtype": dname,
+           "case": case, "shape": {"Q": q, "J": j, "M": m}, "dtype": dname,
+           "loads": load_path(payload),
            "max_abs_err": err, "rel_err": rel, "tol": TOL[dname],
-           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "kernel_ms": k_ms, "kernel_device_ms": k_dev_ms,
+           "plain_ms": p_ms, "library_ms": lib_ms,
            **bound(nbytes, 2 * q * j * m,
                    F32_CUDA if dt == torch.float32 else BF16_TC),
-           "launches": launched}
+           "tb_per_s": nbytes / k_ms / 1e9, "launches": launched,
+           "ptxas": {kname: lines[0]}}
     emit(row)
     assert rel <= TOL[dname], row
     return row

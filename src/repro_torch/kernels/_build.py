@@ -63,6 +63,7 @@ _ENTRY = {
 _HELPERS = {
     "coded_matmul_scratch": ("coded_matmul",
                              [_I, _I, _I, _I, ctypes.POINTER(_I64)]),
+    "berrut_combine_load_path": ("berrut_combine", [_VP, _I64, _I]),
 }
 
 build_count = 0

@@ -1,13 +1,15 @@
 // hopper.cuh: the Hopper (sm_90a) building blocks shared by the port's
-// tensor-core kernels: mbarriers, TMA tile loads, wgmma descriptors and
-// the few wgmma shapes the kernels issue, and the host-side tensor-map
+// TMA-fed kernels: mbarriers, TMA tile loads, wgmma descriptors and the
+// few wgmma shapes the kernels issue, and the host-side tensor-map
 // encoder.
 //
-// Shared-memory tiles use the 128-byte swizzle throughout: a tile is a
-// run of 128-byte rows, 1024-byte aligned, in which 16-byte chunk c of
-// row r sits at chunk position c ^ (r % 8).  TMA writes that layout
-// (CU_TENSOR_MAP_SWIZZLE_128B), threads write it at `swizzled` offsets,
-// and `desc_sw128` describes it to wgmma.
+// The tensor-core kernels' shared-memory tiles use the 128-byte swizzle: a
+// tile is a run of 128-byte rows, 1024-byte aligned, in which 16-byte
+// chunk c of row r sits at chunk position c ^ (r % 8).  TMA writes that
+// layout (CU_TENSOR_MAP_SWIZZLE_128B), threads write it at `swizzled`
+// offsets, and `desc_sw128` describes it to wgmma.  berrut_combine's
+// streamed tiles, read by the CUDA cores, are unswizzled
+// (CU_TENSOR_MAP_SWIZZLE_NONE).
 //
 // cuTensorMapEncodeTiled is a driver API function.  It is reached through
 // the runtime's cudaGetDriverEntryPointByVersion, so the libraries link
@@ -77,6 +79,27 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ---- TMA ------------------------------------------------------------
+
+// a bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -249,11 +272,12 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A tiled map over `rank` dimensions (innermost first; strides in bytes
-// of dimensions 1..rank-1), 128-byte swizzle, zero fill out of bounds.
-// Returns a cudaError_t value.
+// of dimensions 1..rank-1), `swizzle` (128-byte unless asked otherwise),
+// zero fill out of bounds.  Returns a cudaError_t value.
 inline int make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                     const void* base, const uint64_t* dims,
-                    const uint64_t* strides, const uint32_t* box) {
+                    const uint64_t* strides, const uint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[5], s[4];
@@ -267,8 +291,7 @@ inline int make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
   const CUresult r = fn(map, type, static_cast<cuuint32_t>(rank),
                         const_cast<void*>(base), d, s, b, e,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -35,7 +35,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+from repro_torch.kernels.berrut_encode import (berrut_encode_kernel,
+                                               kernel_name, load_path)
 from repro_torch.kernels.coded_matmul import coded_matmul_kernel
 from repro_torch.kernels.mask_add import mask_add_kernel
 
@@ -369,6 +370,51 @@ def test_chip_smoke_bound_names_the_rate_that_binds():
     assert got["bound_ms"] == pytest.approx(1e12 / (495e12 / 3) * 1e3)
 
 
+@pytest.mark.parametrize("dtype,offset,m,want", [
+    ("float32", 0, 1024, "tma"), ("float32", 4, 1024, "tma"),
+    ("float32", 2, 1024, "bulk"), ("float32", 1, 1024, "bulk"),
+    ("float32", 0, 1026, "bulk"), ("float32", 0, 1025, "bulk"),
+    ("float32", 0, 1000003, "bulk"),
+    ("bfloat16", 0, 1024, "tma"), ("bfloat16", 8, 1024, "tma"),
+    ("bfloat16", 4, 1024, "bulk"), ("bfloat16", 1, 1024, "bulk"),
+    ("bfloat16", 0, 1028, "bulk"), ("bfloat16", 0, 1027, "bulk"),
+    ("bfloat16", 0, 1000003, "bulk")])
+def test_berrut_load_path_follows_pointer_and_row_alignment(dtype, offset, m,
+                                                             want):
+    """The kernel's load path comes from the payload's address and row
+    stride alone: TMA when both are 16-byte aligned, else bulk copies."""
+    buf = torch.empty(64 + offset + 2 * m, dtype=getattr(torch, dtype))
+    skip = (-buf.data_ptr() % 64) // buf.element_size()   # a 64-byte start
+    b = buf[skip + offset:skip + offset + 2 * m].view(2, m)
+    assert load_path(b) == want
+
+
+def test_berrut_load_path_keeps_tma_coordinates_in_int32():
+    class Wide:          # a (1, 2^31) float32 payload, never allocated
+        shape = (1, 1 << 31)
+
+        def data_ptr(self):
+            return 1 << 20
+
+        def element_size(self):
+            return 4
+    assert load_path(Wide()) == "bulk"
+
+
+@pytest.mark.parametrize("q,dtype,m,want", [
+    (1, "float32", 1024, "<float, (int)4, (bool)0>"),
+    (8, "float32", 1024, "<float, (int)4, (bool)0>"),
+    (9, "float32", 1024, "<float, (int)8, (bool)0>"),
+    (24, "float32", 1001, "<float, (int)12, (bool)1>"),
+    (30, "bfloat16", 1024, "<__nv_bfloat16, (int)16, (bool)0>"),
+    (30, "bfloat16", 1020, "<__nv_bfloat16, (int)16, (bool)1>"),
+    (720, "float32", 1024, "<float, (int)16, (bool)0>")])
+def test_berrut_kernel_name_follows_the_row_tiles(q, dtype, m, want):
+    blocks = torch.empty((2, m), dtype=getattr(torch, dtype))
+    assert blocks.data_ptr() % 16 == 0
+    assert kernel_name(q, blocks) == "berrut_stream_kernel" + want
+
+
 def test_plain_paths_build_nothing():
     w, a, b = _small()
     before = _build.build_count
@@ -435,8 +481,14 @@ def test_cuda_coded_matmul_float64_slice(cuda):
     assert err <= 4 * err_plain, (err, err_plain)
 
 
-@pytest.mark.parametrize("shape", BC_SHAPES + [(24, 30, 5632), (8, 200, 1003),
-                                               (40, 30, 777)])
+@pytest.mark.parametrize("shape", BC_SHAPES + [
+    (24, 30, 5632), (8, 200, 1003), (40, 30, 777),
+    # M = 1, 2, 3 mod 4 (1003 is 3 mod 8: bf16 rows at 2-byte alignment),
+    # an aligned M below one 256-column box, Q = 720 (the prefix decode's
+    # 30 x 24 rows), Q > 32 with J > 32 (a slab walk per row chunk), and
+    # two W too large to stay in shared memory (restaged chunk by chunk)
+    (24, 30, 1001), (24, 30, 1002), (30, 27, 1003), (8, 6, 200),
+    (720, 30, 2048), (40, 70, 1030), (2000, 30, 1000), (200, 300, 1000)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_berrut_kernel_matches_plain(cuda, shape, dtype):
     q, j, m = shape
@@ -450,6 +502,76 @@ def test_cuda_berrut_kernel_matches_plain(cuda, shape, dtype):
     assert got.dtype == b.dtype and got.is_cuda
     assert _rel(got, ops.berrut_combine(w, b, force_kernel=False)) \
         <= TOL[dtype]
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_berrut_kernel_offset_views(cuda, offset, dtype):
+    """A payload that is a contiguous view some elements into its buffer
+    (an address TMA refuses unless 16-byte aligned) goes through the bulk
+    copies, read at each row's byte shift, and still matches the plain
+    version."""
+    q, j, m = 24, 30, 4096
+    rng = np.random.default_rng(offset)
+    w = _torch(rng.standard_normal((q, j)), "float32", cuda)
+    buf = _torch(rng.standard_normal(offset + j * m), dtype, cuda)
+    b = buf[offset:].view(j, m)
+    assert load_path(b) == ("tma" if (offset * b.element_size()) % 16 == 0
+                            else "bulk")
+    got = ops.berrut_combine(w, b)
+    assert _rel(got, ops.berrut_combine(w, b, force_kernel=False)) \
+        <= TOL[dtype]
+
+
+def test_cuda_berrut_load_path_matches_the_kernel(cuda):
+    """``load_path`` says what the C launch chooses, for every pointer and
+    row alignment."""
+    c_path = _build.function("berrut_combine_load_path")
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        buf = torch.empty(4 * 1032 + 16, dtype=dtype, device=cuda)
+        for offset in range(8):
+            for m in range(1024, 1032):
+                b = buf[offset:offset + 4 * m].view(4, m)
+                path = ("tma", "bulk")[c_path(b.data_ptr(), m, code)]
+                assert load_path(b) == path, (offset, m)
+
+
+# (N, J, blk, d, n_out, A's dtype, A's offset in its buffer): the
+# encrypted round's fig-3 encode shape, J > 64, Q > 32, an odd M, a
+# bfloat16 A and a view 4 bytes in
+CONTRACT_CASES = [(30, 27, 22, 10, 256, "float32", 0),
+                  (8, 200, 5, 33, 7, "float32", 0),
+                  (40, 30, 9, 40, 33, "float32", 0),
+                  (30, 27, 7, 13, 17, "float32", 0),
+                  (30, 27, 22, 10, 256, "bfloat16", 0),
+                  (30, 27, 22, 12, 256, "float32", 1)]
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES)
+def test_cuda_berrut_encode_then_identity_is_coded_matmul(cuda, case):
+    """The encrypted round's contract: encoding through berrut_combine (in
+    float32, as ``encrypted_round`` widens A) and then running
+    ``coded_matmul`` with identity weights is bit-identical to
+    ``coded_matmul``'s own encode, because both are the j-ordered fmaf
+    chain from zero.  A bfloat16 payload's kernel output is that chain
+    rounded once."""
+    n, j, blk, d, n_out, dtype, offset = case
+    rng = np.random.default_rng(n * 1000 + j)
+    w = _torch(rng.standard_normal((n, j)), "float32", cuda)
+    buf = _torch(rng.standard_normal(offset + j * blk * d), dtype, cuda)
+    a = buf[offset:].view(j, blk, d)
+    b = _torch(rng.standard_normal((d, n_out)), "float32", cuda)
+    before = berrut_encode_kernel.launches
+    coded = ops.berrut_combine(w, a.float())
+    assert berrut_encode_kernel.launches == before + 1
+    eye = torch.eye(n, device=cuda)
+    got = ops.coded_matmul(eye, coded, b)
+    want = ops.coded_matmul(w, a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.to(want.dtype), want)
+    if dtype == "bfloat16":
+        assert torch.equal(ops.berrut_combine(w, a),
+                           coded.to(torch.bfloat16))
 
 
 def test_cuda_coded_matmul_scratch_extents(cuda):

@@ -6,15 +6,17 @@ Ports ``repro/api``:
 
     with Session(ClusterSpec.paper_fig3()) as s:      # device="cuda"
         out, stats = s.matmul(a, b)
+        s.init_mlp((784, 512, 10))
+        loss, elapsed = s.train_step(x, y)
 """
 
 from .spec import (AdaptiveSpec, ClusterSpec, CodeSpec, CryptoSpec,
                    FaultSpec, PrivacySpec, ServeSpec, StragglerSpec,
                    TransportSpec, WaitSpec)
-from .session import Session
+from .session import Session, coded_mlp_init, coded_mlp_step
 
 __all__ = [
     "AdaptiveSpec", "ClusterSpec", "CodeSpec", "CryptoSpec", "FaultSpec",
     "PrivacySpec", "ServeSpec", "StragglerSpec", "TransportSpec",
-    "WaitSpec", "Session",
+    "WaitSpec", "Session", "coded_mlp_init", "coded_mlp_step",
 ]

@@ -10,8 +10,9 @@ kernels (``kernels.ops.coded_matmul`` and ``kernels.ops.berrut_combine``).
 ``use_kernel`` is the schemes' tri-state (None = kernel for CUDA tensors,
 True = force the kernel, False = the plain PyTorch version).
 
-This slice registers ``spacdc`` only; the baseline schemes come later (see
-ROADMAP.md).
+Registered so far: ``spacdc`` (``core/spacdc.py``) and the baselines
+``conv``, ``mds``, ``polynomial`` and ``matdot`` (``core/baselines.py``);
+LCC, GLCC, SecPoly, BACC and ``berrut_grad`` come later (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,6 +35,15 @@ class SchemeDefaults:
     pair_coded: bool = False
     rateless: bool = False
     use_kernel: Optional[bool] = None   # None = kernel for CUDA tensors
+
+    # -- coding ----------------------------------------------------------
+    def encode(self, x, noise=None):
+        raise NotImplementedError(
+            f"{self.name}: pair-coded scheme — use encode_pair(a, b)")
+
+    def encode_pair(self, a, b):
+        raise NotImplementedError(
+            f"{self.name}: data-coded scheme — use encode(x)")
 
     # -- fused round (linear data-coded schemes) -------------------------
     def fused_encoder_matrix(self):

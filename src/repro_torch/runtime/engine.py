@@ -1,10 +1,10 @@
 """The coded-round engine behind ``repro_torch.api.Session``.
 
-Ports the fused rounds of ``repro/runtime/engine.py``: ``RoundStats``,
-``RoundEngine.__init__`` with its crypto setup, the virtual-clock latency
-model (``_worker_compute_time``, ``_round_compute_time``,
-``_virtual_round_plan``), the encode-pipelining credit, and three round
-paths on the engine's device:
+Ports ``RoundStats``, the virtual-clock parts of ``WorkerPool`` and the
+rounds of ``repro/runtime/engine.py`` that run on the virtual clock:
+``RoundEngine.__init__`` with its crypto setup, the latency model
+(``_worker_compute_time``, ``_round_compute_time``, ``_virtual_round_plan``),
+the encode-pipelining credit, and four round paths on the engine's device:
 
 * **fused** (``_matmul_fused``): encode → all N worker matmuls → masked
   decode, one ``coded_matmul`` and one ``berrut_combine`` launch of the
@@ -22,6 +22,15 @@ paths on the engine's device:
   split at its wire boundaries; every shard and every responder's result
   crosses as a genuine ``MEAECC`` ciphertext (``_wire``), two ``mask_add``
   launches per transfer.
+* **loop** (``_matmul_loop``: pair-coded schemes, ``code.fused=False``, and
+  linear schemes whose masked decode is not stable in float32, e.g. mds at
+  K=24): the scheme's ``encode`` / ``encode_pair`` (``berrut_combine``),
+  one ``torch.matmul`` per responder (``runtime.tasks``, IEEE float32), the
+  scheme's exact ``decode`` (``berrut_combine`` with float64-inverted
+  weights) and ``reconstruct_matmul``.  Only the responders' products run,
+  as on the reference's virtual clock.  ``encrypt="real"`` wires every
+  shard out and every responder's result back through ``_wire``;
+  ``encrypt="modeled"`` prices ``crypto_s`` as the fused round does.
 
 Differences from the reference, by design:
 
@@ -31,13 +40,26 @@ Differences from the reference, by design:
   a new straggler mask or shape is a kernel argument, never a new build.
 * **The device** is the ``device=`` argument (``None`` = ``"cuda"``; with
   no CUDA device that raises rather than quietly running on the CPU), never
-  a spec field.
+  a spec field.  The loop round's shards and results stay on it, where the
+  reference pulls them to host numpy.
 * **The output** stays on the device: ``matmul`` returns a tensor, where
   the reference returns a host numpy array.  The host copy is the caller's,
   so the round's timer does not include it.
 * **``RoundStats.dispatches``** counts the round's launches of the port's
-  own kernels: 2 on the fused path on the card, 7 on the fused real path,
-  3 + 2·(N + responders) on the staged real path, 0 on the CPU.
+  own kernels (the reference counts jitted dispatches, 0 on its loop
+  path).  On the card: 2 on the fused path, 7 on the fused real path,
+  3 + 2·(N + responders) on the staged real path.  On the loop path,
+  ``berrut_combine`` launches: 2 for mds and unfused spacdc (encode,
+  decode), 0 for unfused conv (a reshape and a reorder), 3 for matdot and
+  polynomial (two encodes, one decode); ``encrypt="real"`` adds two
+  ``mask_add`` launches per shard part sent and per result returned,
+  2·(N + responders) for a data-coded scheme and 2·(2N + responders) for
+  a pair-coded one.  0 on the CPU.
+* **The virtual clock** prices a worker by timing one batched
+  ``torch.matmul`` whose right factor is broadcast over the N workers; the
+  reference gives every worker its own right factor, which only pair-coded
+  schemes have.  Arrival order, responders and ``n_waited`` do not depend
+  on it; arrival times embed measured seconds in both packages.
 * **The cipher** follows the spec's ``code.use_kernel`` like the schemes do
   (the reference's ``MEAECC`` always took its own default), and the
   ``crypto_s`` probe times the wire the round runs (the reference timed
@@ -45,7 +67,7 @@ Differences from the reference, by design:
 * The timers synchronise the device before each stop, where the reference
   calls ``block_until_ready``.
 
-Every other path of the reference (loop rounds, real transports, anytime
+Every other path of the reference (real transports, the anytime pipeline
 with or without encryption, fault handling, adaptive redundancy) raises
 ``NotImplementedError`` until its slice is ported (see ROADMAP.md).
 """
@@ -54,6 +76,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import time
 from typing import Optional
 
@@ -62,9 +85,11 @@ import torch
 
 from ..kernels.ops import kernel_launches
 from .scheduler import EncodePipeline, plan_round
+from .tasks import MatmulTask, PairMatmulTask
+from .transport import VirtualClockTransport
 from .wait_policy import resolve_policy
 
-__all__ = ["RoundStats", "RoundEngine", "resolve_device"]
+__all__ = ["RoundStats", "WorkerPool", "RoundEngine", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,10 +122,11 @@ class RoundStats:
     pipelined_s: float = 0.0         # encode wall time hidden in the
                                      # previous round's wait window
     # launches of the port's own CUDA kernels this round (counted by the
-    # wrappers): 2 for a fused round on the card (coded_matmul +
-    # berrut_combine), 7 for an encrypted fused round (+ 4 mask_add and the
-    # berrut_combine encode), 3 + 2·(N + n_waited) for a staged encrypted
-    # round; 0 on the CPU, where the plain versions run
+    # wrappers; the module docstring lists them per path): 2 for a fused
+    # round on the card (coded_matmul + berrut_combine), 7 for an encrypted
+    # fused round, 3 + 2·(N + n_waited) for a staged encrypted round, 0-3
+    # berrut_combine launches for a loop round by scheme; 0 on the CPU,
+    # where the plain versions run
     dispatches: int = 0
     # --- fault-tolerant round fields (kept for parity; a later slice) ----
     retries: int = 0
@@ -116,6 +142,68 @@ class RoundStats:
                 self.crypto_s - self.pipelined_s)
 
 
+class WorkerPool:
+    """N simulated workers behind the event-driven round API.
+
+    Ports the virtual-clock parts of the reference's ``WorkerPool``: the
+    analytic virtual clock (``runtime.transport.VirtualClockTransport``).
+    The ``"threads"`` and ``"socket"`` backends keep their names (a spec
+    that selects them still loads) and raise when a round would reach them:
+    they come in a later slice (see ROADMAP.md).
+    """
+
+    def __init__(self, n_workers: int, straggler, real_threads: bool = False,
+                 *, backend: Optional[str] = None, transport_options=None):
+        self.n = n_workers
+        self.straggler = straggler
+        self._backend = backend if backend is not None else \
+            ("threads" if real_threads else "virtual")
+        self._options = dict(transport_options or {})
+        self._virtual = VirtualClockTransport(straggler)
+
+    @property
+    def backend(self) -> str:
+        return self._backend
+
+    @property
+    def real_threads(self) -> bool:
+        """True when rounds run on a real (non-virtual) backend."""
+        return self._backend != "virtual"
+
+    @property
+    def transport(self) -> VirtualClockTransport:
+        """The backend the next round runs on."""
+        if self.real_threads:
+            raise NotImplementedError(
+                f"transport {self._backend!r} comes in a later slice of the "
+                "port; see ROADMAP.md")
+        return self._virtual
+
+    def close(self):
+        """Nothing long-lived to release on the virtual clock.  Idempotent."""
+        self._virtual.close()
+
+    def run_round(self, shards, f, round_idx: int, wait_for: int,
+                  t_compute: Optional[float] = None):
+        """shards: list of per-worker inputs (or (a,b) tuples).  Returns
+        (responder_indices, results_in_responder_order, wait_seconds).
+
+        ``t_compute`` is the virtual-clock per-task compute time (the
+        caller owns the latency model).  Only the selected responders'
+        work runs: stragglers the policy never picks cost nothing.
+        """
+        transport = self.transport
+        if t_compute is None:
+            raise ValueError("virtual-clock run_round needs t_compute "
+                             "(see RoundEngine._worker_compute_time)")
+        handle = transport.submit_round(shards, f, round_idx,
+                                        t_compute=t_compute)
+        events = list(itertools.islice(handle.events(), int(wait_for)))
+        resp = np.sort(np.asarray([e.worker for e in events],
+                                  dtype=np.int64))
+        return resp, [handle.result(i) for i in resp], float(events[-1].t)
+
+
 class RoundEngine:
     """Coded A@B rounds for one ``ClusterSpec`` on one device (see module
     docstring).  ``straggler`` / ``policy`` accept pre-built instances for
@@ -129,6 +217,9 @@ class RoundEngine:
         self.encrypt = spec.crypto.encrypt
         self.straggler = straggler if straggler is not None else \
             spec.straggler.build(self.n, spec.seed)
+        self.pool = WorkerPool(
+            self.n, self.straggler, backend=spec.transport.backend,
+            transport_options=spec.transport.backend_options())
         self.scheme = spec.build_scheme()
         spec.validate(scheme=self.scheme)
         self.policy = resolve_policy(policy if policy is not None
@@ -180,7 +271,9 @@ class RoundEngine:
             self._fused_crypto_t = {}       # shapes -> measured wire seconds
 
     def close(self):
-        """Nothing long-lived to release on the virtual clock.  Idempotent."""
+        """Release the pool (nothing long-lived on the virtual clock).
+        Idempotent."""
+        self.pool.close()
 
     # ------------------------------------------------------- latency model
     def _worker_compute_time(self, lhs_shape, rhs_shape) -> float:
@@ -188,7 +281,9 @@ class RoundEngine:
         per-worker operand shapes on the engine's device (once per shape,
         cached) and divide by N — the N workers run concurrently.  A timing
         probe, so it may use ``torch.matmul``.  The right factor is
-        broadcast over the N workers, not copied N times."""
+        broadcast over the N workers, not copied N times (the reference
+        gives each worker its own, which matters for pair-coded schemes
+        only; the loop round passes its per-worker shapes here)."""
         key = (tuple(lhs_shape), tuple(rhs_shape))
         if key not in self._worker_t:
             lhs = torch.zeros((self.n,) + tuple(lhs_shape), device=self.device)
@@ -462,6 +557,84 @@ class RoundEngine:
                                                              wait_s))
         return out, stats
 
+    def _loop_round(self, shards, f, round_idx: int, t_comp: float):
+        """The unfused round's worker phase under the wait policy (the
+        virtual clock's branch of the reference's ``_loop_round``): the
+        policy picks the prefix off the analytic timeline and ONLY the
+        selected responders' work runs.  Returns (responders,
+        results_in_responder_order, wait_s, events)."""
+        plan = plan_round(self.scheme, self.policy,
+                          self.straggler.delays(round_idx), t_comp,
+                          self.straggler.n_stragglers)
+        resp = plan.responders
+        return resp, [f(shards[i]) for i in resp], plan.wait_s, plan.events
+
+    def _matmul_loop(self, a: torch.Tensor, b: torch.Tensor, round_idx: int,
+                     noise=None):
+        """The loop round: encode (pair-coded: both factors), the wire out
+        (``encrypt="real"``), one product per responder, the wire back,
+        the scheme's exact decode and reassembly.  The bits-codec wire is
+        lossless, so the encrypted round's output equals the plain one's."""
+        scheme = self.scheme
+        real = self.encrypt == "real"
+        launches0 = kernel_launches()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        if scheme.pair_coded:
+            ea, eb = scheme.encode_pair(a, b)
+            shards = [(ea[i], eb[i]) for i in range(self.n)]
+            f = PairMatmulTask()
+            lhs_shape, rhs_shape = ea.shape[1:], eb.shape[1:]
+        else:
+            enc = scheme.encode(a, noise)
+            shards = [enc[i] for i in range(self.n)]
+            f = MatmulTask(b)
+            lhs_shape, rhs_shape = enc.shape[1:], b.shape
+        _sync(self.device)
+        t_enc = time.perf_counter() - t0
+
+        crypto_s = 0.0
+        if real:
+            # in-process wire: every worker decrypts bit-identical shard
+            # bytes, round-tripped master-side
+            t0 = time.perf_counter()
+            shards = [
+                tuple(self._wire(part, self._master_kp, self._worker_kps[i])
+                      for part in s) if isinstance(s, tuple)
+                else self._wire(s, self._master_kp, self._worker_kps[i])
+                for i, s in enumerate(shards)]
+            _sync(self.device)
+            crypto_s += time.perf_counter() - t0
+
+        t_comp = self._worker_compute_time(lhs_shape, rhs_shape)
+        resp, results, wait_s, events = self._loop_round(shards, f,
+                                                         round_idx, t_comp)
+        _sync(self.device)              # the responders' products
+        if real:
+            # wire back: responders encrypt their products to the master
+            t0 = time.perf_counter()
+            results = [self._wire(r, self._worker_kps[i], self._master_kp)
+                       for i, r in zip(resp, results)]
+            _sync(self.device)
+            crypto_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec = scheme.decode(torch.stack(results), list(resp))
+        out = scheme.reconstruct_matmul(dec, a.shape[0], b.shape[-1])
+        _sync(self.device)
+        t_dec = time.perf_counter() - t0
+        launches = kernel_launches() - launches0
+        # the reference's modeled estimate counts each shard's first part
+        modeled = self._crypto_overhead_elems(self.n * math.prod(lhs_shape),
+                                              torch.float32)
+        stats = self._stats(events, wait_s, encode_s=t_enc,
+                            compute_wait_s=wait_s, decode_s=t_dec,
+                            crypto_s=crypto_s if real else modeled,
+                            n_waited=len(resp),
+                            crypto_modeled_s=modeled if real else 0.0,
+                            dispatches=launches,
+                            pipelined_s=self._account_encode(t_enc, wait_s))
+        return out, stats
+
     def _unported_path(self) -> Optional[str]:
         """The reference path this spec would take that the port lacks."""
         if self.fault.active:
@@ -470,8 +643,6 @@ class RoundEngine:
             return "the adaptive redundancy controller (AdaptiveSpec)"
         if self.spec.transport.backend != "virtual":
             return f"transport {self.spec.transport.backend!r}"
-        if not self.use_fused:
-            return f"the loop round ({self.name!r}, not fused)"
         if self.policy.needs_proxy:
             return f"the anytime pipeline ({self.policy.name})"
         return None
@@ -481,9 +652,11 @@ class RoundEngine:
 
         On the fused path encode/compute/decode run as one unit, so the
         whole master-side wall time is reported as ``encode_s`` and
-        ``decode_s`` is 0; ``compute_wait_s`` stays the virtual-clock wait.
-        ``noise`` optionally supplies the scheme's (T, blk, d) noise blocks
-        (the parity tests hand in the reference's).
+        ``decode_s`` is 0; on the loop path ``encode_s`` and ``decode_s``
+        are the master's encode and decode.  ``compute_wait_s`` is the
+        virtual-clock wait either way.  ``noise`` optionally supplies the
+        scheme's (T, blk, d) noise blocks (the parity tests hand in the
+        reference's).
         """
         return self._matmul_inner(a, b, round_idx, noise=noise)
 
@@ -494,6 +667,8 @@ class RoundEngine:
                 f"{what} comes in a later slice of the port; see ROADMAP.md")
         a = torch.as_tensor(a, dtype=torch.float32, device=self.device)
         b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
+        if not self.use_fused:
+            return self._matmul_loop(a, b, round_idx, noise)
         if self.encrypt == "real":
             if self._crypto_fused:
                 return self._matmul_real_fused(a, b, round_idx, noise)

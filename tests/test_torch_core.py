@@ -178,14 +178,17 @@ def test_generic_pinv_decode_matches():
 
 
 def test_registry_builds_spacdc_only_so_far():
-    assert registry.names() == ["spacdc"]
+    # the name is kept from the first slice; the registry now also holds
+    # the baselines of core/baselines.py ported since, and no other scheme
+    assert registry.names() == ["conv", "matdot", "mds", "polynomial",
+                                "spacdc"]
     scheme = registry.build("spacdc", n_workers=8, k_blocks=4, t_colluding=1,
                             use_kernel=False, not_a_knob=3)
     assert isinstance(scheme, SPACDCCode) and scheme.use_kernel is False
     assert scheme.supports_fused and scheme.fused_decode_stable
     assert scheme.wait_policy(3) == 5 and scheme.min_responders == 1
     with pytest.raises(KeyError, match="unknown coding scheme"):
-        registry.build("mds", n_workers=8, k_blocks=4)
+        registry.build("lcc", n_workers=8, k_blocks=4)
     with pytest.raises(ValueError, match="already registered"):
         registry.register("spacdc", lambda: None)
 

@@ -574,6 +574,67 @@ def test_cuda_berrut_encode_then_identity_is_coded_matmul(cuda, case):
                            coded.to(torch.bfloat16))
 
 
+# the loop round's berrut_combine calls at the Fig-3 backward job A(512,10)
+# @ B(10,256), N = 30, S = 5, in the order each scheme makes them
+LOOP_SCHEMES = {"mds": (24, ("encode", "decode")),
+                "matdot": (12, ("encode_a", "encode_b", "decode")),
+                "polynomial": (24, ("encode_a", "encode_b", "decode"))}
+
+
+@pytest.mark.parametrize("scheme", sorted(LOOP_SCHEMES))
+def test_cuda_berrut_kernel_at_the_loop_round_shapes(cuda, scheme):
+    """berrut_combine against its plain version at the shapes the loop
+    round hands it, recorded from the scheme as the engine drives it: the
+    mds K=24 decode (Q = J = 24, weights from a float64 ``inv``), matdot
+    p=12's encode of 1-column ``swapaxes`` blocks and its Q = J = 23
+    decode, the polynomial encode of B's padded transpose.  Encodes within
+    the float32 tolerance; the ill-conditioned decodes against the float64
+    product, the kernel's error at most 4x the plain version's plus 1e-6
+    of max |exact|."""
+    from repro_torch.api import ClusterSpec, Session
+    k, names = LOOP_SCHEMES[scheme]
+    spec = ClusterSpec.from_legacy_kwargs(scheme, 30, k, n_stragglers=5)
+    rng = np.random.default_rng(5)
+    a = _torch(rng.standard_normal((512, 10)), "float32", cuda)
+    b = _torch(rng.standard_normal((10, 256)), "float32", cuda)
+    calls = []
+    with Session(spec, device=cuda) as s:
+        assert not s.engine.use_fused
+        orig = s.engine.scheme._combine
+
+        def record(w, blocks):
+            calls.append((w, blocks))
+            return orig(w, blocks)
+        s.engine.scheme._combine = record
+        s.matmul(a, b, round_idx=1)
+    assert len(calls) == len(names)
+    if scheme == "matdot":
+        assert tuple(calls[0][1].shape) == (12, 512, 1)   # 1-column blocks
+        assert tuple(calls[2][1].shape) == (23, 512, 256)
+    if scheme == "polynomial":
+        assert tuple(calls[1][1].shape) == (1, 256, 10)
+        assert not calls[1][1].is_contiguous()       # B's transpose
+    for name, (w, blocks) in zip(names, calls):
+        before = berrut_encode_kernel.launches
+        got = ops.berrut_combine(w, blocks)
+        torch.cuda.synchronize()
+        assert berrut_encode_kernel.launches == before + 1, name
+        want = ops.berrut_combine(w, blocks, force_kernel=False)
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        if name != "decode":
+            assert _rel(got, want) <= TOL["float32"], name
+            continue
+        assert np.asarray(w).dtype == np.float64
+        j = blocks.shape[0]
+        w32 = torch.as_tensor(w).to(device=cuda, dtype=torch.float32)
+        exact = (w32.double() @ blocks.reshape(j, -1).double()).reshape(
+            got.shape)
+        err_k = float((got.double() - exact).abs().max())
+        err_p = float((want.double() - exact).abs().max())
+        assert err_k <= 4 * err_p + 1e-6 * float(exact.abs().max()), \
+            (name, err_k, err_p)
+
+
 def test_cuda_coded_matmul_scratch_extents(cuda):
     """The kernel's split planes: N * blk, d and n_out rounded up to its
     GEMM's 128 x 128 tiles and 32-wide k-slices; refused past its grids."""

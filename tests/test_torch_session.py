@@ -94,16 +94,11 @@ def _unported_specs():
         "fault": ClusterSpec(fault=api.FaultSpec(handle=True), **base),
         "error_target": ClusterSpec(wait=api.WaitSpec(policy="error_target",
                                                       eps=0.1), **base),
-        # encryption runs now on the fused rounds; it still raises with the
-        # anytime pipeline and on the loop round
+        # encryption runs now on the fused and the loop rounds; it still
+        # raises with the anytime pipeline
         "encrypt_real_error_target": ClusterSpec(
             crypto=api.CryptoSpec(encrypt="real"),
             wait=api.WaitSpec(policy="error_target", eps=0.1), **base),
-        "encrypt_real_loop_round": ClusterSpec(
-            crypto=api.CryptoSpec(encrypt="real", fused=False),
-            code=api.CodeSpec(n_workers=8, k_blocks=4, fused=False)),
-        "loop_round": ClusterSpec(code=api.CodeSpec(n_workers=8, k_blocks=4,
-                                                    fused=False)),
         "threads": ClusterSpec(transport=api.TransportSpec(backend="threads"),
                                **base),
         "adaptive": ClusterSpec(adaptive=api.AdaptiveSpec(policy="adaptive"),
@@ -120,12 +115,51 @@ def test_unported_round_paths_raise(path):
 
 
 @pytest.mark.parametrize("method,args", [
-    ("anytime_curve", (np.ones((8, 3)), np.ones((3, 2)))),
-    ("init_mlp", ((4, 3, 2),)), ("train_step", (None, None)), ("serve", ())])
+    ("anytime_curve", (np.ones((8, 3)), np.ones((3, 2)))), ("serve", ())])
 def test_unported_session_methods_raise(method, args):
     with Session(ClusterSpec(), device="cpu") as s:
         with pytest.raises(NotImplementedError, match="later slice"):
             getattr(s, method)(*args)
+
+
+def _loop_spec(**crypto):
+    return ClusterSpec(code=port_api.CodeSpec(n_workers=8, k_blocks=4,
+                                              fused=False),
+                       crypto=port_api.CryptoSpec(**crypto))
+
+
+@pytest.mark.parametrize("path", ["loop_round", "encrypt_real_loop_round"])
+def test_ported_loop_round_paths_run(path):
+    """Once "still unported" cases: the loop round runs, plain and with the
+    real MEA-ECC wire, and the encrypted round's output is the plain
+    round's, bit for bit."""
+    a = np.arange(24, dtype=np.float32).reshape(8, 3) / 7
+    b = np.ones((3, 2), np.float32)
+    with Session(_loop_spec(), device="cpu") as s:
+        want, wst = s.matmul(a, b, round_idx=0)
+    spec = _loop_spec(encrypt="real", fused=False) \
+        if path == "encrypt_real_loop_round" else _loop_spec()
+    with Session(spec, device="cpu") as s:
+        assert not s.engine.use_fused
+        got, st = s.matmul(a, b, round_idx=0)
+    assert torch.equal(got, want)
+    assert tuple(got.shape) == (8, 2) and st.decode_s > 0.0
+    assert st.n_waited == wst.n_waited
+    assert (st.crypto_s > 0.0) == (path == "encrypt_real_loop_round")
+
+
+@pytest.mark.parametrize("method", ["init_mlp", "train_step"])
+def test_ported_session_training_methods_run(method):
+    """Once "still unported" cases: ``init_mlp`` builds the state on the
+    session's device, and ``train_step`` then returns a finite loss."""
+    with Session(ClusterSpec(), device="cpu") as s:
+        assert s.init_mlp((4, 3, 2), seed=0) is s
+        assert all(w.device.type == "cpu" for w in s.mlp_weights)
+        if method == "train_step":
+            x = np.linspace(-1, 1, 24, dtype=np.float32).reshape(6, 4)
+            loss, elapsed = s.train_step(x, np.arange(6) % 2)
+            assert np.isfinite(loss) and elapsed > 0
+            assert len(s.round_stats) == 1
 
 
 def test_lifecycle_round_counter_and_pipelining():

@@ -147,18 +147,23 @@ class WorkerPool:
 
     Ports the virtual-clock parts of the reference's ``WorkerPool``: the
     analytic virtual clock (``runtime.transport.VirtualClockTransport``).
-    The ``"threads"`` and ``"socket"`` backends keep their names (a spec
-    that selects them still loads) and raise when a round would reach them:
-    they come in a later slice (see ROADMAP.md).
+    The ``"threads"`` and ``"socket"`` backends keep their names and raise
+    when a round would reach them, as do ``transport_options`` (only the
+    socket backend reads them): they come in a later slice (see
+    ROADMAP.md).  ``RoundEngine`` plans its virtual rounds itself and holds
+    no pool.
     """
 
     def __init__(self, n_workers: int, straggler, real_threads: bool = False,
                  *, backend: Optional[str] = None, transport_options=None):
+        if transport_options:
+            raise NotImplementedError(
+                "transport_options configure the socket backend, which "
+                "comes in a later slice of the port; see ROADMAP.md")
         self.n = n_workers
         self.straggler = straggler
         self._backend = backend if backend is not None else \
             ("threads" if real_threads else "virtual")
-        self._options = dict(transport_options or {})
         self._virtual = VirtualClockTransport(straggler)
 
     @property
@@ -217,9 +222,6 @@ class RoundEngine:
         self.encrypt = spec.crypto.encrypt
         self.straggler = straggler if straggler is not None else \
             spec.straggler.build(self.n, spec.seed)
-        self.pool = WorkerPool(
-            self.n, self.straggler, backend=spec.transport.backend,
-            transport_options=spec.transport.backend_options())
         self.scheme = spec.build_scheme()
         spec.validate(scheme=self.scheme)
         self.policy = resolve_policy(policy if policy is not None
@@ -271,9 +273,7 @@ class RoundEngine:
             self._fused_crypto_t = {}       # shapes -> measured wire seconds
 
     def close(self):
-        """Release the pool (nothing long-lived on the virtual clock).
-        Idempotent."""
-        self.pool.close()
+        """Nothing long-lived to release on the virtual clock.  Idempotent."""
 
     # ------------------------------------------------------- latency model
     def _worker_compute_time(self, lhs_shape, rhs_shape) -> float:

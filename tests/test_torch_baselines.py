@@ -16,15 +16,19 @@ relative to the reference output's max |value|:
 * at the Fig-3 backward job with mds K=24 and matdot's 23 points, the
   decode is ill-conditioned, so each package is held against a float64
   product instead: the port's error at most 4x the reference's plus 1e-6
-  of max |exact|;
+  of max |exact| (``chip_smoke.f64_rule``);
 * the encrypted loop round is bit-identical to the plain loop round.
 
 The ``cuda`` cases hold the loop round on the card (kernels) against the
-same round through the plain versions; they import no JAX and skip without
-a card.
+same round through the plain versions, and each of its ``berrut_combine``
+calls against the plain version on the same inputs, elementwise within
+float32's error bound (``chip_smoke.combine_bound_ratio``); they import no
+JAX and skip without a card.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -223,13 +227,17 @@ def _ref_noise(ref_engine, a_shape):
     return np.asarray(scheme.make_noise((blk, a_shape[1])))
 
 
+def _smoke():
+    """``chip_smoke.py``, whose error rules these tests share."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _within_f64_rule(got, want, exact) -> bool:
-    """The port's error against the float64 product at most 4x the
-    reference's, plus 1e-6 of max |exact|."""
-    exact = np.asarray(exact, np.float64)
-    err_ref = np.abs(np.asarray(want, np.float64) - exact).max()
-    err_port = np.abs(_np(got).astype(np.float64) - exact).max()
-    return err_port <= 4 * err_ref + 1e-6 * np.abs(exact).max()
+    return _smoke().f64_rule(torch, got, want, exact)["holds"]
 
 
 def _assert_same_round(got, gst, want, wst, pinv_decode=False):
@@ -313,6 +321,50 @@ def test_fig3_backward_loop_round_against_float64(scheme, k):
     assert _within_f64_rule(got, want, exact)
 
 
+@pytest.mark.parametrize("scheme,k", [("mds", 24), ("matdot", 12)])
+def test_combine_bound_holds_the_fig3_decode_to_float32_rounding(scheme, k):
+    """The elementwise bound that holds a ``berrut_combine`` kernel to its
+    plain version (``chip_smoke.combine_bound_ratio``) at the
+    ill-conditioned Fig-3 decodes: the same result is 0 off, a recomputed
+    one within 1, while a decode 0.1% off everywhere, one with a term
+    dropped, or zeros, lie outside it; the float64 rule passes the
+    first."""
+    from repro_torch.kernels import ops
+    smoke = _smoke()
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((512, 10), generator=gen)
+    b = torch.randn((10, 256), generator=gen)
+    calls = []
+    with Session(ClusterSpec.from_legacy_kwargs(scheme, 30, k,
+                                                n_stragglers=5),
+                 device="cpu") as s:
+        run = s.engine.scheme._combine
+        s.engine.scheme._combine = \
+            lambda w, blocks: calls.append((w, blocks)) or run(w, blocks)
+        s.matmul(a, b, round_idx=1)
+    w, blocks = calls[-1]               # the decode
+    assert blocks.shape[0] == (24 if scheme == "mds" else 23)
+    want = ops.berrut_combine(w, blocks)
+    j = blocks.shape[0]
+    flat = blocks.reshape(j, -1)
+    w32 = torch.as_tensor(w).float()
+    # the same sum in the other order of j, and as float32 elementwise fmas
+    again = torch.zeros_like(flat[:w32.shape[0]])
+    for i in reversed(range(j)):
+        again = torch.addcmul(again, w32[:, i:i + 1], flat[i:i + 1])
+    exact = (w32.double() @ flat.double()).reshape(want.shape)
+    ratio = lambda got: smoke.combine_bound_ratio(torch, w, blocks, got,
+                                                  want)
+    assert ratio(want.clone()) == 0.0
+    assert ratio(again.reshape(want.shape)) <= 1.0
+    dropped = np.array(w)
+    dropped[:, -1] = 0.0
+    for wrong in (want * 1.001, ops.berrut_combine(dropped, blocks),
+                  torch.zeros_like(want)):
+        assert ratio(wrong) > 1.0
+    assert smoke.f64_rule(torch, want * 1.001, want, exact)["holds"]
+
+
 def test_conv_waits_for_stragglers_and_spacdc_does_not_for_mds():
     conv = DistributedMatmul("conv", 10, 4, n_stragglers=2, seed=3,
                              device="cpu")
@@ -394,6 +446,9 @@ def test_worker_pool_real_backends_come_later():
         pool.run_round([None] * 4, lambda s: s, 0, 4, t_compute=0.0)
     assert WorkerPool(4, StragglerModel(4, 0), real_threads=True).backend \
         == "threads"
+    with pytest.raises(NotImplementedError, match="later slice"):
+        WorkerPool(4, StragglerModel(4, 0), backend="socket",
+                   transport_options={"timeout_s": 1.0})
 
 
 def test_legacy_and_session_loop_rounds_are_bit_identical():
@@ -430,7 +485,9 @@ CARD_LOOP = [("mds", 24, 2), ("matdot", 12, 3), ("polynomial", 24, 3),
 def test_cuda_loop_round_matches_plain(cuda, scheme, k, combines):
     """The Fig-3 backward job's loop round: kernels against the plain
     versions on the card (same plan; 1e-5 of max |plain|, or, for the
-    ill-conditioned decodes, the float64 rule), with its exact launches."""
+    ill-conditioned decodes, the float64 rule), with its exact launches;
+    each of the kernel round's ``berrut_combine`` calls elementwise within
+    float32's error bound of the plain version on the same inputs."""
     spec = ClusterSpec.from_legacy_kwargs(
         scheme, 30, k, t_colluding=3 if scheme == "spacdc" else 0,
         n_stragglers=5, fused=False if scheme in ("spacdc", "conv") else None)
@@ -440,8 +497,10 @@ def test_cuda_loop_round_matches_plain(cuda, scheme, k, combines):
     gen.manual_seed(0)
     a = torch.randn((512, 10), generator=gen, device=cuda) * 0.1
     b = torch.randn((10, 256), generator=gen, device=cuda) * 0.01
+    smoke, ratios = _smoke(), []
     with Session(spec, device=cuda) as sk, \
             Session(plain_spec, device=cuda) as sp:
+        smoke.hold_combines(torch, sk.engine.scheme, ratios)
         n0 = berrut_encode_kernel.launches
         got, gst = sk.matmul(a, b, round_idx=1)
         torch.cuda.synchronize()
@@ -452,12 +511,10 @@ def test_cuda_loop_round_matches_plain(cuda, scheme, k, combines):
     assert not sk.engine.use_fused
     assert [w for _, w in gst.arrivals] == [w for _, w in wst.arrivals]
     assert got.device == a.device and bool(torch.isfinite(got).all())
-    exact = a.double() @ b.double()
-    err_k = float((got.double() - exact).abs().max())
-    err_p = float((want.double() - exact).abs().max())
-    scale = float(exact.abs().max())
-    assert _rel(got, want) <= TOL or err_k <= 4 * err_p + 1e-6 * scale, \
-        (err_k, err_p)
+    assert len(ratios) == combines and max(ratios, default=0.0) <= 1.0, \
+        ratios
+    assert _rel(got, want) <= TOL or \
+        _within_f64_rule(got, want, a.double() @ b.double())
 
 
 @pytest.mark.parametrize("scheme", ["mds", "matdot"])

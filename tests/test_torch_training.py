@@ -20,7 +20,8 @@ The ``cuda`` cases hold a training step through the kernels against the
 same step with the kernels forced off, on the card; they import no JAX.
 """
 
-import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -324,45 +325,52 @@ def test_empirical_leakage_shrinks():
 # the card: a training step through the kernels against the plain versions
 # --------------------------------------------------------------------------
 
+def _smoke():
+    """``chip_smoke.py``, whose training spec and error rules the card
+    cases share."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("scheme", ["spacdc", "conv", "mds", "matdot"])
 def test_cuda_train_step_kernels_match_plain(cuda, scheme):
-    """The Fig-3 apparatus (N=30, S=5; spacdc K=24 T=3, matdot p=12) at
-    784-512-10: one step through the kernels against the same step with
-    the kernels forced off, loss within 1e-5 relative; the weights within
-    1e-5 of max |w| on the fused round (spacdc, conv).  mds K=24 and
-    matdot's 23 points decode through Vandermonde inverses that amplify
-    any float32 rounding by ~1e6, so there each step is held against the
-    float64 step with the coded product exact: the kernel's error at most
-    4x the plain step's plus 1e-6 of max |w|.  Neither may pick up TF32."""
+    """The Fig-3 apparatus (``chip_smoke.train_spec``: N=30, S=5; spacdc
+    K=24 T=3, matdot p=12) at 784-512-10: one step through the kernels
+    against the same step with the kernels forced off, loss within 1e-5
+    relative; every ``berrut_combine`` call of the kernel step elementwise
+    within float32's error bound of the plain version on the same inputs
+    (``chip_smoke.combine_bound_ratio``); the weights within 1e-5 of max
+    |w| on the fused round (spacdc, conv).  mds K=24 and matdot's 23
+    points decode through Vandermonde inverses that amplify any float32
+    rounding by ~1e6, so the two steps part there and each is held against
+    the float64 step with the coded product exact
+    (``chip_smoke.f64_rule``).  Neither may pick up TF32."""
     assert not torch.backends.cuda.matmul.allow_tf32
-    spec = ClusterSpec(
-        code=CodeSpec(scheme=scheme, n_workers=30,
-                      k_blocks=12 if scheme == "matdot" else 24),
-        privacy=PrivacySpec(t_colluding=3 if scheme == "spacdc" else 0),
-        straggler=StragglerSpec(n_stragglers=5), seed=0)
-    plain = dataclasses.replace(
-        spec, code=dataclasses.replace(spec.code, use_kernel=False))
+    smoke = _smoke()
     xtr, ytr, _, _ = synthetic_mnist(n_train=256, n_test=8, seed=0)
-    out = []
-    for sp in (spec, plain):
+    xtr, ytr = torch.from_numpy(xtr).to(cuda), torch.from_numpy(ytr).to(cuda)
+    out, ratios = [], []
+    for sp in (smoke.train_spec(scheme),
+               smoke.train_spec(scheme, use_kernel=False)):
         with Session(sp, device=cuda) as s:
             s.init_mlp((784, 512, 10), lr=0.05, seed=0)
+            if not out:
+                smoke.hold_combines(torch, s.engine.scheme, ratios)
             loss, _ = s.train_step(xtr, ytr)
             out.append((loss, [w.clone() for w in s.mlp_weights],
                         s.round_stats[-1]))
     (lk, wk, sk), (lp, wp, spl) = out
     assert sk.dispatches > 0 and spl.dispatches == 0
     assert abs(lk - lp) <= 1e-5 * abs(lp)
+    assert len(ratios) == smoke.ROUND_LAUNCHES[scheme]["berrut_combine"]
+    assert max(ratios) <= 1.0, ratios
     if scheme in ("spacdc", "conv"):
         for a, b in zip(wk, wp):
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
         return
-    w64, b64 = coded_mlp_init((784, 512, 10), 0, device=cuda)
-    w64, b64 = [w.double() for w in w64], [b.double() for b in b64]
-    exact = type("Stats", (), {"total_s": 0.0})
-    coded_mlp_step(w64, b64, lambda a, m, round_idx: (a @ m, exact),
-                   torch.from_numpy(xtr).to(cuda).double(), ytr, lr=0.05)
-    err_k = max(float((a.double() - x).abs().max()) for a, x in zip(wk, w64))
-    err_p = max(float((a.double() - x).abs().max()) for a, x in zip(wp, w64))
-    scale = max(float(x.abs().max()) for x in w64)
-    assert err_k <= 4 * err_p + 1e-6 * scale, (err_k, err_p)
+    rule = smoke.f64_rule(torch, wk, wp, smoke.exact_first_step(
+        torch, cuda, (784, 512, 10), (xtr, ytr)))
+    assert rule["holds"], rule

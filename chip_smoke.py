@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Four main paths.  Two are SPACDC coded rounds through
+Five main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -34,6 +34,17 @@ backward product a coded round: the fused round (``coded_matmul`` +
 encodes and decode around one ``torch.matmul`` per responder) for mds and
 matdot; then spacdc on the paper config's 784-512-256-10.
 
+The fifth is the paper's central claim in running form, decoding at any
+responder prefix: ``Session(ClusterSpec.anytime_bench()).anytime_curve(a,
+b)`` (the error-vs-latency curve) and ``error_target`` rounds, which stop
+at the earliest prefix whose embedded-pair error estimate meets ``eps``,
+at the qwen2-7b FFN down-projection on a 4096-token prefill (A (4096,
+18944) @ B (18944, 3584), N=30, K=6, T=2): one ``coded_matmul`` (encode +
+all N worker products) and one ``berrut_combine`` (every prefix's decode
+and its Floater–Hormann pair) per round; the same rounds encrypted; and the
+``threads`` transport, where every worker's product runs on a thread and a
+CUDA stream of its own.
+
 Phases, one JSON line each:
 
 1. device and build: the card's name and power limit (``nvidia-smi``), TF32
@@ -47,7 +58,8 @@ Phases, one JSON line each:
    edge values, broadcast masks and both wires' full M;
    ``berrut_combine`` at the decode of every ``coded_matmul`` case, J =
    200, Q = 40, the full-width encode (30, 27, 1,835,008), the prefix
-   decode (720, 30, 2^20), M = 1,000,003 in both dtypes, a view 4 bytes
+   decode (720, 30, 2^20), phase 8's prefix decode (360, 30, 2,447,872),
+   M = 1,000,003 in both dtypes, a view 4 bytes
    in, and the loop round's calls as the schemes make them at the Fig-3
    backward job (mds K=24 encode and float64-inverted decode, matdot p=12
    encodes of 1-column ``swapaxes`` blocks and its Q = J = 23 decode, the
@@ -105,7 +117,28 @@ Phases, one JSON line each:
    of one more kernel run elementwise within float32's error bound of the
    plain version on the same inputs, (b) every accuracy >= 0.95, (c)
    conv's summed virtual wait above spacdc's, (d) an mds loop round with
-   ``encrypt="real"`` bit-identical to the plain loop round.
+   ``encrypt="real"`` bit-identical to the plain loop round;
+8. the anytime and real-thread main path (``anytime_main_path``): (a) the
+   curve of rounds 0 and 1 at the full-width job, one launch of each
+   kernel per curve, every point ready, ``best_err`` non-increasing, the
+   kernels-off curve's workers and times, its errors and proxies within
+   1e-4 relative, the prefix decode held elementwise to its plain version,
+   the first-ready and first-below-eps points; (b) three ``error_target``
+   rounds (eps 5e-2): two launches each, ``n_waited`` < 23, relative error
+   against the float64 product < 2 eps, the kernels-off run's stop index
+   with the proxies' margins, output within 1e-4 of max |plain|, the
+   median ``encode_s`` of three runs, a profiled round's device ms by
+   kernel, its idle share and the peak memory; (c) the encrypted
+   ``error_target`` rounds at fig3_wide, fused and staged, bit-identical to
+   the plain one with exact launches and their ``crypto_s``; (d) the
+   ``threads`` transport under ``paper_fig3()`` at fig3_wide, three rounds
+   and one under ``Deadline(0.01)``, each within 1e-5 of the plain decode
+   of its own responders, its relative error beside the virtual loop
+   round's, the loop round's launches, the Deadline round inside its
+   budget, the pool closed within ``join_timeout_s``; (e) phase 7's spacdc
+   trainer under ``ErrorTarget(0.25)``: one launch of each kernel per
+   round, accuracy >= 0.95, the spread of ``n_waited``; with the phase's
+   seconds.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -365,11 +398,15 @@ def main() -> int:
                   randn(30, 5000, dtype=torch.bfloat16),
                   ptxas["berrut_combine"])
     # the full-width encode, the fig-3 prefix decode (30 prefixes x K = 24
-    # rows), payloads TMA cannot load (M = 3 mod 8; a view 4 bytes in)
+    # rows), phase 8's prefix decode (2 x 30 prefixes x K = 6 rows over the
+    # full-width job's results), payloads TMA cannot load (M = 3 mod 8; a
+    # view 4 bytes in)
     spread = torch.randn(30 * 1000000 + 1, generator=gen, device=dev)
     for name, w, payload in (
             ("encode", randn(30, 27), randn(27, 512 * FULL[1])),
             ("prefix", randn(720, 30), randn(30, 1 << 20)),
+            ("prefix_anytime", randn(360, 30),
+             randn(30, ANYTIME_BLK * ANYTIME_JOB[2])),
             ("unaligned", dec_w, randn(30, 1000003)),
             ("unaligned", dec_w, randn(30, 1000003, dtype=torch.bfloat16)),
             ("offset_view", dec_w, spread[1:].view(30, 1000000))):
@@ -466,6 +503,11 @@ def main() -> int:
 
     # --------------------------------------------- 7. training main path
     for kname, count in training_main_path(torch, dev).items():
+        launches[kname] += count
+    torch.cuda.empty_cache()
+
+    # ---------------------------- 8. anytime and real-thread main path
+    for kname, count in anytime_main_path(torch, dev).items():
         launches[kname] += count
 
     # --------------------------------------------------------- summary
@@ -1331,6 +1373,7 @@ def run_training(torch, dev, spec, sizes, data, kernels: dict,
                                   for k, v in launches.items()},
             "dispatches": sum(st.dispatches for st in stats),
             "n_waited": sorted({st.n_waited for st in stats}),
+            "n_waited_by_round": [st.n_waited for st in stats],
             "rounds": len(stats), "peak_memory_gb": peak_gb,
             "profiled_step": prof, "w_step1": w_step1}
 
@@ -1366,17 +1409,26 @@ def combine_bound_ratio(torch, w, blocks, got, want) -> float:
     ratio above 1 is an error no rounding explains.  ``w`` as the scheme
     hands it in (float64 numpy or a tensor), cast to float32 as
     ``ops.berrut_combine`` casts it; ``blocks`` the float32 (J, ...)
-    payload."""
+    payload.  Taken over column chunks of at most 2^26 outputs, so that
+    the float64 temporaries of a large call stay near 0.5 GB each."""
     assert blocks.dtype == got.dtype == want.dtype == torch.float32
     j = blocks.shape[0]
     w64 = torch.as_tensor(w).to(device=got.device,
                                 dtype=torch.float32).double()
-    limit = (w64.abs() @ blocks.reshape(j, -1).double().abs()) * \
-        (2 * j * U32 / (1 - j * U32))
-    diff = (got.double() - want.double()).reshape(limit.shape).abs()
-    ratio = torch.where(limit > 0, diff / limit,
-                        torch.where(diff > 0, float("inf"), 0.0))
-    return float(ratio.max()) if ratio.numel() else 0.0
+    flat = blocks.reshape(j, -1)
+    got, want = got.reshape(w64.shape[0], -1), want.reshape(w64.shape[0], -1)
+    gamma2 = 2 * j * U32 / (1 - j * U32)
+    step = max(1, (1 << 26) // max(w64.shape[0], 1))
+    worst = 0.0
+    for c in range(0, flat.shape[1], step):
+        limit = (w64.abs() @ flat[:, c:c + step].double().abs()) * gamma2
+        diff = (got[:, c:c + step].double() -
+                want[:, c:c + step].double()).abs()
+        ratio = torch.where(limit > 0, diff / limit,
+                            torch.where(diff > 0, float("inf"), 0.0))
+        if ratio.numel():
+            worst = max(worst, float(ratio.max()))
+    return worst
 
 
 def hold_combines(torch, scheme, ratios: list) -> None:
@@ -1572,6 +1624,465 @@ def training_main_path(torch, dev) -> dict:
     assert d_row["bitwise_equal_plain_round"], d_row
     assert gst.dispatches == 2 + 2 * (30 + gst.n_waited), d_row
     assert gst.crypto_s > 0.0, d_row
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 8: anytime decoding, ErrorTarget rounds and real threads
+# ---------------------------------------------------------------------------
+
+# qwen2-7b FFN down-projection on a 4096-token prefill: A (4096, 18944) @
+# B (18944, 3584) under ClusterSpec.anytime_bench() (N=30, K=6, T=2)
+ANYTIME_JOB = (4096, 18944, 3584)
+ANYTIME_BLK = 683                    # ceil(4096 / K=6) rows per block
+ANYTIME_EPS = 5e-2
+ANYTIME_WIDE = (1536, 256, 512)      # fig3_wide: the encrypted and threads
+                                     # rounds, whose wires dominate there
+THREADS_BUDGET_S = 0.01              # the Deadline round's budget: between
+                                     # the fast workers and the stragglers
+# device kernel classes of an anytime round; the rest is the reassembly,
+# the norms and their temporaries
+ANYTIME_CLASSES = (("berrut_combine", ("berrut_stream",)),
+                   ("coded_matmul", ("encode_split_kernel", "split_b_kernel",
+                                     "gemm_3xtf32_kernel")))
+
+
+def smooth_matrix(m: int, d: int, n_modes: int = 5, decay: float = 2.0,
+                  seed: int = 1):
+    """``benchmarks/bench_anytime.py``'s anytime workload, copied: rows
+    sampled from a few low-frequency cosine harmonics with decaying
+    amplitudes, smooth along the block axis, where early decodes carry
+    information."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(m)[:, None] / m
+    out = np.zeros((m, d))
+    for c in range(n_modes):
+        out += rng.standard_normal(d)[None, :] * np.cos(np.pi * c * t) \
+            / (1.0 + c) ** decay
+    return out.astype(np.float32)
+
+
+def anytime_operands(torch, dev, m: int, d: int, n_out: int):
+    """A by ``smooth_matrix`` (seed 1), B standard normal (seed 0), as
+    ``benchmarks/bench_anytime.py`` draws them; made on the host, then
+    moved (set-up)."""
+    import numpy as np
+    a = torch.from_numpy(smooth_matrix(m, d)).to(dev)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (d, n_out)).astype(np.float32)).to(dev)
+    return a, b
+
+
+def counted(kernels: dict, total: dict, fn):
+    """Run ``fn`` with every kernel's count set to 0 first; add the counts
+    to ``total``.  Returns (fn's result, this call's counts)."""
+    for f in kernels.values():
+        f.launches = 0
+    out = fn()
+    got = {k: f.launches for k, f in kernels.items()}
+    for k, v in got.items():
+        total[k] += v
+    return out, got
+
+
+def hold_prefix_decodes(torch, ratios: list):
+    """Make every ``ops.prefix_decode`` call also run the plain version on
+    the same inputs and append their ``combine_bound_ratio`` to
+    ``ratios``.  Returns the function that undoes it."""
+    from repro_torch.kernels import ops
+    run = ops.prefix_decode
+
+    def prefix_decode(weights, results, *, force_kernel=None):
+        got = run(weights, results, force_kernel=force_kernel)
+        want = run(weights, results, force_kernel=False)
+        e, k, n = weights.shape
+        ratios.append(combine_bound_ratio(torch, weights.reshape(e * k, n),
+                                          results, got, want))
+        return got
+    ops.prefix_decode = prefix_decode
+
+    def undo():
+        ops.prefix_decode = run
+    return undo
+
+
+def stop_margins(prox, stop: int, eps: float, min_prefix: int) -> dict:
+    """How near ``eps`` the proxies that decided the stop prefix lie:
+    ``|prox[stop-1] - eps| / eps`` and the least such margin over the
+    prefixes the policy looked at (``min_prefix`` .. ``stop``); and the
+    stop prefix these proxies give (the earliest from ``min_prefix`` at or
+    below ``eps``, else the whole round), which must be ``stop``."""
+    import numpy as np
+    prox = np.asarray(prox, np.float64)
+    seen = prox[min_prefix - 1:stop]
+    seen = seen[np.isfinite(seen)]
+    below = [p for p in range(min_prefix, prox.size + 1)
+             if prox[p - 1] <= eps]
+    return {"stop_from_curve": below[0] if below else int(prox.size),
+            "stop_proxy": float(prox[stop - 1]),
+            "margin_stop": abs(float(prox[stop - 1]) - eps) / eps,
+            "margin_min": float(np.min(np.abs(seen - eps)) / eps)
+            if seen.size else None}
+
+
+def threads_plain_decode(torch, plain_scheme, a, b, stats):
+    """The plain version of a threads round's result: ``plain_scheme``
+    (kernels forced off, the same seed and hence the same noise) encodes
+    A, the responders of ``stats`` multiply, and the scheme's decode
+    reassembles, on A's device."""
+    resp = sorted(w for _, w in stats.arrivals[:stats.n_waited])
+    enc = plain_scheme.encode(a)
+    res = torch.stack([torch.matmul(enc[i], b) for i in resp])
+    dec = plain_scheme.decode(res, resp)
+    return plain_scheme.reconstruct_matmul(dec, a.shape[0], b.shape[-1])
+
+
+def _use_plain(spec):
+    return dataclasses.replace(spec, code=dataclasses.replace(
+        spec.code, use_kernel=False))
+
+
+def anytime_main_path(torch, dev) -> dict:
+    """Phase 8: (a) ``Session(ClusterSpec.anytime_bench()).anytime_curve``
+    at the full-width job for rounds 0 and 1: one ``coded_matmul`` and one
+    ``berrut_combine`` launch each, every point ready, ``best_err``
+    non-increasing; against the same curve with the kernels forced off the
+    same workers and times and the errors and proxies within ROUND_TOL;
+    every prefix decode held elementwise to the plain version
+    (``combine_bound_ratio``); (b) three ``error_target`` rounds (eps
+    5e-2): 2 launches each, ``n_waited`` < 23, the relative error against
+    the float64 product < 2 eps, the kernels-off run's stop index with the
+    proxies' margins, the output within ROUND_TOL of max |plain|, the
+    median ``encode_s`` of three runs, a profiled round and the peak
+    memory; (c) the encrypted error_target rounds at fig3_wide, fused and
+    staged, bit-identical to the plain one with exact launches; (d) the
+    ``threads`` transport at fig3_wide under ``paper_fig3()``, three
+    rounds and one under ``Deadline``, each against the plain decode of
+    its own responder set; (e) the spacdc trainer under ``ErrorTarget
+    (0.25)``.  Returns the counted runs' launches."""
+    import statistics
+
+    import numpy as np
+    from repro_torch.api import (CryptoSpec, ClusterSpec, Session,
+                                 TransportSpec, WaitSpec)
+    from repro_torch.configs.spacdc_paper import CONFIG as PAPER
+    from repro_torch.data import synthetic_mnist
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel}
+    total = {k: 0 for k in kernels}
+    two = {"coded_matmul": 1, "berrut_combine": 1, "mask_add": 0,
+           "flash_attention": 0}
+    phase_t0 = time.perf_counter()
+    m, d, n_out = ANYTIME_JOB
+    a, b = anytime_operands(torch, dev, m, d, n_out)
+    exact = torch.matmul(a.double(), b.double())         # the float64 C
+    exact_norm = float(torch.linalg.vector_norm(exact))
+    spec = ClusterSpec.anytime_bench()
+    n_workers = spec.code.n_workers
+    assert -(-m // spec.code.k_blocks) == ANYTIME_BLK
+
+    # ---- (a) the curve, rounds 0 and 1
+    curves = {}
+    with Session(spec, device=dev) as sk, \
+            Session(_use_plain(spec), device=dev) as sp, \
+            Session(spec, device=dev) as sh:
+        for r in (0, 1):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pts, launched = counted(kernels, total, lambda: sk.anytime_curve(
+                a, b, round_idx=r))
+            torch.cuda.synchronize()
+            curve_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            # the plain session prices its workers with the kernel
+            # session's measured time, so the two timelines are one
+            sp.engine._worker_t.update(sk.engine._worker_t)
+            want = sp.anytime_curve(a, b, round_idx=r)
+            ratios = []
+            undo = hold_prefix_decodes(torch, ratios)
+            try:
+                sh.anytime_curve(a, b, round_idx=r)
+            finally:
+                undo()
+            gaps = {key: [abs(getattr(g, key) - getattr(w, key))
+                          for g, w in zip(pts, want)
+                          if getattr(w, key) != float("inf")]
+                    for key in ("rel_err", "proxy")}
+            rel_gaps = {key: max(abs(getattr(g, key) - getattr(w, key)) /
+                                 abs(getattr(w, key))
+                                 for g, w in zip(pts, want)
+                                 if 0 < abs(getattr(w, key)) < float("inf"))
+                        for key in ("rel_err", "proxy")}
+            first_below = next((p for p in pts
+                                if p.ready and p.best_err <= ANYTIME_EPS),
+                               None)
+            row = {"phase": "anytime_main_path", "check": "a_curve",
+                   "round": r, "A": [m, d], "B": [d, n_out],
+                   "spec": "anytime_bench", "curve_s": curve_s,
+                   "launches": launched,
+                   "points": [dataclasses.asdict(p) for p in pts],
+                   "first_ready": dataclasses.asdict(pts[0]),
+                   "first_below_eps": dataclasses.asdict(first_below)
+                   if first_below else None,
+                   "eps": ANYTIME_EPS,
+                   "vs_plain_max_abs_gap": {k: max(v) for k, v in
+                                            gaps.items()},
+                   "vs_plain_max_rel_gap": rel_gaps,
+                   "prefix_decode_bound_ratio": ratios,
+                   "peak_memory_gb": peak_gb}
+            emit(row)
+            assert launched == two, row
+            assert _build.build_count == 1, _build.build_count
+            assert len(pts) == n_workers and all(p.ready for p in pts), row
+            best = [p.best_err for p in pts]
+            assert all(b2 <= b1 for b1, b2 in zip(best, best[1:])), row
+            assert [(p.worker, p.t_s) for p in pts] == \
+                [(p.worker, p.t_s) for p in want], row
+            assert all(v <= ROUND_TOL for v in rel_gaps.values()), row
+            assert len(ratios) == 1 and ratios[0] <= 1.0, row
+            curves[r] = [p.proxy for p in pts]
+    torch.cuda.empty_cache()
+
+    # ---- (b) three ErrorTarget rounds
+    et_spec = dataclasses.replace(spec, wait=WaitSpec(policy="error_target",
+                                                      eps=ANYTIME_EPS))
+    min_prefix = et_spec.wait.min_prefix
+    rows_b = []
+    with Session(et_spec, device=dev) as sk, \
+            Session(_use_plain(et_spec), device=dev) as sp:
+        for r in range(3):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            (out, st), launched = counted(kernels, total, lambda: sk.matmul(
+                a, b, round_idx=r))
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            encode_s = [st.encode_s]
+            for _ in range(2):
+                (_, st2), more = counted(kernels, total, lambda: sk.matmul(
+                    a, b, round_idx=r))
+                assert more == two, more
+                encode_s.append(st2.encode_s)
+            want, wst = sp.matmul(a, b, round_idx=r)
+            torch.cuda.synchronize()
+            if r not in curves:
+                curves[r] = [p.proxy for p in
+                             sk.anytime_curve(a, b, round_idx=r)]
+            err, rel = rel_diff(torch, out, want)
+            diff = out.double() - exact
+            rel_f64 = float(torch.linalg.vector_norm(diff)) / exact_norm
+            rows = slice(0, m, m // 64)
+            rel_slice = float(torch.linalg.vector_norm(diff[rows])) / \
+                float(torch.linalg.vector_norm(exact[rows]))
+            del diff
+            prof = profile_device(torch, lambda: sk.matmul(a, b,
+                                                           round_idx=r),
+                                  ANYTIME_CLASSES)
+            row = {"phase": "anytime_main_path", "check": "b_error_target",
+                   "round": r, "eps": ANYTIME_EPS,
+                   "n_waited": st.n_waited, "plain_n_waited": wst.n_waited,
+                   **stop_margins(curves[r], st.n_waited, ANYTIME_EPS,
+                                  min_prefix),
+                   "rel_err_vs_f64": rel_f64,
+                   "rel_err_vs_f64_64_rows": rel_slice,
+                   "kernel_vs_plain_max_abs": err,
+                   "kernel_vs_plain_rel": rel,
+                   "launches": launched, "dispatches": st.dispatches,
+                   "encode_s": encode_s,
+                   "median_encode_s": statistics.median(encode_s),
+                   "plain_encode_s": wst.encode_s,
+                   "compute_wait_s": st.compute_wait_s,
+                   "profiled_round": prof, "peak_memory_gb": peak_gb}
+            emit(row)
+            rows_b.append(row)
+            assert launched == two and st.dispatches == 2, row
+            assert st.n_waited == wst.n_waited < 23, row
+            assert row["stop_from_curve"] == st.n_waited, row
+            assert rel_f64 < 2 * ANYTIME_EPS, row
+            assert rel <= ROUND_TOL, row
+            assert tuple(out.shape) == (m, n_out), row
+            del out, want
+    del a, b, exact
+    torch.cuda.empty_cache()
+
+    # ---- (c) the encrypted ErrorTarget rounds at fig3_wide
+    wm, wd, wn = ANYTIME_WIDE
+    a, b = anytime_operands(torch, dev, wm, wd, wn)
+    rows_c = {}
+    with Session(et_spec, device=dev) as sp:
+        want, wst = sp.matmul(a, b, round_idx=0)
+        for name, fused in (("fused", True), ("staged", False)):
+            real = dataclasses.replace(et_spec, crypto=CryptoSpec(
+                encrypt="real", fused=fused))
+            with Session(real, device=dev) as sr:
+                assert sr.engine._crypto_fused == fused
+                (got, gst), launched = counted(
+                    kernels, total, lambda: sr.matmul(a, b, round_idx=0))
+            wires = 2 if fused else n_workers + gst.n_waited
+            # an engine's first round adds phase 5's one-time probes: the
+            # modeled-rate sample (4 mask_add) and, fused, the crypto_s
+            # probe of the shape's wires (4 more)
+            expect = {"coded_matmul": 1, "berrut_combine": 2,
+                      "mask_add": 2 * wires + (8 if fused else 4),
+                      "flash_attention": 0}
+            row = {"phase": "anytime_main_path", "check": "c_encrypted",
+                   "path": name, "A": [wm, wd], "B": [wd, wn],
+                   "bitwise_equal_plain_round": torch.equal(got, want),
+                   "n_waited": gst.n_waited,
+                   "plain_n_waited": wst.n_waited,
+                   "crypto_s": gst.crypto_s, "encode_s": gst.encode_s,
+                   "decode_s": gst.decode_s, "launches": launched,
+                   "expected_launches": expect,
+                   "dispatches": gst.dispatches}
+            emit(row)
+            rows_c[name] = row
+            assert row["bitwise_equal_plain_round"], row
+            assert gst.n_waited == wst.n_waited, row
+            assert launched == expect, row
+            assert gst.dispatches == 3 + 2 * wires, row
+            assert gst.crypto_s > 0.0, row
+
+    # ---- (d) the threads transport, paper_fig3 at fig3_wide
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    a = torch.randn((wm, wd), generator=gen, device=dev)
+    b = torch.randn((wd, wn), generator=gen, device=dev)
+    exact = torch.matmul(a.double(), b.double())
+    fig3 = ClusterSpec.paper_fig3()
+    thr = dataclasses.replace(fig3, transport=TransportSpec(backend="threads"))
+    virtual_loop = dataclasses.replace(fig3, code=dataclasses.replace(
+        fig3.code, fused=False))
+    plain_scheme = _use_plain(fig3).build_scheme()
+    loop_launch = {"coded_matmul": 0, "berrut_combine": 2, "mask_add": 0,
+                   "flash_attention": 0}
+    rows_d = []
+    for policy in ("fixed_quantile", "deadline"):
+        wait = WaitSpec() if policy == "fixed_quantile" else \
+            WaitSpec(policy="deadline", t_budget=THREADS_BUDGET_S)
+        spec_t = dataclasses.replace(thr, wait=wait)
+        spec_v = dataclasses.replace(virtual_loop, wait=wait)
+        torch.cuda.synchronize()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        s = Session(spec_t, device=dev)
+        try:
+            with Session(spec_v, device=dev) as sv:
+                for r in range(3 if policy == "fixed_quantile" else 2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    (out, st), launched = counted(
+                        kernels, total, lambda: s.matmul(a, b, round_idx=r))
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+                    vout, vst = sv.matmul(a, b, round_idx=r)
+                    want = threads_plain_decode(torch, plain_scheme, a, b, st)
+                    torch.cuda.synchronize()
+                    err, rel = rel_diff(torch, out, want)
+                    norm = float(torch.linalg.vector_norm(exact))
+                    rel_t = float(torch.linalg.vector_norm(
+                        out.double() - exact)) / norm
+                    rel_v = float(torch.linalg.vector_norm(
+                        vout.double() - exact)) / norm
+                    resp = sorted(w for _, w in st.arrivals[:st.n_waited])
+                    vresp = sorted(w for _, w in vst.arrivals[:vst.n_waited])
+                    # each consumed arrival on the host clock behind the
+                    # same worker's arrival on the virtual clock
+                    vt = {w: t for t, w in vst.arrivals}
+                    lag = [t - vt[w] for t, w in st.arrivals]
+                    row = {"phase": "anytime_main_path",
+                           "check": "d_threads", "policy": policy,
+                           "round": r, "A": [wm, wd], "B": [wd, wn],
+                           "n_waited": st.n_waited,
+                           "virtual_n_waited": vst.n_waited,
+                           "same_responders_as_virtual": resp == vresp,
+                           "vs_plain_decode_max_abs": err,
+                           "vs_plain_decode_rel": rel,
+                           "rel_err_vs_exact": rel_t,
+                           "virtual_loop_rel_err_vs_exact": rel_v,
+                           "compute_wait_s": st.compute_wait_s,
+                           "virtual_compute_wait_s": vst.compute_wait_s,
+                           "arrival_lag_ms": {
+                               "median": 1e3 * statistics.median(lag),
+                               "max": 1e3 * max(lag)},
+                           "arrivals_s": [t for t, _ in st.arrivals],
+                           "virtual_arrivals_s": [t for t, _ in
+                                                  vst.arrivals],
+                           "encode_s": st.encode_s, "decode_s": st.decode_s,
+                           "round_wall_s": wall_s,
+                           "launches": launched, "dispatches": st.dispatches}
+                    if policy == "deadline":
+                        row["t_budget_s"] = THREADS_BUDGET_S
+                        # the master's wait on the host clock past the
+                        # budget: the round's wall time less its encode
+                        # and decode (a pool's first round also holds the
+                        # threads' warm-up and the worker-time probe)
+                        row["wait_overshoot_s"] = (wall_s - st.encode_s -
+                                                   st.decode_s -
+                                                   THREADS_BUDGET_S) \
+                            if r > 0 else None
+                    emit(row)
+                    rows_d.append(row)
+                    assert launched == loop_launch, row
+                    assert st.dispatches == 2, row
+                    assert rel <= 1e-5, row
+                    assert bool(torch.isfinite(out).all()), row
+                    if resp == vresp:
+                        assert abs(rel_t - rel_v) <= 1e-6 * rel_v, row
+                    if policy == "deadline":
+                        assert st.compute_wait_s <= THREADS_BUDGET_S, row
+                        assert 1 <= st.n_waited < n_workers, row
+                    else:
+                        assert st.n_waited == 23, row
+        finally:
+            torch.cuda.synchronize()
+            open_gb = torch.cuda.memory_allocated() / 1e9
+            t0 = time.perf_counter()
+            s.close()
+            close_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        join_s = s.engine.pool._threads.join_timeout_s
+        emit({"phase": "anytime_main_path", "check": "d_threads_close",
+              "policy": policy, "close_s": close_s, "join_timeout_s": join_s,
+              "allocated_gb": {"before": before_gb, "open": open_gb,
+                               "closed": torch.cuda.memory_allocated() / 1e9},
+              "clears_cublas_workspaces": hasattr(
+                  torch._C, "_cuda_clearCublasWorkspaces")})
+        assert close_s <= join_s + 0.1, close_s
+        assert s.engine.pool._executor is None
+    del a, b, exact
+    torch.cuda.empty_cache()
+
+    # ---- (e) the spacdc trainer under ErrorTarget(0.25)
+    arrays = synthetic_mnist(n_train=4096, n_test=1024, seed=PAPER.seed)
+    data = tuple(torch.from_numpy(x).to(dev) for x in arrays)   # set-up
+    t_spec = dataclasses.replace(train_spec("spacdc"), wait=WaitSpec(
+        policy="error_target", eps=0.25))
+    run = run_training(torch, dev, t_spec, (784, 512, 10), data, kernels)
+    for k in total:
+        total[k] += run["launches"][k]
+    run.pop("w_step1")
+    want = {k: TRAIN_STEPS * v for k, v in two.items()}
+    spread = np.asarray(run["n_waited_by_round"])
+    row = {"phase": "anytime_main_path", "check": "e_error_target_training",
+           "scheme": "spacdc", "layer_sizes": [784, 512, 10], "eps": 0.25,
+           **run, "expected_launches": want,
+           "n_waited_spread": {"min": int(spread.min()),
+                               "median": float(np.median(spread)),
+                               "max": int(spread.max())},
+           "phase_s": time.perf_counter() - phase_t0}
+    emit(row)
+    assert run["launches"] == want, row
+    assert run["dispatches"] == 2 * TRAIN_STEPS, row
+    assert run["path"] == "fused", row
+    assert run["test_accuracy"] >= 0.95, row
     return total
 
 

@@ -1,12 +1,14 @@
 """``Session``: the context-managed runtime behind one ``ClusterSpec``.
 
-Ports ``Session.__init__``, its lifecycle, ``Session.matmul`` and the
-SPACDC-DL training step (paper Algorithm 2: ``coded_mlp_init``,
-``mlp_forward``, ``coded_mlp_step``, ``Session.init_mlp`` / ``train_step``
-/ ``mlp_accuracy``) of ``repro/api/session.py``:
+Ports ``Session.__init__``, its lifecycle, ``Session.matmul``,
+``Session.anytime_curve`` and the SPACDC-DL training step (paper
+Algorithm 2: ``coded_mlp_init``, ``mlp_forward``, ``coded_mlp_step``,
+``Session.init_mlp`` / ``train_step`` / ``mlp_accuracy``) of
+``repro/api/session.py``:
 
     with Session(ClusterSpec.paper_fig3()) as s:       # on the card
         out, stats = s.matmul(a, b)                    # one coded round
+        points = s.anytime_curve(a, b)                 # error vs latency
         s.init_mlp((784, 512, 10), lr=0.05)
         loss, elapsed = s.train_step(x, y)             # SPACDC-DL step
 
@@ -19,8 +21,8 @@ lives on the same device as float32 tensors; the uncoded products are
 ``torch.matmul`` in IEEE float32 (the package never turns TF32 on).  The
 reference's state is float64 under numpy 2 (its float32 draw times a
 float64 scale promotes); the port keeps float32, the reference's initial
-weights rounded to float32 bit for bit.  Anytime curves and serving come in
-later slices and raise ``NotImplementedError`` until then.
+weights rounded to float32 bit for bit.  Serving comes in a later slice
+and raises ``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
@@ -243,9 +245,15 @@ class Session:
             raise RuntimeError("call init_mlp(layer_sizes) first")
         return _mlp_accuracy(self._mlp[0], self._mlp[1], x, y)
 
-    # ------------------------------------------------- later slices' paths
-    def anytime_curve(self, a, b, round_idx: int = 0):
-        _later("anytime_curve")
+    def anytime_curve(self, a, b, round_idx: int = 0, *, noise=None):
+        """Error-vs-latency curve of one round (one ``coded_matmul`` and
+        one ``berrut_combine`` launch); see
+        :meth:`repro_torch.runtime.engine.RoundEngine.anytime_curve`.
+        ``noise`` optionally supplies the (T, blk, d) noise blocks."""
+        self._check_open()
+        return self.engine.anytime_curve(a, b, round_idx=round_idx,
+                                         noise=noise)
 
+    # ------------------------------------------------- later slices' paths
     def serve(self, arch: str = "qwen2-7b", **kwargs):
         _later("serve")

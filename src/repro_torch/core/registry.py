@@ -10,6 +10,15 @@ kernels (``kernels.ops.coded_matmul`` and ``kernels.ops.berrut_combine``).
 ``use_kernel`` is the schemes' tri-state (None = kernel for CUDA tensors,
 True = force the kernel, False = the plain PyTorch version).
 
+Anytime decoding (the paper's no-minimum-wait claim, §V): every scheme
+decodes an arbitrary responder prefix (``anytime_decode``) and gives the
+decode weights of every prefix of an arrival order at once
+(``prefix_decode_weights``, float64 ``np.linalg.pinv`` on the host by
+default), so a round's whole anytime curve is one batched
+``kernels.ops.prefix_decode``.  Rateless schemes add a second decoder for
+the embedded-pair error proxy (``anytime_proxy_weights``); the default has
+none.  ``decode_residuals`` comes with the fault paths (see ROADMAP.md).
+
 Registered so far: ``spacdc`` (``core/spacdc.py``) and the baselines
 ``conv``, ``mds``, ``polynomial`` and ``matdot`` (``core/baselines.py``);
 LCC, GLCC, SecPoly, BACC and ``berrut_grad`` come later (see ROADMAP.md).
@@ -17,13 +26,36 @@ LCC, GLCC, SecPoly, BACC and ``berrut_grad`` come later (see ROADMAP.md).
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["SchemeDefaults", "register", "build", "get", "names"]
+__all__ = ["AnytimeDecode", "SchemeDefaults", "register", "build", "get",
+           "names"]
+
+
+@dataclasses.dataclass
+class AnytimeDecode:
+    """Result of decoding an in-flight round at an arbitrary responder
+    prefix (the paper's no-minimum-wait claim, §V).
+
+    ``ready`` is False when the scheme cannot decode this prefix at all
+    (threshold schemes below their recovery threshold); ``decoded`` is the
+    scheme's usual decoded-block stack otherwise.
+    """
+    ready: bool
+    decoded: Optional[Any]
+    n_responders: int
+
+
+def _host(x) -> np.ndarray:
+    """A tensor on any device, an array or a list, as numpy."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 class SchemeDefaults:
@@ -44,6 +76,14 @@ class SchemeDefaults:
     def encode_pair(self, a, b):
         raise NotImplementedError(
             f"{self.name}: data-coded scheme — use encode(x)")
+
+    def decode_masked(self, results, mask):
+        """Default masked decode for concrete masks: gather the responder
+        subset and defer to ``decode``.  Rateless schemes with a runtime
+        masked decode override this (SPACDC)."""
+        resp = np.flatnonzero(_host(mask))
+        idx = torch.from_numpy(resp).to(results.device)
+        return self.decode(results[idx], resp)
 
     # -- fused round (linear data-coded schemes) -------------------------
     def fused_encoder_matrix(self):
@@ -120,6 +160,67 @@ class SchemeDefaults:
     def min_responders(self) -> int:
         """Smallest responder prefix the scheme can decode at all."""
         return 1 if self.rateless else int(self.recovery_threshold)
+
+    # -- anytime (progressive) decoding ----------------------------------
+    def anytime_decode(self, results_so_far, mask) -> AnytimeDecode:
+        """Decode an in-flight round at an arbitrary responder prefix.
+
+        ``results_so_far``: (N, ...) worker results with non-responder
+        slots holding anything; ``mask``: (N,) responder mask.  Rateless
+        schemes decode any non-empty prefix; threshold schemes report
+        ``ready=False`` below their recovery threshold.
+        """
+        n = int(_host(mask).astype(bool).sum())
+        if n < self.min_responders:
+            return AnytimeDecode(ready=False, decoded=None, n_responders=n)
+        return AnytimeDecode(ready=True,
+                             decoded=self.decode_masked(results_so_far, mask),
+                             n_responders=n)
+
+    def prefix_decode_weights(self, arrival_order):
+        """Stacked decode weights for EVERY prefix of a concrete arrival
+        order: ``(E, K, N)`` float32 numpy + ``(E,)`` ready flags, E =
+        len(order).
+
+        ``weights[p-1] @ results`` decodes the first-p-arrivals prefix, so
+        a whole round's anytime curve is ONE batched contraction
+        (``kernels.ops.prefix_decode``).  Built on the host in float64, as
+        the reference builds it: the float64 ``pinv`` keeps large-K
+        Vandermonde prefixes exact where a float32 inverse would drown in
+        conditioning noise.  Prefixes below ``min_responders`` get zero
+        weights and ``ready=False``.
+        """
+        enc = self.fused_encoder_matrix()
+        if enc is None:
+            raise NotImplementedError(
+                f"{self.name}: no linear encoder — no prefix decode stack")
+        enc = _host(enc).astype(np.float64)
+        n = enc.shape[0]
+        order = np.asarray(arrival_order, dtype=np.int64)
+        k_out = self.fused_out_blocks
+        weights = np.zeros((order.size, k_out, n), np.float32)
+        ready = np.zeros(order.size, bool)
+        masked = np.zeros_like(enc)
+        for p in range(1, order.size + 1):
+            masked[order[p - 1]] = enc[order[p - 1]]
+            if p < self.min_responders:
+                continue
+            weights[p - 1] = np.linalg.pinv(masked)[:k_out].astype(np.float32)
+            ready[p - 1] = True
+        return weights, ready
+
+    def anytime_proxy_weights(self, arrival_order, fh_degree: int = 2):
+        """Optional second decoder stack for the embedded-pair error proxy
+        (``(E, K, N)`` weights + ``(E,)`` valid flags), or None.
+
+        Rateless schemes return a higher-order decode here (SPACDC:
+        Floater–Hormann of blending degree ``fh_degree``) whose
+        disagreement with the primary decode estimates the primary's
+        error.  Threshold schemes decode exactly once past their
+        threshold, so they have no embedded pair: the engine prices their
+        prefixes 0 (ready) / inf (not).
+        """
+        return None
 
     def wait_policy(self, n_stragglers: int = 0) -> int:
         if self.rateless:

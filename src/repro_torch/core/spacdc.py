@@ -214,6 +214,30 @@ class SPACDCCode(registry.SchemeDefaults):
                 : len(resp)]
         return weights, np.ones(order.size, bool)
 
+    def anytime_proxy_weights(self, arrival_order, fh_degree: int = 2):
+        """The embedded-pair proxy decoder: Floater–Hormann degree-d
+        weights over the same prefixes.  FH converges an order faster than
+        Berrut's d=0 interpolant, so ``|decode_d0 - decode_fh|`` estimates
+        the d=0 decode's error without the true product.  Prefixes with
+        ≤ d+1 nodes (where FH degenerates to Berrut) are flagged invalid.
+        As in the reference, the FH weights are float64 over the float32
+        nodes, and ``berrut.bary_weight_matrix`` evaluates in float32.
+        """
+        order = np.asarray(arrival_order, dtype=np.int64)
+        k = self.cfg.k_blocks
+        nodes_all = self.alphas.numpy().astype(np.float64)
+        betas = self.betas.numpy().astype(np.float64)[:k]
+        weights = np.zeros((order.size, k, self.n_workers), np.float32)
+        valid = np.zeros(order.size, bool)
+        for p in range(fh_degree + 2, order.size + 1):
+            resp = np.sort(order[:p])
+            nodes = nodes_all[resp]
+            bw = berrut.fh_weights(nodes, fh_degree)
+            mat = berrut.bary_weight_matrix(betas, nodes, bw).numpy()
+            weights[p - 1, :, resp] = mat.T[: len(resp)]
+            valid[p - 1] = True
+        return weights, valid
+
 
 registry.register(
     "spacdc",

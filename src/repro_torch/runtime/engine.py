@@ -1,10 +1,10 @@
 """The coded-round engine behind ``repro_torch.api.Session``.
 
-Ports ``RoundStats``, the virtual-clock parts of ``WorkerPool`` and the
-rounds of ``repro/runtime/engine.py`` that run on the virtual clock:
-``RoundEngine.__init__`` with its crypto setup, the latency model
-(``_worker_compute_time``, ``_round_compute_time``, ``_virtual_round_plan``),
-the encode-pipelining credit, and four round paths on the engine's device:
+Ports ``RoundStats``, ``WorkerPool`` and the rounds of
+``repro/runtime/engine.py``: ``RoundEngine.__init__`` with its crypto
+setup, the latency model (``_worker_compute_time``,
+``_round_compute_time``, ``_virtual_round_plan``), the encode-pipelining
+credit, and these round paths on the engine's device:
 
 * **fused** (``_matmul_fused``): encode → all N worker matmuls → masked
   decode, one ``coded_matmul`` and one ``berrut_combine`` launch of the
@@ -22,22 +22,42 @@ the encode-pipelining credit, and four round paths on the engine's device:
   split at its wire boundaries; every shard and every responder's result
   crosses as a genuine ``MEAECC`` ciphertext (``_wire``), two ``mask_add``
   launches per transfer.
-* **loop** (``_matmul_loop``: pair-coded schemes, ``code.fused=False``, and
+* **anytime** (proxy-driven policies, ``ErrorTarget``; ``_matmul_anytime``
+  and ``anytime_curve``): stage 1 is encode + all N worker products in one
+  ``coded_matmul``; stage 2 decodes EVERY arrival prefix, Berrut and its
+  Floater–Hormann embedded pair, in one ``kernels.ops.prefix_decode``
+  (one ``berrut_combine`` over 2·E·K weight rows), then reassembles every
+  prefix, takes the embedded-pair error proxies and, for a curve, the true
+  errors against ``torch.matmul(a, b)``.  The policy stops at the earliest
+  prefix whose proxy meets its target.
+* **anytime real**: the anytime round over the MEA-ECC wire, fused
+  (``_matmul_anytime_real_fused``: stage 1 is the fused real round's
+  ``encrypted_coded_matmul``) or staged (``_matmul_anytime_real``: encode,
+  every shard wired out, the products, stage 2, and only the arrivals up
+  to the stop prefix wired back).  Proxies, stop and output are the plain
+  anytime round's, bit for bit.
+* **loop** (``_matmul_loop``: pair-coded schemes, ``code.fused=False``,
   linear schemes whose masked decode is not stable in float32, e.g. mds at
-  K=24): the scheme's ``encode`` / ``encode_pair`` (``berrut_combine``),
-  one ``torch.matmul`` per responder (``runtime.tasks``, IEEE float32), the
-  scheme's exact ``decode`` (``berrut_combine`` with float64-inverted
-  weights) and ``reconstruct_matmul``.  Only the responders' products run,
-  as on the reference's virtual clock.  ``encrypt="real"`` wires every
-  shard out and every responder's result back through ``_wire``;
-  ``encrypt="modeled"`` prices ``crypto_s`` as the fused round does.
+  K=24, and every real transport): the scheme's ``encode`` /
+  ``encode_pair`` (``berrut_combine``), one ``torch.matmul`` per worker
+  (``runtime.tasks``, IEEE float32), the scheme's exact ``decode``
+  (``berrut_combine`` with float64-inverted weights) and
+  ``reconstruct_matmul``.  On the virtual clock only the responders'
+  products run, except under a proxy-driven policy, whose float64 proxies
+  (``_loop_round``) need every worker's product.  On the ``threads``
+  transport (``WorkerPool.run_round_real``) every worker's product runs on
+  a thread and a CUDA stream of its own and the policy consumes real
+  completions.  ``encrypt="real"`` wires every shard out and every
+  responder's result back through ``_wire``; ``encrypt="modeled"`` prices
+  ``crypto_s`` as the fused round does.
 
 Differences from the reference, by design:
 
 * **No jit.**  PyTorch runs eagerly, so the reference's per-shape-class
-  LRU of jitted rounds (``_fused_fn``) and its ``trace_count`` are not
-  ported.  The kernels are built once per process (``kernels._build``);
-  a new straggler mask or shape is a kernel argument, never a new build.
+  LRU of jitted rounds (``_fused_fn``, the anytime stages) and its
+  ``trace_count`` are not ported.  The kernels are built once per process
+  (``kernels._build``); a new straggler mask, arrival order or shape is a
+  kernel argument, never a new build.
 * **The device** is the ``device=`` argument (``None`` = ``"cuda"``; with
   no CUDA device that raises rather than quietly running on the CPU), never
   a spec field.  The loop round's shards and results stay on it, where the
@@ -47,14 +67,15 @@ Differences from the reference, by design:
   so the round's timer does not include it.
 * **``RoundStats.dispatches``** counts the round's launches of the port's
   own kernels (the reference counts jitted dispatches, 0 on its loop
-  path).  On the card: 2 on the fused path, 7 on the fused real path,
-  3 + 2·(N + responders) on the staged real path.  On the loop path,
-  ``berrut_combine`` launches: 2 for mds and unfused spacdc (encode,
-  decode), 0 for unfused conv (a reshape and a reorder), 3 for matdot and
-  polynomial (two encodes, one decode); ``encrypt="real"`` adds two
-  ``mask_add`` launches per shard part sent and per result returned,
-  2·(N + responders) for a data-coded scheme and 2·(2N + responders) for
-  a pair-coded one.  0 on the CPU.
+  path).  On the card: 2 on the fused and the anytime paths, 7 on the
+  fused real path and the fused real anytime path, 3 + 2·(N + responders)
+  on the staged real path (the anytime one: 3 + 2·(N + stop)).  On the
+  loop path, ``berrut_combine`` launches: 2 for mds and unfused spacdc
+  (encode, decode), 0 for unfused conv (a reshape and a reorder), 3 for
+  matdot and polynomial (two encodes, one decode); ``encrypt="real"`` adds
+  two ``mask_add`` launches per shard part sent and per result returned,
+  2·(N + responders) for a data-coded scheme and 2·(2N + responders) for a
+  pair-coded one.  0 on the CPU.
 * **The virtual clock** prices a worker by timing one batched
   ``torch.matmul`` whose right factor is broadcast over the N workers; the
   reference gives every worker its own right factor, which only pair-coded
@@ -66,10 +87,11 @@ Differences from the reference, by design:
   its fast wires when ``use_kernel`` was unset).
 * The timers synchronise the device before each stop, where the reference
   calls ``block_until_ready``.
+* The loop round's float64 proxies are computed on the engine's device,
+  where the reference's run in numpy on the host.
 
-Every other path of the reference (real transports, the anytime pipeline
-with or without encryption, fault handling, adaptive redundancy) raises
-``NotImplementedError`` until its slice is ported (see ROADMAP.md).
+Fault handling, adaptive redundancy and the socket transport raise
+``NotImplementedError`` until their slices are ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -84,10 +106,12 @@ import numpy as np
 import torch
 
 from ..kernels.ops import kernel_launches
-from .scheduler import EncodePipeline, plan_round
+from .scheduler import (EncodePipeline, assemble_curve, plan_round,
+                        virtual_events)
 from .tasks import MatmulTask, PairMatmulTask
-from .transport import VirtualClockTransport
-from .wait_policy import resolve_policy
+from .transport import ThreadTransport, VirtualClockTransport, build_transport
+from .wait_policy import (RoundContext, WaitPolicy, resolve_policy,
+                          scheme_min_responders)
 
 __all__ = ["RoundStats", "WorkerPool", "RoundEngine", "resolve_device"]
 
@@ -123,10 +147,10 @@ class RoundStats:
                                      # previous round's wait window
     # launches of the port's own CUDA kernels this round (counted by the
     # wrappers; the module docstring lists them per path): 2 for a fused
-    # round on the card (coded_matmul + berrut_combine), 7 for an encrypted
-    # fused round, 3 + 2·(N + n_waited) for a staged encrypted round, 0-3
-    # berrut_combine launches for a loop round by scheme; 0 on the CPU,
-    # where the plain versions run
+    # or an anytime round on the card (coded_matmul + berrut_combine), 7
+    # for an encrypted fused or fused anytime round, 3 + 2·(N + n_waited)
+    # for a staged encrypted round, 0-3 berrut_combine launches for a loop
+    # round by scheme; 0 on the CPU, where the plain versions run
     dispatches: int = 0
     # --- fault-tolerant round fields (kept for parity; a later slice) ----
     retries: int = 0
@@ -145,13 +169,14 @@ class RoundStats:
 class WorkerPool:
     """N simulated workers behind the event-driven round API.
 
-    Ports the virtual-clock parts of the reference's ``WorkerPool``: the
-    analytic virtual clock (``runtime.transport.VirtualClockTransport``).
-    The ``"threads"`` and ``"socket"`` backends keep their names and raise
-    when a round would reach them, as do ``transport_options`` (only the
+    A facade over the transports (``runtime.transport``): the analytic
+    virtual clock and the real-thread backend with one long-lived
+    executor.  ``real_threads`` is a flippable property consulted per
+    round, so callers can flip a pool between the virtual clock and real
+    threads mid-life.  The ``"socket"`` backend keeps its name and raises
+    when a round would reach it, as do ``transport_options`` (only the
     socket backend reads them): they come in a later slice (see
-    ROADMAP.md).  ``RoundEngine`` plans its virtual rounds itself and holds
-    no pool.
+    ROADMAP.md).
     """
 
     def __init__(self, n_workers: int, straggler, real_threads: bool = False,
@@ -165,6 +190,7 @@ class WorkerPool:
         self._backend = backend if backend is not None else \
             ("threads" if real_threads else "virtual")
         self._virtual = VirtualClockTransport(straggler)
+        self._threads = ThreadTransport(n_workers, straggler)
 
     @property
     def backend(self) -> str:
@@ -175,18 +201,38 @@ class WorkerPool:
         """True when rounds run on a real (non-virtual) backend."""
         return self._backend != "virtual"
 
+    @real_threads.setter
+    def real_threads(self, value) -> None:
+        # legacy flip: True selects threads, False the virtual clock
+        if bool(value):
+            if self._backend == "virtual":
+                self._backend = "threads"
+        else:
+            self._backend = "virtual"
+
     @property
-    def transport(self) -> VirtualClockTransport:
+    def transport(self):
         """The backend the next round runs on."""
-        if self.real_threads:
-            raise NotImplementedError(
-                f"transport {self._backend!r} comes in a later slice of the "
-                "port; see ROADMAP.md")
-        return self._virtual
+        if self._backend == "socket":
+            return build_transport("socket", self.n, self.straggler)
+        return self._threads if self._backend == "threads" else self._virtual
+
+    @property
+    def _executor(self):
+        # the thread transport's executor, None when closed / never used
+        return self._threads._executor
 
     def close(self):
-        """Nothing long-lived to release on the virtual clock.  Idempotent."""
-        self._virtual.close()
+        """Shut the thread transport down (stragglers of the last round
+        included, within its bounded ``join_timeout_s``); surfaces any
+        failure an unconsumed straggler hit after its round.  Idempotent."""
+        self._threads.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def run_round(self, shards, f, round_idx: int, wait_for: int,
                   t_compute: Optional[float] = None):
@@ -194,19 +240,67 @@ class WorkerPool:
         (responder_indices, results_in_responder_order, wait_seconds).
 
         ``t_compute`` is the virtual-clock per-task compute time (the
-        caller owns the latency model).  Only the selected responders'
+        caller owns the latency model): ignored on real threads, required
+        otherwise.  On the virtual clock only the selected responders'
         work runs: stragglers the policy never picks cost nothing.
         """
-        transport = self.transport
+        if self.real_threads:
+            events, done, elapsed = self.run_round_real(
+                shards, f, round_idx, stop_after=wait_for)
+            resp = np.sort(np.asarray([e.worker for e in events[:wait_for]],
+                                      dtype=np.int64))
+            return resp, [done[i] for i in resp], elapsed
         if t_compute is None:
             raise ValueError("virtual-clock run_round needs t_compute "
                              "(see RoundEngine._worker_compute_time)")
-        handle = transport.submit_round(shards, f, round_idx,
-                                        t_compute=t_compute)
+        handle = self._virtual.submit_round(shards, f, round_idx,
+                                            t_compute=t_compute)
         events = list(itertools.islice(handle.events(), int(wait_for)))
         resp = np.sort(np.asarray([e.worker for e in events],
                                   dtype=np.int64))
         return resp, [handle.result(i) for i in resp], float(events[-1].t)
+
+    def run_round_real(self, shards, f, round_idx: int,
+                       policy: Optional[WaitPolicy] = None, scheme=None,
+                       n_stragglers: int = 0,
+                       stop_after: Optional[int] = None):
+        """Event-driven real-thread round.
+
+        Drains the thread transport's completion stream until
+        ``policy.satisfied``, or after ``stop_after`` arrivals when given.
+        Returns (events_consumed, {worker: result}, elapsed_s); stragglers
+        the policy never waited for keep running and are discarded.
+        Policies that need per-prefix error proxies (ErrorTarget) run on
+        the virtual clock: real threads exist to validate the clock.
+        """
+        if policy is not None and policy.needs_proxy:
+            raise NotImplementedError(
+                f"{policy.name}: proxy-driven policies run on the virtual "
+                "clock (real-thread mode validates the clock)")
+        budget = getattr(policy, "t_budget", None)
+        min_ready = scheme_min_responders(scheme) if scheme is not None else 1
+        # a direct caller on a virtual pool gets the thread transport
+        transport = self.transport if self.real_threads else self._threads
+        handle = transport.submit_round(shards, f, round_idx, budget=budget,
+                                        min_ready=min_ready)
+        events = []
+        try:
+            for ev in handle.events():
+                events.append(ev)
+                if stop_after is not None:
+                    if len(events) >= max(int(stop_after), 1):
+                        break
+                    continue
+                if policy is not None and len(events) >= min_ready:
+                    ctx = RoundContext(scheme=scheme,
+                                       n_stragglers=n_stragglers,
+                                       events=events, min_ready=min_ready)
+                    if policy.satisfied(ctx):
+                        break
+        finally:
+            elapsed = handle.finish()
+        done = {e.worker: handle.result(e.worker) for e in events}
+        return events, done, elapsed
 
 
 class RoundEngine:
@@ -226,6 +320,12 @@ class RoundEngine:
         spec.validate(scheme=self.scheme)
         self.policy = resolve_policy(policy if policy is not None
                                      else spec.wait.build())
+        # the embedded-pair proxy decoder's Floater–Hormann degree
+        self.fh_degree = spec.wait.fh_degree
+        # the socket backend keeps raising in _unported_path, so its
+        # options are not handed to the pool
+        self.pool = WorkerPool(self.n, self.straggler,
+                               backend=spec.transport.backend)
         # encode-of-next-round pipelining (opt-in, virtual-clock credit)
         self._pipeline = EncodePipeline() if spec.pipeline_encode else None
         supports = bool(getattr(self.scheme, "supports_fused", False))
@@ -273,7 +373,9 @@ class RoundEngine:
             self._fused_crypto_t = {}       # shapes -> measured wire seconds
 
     def close(self):
-        """Nothing long-lived to release on the virtual clock.  Idempotent."""
+        """Release the pool's long-lived executor.  Idempotent: the
+        Session calls this once on exit, a second call is safe."""
+        self.pool.close()
 
     # ------------------------------------------------------- latency model
     def _worker_compute_time(self, lhs_shape, rhs_shape) -> float:
@@ -558,16 +660,65 @@ class RoundEngine:
         return out, stats
 
     def _loop_round(self, shards, f, round_idx: int, t_comp: float):
-        """The unfused round's worker phase under the wait policy (the
-        virtual clock's branch of the reference's ``_loop_round``): the
-        policy picks the prefix off the analytic timeline and ONLY the
-        selected responders' work runs.  Returns (responders,
-        results_in_responder_order, wait_s, events)."""
-        plan = plan_round(self.scheme, self.policy,
-                          self.straggler.delays(round_idx), t_comp,
-                          self.straggler.n_stragglers)
+        """The unfused round's worker phase under the wait policy.
+
+        Returns (responders, results_in_responder_order, wait_s, events).
+        Virtual clock: the policy picks the prefix off the analytic
+        timeline and ONLY the selected responders' work runs, except under
+        a proxy-driven policy, whose error proxy needs every worker's
+        result.  Real threads: the event loop in
+        ``WorkerPool.run_round_real`` consumes completions until the
+        policy is satisfied.
+        """
+        pool, policy, scheme = self.pool, self.policy, self.scheme
+        if pool.real_threads:
+            events, done, _ = pool.run_round_real(
+                shards, f, round_idx, policy=policy, scheme=scheme,
+                n_stragglers=self.straggler.n_stragglers)
+            ctx = RoundContext(scheme=scheme,
+                               n_stragglers=self.straggler.n_stragglers,
+                               events=events,
+                               min_ready=scheme_min_responders(scheme))
+            stop = int(policy.stop_index(ctx))
+            resp = np.sort(np.asarray([e.worker for e in events[:stop]],
+                                      dtype=np.int64))
+            return resp, [done[i] for i in resp], \
+                float(events[stop - 1].t), events
+        proxy_fn = None
+        results_all = None
+        if policy.needs_proxy:
+            # the proxy needs every worker's output: run them all (the
+            # anytime pipeline of the fused round is the fast path)
+            results_all = [f(s) for s in shards]
+            stack = torch.stack(results_all).reshape(
+                len(results_all), -1).double()
+            fh_degree = self.fh_degree
+
+            def proxy_fn(events):
+                order = [e.worker for e in events]
+                w_lo, ready = scheme.prefix_decode_weights(order)
+                pw = scheme.anytime_proxy_weights(order, fh_degree=fh_degree)
+                if pw is None:
+                    return np.where(ready, 0.0, np.inf)
+                w_hi, valid = pw
+                lo = torch.einsum("ekn,nf->ekf",
+                                  torch.from_numpy(w_lo).to(stack), stack)
+                hi = torch.einsum("ekn,nf->ekf",
+                                  torch.from_numpy(w_hi).to(stack), stack)
+                num = torch.linalg.vector_norm(lo - hi, dim=(1, 2))
+                den = torch.linalg.vector_norm(hi, dim=(1, 2))
+                prox = (num / torch.clamp(den, min=1e-12)).cpu().numpy()
+                return np.where(ready & valid, prox, np.inf)
+
+        plan = plan_round(scheme, policy, self.straggler.delays(round_idx),
+                          t_comp, self.straggler.n_stragglers,
+                          proxy_fn=proxy_fn)
         resp = plan.responders
-        return resp, [f(shards[i]) for i in resp], plan.wait_s, plan.events
+        if results_all is not None:
+            results = [results_all[i] for i in resp]
+        else:
+            results = [f(shards[i]) for i in resp]
+        return resp, results, plan.wait_s, plan.events
 
     def _matmul_loop(self, a: torch.Tensor, b: torch.Tensor, round_idx: int,
                      noise=None):
@@ -635,16 +786,266 @@ class RoundEngine:
                             pipelined_s=self._account_encode(t_enc, wait_s))
         return out, stats
 
+    # ---------------------------------------------------- anytime pipeline
+    def _proxy_stop(self, events, prox) -> int:
+        """The proxy-driven policy's stop prefix for one round timeline."""
+        ctx = RoundContext(scheme=self.scheme,
+                           n_stragglers=self.straggler.n_stragglers,
+                           events=events,
+                           min_ready=scheme_min_responders(self.scheme),
+                           proxies=prox)
+        return int(self.policy.stop_index(ctx))
+
+    def _anytime_results(self, a, b, noise=None):
+        """Stage 1 of the anytime round: encode + ALL N worker products in
+        one ``coded_matmul`` (no decode: the stop prefix is not known
+        yet)."""
+        from ..kernels.ops import coded_matmul
+        scheme = self.scheme
+        return coded_matmul(scheme.fused_encoder_matrix(),
+                            scheme.fused_blocks(a, noise), b,
+                            force_kernel=scheme.use_kernel)
+
+    def _anytime_results_real(self, a, b, noise=None):
+        """Stage 1 of the fused encrypted anytime round: encode, wire out,
+        all N worker products and wire back (``encrypted_coded_matmul``).
+        Every worker's product crosses the wire, where the staged round
+        wires back only what the policy consumed."""
+        from ..kernels.ops import encrypted_coded_matmul
+        scheme = self.scheme
+        mat_out, mat_back = self._fused_mask_material()
+        return encrypted_coded_matmul(
+            scheme.fused_encoder_matrix(), scheme.fused_blocks(a, noise), b,
+            mat_out, mat_back, q=self._mea.curve.q, mode=self._mea.mode,
+            force_kernel=scheme.use_kernel)
+
+    def _anytime_curve(self, results, w_lo, w_hi, valid, a, b,
+                       with_ref: bool):
+        """Stage 2: EVERY responder prefix decoded, Berrut and its
+        embedded pair, in one ``kernels.ops.prefix_decode`` (one
+        ``berrut_combine`` over 2·E·K weight rows), every prefix
+        reassembled, the embedded-pair error proxies and, for a curve, the
+        true relative errors against ``torch.matmul(a, b)`` (IEEE float32:
+        the package never turns TF32 on).  Returns (products (E, m, n)
+        viewing the decode, proxies (E,), rel_errs (E,) or None), on the
+        device."""
+        from ..kernels.ops import prefix_decode
+        scheme = self.scheme
+        m, n_out = a.shape[0], b.shape[-1]
+        e = w_lo.shape[0]
+        dec = prefix_decode(torch.cat([w_lo, w_hi]), results,
+                            force_kernel=scheme.use_kernel)
+        recon = torch.func.vmap(
+            lambda d: scheme.reconstruct_matmul(d, m, n_out))(dec)
+        prod, prod_hi = recon[:e], recon[e:]
+        diff = torch.linalg.vector_norm(prod - prod_hi, dim=(1, 2))
+        den = torch.linalg.vector_norm(prod_hi, dim=(1, 2))
+        prox = torch.where(valid > 0, diff / torch.clamp(den, min=1e-12),
+                           torch.full_like(diff, float("inf")))
+        if not with_ref:
+            return prod, prox, None
+        ref = torch.matmul(a, b)
+        rel = (torch.linalg.vector_norm(prod - ref[None], dim=(1, 2)) /
+               torch.clamp(torch.linalg.vector_norm(ref), min=1e-12))
+        return prod, prox, rel
+
+    def _prefix_weight_stacks(self, events):
+        """Host-side per-prefix decode weights for one round's arrival
+        order, moved to the engine's device: (w_lo, ready, w_hi, valid).
+        Rateless schemes supply a genuine embedded pair (Berrut +
+        Floater–Hormann at the WaitSpec's ``fh_degree``); threshold
+        schemes have no second decoder, so w_hi repeats w_lo with
+        ``valid`` 0 and the proxy reports inf.  ``ready`` stays numpy."""
+        order = [e.worker for e in events]
+        w_lo, ready = self.scheme.prefix_decode_weights(order)
+        pw = self.scheme.anytime_proxy_weights(order,
+                                               fh_degree=self.fh_degree)
+        if pw is None:
+            w_hi, valid = w_lo, np.zeros(len(order), np.float32)
+        else:
+            w_hi, valid = pw[0], np.asarray(pw[1], np.float32)
+
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return dev(w_lo), np.asarray(ready, bool), dev(w_hi), dev(valid)
+
+    def _prefix_postprocess(self, ready, prox, valid):
+        """Shared proxy cleanup, on the host: not-ready prefixes are inf;
+        threshold schemes (no embedded pair anywhere) are exact once
+        decodable."""
+        prox = np.where(ready, prox.cpu().numpy().astype(np.float64), np.inf)
+        if not bool((valid > 0).any()):
+            prox = np.where(ready, 0.0, np.inf)
+        return prox
+
+    def _anytime_prefix_eval(self, a, b, round_idx: int, with_ref: bool,
+                             noise=None):
+        """The shared prefix pipeline behind ErrorTarget rounds and
+        ``anytime_curve``: stage 1 (encode + all worker products), stage 2
+        (every prefix decoded + embedded-pair proxies, optionally the true
+        errors).  Returns (events, ready, proxies, products,
+        rel_errs-or-None)."""
+        _, t_comp = self._round_compute_time(a.shape, b.shape)
+        events = virtual_events(self.straggler.delays(round_idx), t_comp)
+        w_lo, ready, w_hi, valid = self._prefix_weight_stacks(events)
+        results = self._anytime_results(a, b, noise)
+        prod, prox, rel = self._anytime_curve(results, w_lo, w_hi, valid,
+                                              a, b, with_ref)
+        return events, ready, self._prefix_postprocess(ready, prox, valid), \
+            prod, rel
+
+    @staticmethod
+    def _prefix_output(prod, stop: int) -> torch.Tensor:
+        """The stop prefix's product, copied out of the whole decode so
+        that the decode's memory is freed with the round."""
+        return prod[stop - 1].clone(memory_format=torch.contiguous_format)
+
+    def _matmul_anytime(self, a, b, round_idx: int, noise=None):
+        """The proxy-driven round (ErrorTarget): run all workers' math,
+        decode every prefix in one batched launch, stop at the earliest
+        prefix whose embedded error estimate meets the target.  One
+        ``coded_matmul`` and one ``berrut_combine`` launch per round."""
+        blk, _ = self._round_compute_time(a.shape, b.shape)
+        launches0 = kernel_launches()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        events, ready, prox, prod, _ = self._anytime_prefix_eval(
+            a, b, round_idx, with_ref=False, noise=noise)
+        stop = self._proxy_stop(events, prox)
+        out = self._prefix_output(prod, stop)
+        del prod
+        _sync(self.device)
+        t_master = time.perf_counter() - t0
+        launches = kernel_launches() - launches0
+        wait_s = float(events[stop - 1].t)
+        crypto_s = self._crypto_overhead_elems(self.n * blk * a.shape[1],
+                                               torch.float32)
+        hideable = (0.0 if self._pipeline is None else
+                    min(t_master, self._encode_only_time(a.shape)))
+        stats = self._stats(events, wait_s, encode_s=t_master,
+                            compute_wait_s=wait_s, decode_s=0.0,
+                            crypto_s=crypto_s, n_waited=stop,
+                            dispatches=launches,
+                            pipelined_s=self._account_encode(hideable,
+                                                             wait_s))
+        return out, stats
+
+    def _matmul_anytime_real_fused(self, a, b, round_idx: int, noise=None):
+        """The encrypted anytime round, stage 1 with the wire inside
+        (:meth:`_anytime_results_real`), stage 2 as in the plain round.
+        The bits-codec wire is lossless, so proxies, stop index and output
+        equal the plain anytime round's; ``crypto_s`` is the wire work
+        timed alone (:meth:`_fused_crypto_time`)."""
+        blk, t_comp = self._round_compute_time(a.shape, b.shape)
+        events = virtual_events(self.straggler.delays(round_idx), t_comp)
+        launches0 = kernel_launches()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        results = self._anytime_results_real(a, b, noise)
+        w_lo, ready, w_hi, valid = self._prefix_weight_stacks(events)
+        prod, prox, _ = self._anytime_curve(results, w_lo, w_hi, valid, a, b,
+                                            with_ref=False)
+        del results
+        prox = self._prefix_postprocess(ready, prox, valid)
+        stop = self._proxy_stop(events, prox)
+        out = self._prefix_output(prod, stop)
+        del prod
+        _sync(self.device)
+        t_master = time.perf_counter() - t0
+        launches = kernel_launches() - launches0
+        crypto_s = min(self._fused_crypto_time(blk, a.shape[1], b.shape[-1]),
+                       t_master)
+        modeled = self._crypto_overhead_elems(self.n * blk * a.shape[1],
+                                              torch.float32)
+        wait_s = float(events[stop - 1].t)
+        encode_s = t_master - crypto_s
+        hideable = (0.0 if self._pipeline is None else
+                    min(encode_s, self._encode_only_time(a.shape)))
+        stats = self._stats(events, wait_s, encode_s=encode_s,
+                            compute_wait_s=wait_s, decode_s=0.0,
+                            crypto_s=crypto_s, n_waited=stop,
+                            crypto_modeled_s=modeled, dispatches=launches,
+                            pipelined_s=self._account_encode(hideable,
+                                                             wait_s))
+        return out, stats
+
+    def _matmul_anytime_real(self, a, b, round_idx: int, noise=None):
+        """The proxy-driven round over genuine ciphertexts, split at its
+        wire boundaries: encode → every shard wired out → the worker
+        products (:meth:`_staged_stage1`); stage 2 picks the stop prefix,
+        and only the consumed arrivals' results cross the wire back.  The
+        bits codec is lossless, so decoding the pre-wire results equals
+        decoding the wired ones, which lets the stop prefix be computed
+        before the wire back.  ``crypto_s`` is the measured wire time of
+        what the master consumed: all N shards out, the stop prefix's
+        results back."""
+        blk, t_comp = self._round_compute_time(a.shape, b.shape)
+        events = virtual_events(self.straggler.delays(round_idx), t_comp)
+        launches0 = kernel_launches()
+        results, t_enc, crypto_out_s = self._staged_stage1(a, b, noise)
+        t0 = time.perf_counter()
+        w_lo, ready, w_hi, valid = self._prefix_weight_stacks(events)
+        prod, prox, _ = self._anytime_curve(results, w_lo, w_hi, valid, a, b,
+                                            with_ref=False)
+        prox = self._prefix_postprocess(ready, prox, valid)
+        stop = self._proxy_stop(events, prox)
+        out = self._prefix_output(prod, stop)
+        del prod
+        _sync(self.device)
+        t_dec = time.perf_counter() - t0
+        # wire back the consumed arrivals (the decrypted bits are the
+        # sent bits; the measured time is the real cost)
+        t0 = time.perf_counter()
+        for ev in events[:stop]:
+            results[ev.worker] = self._wire(results[ev.worker],
+                                            self._worker_kps[ev.worker],
+                                            self._master_kp)
+        _sync(self.device)
+        crypto_s = crypto_out_s + time.perf_counter() - t0
+        launches = kernel_launches() - launches0
+        wait_s = float(events[stop - 1].t)
+        modeled = self._crypto_overhead_elems(self.n * blk * a.shape[1],
+                                              torch.float32)
+        hideable = (0.0 if self._pipeline is None else
+                    min(t_enc, self._encode_only_time(a.shape)))
+        stats = self._stats(events, wait_s, encode_s=t_enc,
+                            compute_wait_s=wait_s, decode_s=t_dec,
+                            crypto_s=crypto_s, n_waited=stop,
+                            crypto_modeled_s=modeled, dispatches=launches,
+                            pipelined_s=self._account_encode(hideable,
+                                                             wait_s))
+        return out, stats
+
+    def anytime_curve(self, a, b, round_idx: int = 0, *, noise=None):
+        """The full error-vs-latency curve of one virtual-clock round: for
+        every arrival prefix, the virtual time and the decode's true
+        relative error (inf where the scheme can't decode yet), plus the
+        embedded-pair proxy and the monotone ``best_err`` envelope.  One
+        ``coded_matmul`` and one ``berrut_combine`` launch per curve,
+        however many points it has.  ``noise`` optionally supplies the
+        scheme's (T, blk, d) noise blocks.
+
+        Returns a list of :class:`~repro_torch.runtime.scheduler.AnytimePoint`.
+        """
+        if not getattr(self.scheme, "supports_fused", False):
+            raise NotImplementedError(
+                f"{self.name!r}: anytime curves need a linear data-coded "
+                "scheme (prefix decode stacks)")
+        a = torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
+        events, ready, prox, _, rel = self._anytime_prefix_eval(
+            a, b, round_idx, with_ref=True, noise=noise)
+        return assemble_curve(events, rel.cpu().numpy().astype(np.float64),
+                              ready, prox)
+
     def _unported_path(self) -> Optional[str]:
         """The reference path this spec would take that the port lacks."""
         if self.fault.active:
             return "fault injection and handling (FaultSpec)"
         if self.spec.adaptive.enabled:
             return "the adaptive redundancy controller (AdaptiveSpec)"
-        if self.spec.transport.backend != "virtual":
-            return f"transport {self.spec.transport.backend!r}"
-        if self.policy.needs_proxy:
-            return f"the anytime pipeline ({self.policy.name})"
+        if self.spec.transport.backend == "socket":
+            return "transport 'socket'"
         return None
 
     def matmul(self, a, b, round_idx: int = 0, *, noise=None):
@@ -669,6 +1070,13 @@ class RoundEngine:
         b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
         if not self.use_fused:
             return self._matmul_loop(a, b, round_idx, noise)
+        if self.policy.needs_proxy:
+            if self.encrypt == "real":
+                if self._crypto_fused:
+                    return self._matmul_anytime_real_fused(a, b, round_idx,
+                                                           noise)
+                return self._matmul_anytime_real(a, b, round_idx, noise)
+            return self._matmul_anytime(a, b, round_idx, noise)
         if self.encrypt == "real":
             if self._crypto_fused:
                 return self._matmul_real_fused(a, b, round_idx, noise)

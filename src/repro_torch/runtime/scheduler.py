@@ -1,22 +1,25 @@
 """Event-driven round scheduler: worker completions are timestamped events,
 the master decodes at any responder prefix a wait policy picks.
 
-Ports ``plan_round``, ``RoundPlan``, ``virtual_events`` and
-``EncodePipeline`` of ``repro/runtime/scheduler.py`` (numpy only): the same
-delays give exactly the reference's timeline, responders and mask.
+Ports ``plan_round``, ``RoundPlan``, ``virtual_events``, ``AnytimePoint``,
+``assemble_curve`` and ``EncodePipeline`` of ``repro/runtime/scheduler.py``
+(numpy only): the same delays give exactly the reference's timeline,
+responders and mask.  ``screen_responders`` comes with the fault paths
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
 from .wait_policy import (ArrivalEvent, RoundContext, WaitPolicy,
                           resolve_policy, scheme_min_responders)
 
-__all__ = ["RoundPlan", "EncodePipeline", "virtual_events", "plan_round"]
+__all__ = ["RoundPlan", "AnytimePoint", "EncodePipeline", "virtual_events",
+           "plan_round", "assemble_curve"]
 
 
 @dataclasses.dataclass
@@ -32,6 +35,19 @@ class RoundPlan:
     def arrival_order(self) -> np.ndarray:
         """Worker indices in arrival order (the whole timeline)."""
         return np.asarray([e.worker for e in self.events], dtype=np.int64)
+
+
+@dataclasses.dataclass
+class AnytimePoint:
+    """One point of an error-vs-latency curve: what decoding after the
+    ``n_responders``-th arrival (at virtual ``t_s``) would have cost."""
+    n_responders: int
+    worker: int                     # the worker whose arrival this is
+    t_s: float
+    ready: bool                     # scheme can decode this prefix at all
+    rel_err: float                  # raw decode error at this prefix
+    best_err: float                 # monotone envelope: min error up to here
+    proxy: float = float("inf")     # embedded-pair error estimate here
 
 
 def virtual_events(delays: np.ndarray, t_compute: float) -> List[ArrivalEvent]:
@@ -72,6 +88,27 @@ def plan_round(scheme, policy: Optional[WaitPolicy], delays: np.ndarray,
     return RoundPlan(stop=stop, responders=responders,
                      wait_s=float(events[stop - 1].t), events=events,
                      mask=mask)
+
+
+def assemble_curve(events: Sequence[ArrivalEvent], rel_errs: np.ndarray,
+                   ready: np.ndarray,
+                   proxies: Optional[np.ndarray] = None) -> List[AnytimePoint]:
+    """Zip a round timeline with per-prefix decode errors into the anytime
+    curve, adding the monotone envelope (``best_err``: the error of the
+    best decode the master has seen so far; raw Berrut errors oscillate
+    with node parity, the envelope is what an anytime consumer tracks)."""
+    rel_errs = np.asarray(rel_errs, dtype=np.float64)
+    ready = np.asarray(ready, dtype=bool)
+    points: List[AnytimePoint] = []
+    best = float("inf")
+    for p, ev in enumerate(events):
+        err = float(rel_errs[p]) if ready[p] else float("inf")
+        best = min(best, err)
+        points.append(AnytimePoint(
+            n_responders=p + 1, worker=ev.worker, t_s=ev.t,
+            ready=bool(ready[p]), rel_err=err, best_err=best,
+            proxy=float(proxies[p]) if proxies is not None else float("inf")))
+    return points
 
 
 class EncodePipeline:

@@ -3,9 +3,9 @@
 Ports ``MatmulTask`` and ``PairMatmulTask`` of ``repro/runtime/tasks.py``.
 The transport hands each worker an opaque callable ``f`` plus its shard.
 The reference pulls every shard to host numpy and back (its socket backend
-pickles the task to worker processes); on the virtual clock the port keeps
-shards and results on the engine's device, so a task is a plain product of
-device tensors.  The worker product is not a kernel in the reference (it
+pickles the task to worker processes); on the in-process transports (the
+virtual clock and real threads) the port keeps shards and results on the
+engine's device, so a task is a plain product of device tensors.  The worker product is not a kernel in the reference (it
 runs outside any Pallas call), so here it is ``torch.matmul`` in IEEE
 float32: the package never turns TF32 on
 (``torch.backends.cuda.matmul.allow_tf32`` stays at PyTorch's default,

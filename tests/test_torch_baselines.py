@@ -440,15 +440,41 @@ def test_worker_pool_virtual_round_matches_reference():
 
 
 def test_worker_pool_real_backends_come_later():
-    pool = WorkerPool(4, StragglerModel(4, 0), backend="threads")
-    assert pool.backend == "threads" and pool.real_threads
+    pool = WorkerPool(4, StragglerModel(4, 0), backend="socket")
+    assert pool.backend == "socket" and pool.real_threads
     with pytest.raises(NotImplementedError, match="later slice"):
         pool.run_round([None] * 4, lambda s: s, 0, 4, t_compute=0.0)
-    assert WorkerPool(4, StragglerModel(4, 0), real_threads=True).backend \
-        == "threads"
     with pytest.raises(NotImplementedError, match="later slice"):
         WorkerPool(4, StragglerModel(4, 0), backend="socket",
                    transport_options={"timeout_s": 1.0})
+
+
+def test_worker_pool_threads_backend_runs_like_the_reference():
+    """Once the raising half of the test above: the threads backend runs
+    real rounds.  With a zero straggler delay both packages consume all
+    workers; the results are the task's, in responder order."""
+    from repro.runtime.master_worker import WorkerPool as RefPool
+    from repro.runtime.straggler import StragglerModel as RefModel
+    pool = WorkerPool(4, StragglerModel(4, 0), backend="threads")
+    assert pool.backend == "threads" and pool.real_threads
+    assert WorkerPool(4, StragglerModel(4, 0), real_threads=True).backend \
+        == "threads"
+    ref = RefPool(4, RefModel(4, 0), backend="threads")
+    try:
+        shards = [np.full((2, 2), i, np.float32) for i in range(4)]
+        resp_p, res_p, wait_p = pool.run_round(
+            [_t(x) for x in shards], lambda x: x * 2, 0, 4)
+        resp_r, res_r, wait_r = ref.run_round(shards, lambda x: x * 2, 0, 4)
+        np.testing.assert_array_equal(resp_p, resp_r)
+        for got, want in zip(res_p, res_r):
+            np.testing.assert_array_equal(_np(got), want)
+        assert wait_p > 0.0 and wait_r > 0.0
+        pool.real_threads = False
+        assert pool.backend == "virtual" and not pool.real_threads
+    finally:
+        pool.close()
+        ref.close()
+    assert pool._executor is None
 
 
 def test_legacy_and_session_loop_rounds_are_bit_identical():

@@ -92,15 +92,8 @@ def _unported_specs():
     base = dict(code=api.CodeSpec(n_workers=8, k_blocks=4))
     return {
         "fault": ClusterSpec(fault=api.FaultSpec(handle=True), **base),
-        "error_target": ClusterSpec(wait=api.WaitSpec(policy="error_target",
-                                                      eps=0.1), **base),
-        # encryption runs now on the fused and the loop rounds; it still
-        # raises with the anytime pipeline
-        "encrypt_real_error_target": ClusterSpec(
-            crypto=api.CryptoSpec(encrypt="real"),
-            wait=api.WaitSpec(policy="error_target", eps=0.1), **base),
-        "threads": ClusterSpec(transport=api.TransportSpec(backend="threads"),
-                               **base),
+        "socket": ClusterSpec(transport=api.TransportSpec(backend="socket"),
+                              **base),
         "adaptive": ClusterSpec(adaptive=api.AdaptiveSpec(policy="adaptive"),
                                 **base),
     }
@@ -114,12 +107,62 @@ def test_unported_round_paths_raise(path):
             s.matmul(np.ones((8, 3), np.float32), np.ones((3, 2), np.float32))
 
 
-@pytest.mark.parametrize("method,args", [
-    ("anytime_curve", (np.ones((8, 3)), np.ones((3, 2)))), ("serve", ())])
+@pytest.mark.parametrize("method,args", [("serve", ())])
 def test_unported_session_methods_raise(method, args):
     with Session(ClusterSpec(), device="cpu") as s:
         with pytest.raises(NotImplementedError, match="later slice"):
             getattr(s, method)(*args)
+
+
+def _anytime_and_thread_specs():
+    api = port_api
+    base = dict(code=api.CodeSpec(n_workers=8, k_blocks=4))
+    target = api.WaitSpec(policy="error_target", eps=0.1)
+    return {
+        "error_target": ClusterSpec(wait=target, **base),
+        "encrypt_real_error_target": ClusterSpec(
+            crypto=api.CryptoSpec(encrypt="real"), wait=target, **base),
+        "threads": ClusterSpec(transport=api.TransportSpec(backend="threads"),
+                               **base),
+    }
+
+
+@pytest.mark.parametrize("path", sorted(_anytime_and_thread_specs()))
+def test_ported_anytime_and_thread_paths_run(path):
+    """Once "still unported" cases: the ErrorTarget round (plain and over
+    the real MEA-ECC wire, bit-identical) and the threads transport run.
+    Their parity with the reference is ``tests/test_torch_anytime.py``'s."""
+    a = np.arange(24, dtype=np.float32).reshape(8, 3) / 7
+    b = np.ones((3, 2), np.float32)
+    spec = _anytime_and_thread_specs()[path]
+    with Session(spec, device="cpu") as s:
+        got, st = s.matmul(a, b, round_idx=0)
+    assert tuple(got.shape) == (8, 2) and bool(torch.isfinite(got).all())
+    assert 1 <= st.n_waited <= 8
+    if path == "threads":
+        assert not s.engine.use_fused and st.decode_s > 0.0
+        assert st.policy == "fixed_quantile" and st.n_waited == 8
+        return
+    assert st.policy == "error_target" and s.engine.use_fused
+    plain = _anytime_and_thread_specs()["error_target"]
+    with Session(plain, device="cpu") as sp:
+        want, wst = sp.matmul(a, b, round_idx=0)
+    assert torch.equal(got, want) and st.n_waited == wst.n_waited
+    assert (st.crypto_s > 0.0) == (path == "encrypt_real_error_target")
+
+
+def test_ported_session_anytime_curve_runs():
+    """Once a "still unported" method: ``Session.anytime_curve`` gives one
+    point per worker, in arrival order, with a non-increasing envelope."""
+    a = np.linspace(-1, 1, 48, dtype=np.float32).reshape(16, 3)
+    with Session(ClusterSpec(), device="cpu") as s:
+        pts = s.anytime_curve(a, np.ones((3, 2), np.float32), round_idx=2)
+    n = ClusterSpec().code.n_workers
+    assert [p.n_responders for p in pts] == list(range(1, n + 1))
+    assert [p.t_s for p in pts] == sorted(p.t_s for p in pts)
+    assert all(p.ready and np.isfinite(p.rel_err) for p in pts)
+    best = [p.best_err for p in pts]
+    assert all(b2 <= b1 for b1, b2 in zip(best, best[1:]))
 
 
 def _loop_spec(**crypto):

@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Five main paths.  Two are SPACDC coded rounds through
+Six main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -44,6 +44,16 @@ all N worker products) and one ``berrut_combine`` (every prefix's decode
 and its Floater–Hormann pair) per round; the same rounds encrypted; and the
 ``threads`` transport, where every worker's product runs on a thread and a
 CUDA stream of its own.
+
+The sixth is coded serving, the server ``python -m
+repro_torch.launch.serve`` runs: ``Session(ClusterSpec.serve_deadline())
+.serve(arch="qwen2-7b", tiny=False)`` continuously batches requests
+through the full-width model (spacdc N=8, K=4, T=1, an 8 ms Deadline);
+every decode step is one coded round whose unembed (or, with
+``coded_layers="all"``, every projection) runs against weight shards
+encoded once by ``berrut_combine`` and is decoded by one ``berrut_combine``
+launch per site; ``encrypt="real"`` puts every site's two transfers on the
+MEA-ECC wire through ``mask_add``.
 
 Phases, one JSON line each:
 
@@ -138,7 +148,25 @@ Phases, one JSON line each:
    budget, the pool closed within ``join_timeout_s``; (e) phase 7's spacdc
    trainer under ``ErrorTarget(0.25)``: one launch of each kernel per
    round, accuracy >= 0.95, the spread of ``n_waited``; with the phase's
-   seconds.
+   seconds;
+9. the serving main path (``serving_main_path``): ``berrut_combine`` at
+   the serve's encode and decode shapes against its plain version, with
+   ``torch.matmul``'s time and the bound; (a) the full-width, full-depth
+   qwen2-7b under ``serve_deadline()`` with ``coded_layers="unembed"``, 8
+   requests of prompt 16 and gen 32 arriving at 0, counted from zero (one
+   ``berrut_combine`` for the encode and one per step), with tok/s over
+   busy wall, step p50/p99 (virtual and wall), TTFT, steps within the
+   budget, agreement and peak memory; the same Poisson-ragged with every
+   ``berrut_combine`` call held elementwise to its plain version; one
+   profiled step's device split and idle share; (b) the exact spec (mds,
+   first_k 8) at full width, teacher-forced coded logits against plain
+   logits within 2e-2 of max |plain| and no argmax flip outside the near
+   ties; (c) ``coded_layers="all"`` at full width over 8 of 28 layers: 33
+   launches a step, every call held; (d) ``encrypt="real"`` on (c)'s
+   model, tokens bit-identical to the plain wire's with exact ``mask_add``
+   launches; (e) the ``threads`` transport's round mode at full width,
+   tokens equal to the virtual round mode's, the pool closed within
+   ``join_timeout_s``; (f) ``_build.build_count`` still 1.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -274,6 +302,26 @@ def bound(nbytes: float, flops: float, rate: tuple) -> dict:
             "bound_rate": HBM[0] if by_bytes else rate[0]}
 
 
+def build_kernels(torch) -> tuple:
+    """TF32 off, then all four kernels built by ``nvcc`` (one process per
+    source, all started together).  Returns (build seconds, ptxas's
+    report by source), the report read from each library's nvcc log
+    whether this process compiled it or found it built.  Phase 9 alone:
+    ``serving_main_path(torch, torch.device("cuda"),
+    build_kernels(torch)[1]["berrut_combine"])`` with ``src`` on the
+    path."""
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.library("coded_matmul")
+    build_s = time.perf_counter() - t0
+    assert _build.build_count == 1, _build.build_count
+    cu_filt = str(Path(_build._nvcc()).with_name("cu++filt"))
+    return build_s, {stem: demangled(ptxas_report(log), cu_filt)
+                     for stem, log in _build.build_log.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -294,17 +342,8 @@ def main() -> int:
     # ---------------------------------------------------- 1. device, build
     smi = nvidia_smi()
     print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    _build.library("coded_matmul")
-    build_s = time.perf_counter() - t0
-    assert _build.build_count == 1, _build.build_count
-    # every source's log, whether this process compiled it or found it built
-    cu_filt = str(Path(_build._nvcc()).with_name("cu++filt"))
-    ptxas = {stem: demangled(ptxas_report(log), cu_filt)
-             for stem, log in _build.build_log.items()}
+    build_s, ptxas = build_kernels(torch)
     emit({"phase": "device_and_build", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -508,6 +547,11 @@ def main() -> int:
 
     # ---------------------------- 8. anytime and real-thread main path
     for kname, count in anytime_main_path(torch, dev).items():
+        launches[kname] += count
+
+    # -------------------------------------- 9. coded serving main path
+    for kname, count in serving_main_path(
+            torch, dev, ptxas["berrut_combine"]).items():
         launches[kname] += count
 
     # --------------------------------------------------------- summary
@@ -1686,27 +1730,6 @@ def counted(kernels: dict, total: dict, fn):
     return out, got
 
 
-def hold_prefix_decodes(torch, ratios: list):
-    """Make every ``ops.prefix_decode`` call also run the plain version on
-    the same inputs and append their ``combine_bound_ratio`` to
-    ``ratios``.  Returns the function that undoes it."""
-    from repro_torch.kernels import ops
-    run = ops.prefix_decode
-
-    def prefix_decode(weights, results, *, force_kernel=None):
-        got = run(weights, results, force_kernel=force_kernel)
-        want = run(weights, results, force_kernel=False)
-        e, k, n = weights.shape
-        ratios.append(combine_bound_ratio(torch, weights.reshape(e * k, n),
-                                          results, got, want))
-        return got
-    ops.prefix_decode = prefix_decode
-
-    def undo():
-        ops.prefix_decode = run
-    return undo
-
-
 def stop_margins(prox, stop: int, eps: float, min_prefix: int) -> dict:
     """How near ``eps`` the proxies that decided the stop prefix lie:
     ``|prox[stop-1] - eps| / eps`` and the least such margin over the
@@ -1809,7 +1832,7 @@ def anytime_main_path(torch, dev) -> dict:
             sp.engine._worker_t.update(sk.engine._worker_t)
             want = sp.anytime_curve(a, b, round_idx=r)
             ratios = []
-            undo = hold_prefix_decodes(torch, ratios)
+            undo = hold_ops_combines(torch, ratios)
             try:
                 sh.anytime_curve(a, b, round_idx=r)
             finally:
@@ -2083,6 +2106,475 @@ def anytime_main_path(torch, dev) -> dict:
     assert run["dispatches"] == 2 * TRAIN_STEPS, row
     assert run["path"] == "fused", row
     assert run["test_accuracy"] >= 0.95, row
+    return total
+
+
+# --------------------------------------------------------------------------
+# phase 9: continuous-batching coded serving
+# --------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen2-7b"
+SERVE_ALL_LAYERS = 8                 # "all" at full width: 8 of 28 layers
+SERVE_RATE = 40.0                    # the Poisson run's arrivals, req/s
+SERVE_SITE_BLK = {"qkv": 1152, "o": 896, "up": 9472, "down": 896}
+SERVE_CLASSES = (("berrut_combine", ("berrut_stream",)),
+                 ("mask_add", ("mask_add",)),
+                 ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
+                 ("casts", ("copy_kernel",)))
+
+
+def hold_ops_combines(torch, ratios: list):
+    """Make every ``ops.berrut_combine`` call in the process also run the
+    plain version on the same inputs and append their
+    ``combine_bound_ratio`` to ``ratios``: the serving weights' encodes
+    (through the scheme) and every coded site's decode (through
+    ``ops.precoded_matmul`` or the wired site), which no scheme's
+    ``_combine`` sees.  The plain version launches no kernel, so the
+    launch counts stay the serve's.  Returns the function that undoes
+    it."""
+    from repro_torch.kernels import ops
+    run = ops.berrut_combine
+
+    def berrut_combine(weights, blocks, *, force_kernel=None):
+        got = run(weights, blocks, force_kernel=force_kernel)
+        want = run(weights, blocks, force_kernel=False)
+        ratios.append(combine_bound_ratio(torch, weights, blocks, got, want))
+        return got
+    ops.berrut_combine = berrut_combine
+
+    def undo():
+        ops.berrut_combine = run
+    return undo
+
+
+def hold_ops_mask_adds(torch, held: list):
+    """Make every ``mask_add`` kernel call in the process (``ops._limb_ready``
+    with ``use_kernel``, which the cipher cores and every wire go through)
+    also run the plain version on the same limbs and mask and append
+    ``(limb shape, subtract, limbs equal)`` to ``held``: each call is held
+    on its own, so an encrypt and a decrypt whose errors cancel over a
+    round trip still show.  The plain version launches no kernel, so the
+    launch counts stay the caller's.  Returns the function that undoes
+    it."""
+    from repro_torch.kernels import ops
+    run = ops._limb_ready
+
+    def limb_ready(limbs, mask, q, use_kernel, subtract):
+        got = run(limbs, mask, q, use_kernel, subtract)
+        if use_kernel:
+            want = run(limbs, mask, q, False, subtract)
+            held.append((tuple(limbs.shape), bool(subtract),
+                         torch.equal(got.view(torch.int32),
+                                     want.view(torch.int32))))
+        return got
+    ops._limb_ready = limb_ready
+
+    def undo():
+        ops._limb_ready = run
+    return undo
+
+
+def profile_serve_step(torch, session, coded_layers: str,
+                       p50_wall_ms: float) -> dict:
+    """Exactly one decode step (``ContinuousBatcher._run_step``) of the
+    session's warm full-width batcher at bucket 8, on a fresh cache: run
+    once unprofiled, then once under ``profile_device``.  Beside the
+    profile's own idle shares (of its span and of its wall, both lengthened
+    by the profiler), the device's idle share of the unprofiled step's p50
+    wall from the served run."""
+    import numpy as np
+    bat = session._serve_batchers[(SERVE_ARCH, False, 0, coded_layers,
+                                   "continuous")]
+    cache = bat.model.init_cache(8, 8)
+    tok = np.arange(1, 9, dtype=np.int32)
+    pos = np.zeros(8, np.int32)
+    warm_wall = bat._run_step(cache, tok, pos, 8)[3]
+    prof = profile_device(torch, lambda: bat._run_step(cache, tok, pos + 1,
+                                                       8), SERVE_CLASSES)
+    assert prof["device_busy_ms"] > 0, prof
+    return {**prof, "warm_step_wall_ms": warm_wall * 1e3,
+            "unprofiled_p50_step_wall_ms": p50_wall_ms,
+            "idle_share_of_unprofiled_p50_wall":
+                1.0 - prof["device_busy_ms"] / p50_wall_ms}
+
+
+def serve_summary(rep) -> dict:
+    """A ServeReport's numbers: tok/s over busy wall, step p50/p99 on the
+    virtual clock and by the measured wall, TTFT p50/p99, steps within
+    the Deadline, agreement, launches per step."""
+    import numpy as np
+    walls = np.asarray(rep.step_wall_s)
+    return {"mode": rep.mode, "requests": len(rep.requests),
+            "steps": len(rep.step_stats),
+            "generated": int(sum(len(r.tokens) for r in rep.requests)),
+            "tok_s_busy_wall": rep.tok_s, "busy_wall_s": rep.busy_wall_s,
+            "virtual_s": rep.virtual_s,
+            "requests_per_s_virtual": rep.requests_per_s,
+            "p50_step_virtual_ms": rep.p50_step_s * 1e3,
+            "p99_step_virtual_ms": rep.p99_step_s * 1e3,
+            "p50_step_wall_ms": float(np.percentile(walls, 50)) * 1e3,
+            "p99_step_wall_ms": float(np.percentile(walls, 99)) * 1e3,
+            "ttft_p50_ms": float(np.percentile(rep.ttft_s, 50)) * 1e3,
+            "ttft_p99_ms": float(np.percentile(rep.ttft_s, 99)) * 1e3,
+            "steps_within_budget": rep.steps_within_budget,
+            "argmax_agreement": rep.argmax_agreement,
+            "buckets_first_run": rep.trace_count,
+            "coded_fraction": rep.coded_fraction,
+            "n_waited": sorted(set(st.n_waited for st in rep.step_stats)),
+            "dispatches_per_step": sorted(set(st.dispatches
+                                              for st in rep.step_stats)),
+            "crypto_s_per_step": [st.crypto_s for st in rep.step_stats]}
+
+
+def teacher_forced(torch, model, step, cache_c, cache_p, tokens, offsets,
+                   tol: float) -> dict:
+    """The coded step's logits (``step.logits``) against the plain
+    ``decode_step``'s on the same token and per-slot pos stream: the
+    largest difference over max |plain|, the near-ties (top-2 margin of
+    the plain logits within 2 tol max |plain|) and the argmax
+    disagreements outside them."""
+    worst, ties, flips, same = 0.0, 0, 0, 0
+    mask = torch.ones(8)
+    for t in range(tokens.shape[1]):
+        tok = tokens[:, t:t + 1]
+        pos = offsets + t
+        got, cache_c = step.logits(cache_c, tok, pos, mask)
+        with torch.no_grad():
+            want, cache_p = model.decode_step(cache_p, tok, pos)
+        want = want[:, 0].float()
+        scale = float(want.abs().max())
+        worst = max(worst, float((got.float() - want).abs().max()) / scale)
+        top2 = torch.topk(want, 2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= 2 * tol * scale
+        ties += int(tie.sum())
+        differ = got.argmax(-1) != want.argmax(-1)
+        flips += int((differ & ~tie).sum())
+        same += int((~differ).sum())
+    rows = tokens.shape[0] * tokens.shape[1]
+    return {"max_rel_diff": worst, "tol": tol, "near_ties": ties,
+            "flips_outside_near_ties": flips, "argmax_agreement": same / rows,
+            "steps": int(tokens.shape[1]), "slots": int(tokens.shape[0])}
+
+
+def serve_combines(torch, randn, ptxas: dict) -> list:
+    """``berrut_combine`` at the serve's shapes against its plain version,
+    with its time, ``torch.matmul``'s and its bound: the unembed's encode
+    (N=8 over K+T=5 blocks of 38016 x 3584), its decode (K=4 over N=8, M =
+    38016 x B) at B in {1, 2, 4, 8}, and the coded layer sites' decodes at
+    B = 8."""
+    cfg_v, d = 152064, 3584
+    blk = cfg_v // 4
+    rows = [check_combine(torch, emit, randn(8, 5), randn(5, blk * d),
+                          ptxas, case="serve_encode_unembed")]
+    for b in (1, 2, 4, 8):
+        rows.append(check_combine(torch, emit, randn(4, 8),
+                                  randn(8, blk, b), ptxas,
+                                  case=f"serve_decode_unembed_b{b}"))
+    for site, sblk in SERVE_SITE_BLK.items():
+        rows.append(check_combine(torch, emit, randn(4, 8),
+                                  randn(8, sblk, 8), ptxas,
+                                  case=f"serve_decode_{site}_b8"))
+    return rows
+
+
+def serving_main_path(torch, dev, ptxas: dict) -> dict:
+    """Phase 9: continuous-batching coded serving of qwen2-7b at full
+    width.  (a) ``Session(ClusterSpec.serve_deadline()).serve`` (spacdc
+    N=8, K=4, T=1, two stragglers, an 8 ms Deadline,
+    ``coded_layers="unembed"``, 8 slots) at full depth: 8 requests of
+    prompt 16 and gen 32 all arriving at 0, counted from zero (one
+    ``berrut_combine`` for the encode and one per step), then the same
+    Poisson-ragged with every ``berrut_combine`` call held to its plain
+    version, and one profiled step; (b) the exact spec (mds, first_k 8, no
+    stragglers) at full width: teacher-forced coded logits against plain
+    logits; (c) ``coded_layers="all"`` at full width over 8 of 28 layers
+    (33 launches a step, every call held); (d) ``encrypt="real"`` on
+    (c)'s model, tokens bit-identical to the plain wire's, exact
+    ``mask_add`` launches; (e) the ``threads`` transport's round mode at
+    full width against the virtual round mode, the pool closed within
+    ``join_timeout_s``; (f) ``_build.build_count`` still 1.  Returns the
+    counted runs' launches."""
+    import gc
+
+    import numpy as np
+    from repro_torch.api import ClusterSpec, CodeSpec, CryptoSpec, Session
+    from repro_torch.api import (ServeSpec, StragglerSpec, TransportSpec,
+                                 WaitSpec)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.coded import (build_coded_step,
+                                          encode_serving_weights)
+    from repro_torch.runtime.engine import RoundEngine
+    from repro_torch.runtime.serve_loop import (ContinuousBatcher,
+                                                poisson_workload)
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel}
+    total = {k: 0 for k in kernels}
+    phase_t0 = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    cfg8 = dataclasses.replace(cfg, n_layers=SERVE_ALL_LAYERS)
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def exact_spec(coded_layers, backend="virtual", fused=None):
+        return ClusterSpec(
+            code=CodeSpec(scheme="mds", n_workers=8, k_blocks=4,
+                          fused=fused),
+            wait=WaitSpec(policy="first_k", k=8),
+            straggler=StragglerSpec(n_stragglers=0),
+            transport=TransportSpec(backend=backend),
+            serve=ServeSpec(coded_layers=coded_layers, max_slots=8))
+
+    free()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    combine_rows = serve_combines(torch, randn, ptxas)
+    free()
+
+    # ---- (a) full width, full depth, coded unembed
+    spec = ClusterSpec.serve_deadline()
+    assert (spec.code.scheme, spec.code.n_workers, spec.code.k_blocks,
+            spec.privacy.t_colluding, spec.straggler.n_stragglers,
+            spec.wait.t_budget, spec.serve.coded_layers,
+            spec.serve.max_slots) == ("spacdc", 8, 4, 1, 2, 0.008,
+                                      "unembed", 8)
+    torch.cuda.reset_peak_memory_stats()
+    with Session(spec, device=dev) as s:
+        t0 = time.perf_counter()
+        rep, launched = counted(kernels, total, lambda: s.serve(
+            arch=SERVE_ARCH, tiny=False, batch=8, prompt_len=16, gen=32,
+            seed=0, check_agreement=True))
+        serve_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steps = len(rep.step_stats)
+        want = {"coded_matmul": 0, "berrut_combine": 1 + steps,
+                "mask_add": 0, "flash_attention": 0}
+        row = {"phase": "serving_main_path", "check": "a_unembed_full",
+               "arch": cfg.name, "layers": cfg.n_layers,
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "workload": {"requests": 8, "prompt": 16, "gen": 32,
+                            "arrival_rate": 0.0},
+               **serve_summary(rep), "serve_call_s": serve_s,
+               "launches": launched, "expected_launches": want,
+               "peak_memory_gb": peak_gb}
+        emit(row)
+        assert launched == want, row
+        assert all(st.dispatches == 1 for st in rep.step_stats), row
+        assert rep.tokens.shape == (8, 32) and (rep.tokens >= 0).all(), row
+        assert (rep.tokens < cfg.vocab_size).all(), row
+        assert steps == 16 - 1 + 32, row
+        assert rep.steps_within_budget == steps, row
+        assert 0.0 <= rep.argmax_agreement <= 1.0, row
+
+        ratios = []
+        undo = hold_ops_combines(torch, ratios)
+        try:
+            rep2 = s.serve(arch=SERVE_ARCH, tiny=False, batch=8,
+                           prompt_len=16, gen=32, seed=0,
+                           arrival_rate=SERVE_RATE, ragged=True,
+                           check_agreement=False)
+        finally:
+            undo()
+        row = {"phase": "serving_main_path", "check": "a_unembed_poisson",
+               "workload": {"requests": 8, "prompt": 16, "gen": 32,
+                            "arrival_rate": SERVE_RATE, "ragged": True},
+               **serve_summary(rep2), "held_calls": len(ratios),
+               "max_bound_ratio": max(ratios)}
+        emit(row)
+        assert len(ratios) == len(rep2.step_stats), row
+        assert max(ratios) <= 1.0, row
+        assert rep2.steps_within_budget == len(rep2.step_stats), row
+
+        # one profiled step of the warm batcher at bucket 8
+        prof = profile_serve_step(torch, s, "unembed",
+                                  serve_summary(rep)["p50_step_wall_ms"])
+        emit({"phase": "serving_main_path", "check": "a_profiled_step",
+              **prof})
+    del s, rep, rep2
+    free()
+
+    # the same workload uncoded (coded_layers="none"): the plain decode
+    # step's wall beside the coded one's
+    spec_none = dataclasses.replace(spec, serve=ServeSpec(
+        coded_layers="none", max_slots=8))
+    with Session(spec_none, device=dev) as s:
+        plain = s.serve(arch=SERVE_ARCH, tiny=False, batch=8, prompt_len=16,
+                        gen=32, seed=0)
+        prof = profile_serve_step(torch, s, "none",
+                                  serve_summary(plain)["p50_step_wall_ms"])
+    emit({"phase": "serving_main_path", "check": "a_uncoded_same_workload",
+          **serve_summary(plain), "profiled_step": prof})
+    del s, plain
+    free()
+
+    # ---- (b) the exact spec at full width: teacher-forced logits
+    model = build_model(cfg, device=dev, seed=0)
+    engine = RoundEngine(exact_spec("unembed"), device=dev)
+    code = encode_serving_weights(engine.scheme, model, "unembed")
+    step = build_coded_step(model, engine.scheme, code)
+    tokens = torch.randint(1, cfg.vocab_size, (8, 16), generator=gen,
+                           device=dev)
+    offsets = torch.arange(8, dtype=torch.int32, device=dev) % 3
+    tf = teacher_forced(torch, model, step, model.init_cache(8, 24),
+                        model.init_cache(8, 24), tokens, offsets,
+                        TOL["bfloat16"])
+    row = {"phase": "serving_main_path", "check": "b_exact_teacher_forced",
+           "scheme": "mds", "coded_layers": "unembed", **tf}
+    emit(row)
+    assert tf["max_rel_diff"] <= TOL["bfloat16"], row
+    assert tf["flips_outside_near_ties"] == 0, row
+    engine.close()
+    del model, engine, code, step
+    free()
+
+    # ---- (c) coded_layers="all" over 8 full-width layers, every call held
+    small = dict(arch=cfg8, batch=2, prompt_len=4, gen=4, seed=0,
+                 check_agreement=False)
+    spec_all = ClusterSpec.serve_deadline(coded_layers="all")
+    torch.cuda.reset_peak_memory_stats()
+    with Session(spec_all, device=dev) as s:
+        plain_wire = s.serve(**small)          # (d)'s reference, round 0
+        # the Deadline plan takes the per-worker time the engine measures:
+        # (d) reuses these measurements, so it consumes the same responders
+        worker_t = dict(s.engine._worker_t)
+        ratios = []
+        undo = hold_ops_combines(torch, ratios)
+        try:
+            rep, launched = counted(kernels, total, lambda: s.serve(
+                arch=cfg8, batch=8, prompt_len=4, gen=8, seed=0,
+                check_agreement=True))
+        finally:
+            undo()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sites = 4 * SERVE_ALL_LAYERS + 1
+    steps = len(rep.step_stats)
+    want = {"coded_matmul": 0, "berrut_combine": sites * steps,
+            "mask_add": 0, "flash_attention": 0}
+    row = {"phase": "serving_main_path", "check": "c_all_8_layers",
+           "layers": SERVE_ALL_LAYERS, "sites_per_step": sites,
+           **serve_summary(rep), "launches": launched,
+           "expected_launches": want, "held_calls": len(ratios),
+           "max_bound_ratio": max(ratios), "peak_memory_gb": peak_gb}
+    emit(row)
+    assert launched == want, row
+    assert all(st.dispatches == sites for st in rep.step_stats), row
+    assert len(ratios) == sites * steps, row      # the steps' decodes
+    assert max(ratios) <= 1.0, row
+    assert 0.0 <= rep.argmax_agreement <= 1.0, row
+    del s, rep
+    free()
+
+    # ---- (d) encrypt="real" (stream) on (c)'s model, 2 requests
+    spec_enc = dataclasses.replace(spec_all,
+                                   crypto=CryptoSpec(encrypt="real"))
+    held = []
+    undo = hold_ops_mask_adds(torch, held)
+    try:
+        with Session(spec_enc, device=dev) as s:
+            s.engine._worker_t.update(worker_t)
+            wired, launched = counted(kernels, total,
+                                      lambda: s.serve(**small))
+            code = next(iter(s._serve_batchers.values())).code
+    finally:
+        undo()
+    steps = len(wired.step_stats)
+    # each site's wire shapes at the served bucket: the activations out
+    # (N, B·d_in) and the results back (N, blk·B) words, 8 limbs a word
+    bucket = 2
+    site_shapes = sorted({(8, bucket * m.d_in, 8)
+                          for *_, m in code._instances()}
+                         | {(8, m.blk * bucket, 8)
+                            for *_, m in code._instances()})
+    held_shapes = sorted({shape for shape, _, _ in held})
+
+    def responders(rep):
+        return [sorted(w for _, w in st.arrivals[:st.n_waited])
+                for st in rep.step_stats]
+    # the encodes, each step's decodes and four mask_add launches a site
+    # (the activations out and the results back, encrypt and decrypt),
+    # and the crypto_s probe's eight (warm-up and timed, both wires)
+    want = {"coded_matmul": 0, "berrut_combine": sites * (1 + steps),
+            "mask_add": 4 * sites * steps + 8, "flash_attention": 0}
+    row = {"phase": "serving_main_path", "check": "d_encrypted_all",
+           **serve_summary(wired), "launches": launched,
+           "expected_launches": want,
+           "responders_equal_plain_wire":
+               responders(wired) == responders(plain_wire),
+           "tokens_equal_plain_wire": bool(np.array_equal(wired.tokens,
+                                                          plain_wire.tokens)),
+           "mask_add_held_calls": len(held),
+           "mask_add_held_equal": sum(ok for *_, ok in held),
+           "mask_add_site_shapes": site_shapes,
+           "mask_add_held_shapes": held_shapes}
+    emit(row)
+    assert row["responders_equal_plain_wire"], row
+    assert row["tokens_equal_plain_wire"], row
+    assert launched == want, row
+    assert len(held) == launched["mask_add"], row
+    assert all(ok for *_, ok in held), row
+    assert set(site_shapes) <= set(held_shapes), row
+    assert all(st.crypto_s > 0 for st in wired.step_stats), row
+    del s, code
+    free()
+
+    # ---- (e) the threads transport, unembed round mode, full width
+    reqs = poisson_workload(2, rate_rps=0.0, prompt_len=4, gen=4,
+                            vocab=cfg.vocab_size, seed=0, ragged=False)
+    s = Session(exact_spec("unembed", backend="threads"), device=dev)
+    try:
+        threads = s.serve(arch=SERVE_ARCH, tiny=False, requests=reqs,
+                          check_agreement=False)
+    finally:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.close()
+        close_s = time.perf_counter() - t0
+    join_s = s.engine.pool._threads.join_timeout_s
+    assert s.engine.pool._executor is None
+    del s
+    free()
+    model = build_model(cfg, device=dev, seed=0)
+    engine = RoundEngine(exact_spec("unembed", fused=False), device=dev)
+    virtual = ContinuousBatcher(engine, model, coded_layers="unembed",
+                                max_slots=8, backend="threads").run(reqs)
+    engine.close()
+    del model, engine
+    free()
+    same = all(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(threads.requests, virtual.requests))
+    row = {"phase": "serving_main_path", "check": "e_threads_round",
+           **serve_summary(threads), "virtual_round_mode": {
+               "mode": virtual.mode, "steps": virtual.n_steps,
+               "busy_wall_s": virtual.busy_wall_s},
+           "tokens_equal_virtual_round_mode": same, "close_s": close_s,
+           "join_timeout_s": join_s}
+    emit(row)
+    assert threads.mode == "round" and virtual.mode == "round", row
+    assert same, row
+    assert close_s <= join_s + 0.1, row
+
+    # ---- (f) churn rebuilt nothing
+    emit({"phase": "serving_main_path", "check": "f_build_count",
+          "build_count": _build.build_count,
+          "combine_rows": [{"case": r["case"], "kernel_ms": r["kernel_ms"],
+                            "library_ms": r["library_ms"],
+                            "bound_ms": r["bound_ms"]}
+                           for r in combine_rows],
+          "phase_s": time.perf_counter() - phase_t0})
+    assert _build.build_count == 1, _build.build_count
     return total
 
 

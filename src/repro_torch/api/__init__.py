@@ -8,15 +8,17 @@ Ports ``repro/api``:
         out, stats = s.matmul(a, b)
         s.init_mlp((784, 512, 10))
         loss, elapsed = s.train_step(x, y)
+        report = s.serve(arch="qwen2-7b", tiny=True)
 """
 
 from .spec import (AdaptiveSpec, ClusterSpec, CodeSpec, CryptoSpec,
                    FaultSpec, PrivacySpec, ServeSpec, StragglerSpec,
                    TransportSpec, WaitSpec)
-from .session import Session, coded_mlp_init, coded_mlp_step
+from .session import ServeReport, Session, coded_mlp_init, coded_mlp_step
 
 __all__ = [
     "AdaptiveSpec", "ClusterSpec", "CodeSpec", "CryptoSpec", "FaultSpec",
     "PrivacySpec", "ServeSpec", "StragglerSpec", "TransportSpec",
-    "WaitSpec", "Session", "coded_mlp_init", "coded_mlp_step",
+    "WaitSpec", "Session", "ServeReport", "coded_mlp_init",
+    "coded_mlp_step",
 ]

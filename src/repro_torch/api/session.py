@@ -1,7 +1,8 @@
 """``Session``: the context-managed runtime behind one ``ClusterSpec``.
 
 Ports ``Session.__init__``, its lifecycle, ``Session.matmul``,
-``Session.anytime_curve`` and the SPACDC-DL training step (paper
+``Session.anytime_curve``, ``ServeReport`` and ``Session.serve``, and the
+SPACDC-DL training step (paper
 Algorithm 2: ``coded_mlp_init``, ``mlp_forward``, ``coded_mlp_step``,
 ``Session.init_mlp`` / ``train_step`` / ``mlp_accuracy``) of
 ``repro/api/session.py``:
@@ -11,6 +12,7 @@ Algorithm 2: ``coded_mlp_init``, ``mlp_forward``, ``coded_mlp_step``,
         points = s.anytime_curve(a, b)                 # error vs latency
         s.init_mlp((784, 512, 10), lr=0.05)
         loss, elapsed = s.train_step(x, y)             # SPACDC-DL step
+        report = s.serve(arch="qwen2-7b")              # coded serving
 
 The device is the ``device=`` argument (``None`` = ``"cuda"``, which raises
 without a CUDA device; the tests pass ``device="cpu"``), never a spec field.
@@ -21,12 +23,19 @@ lives on the same device as float32 tensors; the uncoded products are
 ``torch.matmul`` in IEEE float32 (the package never turns TF32 on).  The
 reference's state is float64 under numpy 2 (its float32 draw times a
 float64 scale promotes); the port keeps float32, the reference's initial
-weights rounded to float32 bit for bit.  Serving comes in a later slice
-and raises ``NotImplementedError`` until then.
+weights rounded to float32 bit for bit.
+
+Serving (``ServeReport``, ``Session.serve``) drives the continuous-batching
+loop of ``runtime.serve_loop`` over a model built on the session's device
+(``models.build_model`` from a seeded generator; ``arch`` may also be a
+``ModelConfig``, e.g. one whose depth is cut).  Families the port does not
+have yet (MLA, MoE, SSM) and the socket transport raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,7 +44,7 @@ import torch
 from ..runtime.engine import RoundEngine, RoundStats, resolve_device
 from .spec import ClusterSpec
 
-__all__ = ["Session", "coded_mlp_init", "coded_mlp_step"]
+__all__ = ["Session", "ServeReport", "coded_mlp_init", "coded_mlp_step"]
 
 
 # --------------------------------------------------------------------------
@@ -137,9 +146,54 @@ def coded_mlp_step(weights, biases, matmul, x, y, lr: float = 0.05,
     return float(loss), elapsed, stats_out
 
 
-def _later(what: str):
-    raise NotImplementedError(
-        f"Session.{what} comes in a later slice of the port; see ROADMAP.md")
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeReport:
+    """One coded serving run: what came out and what every step cost.
+
+    The continuous-batching loop (``runtime.serve_loop``) serves requests
+    off a (possibly Poisson) arrival timeline, so the report carries two
+    clocks: the **virtual clock** (straggler waits + measured master
+    walls — ``virtual_s``, ``step_latency_s``, per-request timelines) and
+    **busy wall** (measured master steps only).  ``tok_s`` divides by busy
+    wall, so admission idle never inflates decode throughput.
+    """
+    tokens: np.ndarray               # (n_requests, max_gen) ids, -1 padded
+    step_stats: List[RoundStats]     # ONE coded round per decode step
+    wall_s: float                    # busy wall of the serve loop
+    tok_s: float                     # generated tokens / busy wall
+    t_budget: Optional[float]        # the Deadline budget (None: no deadline)
+    argmax_agreement: float          # fraction of coded tokens == uncoded
+    # --- continuous-batching accounting ----------------------------------
+    requests: list = dataclasses.field(default_factory=list)
+    ttft_s: np.ndarray = dataclasses.field(           # per-request TTFT
+        default_factory=lambda: np.zeros(0))          # (arrival → 1st token)
+    step_latency_s: np.ndarray = dataclasses.field(   # per-step virtual
+        default_factory=lambda: np.zeros(0))          # durations
+    p50_step_s: float = 0.0
+    p99_step_s: float = 0.0
+    requests_per_s: float = 0.0      # served requests / virtual makespan
+    virtual_s: float = 0.0           # virtual makespan of the run
+    busy_wall_s: float = 0.0
+    coded_fraction: float = 0.0      # analytic coded share of step FLOPs
+    trace_count: int = 0             # buckets first run (a few pow2
+                                     # buckets, however slots churn)
+    mode: str = ""                   # "instep" | "round" | "plain"
+    step_wall_s: np.ndarray = dataclasses.field(      # per-step measured
+        default_factory=lambda: np.zeros(0))          # master wall
+
+    @property
+    def steps_within_budget(self) -> int:
+        """Decode steps whose coded decode fired at/before the deadline
+        (all of them, for a rateless scheme — SPACDC's minimum decodable
+        prefix is 1)."""
+        if self.t_budget is None:
+            return len(self.step_stats)
+        return sum(1 for s in self.step_stats
+                   if s.decode_at_s <= self.t_budget + 1e-12)
 
 
 class Session:
@@ -159,6 +213,10 @@ class Session:
         self._round = 0
         self._mlp = None
         self.round_stats: List[RoundStats] = []
+        self._serve_models: dict = {}    # (arch, tiny, seed) -> model
+        self._serve_batchers: dict = {}  # + (coded_layers, admission) ->
+                                         # ContinuousBatcher (encoded
+                                         # weights, warm buckets)
 
     @property
     def device(self) -> torch.device:
@@ -254,6 +312,115 @@ class Session:
         return self.engine.anytime_curve(a, b, round_idx=round_idx,
                                          noise=noise)
 
-    # ------------------------------------------------- later slices' paths
-    def serve(self, arch: str = "qwen2-7b", **kwargs):
-        _later("serve")
+    # ------------------------------------------------------------- serving
+    def serve(self, arch="qwen2-7b", *, tiny: bool = True,
+              batch: Optional[int] = None, prompt_len: int = 16,
+              gen: int = 32, seed: int = 0, check_agreement: bool = True,
+              requests=None, arrival_rate: float = 0.0,
+              ragged: bool = False,
+              admission: str = "continuous") -> ServeReport:
+        """Continuous-batching greedy decode with every selected
+        projection run as coded rounds (``ServeSpec.coded_layers``).
+
+        Requests are served off an arrival timeline by the scheduler in
+        :mod:`repro_torch.runtime.serve_loop`: free slots admit arrivals at
+        step boundaries, finished/EOS requests are evicted and their slots
+        refilled, and the step only sees pow2 batch buckets.  On the
+        virtual transport the WHOLE step — attention q/k/v/o, FFN
+        up/down, unembed, per the spec's ``coded_layers`` — is ONE coded
+        round under one straggler plan and the spec's wait policy; with
+        ``WaitSpec(policy="deadline", t_budget=...)`` every step decodes
+        at (or before) the budget from whatever responder prefix arrived.
+        The ``threads`` transport runs the unembed as one real round per
+        step.
+
+        ``arch`` is an architecture name (``tiny`` picks its reduced
+        config) or a ``ModelConfig``.  The model is built once per
+        (arch, tiny, seed) on the session's device by
+        ``models.build_model`` from a generator seeded with ``seed``.
+        ``requests`` (a list of ``runtime.serve_loop.Request``) overrides
+        the synthetic workload; otherwise ``batch`` requests of
+        ``prompt_len``/``gen`` arrive Poisson at ``arrival_rate`` req/s
+        (0 = all at t=0; with a uniform workload ``tokens`` is exactly
+        (batch, gen)).  ``admission="gated"`` reproduces the static-batch
+        baseline.  ``check_agreement`` replays the workload uncoded and
+        reports the fraction of coded tokens that match.
+        """
+        self._check_open()
+        what = self.engine._unported_path()
+        if what is not None:
+            raise NotImplementedError(
+                f"serving over {what} comes in a later slice of the port; "
+                "see ROADMAP.md")
+        from ..configs import get_config, tiny_config
+        from ..models import build_model
+        from ..runtime.serve_loop import ContinuousBatcher, poisson_workload
+
+        mkey = (arch, tiny, seed)
+        if mkey not in self._serve_models:
+            if isinstance(arch, str):
+                cfg = tiny_config(arch) if tiny else get_config(arch)
+            else:
+                cfg = arch
+            self._serve_models[mkey] = build_model(cfg, device=self.device,
+                                                   seed=seed)
+        model = self._serve_models[mkey]
+        cfg = model.cfg
+        serve_spec = self.spec.serve
+        n_req = batch if batch is not None else serve_spec.max_slots
+        if requests is None:
+            requests = poisson_workload(
+                n_req, rate_rps=arrival_rate, prompt_len=prompt_len,
+                gen=gen, vocab=cfg.vocab_size, seed=seed, ragged=ragged)
+
+        def run_loop(coded_layers: str):
+            # batchers are cached across serve() calls: encoded serving
+            # weights and warm buckets are reused
+            bkey = mkey + (coded_layers, admission)
+            bat = self._serve_batchers.get(bkey)
+            if bat is None:
+                bat = ContinuousBatcher(
+                    self.engine, model, coded_layers=coded_layers,
+                    max_slots=serve_spec.max_slots, eos_id=serve_spec.eos_id,
+                    backend=self.spec.transport.backend, admission=admission)
+                self._serve_batchers[bkey] = bat
+            bat._round = self._round
+            res = bat.run(requests)
+            self._round = bat._round
+            return res
+
+        res = run_loop(serve_spec.coded_layers)
+        # token matrix, -1 padded for ragged generation lengths
+        max_gen = max((len(r.tokens) for r in res.requests), default=0)
+        tokens = np.full((len(res.requests), max_gen), -1, np.int32)
+        for i, r in enumerate(res.requests):
+            tokens[i, :len(r.tokens)] = r.tokens
+
+        # fidelity diagnostic OUTSIDE the serve accounting: greedy tokens
+        # of a request depend only on its own prompt, so the uncoded
+        # reference is one plain continuous-batching replay of the same
+        # workload.  Production-shaped callers pass check_agreement=False
+        # (agreement reports NaN).
+        agree = float("nan")
+        if check_agreement:
+            if res.mode == "plain":
+                agree = 1.0
+            else:
+                ref = run_loop("none")
+                match = total = 0
+                for a, b_ in zip(res.requests, ref.requests):
+                    n = min(len(a.tokens), len(b_.tokens))
+                    match += int(np.sum(a.tokens[:n] == b_.tokens[:n]))
+                    total += max(len(a.tokens), len(b_.tokens))
+                agree = match / max(total, 1)
+        self.round_stats.extend(res.step_stats)
+        return ServeReport(
+            tokens=tokens, step_stats=res.step_stats,
+            wall_s=res.busy_wall_s, tok_s=res.tok_s,
+            t_budget=self.spec.wait.t_budget, argmax_agreement=agree,
+            requests=res.requests, ttft_s=res.ttft_s,
+            step_latency_s=res.step_virtual_s, p50_step_s=res.p50_step_s,
+            p99_step_s=res.p99_step_s, requests_per_s=res.requests_per_s,
+            virtual_s=res.virtual_s, busy_wall_s=res.busy_wall_s,
+            coded_fraction=res.coded_fraction, trace_count=res.trace_count,
+            mode=res.mode, step_wall_s=res.step_wall_s)

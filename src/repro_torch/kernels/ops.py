@@ -1,9 +1,10 @@
 """Device-dispatching wrappers for the port's CUDA kernels.
 
 Ports ``repro/kernels/ops.py`` (``berrut_combine``, ``prefix_decode``,
-``coded_matmul``, ``mask_add`` with the MEA-ECC cipher cores, the
-encrypted round, and ``flash_attention``).  ``force_kernel`` keeps the
-reference's tri-state, read for the device instead of the TPU:
+``coded_matmul``, ``precoded_matmul``, ``mask_add`` with the MEA-ECC
+cipher cores, the encrypted round, and ``flash_attention``).
+``force_kernel`` keeps the reference's tri-state, read for the device
+instead of the TPU:
 
 * ``None`` — the hand-written CUDA kernel for CUDA tensors, the plain
   PyTorch version (``kernels.ref``) for CPU tensors;
@@ -25,7 +26,8 @@ from .coded_matmul import coded_matmul_kernel
 from .flash_attention import flash_attention_kernel
 from .mask_add import mask_add_kernel
 
-__all__ = ["berrut_combine", "prefix_decode", "coded_matmul", "mask_add",
+__all__ = ["berrut_combine", "prefix_decode", "coded_matmul",
+           "precoded_matmul", "mask_add",
            "mea_encrypt_core", "mea_decrypt_core", "encrypted_coded_matmul",
            "fused_wire", "flash_attention", "kernel_launches"]
 
@@ -95,6 +97,35 @@ def coded_matmul(weights, blocks, rhs, *, force_kernel: bool | None = None):
         return coded_matmul_kernel(weights.contiguous(), blocks.contiguous(),
                                    rhs.contiguous())
     return ref.coded_matmul(weights, blocks, rhs)
+
+
+def precoded_matmul(shards, x, weights, *, force_kernel: bool | None = None,
+                    wire=None):
+    """Serving-side coded matmul against PRE-ENCODED weight shards.
+
+    ``shards`` (N, blk, d_in) — ``scheme.encode(W^T)``, resident at the
+    workers; ``x`` (B, d_in) per-step activations; ``weights`` (K, N) —
+    the masked decode matrix of the step's responder set.  Returns the
+    decoded (K, blk, B) row blocks of ``(x @ W)^T``.
+
+    The worker products ``shards[n] @ x^T`` (the reference's einsum
+    ``"nbd,Bd->nbB"``, outside any Pallas kernel there too) are one float32
+    ``torch.bmm`` over ``x`` broadcast to every worker (IEEE: the package
+    never turns TF32 on).  ``wire(payload, leg)``, when given, carries the
+    (N, B, d_in) activations out (leg 0) and the (N, blk, B) results back
+    (leg 1), each worker its own channel (``models.coded``'s in-step
+    wire); it must return its payload bit for bit, so the wired and the
+    plain products are the same bits.  The decode is
+    :func:`berrut_combine`, the CUDA kernel for CUDA tensors.
+    """
+    xf = x.to(torch.float32)
+    xs = xf[None].expand((shards.shape[0],) + tuple(xf.shape)).contiguous()
+    if wire is not None:
+        xs = wire(xs, 0)
+    results = torch.bmm(shards.to(torch.float32), xs.transpose(1, 2))
+    if wire is not None:
+        results = wire(results, 1)
+    return berrut_combine(weights, results, force_kernel=force_kernel)
 
 
 def _mask_rows(mask: torch.Tensor, shape) -> torch.Tensor:

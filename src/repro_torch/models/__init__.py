@@ -1,6 +1,7 @@
 """Model zoo: the dense decoder-only LM (layers, GQA attention through the
-flash kernel, the transformer) and its weight converter.  Ports
-``repro/models`` for the dense attention architectures."""
+flash kernel, the transformer), its weight converter and the coded serving
+step (``models.coded``).  Ports ``repro/models`` for the dense attention
+architectures."""
 
 from .convert import load_jax_params
 from .transformer import TransformerLM

@@ -15,13 +15,16 @@ the forward they are always ``arange(S)`` for both queries and keys
 (``transformer.py:307``, ``attention.py:254``), which is exactly what the
 kernel's implicit positions compute.
 
-Decode is one-token attention against a KV cache with a scalar ``pos``,
-the reference's plain einsum softmax.  The cache is updated in place (the
-reference returns a new one); ``attn_decode`` returns the same dict.
+Decode is one-token attention against a KV cache, the reference's plain
+einsum softmax, at a scalar ``pos`` (uniform across the batch) or a
+``(B,)`` tensor of per-slot positions (continuous batching).  The cache is
+updated in place (the reference returns a new one), also when the leaf is
+a view of a larger cache (the serve loop's bucket); ``attn_decode``
+returns the same dict.  ``proj`` reroutes the q|k|v and output projections
+(the coded serving path); everything else is shared with the plain path.
 
 Not ported yet, and raising ``NotImplementedError``: cross-attention
-(``kv=``, whisper), M-RoPE, the int8 KV cache, MLA and a per-slot ``(B,)``
-decode ``pos`` (the coded serving slice).
+(``kv=``, whisper), M-RoPE, the int8 KV cache and MLA.
 """
 
 from __future__ import annotations
@@ -73,10 +76,16 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, use_rope: bool):
+                 positions: torch.Tensor, use_rope: bool, matmul=None):
+    """``matmul`` (optional) replaces only the three projections: the coded
+    serve path runs them as one stacked coded site; bias, qk-norm and RoPE
+    stay here either way."""
     cd = dtype_of(cfg, "compute")
-    q, k, v = _proj(x, p["wq"], cd), _proj(x, p["wk"], cd), \
-        _proj(x, p["wv"], cd)
+    if matmul is not None:
+        q, k, v = matmul(x)
+    else:
+        q, k, v = _proj(x, p["wq"], cd), _proj(x, p["wk"], cd), \
+            _proj(x, p["wv"], cd)
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -127,34 +136,52 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _per_slot(pos) -> bool:
+    return torch.is_tensor(pos) and pos.dim() > 0
+
+
 def _dus_seq(cache_leaf: torch.Tensor, new: torch.Tensor,
-             pos: int) -> torch.Tensor:
-    """Sequence-axis cache write of ``new`` (B, 1, ...) at scalar ``pos``,
-    in place; returns the cache leaf."""
-    if torch.is_tensor(pos) and pos.dim() > 0:
-        raise _later("per-slot (B,) decode positions (coded serving)")
-    cache_leaf[:, int(pos)] = new[:, 0].to(cache_leaf.dtype)
+             pos) -> torch.Tensor:
+    """Sequence-axis cache write of ``new`` (B, 1, ...) in place, at a
+    scalar ``pos`` or at per-slot positions ``pos`` (B,); returns the
+    cache leaf (which may be a view of a larger cache)."""
+    new = new[:, 0].to(cache_leaf.dtype)
+    if _per_slot(pos):
+        rows = torch.arange(cache_leaf.shape[0], device=cache_leaf.device)
+        cache_leaf[rows, pos.to(device=cache_leaf.device,
+                                dtype=torch.long)] = new
+    else:
+        cache_leaf[:, int(pos)] = new
     return cache_leaf
 
 
-def _decode_positions(b: int, pos: int, device) -> torch.Tensor:
-    """(B, 1) int32 rope positions from a scalar ``pos``."""
+def _decode_positions(b: int, pos, device) -> torch.Tensor:
+    """(B, 1) int32 rope positions from a scalar or per-slot ``pos``."""
+    if _per_slot(pos):
+        return pos.to(device=device, dtype=torch.int32).reshape(b, 1)
     return torch.full((b, 1), int(pos), dtype=torch.int32, device=device)
 
 
-def attn_decode(p, x: torch.Tensor, cache: dict, pos: int,
-                cfg: ModelConfig, *, use_rope: bool = True):
+def attn_decode(p, x: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
+                use_rope: bool = True, proj=None):
     """One-token decode.  x (B, 1, d); ``pos`` the scalar current length,
-    uniform across the batch.  Returns (y (B, 1, d), cache), the cache
-    written in place at ``pos``."""
+    uniform across the batch, or (B,) per-slot positions (ragged
+    continuous-batching decode).  ``proj`` (optional) = ``{"qkv": fn,
+    "o": fn}`` overrides of the projection matmuls (the coded serve path);
+    bias, qk-norm, RoPE, the cache write and the softmax are shared with
+    the plain path.  Returns (y (B, 1, d), cache), the cache written in
+    place at ``pos``."""
     cd = dtype_of(cfg, "compute")
     b = x.shape[0]
+    proj = proj or {}
     positions = _decode_positions(b, pos, x.device)
-    q, k_new, v_new = _project_qkv(p, x.to(cd), cfg, positions, use_rope)
+    q, k_new, v_new = _project_qkv(p, x.to(cd), cfg, positions, use_rope,
+                                   matmul=proj.get("qkv"))
     k = _dus_seq(cache["k"], k_new, pos)
     v = _dus_seq(cache["v"], v_new, pos)
     kv_len = k.shape[1]
-    valid = torch.arange(kv_len, device=x.device)[None, :] <= int(pos)
+    span = torch.arange(kv_len, device=x.device)[None, :]
+    valid = span <= (positions if _per_slot(pos) else int(pos))
 
     kvh, hd = k.shape[2], q.shape[-1]
     g = q.shape[2] // kvh
@@ -166,8 +193,9 @@ def attn_decode(p, x: torch.Tensor, cache: dict, pos: int,
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v.to(torch.float32))
     out = out.reshape(b, 1, -1).to(cd)
-    y = out @ p["wo"].to(cd).reshape(-1, cfg.d_model)
-    return y, cache
+    if proj.get("o") is not None:
+        return proj["o"](out), cache
+    return out @ p["wo"].to(cd).reshape(-1, cfg.d_model), cache
 
 
 # --------------------------------------------------------------------------

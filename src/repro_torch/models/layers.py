@@ -108,19 +108,30 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
                              "w_down": dense_init(gen, (ff, d), pd)})
 
 
-def apply_ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_ffn(p, x: torch.Tensor, cfg: ModelConfig, *, matmul_up=None,
+              matmul_down=None) -> torch.Tensor:
     """swiglu, gelu (the tanh approximation, as ``jax.nn.gelu``) or
-    relu_sq, in the compute dtype."""
+    relu_sq, in the compute dtype.  ``matmul_up``/``matmul_down``
+    (optional) replace only the projections: the coded serve path runs
+    gate|up stacked as one coded site and down as another; the activation
+    stays here either way.  ``matmul_up(x)`` returns ``(gate, up)`` for
+    swiglu, else ``up``."""
     cd = dtype_of(cfg, "compute")
     x = x.to(cd)
     if cfg.activation == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(cd)) * (x @ p["w_up"].to(cd))
+        if matmul_up is not None:
+            g, u = matmul_up(x)
+        else:
+            g, u = x @ p["w_gate"].to(cd), x @ p["w_up"].to(cd)
+        h = F.silu(g) * u
     else:
-        u = x @ p["w_up"].to(cd)
+        u = matmul_up(x) if matmul_up is not None else x @ p["w_up"].to(cd)
         if cfg.activation == "relu_sq":
             h = torch.square(F.relu(u))
         else:
             h = F.gelu(u, approximate="tanh")
+    if matmul_down is not None:
+        return matmul_down(h)
     return h @ p["w_down"].to(cd)
 
 

@@ -129,17 +129,24 @@ class DecoderLayer(nn.Module):
         x = x + y
         return x + apply_ffn(self.ffn, apply_norm(self.norm2, x, cfg), cfg)
 
-    def decode(self, x: torch.Tensor, cache: dict, pos: int):
-        """One-token layer step, ``decode_layer``.  Returns (x, cache)."""
+    def decode(self, x: torch.Tensor, cache: dict, pos, *, proj=None):
+        """One-token layer step, ``decode_layer``.  ``pos`` is a scalar or
+        (B,) per-slot positions; ``proj`` optionally reroutes this layer's
+        projections through coded sites: ``{"qkv", "o"}`` feed the
+        attention, ``{"up", "down"}`` the FFN.  Returns (x, cache)."""
         cfg = self.cfg
+        proj = proj or {}
         h = apply_norm(self.norm1, x, cfg)
-        y, cache = attn.attn_decode(self.mixer, h, cache, pos, cfg,
-                                    use_rope=self.desc.rope)
+        y, cache = attn.attn_decode(
+            self.mixer, h, cache, pos, cfg, use_rope=self.desc.rope,
+            proj={k: proj.get(k) for k in ("qkv", "o")})
+        ffn_mm = {"matmul_up": proj.get("up"),
+                  "matmul_down": proj.get("down")}
         if cfg.parallel_block:
-            return x + y + apply_ffn(self.ffn, h, cfg), cache
+            return x + y + apply_ffn(self.ffn, h, cfg, **ffn_mm), cache
         x = x + y
-        return x + apply_ffn(self.ffn, apply_norm(self.norm2, x, cfg),
-                             cfg), cache
+        return x + apply_ffn(self.ffn, apply_norm(self.norm2, x, cfg), cfg,
+                             **ffn_mm), cache
 
 
 # --------------------------------------------------------------------------
@@ -204,14 +211,20 @@ class TransformerLM(nn.Module):
         return [attn.init_kv_cache(self.cfg, batch, max_len, device=dev)
                 for _ in self.layers]
 
-    def decode_step(self, cache: List[dict], tokens: torch.Tensor, pos: int):
-        """tokens (B, 1), ``pos`` scalar -> (logits (B, 1, V), cache); the
-        cache is written in place."""
+    def decode_step(self, cache: List[dict], tokens: torch.Tensor, pos, *,
+                    return_hidden: bool = False):
+        """tokens (B, 1), ``pos`` a scalar or (B,) per-slot positions ->
+        (logits (B, 1, V), cache); the cache is written in place.
+        ``return_hidden`` yields the final-norm hidden state (B, 1, d)
+        instead of logits (the serve loop's round mode runs the unembed as
+        a coded round)."""
         cfg = self.cfg
         x = embed(self.embedding, tokens, cfg)
         for i, layer in enumerate(self.layers):
             x, cache[i] = layer.decode(x, cache[i], pos)
         x = apply_norm(self.final_norm, x, cfg)
+        if return_hidden:
+            return x, cache
         return unembed(self.embedding, x, cfg), cache
 
 

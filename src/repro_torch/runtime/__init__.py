@@ -5,9 +5,10 @@ master/worker surface.
 Ports ``repro/runtime``: ``RoundEngine``, ``RoundStats``, ``WorkerPool``
 (virtual clock and real threads), the anytime scheduler
 (``AnytimePoint``, ``assemble_curve``), the loop round's tasks,
-``DistributedMatmul`` and the SPACDC-DL master ``CodedMaster``.  The socket
-mesh, faults and the adaptive controller come in later slices (see
-ROADMAP.md).
+``DistributedMatmul`` and the SPACDC-DL master ``CodedMaster``; the
+continuous-batching serve loop is ``runtime.serve_loop`` (not re-exported
+here, as in the reference).  The socket mesh, faults and the adaptive
+controller come in later slices (see ROADMAP.md).
 """
 
 from .straggler import StragglerModel

@@ -51,6 +51,11 @@ credit, and these round paths on the engine's device:
   responder's result back through ``_wire``; ``encrypt="modeled"`` prices
   ``crypto_s`` as the fused round does.
 
+* **serving hooks** (``worker_time``, ``serve_round_plan``,
+  ``serve_wire_params``, ``serve_wire_material``, ``serve_crypto_time``):
+  the continuous-batching loop (``runtime.serve_loop``) prices, plans and
+  wires each decode step as one coded round through them.
+
 Differences from the reference, by design:
 
 * **No jit.**  PyTorch runs eagerly, so the reference's per-shape-class
@@ -478,20 +483,26 @@ class RoundEngine:
                                nonce=next(self._nonce))
         return self._mea.decrypt(ct, recipient_kp)
 
-    def _fused_mask_material(self):
-        """Per-round mask material for the fused encrypted round:
-        (material_out, material_back), each (N, 8) PRF seed words (stream —
-        a fresh nonce per channel per direction, from the same nonce stream
-        the staged ``_wire`` draws from) or the static (N, L) Ψ limb stack
-        (paper), as ``torch.uint32`` on the engine's device."""
-        from ..crypto.field import as_u32_tensor, seed_words
+    def _mask_material_host(self):
+        """(material_out, material_back) as host numpy: each (N, 8) PRF
+        seed words (stream — a fresh nonce per channel per direction, from
+        the same nonce stream the staged ``_wire`` draws from) or the
+        static (N, L) Ψ limb stack (paper)."""
+        from ..crypto.field import seed_words
         if self._mea.mode == "paper":
-            out = back = self._psi_limbs
-        else:
-            out = np.stack([seed_words(pt.x, pt.y, next(self._nonce))
-                            for pt in self._shared_pts])
-            back = np.stack([seed_words(pt.x, pt.y, next(self._nonce))
-                             for pt in self._shared_pts])
+            return self._psi_limbs, self._psi_limbs
+        out = np.stack([seed_words(pt.x, pt.y, next(self._nonce))
+                        for pt in self._shared_pts])
+        back = np.stack([seed_words(pt.x, pt.y, next(self._nonce))
+                         for pt in self._shared_pts])
+        return out, back
+
+    def _fused_mask_material(self):
+        """Per-round mask material for the fused encrypted round
+        (:meth:`_mask_material_host`) as ``torch.uint32`` on the engine's
+        device."""
+        from ..crypto.field import as_u32_tensor
+        out, back = self._mask_material_host()
         return (as_u32_tensor(out, self.device),
                 as_u32_tensor(back, self.device))
 
@@ -518,6 +529,80 @@ class RoundEngine:
             t0 = time.perf_counter()
             wire_roundtrip(x_out, mat_out, q=q, mode=mode, use_kernel=kern)
             wire_roundtrip(x_back, mat_back, q=q, mode=mode, use_kernel=kern)
+            _sync(self.device)
+            self._fused_crypto_t[key] = time.perf_counter() - t0
+        return self._fused_crypto_t[key]
+
+    # ------------------------------------------------------------- serving
+    # Minimal public hooks the continuous-batching serve loop
+    # (``runtime.serve_loop``) builds on.  The loop owns its step (a whole
+    # decode step, every coded site, is one coded round), but prices
+    # workers, plans rounds, draws wire material and attributes crypto
+    # time through the same machinery as every other round, so serve
+    # RoundStats stay comparable with matmul rounds.
+
+    def worker_time(self, lhs_shape, rhs_shape) -> float:
+        """Per-worker virtual seconds for one coded site's matmul."""
+        return self._worker_compute_time(lhs_shape, rhs_shape)
+
+    def serve_round_plan(self, round_idx: int, t_comp: float):
+        """Straggler plan for one serve step treated as ONE coded round.
+        ``t_comp`` is the per-worker compute of every coded site in the
+        step, summed — each worker runs all of its site shards
+        back-to-back before replying."""
+        return plan_round(self.scheme, self.policy,
+                          self.straggler.delays(round_idx), t_comp,
+                          self.straggler.n_stragglers)
+
+    def serve_wire_params(self):
+        """(q, cipher_mode) for in-step ``wire_roundtrip`` calls, or None
+        when this spec doesn't run real encryption."""
+        if getattr(self, "_mea", None) is None:
+            return None
+        return self._mea.curve.q, self._mea.mode
+
+    def serve_wire_material(self, count: int):
+        """``count`` fresh (out, back) wire-material pairs — one pair per
+        coded site instance in a serve step (stream mode draws fresh
+        nonces per site per step from the same nonce stream as the staged
+        wire; paper mode returns the static Ψ stack).  Each side is
+        (count, N, W) ``torch.uint32`` on the engine's device."""
+        from ..crypto.field import as_u32_tensor
+        outs, backs = zip(*(self._mask_material_host()
+                            for _ in range(count)))
+        return (as_u32_tensor(np.stack(outs), self.device),
+                as_u32_tensor(np.stack(backs), self.device))
+
+    def serve_crypto_time(self, elems_out: int, elems_back: int) -> float:
+        """Measured wall seconds of ONE serve step's wire work alone: the
+        per-channel payloads of every coded site, flattened to (N, elems),
+        through the wire the step runs (two ``mask_add`` launches per
+        round trip on the card), once to warm up and once timed between
+        two ``torch.cuda.synchronize()`` calls, cached per element-count
+        class (the serve analogue of :meth:`_fused_crypto_time` — the
+        in-step wire has no boundary to put a timer on)."""
+        key = ("serve", elems_out, elems_back)
+        if key not in self._fused_crypto_t:
+            from ..kernels.encrypted_round import wire_roundtrip
+            from ..kernels.ops import _use_kernel
+            mode = self._mea.mode
+            q = self._mea.curve.q
+            mat_out, mat_back = self._fused_mask_material()
+            x_out = torch.zeros((self.n, max(elems_out, 1)),
+                                device=self.device)
+            x_back = torch.zeros((self.n, max(elems_back, 1)),
+                                 device=self.device)
+            kern = _use_kernel(x_out, self.scheme.use_kernel)
+
+            def wires():
+                wire_roundtrip(x_out, mat_out, q=q, mode=mode,
+                               use_kernel=kern)
+                wire_roundtrip(x_back, mat_back, q=q, mode=mode,
+                               use_kernel=kern)
+            wires()                                      # warm-up
+            _sync(self.device)
+            t0 = time.perf_counter()
+            wires()
             _sync(self.device)
             self._fused_crypto_t[key] = time.perf_counter() - t0
         return self._fused_crypto_t[key]

@@ -53,6 +53,9 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/configs/base.py",
+                 "src/repro_torch/models/coded.py",
+                 "src/repro_torch/runtime/serve_loop.py",
+                 "src/repro_torch/launch/serve.py",
                  "chip_smoke.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
@@ -70,7 +73,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.api, repro_torch.kernels, "
             "repro_torch.runtime.engine, repro_torch.crypto, "
             "repro_torch.kernels.encrypted_round, repro_torch.models, "
-            "repro_torch.configs\n"
+            "repro_torch.configs, repro_torch.models.coded, "
+            "repro_torch.runtime.serve_loop, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

@@ -107,11 +107,22 @@ def test_unported_round_paths_raise(path):
             s.matmul(np.ones((8, 3), np.float32), np.ones((3, 2), np.float32))
 
 
-@pytest.mark.parametrize("method,args", [("serve", ())])
-def test_unported_session_methods_raise(method, args):
-    with Session(ClusterSpec(), device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            getattr(s, method)(*args)
+def _unported_serves():
+    api = port_api
+    socket = ClusterSpec(transport=api.TransportSpec(backend="socket"),
+                         serve=api.ServeSpec(coded_layers="unembed"))
+    return {"mla_family": (ClusterSpec(), dict(arch="deepseek-v2-lite-16b")),
+            "socket": (socket, dict(arch="qwen2-7b"))}
+
+
+@pytest.mark.parametrize("case", sorted(_unported_serves()))
+def test_unported_session_methods_raise(case):
+    """``Session.serve`` on what the port lacks: a family of a later slice
+    (MLA) and the socket transport."""
+    spec, kw = _unported_serves()[case]
+    with Session(spec, device="cpu") as s:
+        with pytest.raises(NotImplementedError, match="later slice|ROADMAP"):
+            s.serve(tiny=True, batch=1, prompt_len=2, gen=1, **kw)
 
 
 def _anytime_and_thread_specs():

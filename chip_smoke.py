@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Six main paths.  Two are SPACDC coded rounds through
+Seven main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -54,6 +54,15 @@ every decode step is one coded round whose unembed (or, with
 encoded once by ``berrut_combine`` and is decoded by one ``berrut_combine``
 launch per site; ``encrypt="real"`` puts every site's two transfers on the
 MEA-ECC wire through ``mask_add``.
+
+The seventh is the straggler and Byzantine story: ``Session(spec).matmul``
+under a ``FaultSpec`` (seeded crashes and corruption, screening,
+re-dispatch, quarantine) at ``benchmarks/bench_faults.py``'s operating
+point and under ``AdaptiveSpec(policy="adaptive")`` at
+``benchmarks/bench_adaptive.py``'s, both at the full qwen2-7b FFN width:
+the fault round's encode and decode through ``berrut_combine``, its
+encrypted wires through ``mask_add``, the adaptive candidates' fused rounds
+through ``coded_matmul`` and ``berrut_combine`` at every chosen K.
 
 Phases, one JSON line each:
 
@@ -167,6 +176,25 @@ Phases, one JSON line each:
    launches; (e) the ``threads`` transport's round mode at full width,
    tokens equal to the virtual round mode's, the pool closed within
    ``join_timeout_s``; (f) ``_build.build_count`` still 1.
+
+10. the robust main path (``robust_main_path``): (a) 10 defended and 10
+    undefended fault rounds at A (4096, 18944) @ B (18944, 3584), a row
+    each (rel-err against float64, retries, exclusions, mask, wait,
+    encode / screen / decode seconds); defended worst <= 1e-2, undefended
+    worst > 1e-1, retries and quarantines fired, every clean exclusion
+    beside a corruption that escaped the norm stage, the kernels-off run
+    on the same measured compute time identical, every ``berrut_combine``
+    call held, one profiled round; (b) the exclusion proof, plain and
+    ``encrypt="real"``, the corrupted set excluded, outputs bit-identical,
+    every ``mask_add`` call held; (c) an mds round out of retries raises
+    ``DegradedRoundError`` with its results on the card; (d) 48 adaptive
+    rounds at A (4096, 3584) @ B (3584, 18944) against the kernels-off
+    run (same decisions) and four fixed policies (latency at error beside
+    bench_adaptive's 1.1 floor), each candidate's first ``coded_matmul``
+    held, no scheme built in the closing third, ``build_count`` 1; (e)
+    lcc, glcc (1 and 2 groups), secpoly and bacc loop rounds at fig3_wide
+    against float64, every ``berrut_combine`` call held; (f) the health
+    snapshot and the adaptive report.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -552,6 +580,11 @@ def main() -> int:
     # -------------------------------------- 9. coded serving main path
     for kname, count in serving_main_path(
             torch, dev, ptxas["berrut_combine"]).items():
+        launches[kname] += count
+    torch.cuda.empty_cache()
+
+    # ------------------ 10. fault-tolerant and adaptive rounds, baselines
+    for kname, count in robust_main_path(torch, dev).items():
         launches[kname] += count
 
     # --------------------------------------------------------- summary
@@ -2576,6 +2609,607 @@ def serving_main_path(torch, dev, ptxas: dict) -> dict:
           "phase_s": time.perf_counter() - phase_t0})
     assert _build.build_count == 1, _build.build_count
     return total
+
+
+# --------------------------------------------------------------------------
+# phase 10: fault-tolerant and adaptive coded rounds, the later baselines
+# --------------------------------------------------------------------------
+
+# (a)/(b): the qwen2-7b FFN down-projection of one 4096-token prefill,
+# Gaussian, at benchmarks/bench_faults.py's operating point
+FAULT_JOB = (4096, 18944, 3584)
+FAULT_OP = dict(n_workers=24, k_blocks=4, fh_degree=3, t_colluding=2,
+                noise_scale=0.01, n_stragglers=3, seed=11, crash_rate=0.12,
+                corrupt_rate=0.12, corrupt_scale=1e3, quarantine_after=3,
+                max_retries=2)
+FAULT_ROUNDS = 10
+DEFENDED_REL_MAX = 1e-2
+UNDEFENDED_REL_MIN = 1e-1
+# (d): the qwen2-7b FFN up-projection of one 4096-token prefill, Gaussian,
+# at benchmarks/bench_adaptive.py's operating point
+ADAPTIVE_JOB = (4096, 3584, 18944)
+ADAPTIVE_OP = dict(n_workers=16, k_blocks=8, t_colluding=1, noise_scale=0.01,
+                   n_stragglers=4, seed=7, delay_s=0.03, jitter_scale=0.002)
+ADAPTIVE_ROUNDS, ADAPTIVE_REGIME = 48, 16
+ADAPTIVE_TARGET = 0.12
+ADAPTIVE_RATIO_FLOOR = 1.1           # bench_adaptive.py's full-run floor
+# (e): loop rounds of the later baselines at fig3_wide, float32 decodes
+# against the float64 product: the exact codes to float32 rounding times
+# their Lagrange/Vandermonde conditioning, BACC (rateless, approximate) to
+# test_registry.py's own f32 tolerance
+BASELINE_REL_MAX = {"lcc": 1e-3, "glcc": 1e-3, "secpoly": 1e-3, "bacc": 0.15}
+# device kernel classes of a fault round, first match wins
+FAULT_CLASSES = (("berrut_combine", ("berrut_stream",)),
+                 ("float64_screen", ("double", "f64", "dgemm", "dmma")),
+                 ("worker_products", ("gemm", "xmma", "cutlass", "nvjet")))
+
+
+def gaussian(torch, dev, shape, seed: int):
+    """A standard-normal float32 matrix made on the device from a seeded
+    generator (the benchmarks' Gaussian operands, at full width)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev)
+
+
+def f64_product(torch, a, b, cols: int = 2048):
+    """The float64 product a @ b, built over column chunks of b."""
+    a64 = a.double()
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float64,
+                      device=a.device)
+    for c in range(0, b.shape[1], cols):
+        out[:, c:c + cols] = a64 @ b[:, c:c + cols].double()
+    return out
+
+
+def rel_to(torch, out, exact, exact_norm: float) -> float:
+    """||out - exact|| / ||exact|| in float64, over row chunks."""
+    sq = 0.0
+    for r in range(0, out.shape[0], 1024):
+        sq += float(torch.linalg.vector_norm(
+            out[r:r + 1024].double() - exact[r:r + 1024]) ** 2)
+    return sq ** 0.5 / exact_norm
+
+
+def fault_spec(*, handle: bool, encrypt=None, corrupt_only: bool = False,
+               use_kernel=None):
+    """``benchmarks/bench_faults.py``'s spec: the defended or undefended
+    trace, or (``corrupt_only``) the exclusion proof's round."""
+    from repro_torch.api import (ClusterSpec, CodeSpec, CryptoSpec,
+                                 FaultSpec, PrivacySpec, StragglerSpec)
+    op = FAULT_OP
+    fault = FaultSpec(
+        crash_rate=0.0 if corrupt_only else op["crash_rate"],
+        corrupt_rate=0.25 if corrupt_only else op["corrupt_rate"],
+        corrupt_scale=op["corrupt_scale"], handle=handle,
+        max_retries=0 if corrupt_only else op["max_retries"],
+        quarantine_after=op["quarantine_after"],
+        seed=5 if corrupt_only else None)
+    return ClusterSpec(
+        code=CodeSpec(scheme="spacdc", n_workers=op["n_workers"],
+                      k_blocks=op["k_blocks"], use_kernel=use_kernel,
+                      extra={"fh_degree": op["fh_degree"]}),
+        privacy=PrivacySpec(t_colluding=op["t_colluding"],
+                            noise_scale=op["noise_scale"]),
+        straggler=StragglerSpec(
+            n_stragglers=0 if corrupt_only else op["n_stragglers"]),
+        crypto=CryptoSpec(encrypt=encrypt), seed=op["seed"], fault=fault)
+
+
+def corrupted_in_round(spec, round_idx: int) -> set:
+    """Every worker some attempt of ``round_idx`` corrupted in its plan."""
+    import numpy as np
+    from repro_torch.runtime.faults import plan_faults, retry_round_index
+    seed = spec.fault.seed if spec.fault.seed is not None else spec.seed
+    out = set()
+    for att in range(spec.fault.max_retries + 1):
+        plan = plan_faults(spec.fault, seed, retry_round_index(round_idx,
+                                                               att),
+                           spec.code.n_workers)
+        out |= set(int(w) for w in np.flatnonzero(plan.corrupt))
+    return out
+
+
+# a clean coded row stays within ~2x the median responder norm (the
+# reference's screen docstring measures ~1.4x); an evicted row above 3x it
+# is a corrupted result, whatever stage evicted it
+CORRUPT_NORM_X = 3.0
+
+
+def timed_screens(torch):
+    """Time every ``screen_responders`` call of the engine (synchronized
+    host seconds) and record, per call, the evicted slots' norms over the
+    median responder norm and the norm stage's cut (``norm_factor``).
+    Returns (times, passes, undo)."""
+    import numpy as np
+    from repro_torch.runtime import engine as eng_mod
+    run = eng_mod.screen_responders
+    times: list = []
+    passes: list = []
+
+    def screen(scheme, results, mask, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(scheme, results, mask, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        resp = np.flatnonzero(np.asarray(mask))
+        norms = torch.linalg.vector_norm(
+            results.reshape(len(mask), -1), dim=1,
+            dtype=torch.float64).cpu().numpy()
+        med = max(float(np.median(norms[resp])), 1e-12)
+        passes.append({"evicted_norm_x": [float(norms[s2] / med)
+                                          for s2 in out[1]],
+                       "norm_cut_x": float(kw.get("norm_factor", 30.0))})
+        return out
+    eng_mod.screen_responders = screen
+
+    def undo():
+        eng_mod.screen_responders = run
+    return times, passes, undo
+
+
+def fault_trace(torch, spec, a, b, exact, exact_norm: float, rounds: int,
+                worker_t=None, hold=None):
+    """``rounds`` rounds of ``spec`` in one session: a row per round (rel
+    err against float64, retries, exclusions, mask, degraded, wait, the
+    encode / screen / decode seconds) and the outputs.  ``worker_t`` seeds
+    the engine's measured per-worker compute time; ``hold`` collects
+    ``combine_bound_ratio`` of every ``berrut_combine`` call."""
+    from repro_torch.api import Session
+    screens, passes, undo = timed_screens(torch)
+    rows, outs = [], []
+    try:
+        with Session(spec, device=a.device) as s:
+            if worker_t is not None:
+                s.engine._worker_t = dict(worker_t)
+            if hold is not None:
+                hold_combines(torch, s.engine.scheme, hold)
+            for r in range(rounds):
+                n_scr = len(screens)
+                out, st = s.matmul(a, b)
+                # corrupted results the 30x norm stage let through (their
+                # clean rows are small: Berrut rows that nearly cancel)
+                escaped = [x for ps in passes[n_scr:]
+                           for x in ps["evicted_norm_x"]
+                           if CORRUPT_NORM_X < x <= ps["norm_cut_x"]]
+                rows.append({
+                    "round": r, "rel_err": rel_to(torch, out, exact,
+                                                  exact_norm),
+                    "retries": st.retries, "excluded": list(st.excluded),
+                    "quarantined": list(st.quarantined),
+                    "degraded": st.degraded,
+                    "achieved_rel_err": st.achieved_rel_err,
+                    "decode_mask": list(st.decode_mask),
+                    "n_waited": st.n_waited,
+                    "compute_wait_s": st.compute_wait_s,
+                    "encode_s": st.encode_s,
+                    "screen_s": sum(screens[n_scr:]),
+                    "escaped_norm_stage_x": escaped,
+                    "decode_s": st.decode_s, "crypto_s": st.crypto_s,
+                    "launches": st.dispatches})
+                outs.append(out)
+            health = s.health.snapshot()
+            worker_t = dict(s.engine._worker_t)
+    finally:
+        undo()
+    return rows, outs, health, worker_t
+
+
+def same_fault_rounds(rows_k, rows_p) -> bool:
+    keys = ("retries", "excluded", "quarantined", "degraded", "decode_mask",
+            "n_waited", "compute_wait_s")
+    return all(rk[k] == rp[k] for rk, rp in zip(rows_k, rows_p)
+               for k in keys)
+
+
+def adaptive_spec(*, wait=None, adaptive=None, use_kernel=None,
+                  regime_len: int = ADAPTIVE_REGIME):
+    """``benchmarks/bench_adaptive.py``'s spec."""
+    from repro_torch.api import (AdaptiveSpec, ClusterSpec, CodeSpec,
+                                 PrivacySpec, StragglerSpec, WaitSpec)
+    op = ADAPTIVE_OP
+    return ClusterSpec(
+        code=CodeSpec(scheme="spacdc", n_workers=op["n_workers"],
+                      k_blocks=op["k_blocks"], use_kernel=use_kernel),
+        privacy=PrivacySpec(t_colluding=op["t_colluding"],
+                            noise_scale=op["noise_scale"]),
+        straggler=StragglerSpec(n_stragglers=op["n_stragglers"],
+                                mode="shifting_markov",
+                                delay_s=op["delay_s"],
+                                jitter_scale=op["jitter_scale"],
+                                regime_len=regime_len),
+        wait=wait if wait is not None else WaitSpec(),
+        adaptive=adaptive if adaptive is not None else AdaptiveSpec(),
+        seed=op["seed"])
+
+
+def fixed_policies():
+    """``benchmarks/bench_adaptive.py``'s four fixed baselines."""
+    from repro_torch.api import WaitSpec
+    return {"fixed_quantile": WaitSpec(),
+            "first_k": WaitSpec(policy="first_k", k=10),
+            "deadline": WaitSpec(policy="deadline", t_budget=0.010),
+            "error_target": WaitSpec(policy="error_target",
+                                     eps=ADAPTIVE_TARGET, min_prefix=4)}
+
+
+def lat_at_err(st, err: float) -> float:
+    """bench_adaptive's per-round latency at the error target: the decode
+    time, plus the round's makespan when the error misses the target."""
+    makespan = (float(st.arrivals[-1][0]) if st.arrivals
+                else float(st.decode_at_s))
+    return float(st.decode_at_s) + (makespan if err > ADAPTIVE_TARGET
+                                    else 0.0)
+
+
+def hold_first_coded_matmuls(torch, held: dict):
+    """Hold the first ``coded_matmul`` kernel launch at every new (J, blk)
+    against the plain version on the same inputs: ``held[(J, blk)]`` =
+    (max abs err, that over max |plain|).  Returns the undo."""
+    from repro_torch.kernels import ops
+    run = ops.coded_matmul
+
+    def coded_matmul(weights, blocks, rhs, *, force_kernel=None):
+        got = run(weights, blocks, rhs, force_kernel=force_kernel)
+        key = (int(blocks.shape[0]), int(blocks.shape[1]))
+        if key not in held and ops._use_kernel(blocks, force_kernel):
+            want = run(weights, blocks, rhs, force_kernel=False)
+            held[key] = rel_diff(torch, got, want)
+            del want
+        return got
+    ops.coded_matmul = coded_matmul
+
+    def undo():
+        ops.coded_matmul = run
+    return undo
+
+
+def robust_main_path(torch, dev) -> dict:
+    """Phase 10: the fault-tolerant and adaptive rounds and the later
+    baselines.  (a) bench_faults's trace at the full-width down-projection:
+    10 defended and 10 undefended rounds, a row each; the defended trace
+    again with the kernels forced off (same measured compute time) and
+    once more with every ``berrut_combine`` call held; one profiled
+    defended round; (b) the exclusion proof, plain and ``encrypt="real"``
+    with every ``mask_add`` call held; (c) an mds round that runs out of
+    retries raises ``DegradedRoundError``; (d) bench_adaptive at the
+    full-width up-projection, 48 rounds, against the kernels-off run and
+    the four fixed policies; (e) one loop round each of lcc, glcc
+    (n_groups 1 and 2), secpoly and bacc at fig3_wide; (f) the health
+    snapshot and the adaptive report.  Returns the counted launches."""
+    import numpy as np
+    from repro_torch.api import (AdaptiveSpec, ClusterSpec, CodeSpec,
+                                 FaultSpec, PrivacySpec, Session,
+                                 StragglerSpec)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.runtime.faults import DegradedRoundError, plan_faults
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel}
+    total = {k: 0 for k in kernels}
+    phase_t0 = time.perf_counter()
+
+    # ---- (a) defended and undefended traces at full width
+    m, d, n_out = FAULT_JOB
+    a = gaussian(torch, dev, (m, d), 42)
+    b = gaussian(torch, dev, (d, n_out), 43)
+    exact = f64_product(torch, a, b)
+    exact_norm = float(torch.linalg.vector_norm(exact))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (rows_d, outs_d, health_d, worker_t), launches_d = counted(
+        kernels, total, lambda: fault_trace(
+            torch, fault_spec(handle=True), a, b, exact, exact_norm,
+            FAULT_ROUNDS))
+    (rows_u, _, _, _), launches_u = counted(
+        kernels, total, lambda: fault_trace(
+            torch, fault_spec(handle=False), a, b, exact, exact_norm,
+            FAULT_ROUNDS, worker_t=worker_t))
+    traces_s = time.perf_counter() - t0
+    for label, rows in (("defended", rows_d), ("undefended", rows_u)):
+        for row in rows:
+            emit({"phase": "robust_main_path", "check": f"a_{label}", **row})
+    spec_d = fault_spec(handle=True)
+    stray = [(row["round"], w) for row in rows_d for w in row["excluded"]
+             if w not in corrupted_in_round(spec_d, row["round"])]
+    # a clean worker is evicted only beside a corrupted result that
+    # escaped the norm stage: its leave-one-out prediction leans on that
+    # neighbour (the reference's screen, score for score)
+    unexplained = [(r, w) for r, w in stray
+                   if not rows_d[r]["escaped_norm_stage_x"]]
+    n_quar = sum(health_d["n_quarantines"])
+    # the kernels-off run on the same measured compute time, then every
+    # berrut_combine call of one more kernel run held to the plain version
+    rows_p, outs_p, _, _ = fault_trace(
+        torch, fault_spec(handle=True, use_kernel=False), a, b, exact,
+        exact_norm, FAULT_ROUNDS, worker_t=worker_t)
+    k_vs_p = max(rel_diff(torch, ok, op)[1] for ok, op in zip(outs_d,
+                                                              outs_p))
+    del outs_d, outs_p
+    held: list = []
+    rows_h, _, _, _ = fault_trace(torch, fault_spec(handle=True), a, b,
+                                  exact, exact_norm, FAULT_ROUNDS,
+                                  worker_t=worker_t, hold=held)
+    # one profiled defended round (outside the counted runs)
+    with Session(fault_spec(handle=True), device=dev) as s:
+        s.engine._worker_t = dict(worker_t)
+        s.matmul(a, b)
+        prof = profile_device(torch, lambda: s.matmul(a, b), FAULT_CLASSES)
+    row = {"phase": "robust_main_path", "check": "a_summary",
+           "job": {"A": [m, d], "B": [d, n_out]}, "op": FAULT_OP,
+           "defended_worst_rel_err": max(r["rel_err"] for r in rows_d),
+           "undefended_worst_rel_err": max(r["rel_err"] for r in rows_u),
+           "total_retries": sum(r["retries"] for r in rows_d),
+           "total_excluded": sum(len(r["excluded"]) for r in rows_d),
+           "n_degraded": sum(r["degraded"] for r in rows_d),
+           "n_quarantine_events": n_quar,
+           "excluded_not_corrupted": stray,
+           "excluded_not_corrupted_unexplained": unexplained,
+           "launches_defended": launches_d,
+           "launches_undefended": launches_u,
+           "kernels_off_same_rounds": same_fault_rounds(rows_d, rows_p),
+           "kernel_vs_plain_rel": k_vs_p,
+           "held_combines": len(held),
+           "held_worst_bound_ratio": max(held) if held else None,
+           "held_run_same_rounds": same_fault_rounds(rows_d, rows_h),
+           "profiled_defended_round": prof,
+           "traces_s": traces_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    assert row["defended_worst_rel_err"] <= DEFENDED_REL_MAX, row
+    assert row["undefended_worst_rel_err"] > UNDEFENDED_REL_MIN, row
+    assert row["total_retries"] >= 1 and row["total_excluded"] >= 1, row
+    assert n_quar >= 1, row
+    assert not unexplained, row
+    assert row["kernels_off_same_rounds"] and k_vs_p <= ROUND_TOL, row
+    assert row["held_run_same_rounds"], row
+    assert held and max(held) <= 1.0, row
+    assert launches_d["berrut_combine"] == 2 * FAULT_ROUNDS, row
+    assert launches_d["coded_matmul"] == launches_d["mask_add"] == 0, row
+    assert prof["device_busy_ms"] > 0, row
+    torch.cuda.empty_cache()
+
+    # ---- (b) the exclusion proof: corrupt-only, retries off
+    proof_spec = fault_spec(handle=True, corrupt_only=True)
+    plan = plan_faults(proof_spec.fault, proof_spec.fault.seed, 0,
+                       FAULT_OP["n_workers"])
+    corrupted = sorted(int(w) for w in np.flatnonzero(plan.corrupt))
+    proofs, outs = {}, {}
+    mask_held: list = []
+    for label, encrypt in (("plain", None), ("real", "real")):
+        undo = hold_ops_mask_adds(torch, mask_held)
+        t0 = time.perf_counter()
+        try:
+            (out, st), launches = counted(
+                kernels, total, lambda: run_one(
+                    fault_spec(handle=True, corrupt_only=True,
+                               encrypt=encrypt), a, b, worker_t))
+        finally:
+            undo()
+        outs[label] = out
+        proofs[label] = {
+            "encrypt": encrypt, "corrupted_workers": corrupted,
+            "excluded_workers": sorted(st.excluded),
+            "decode_mask": list(st.decode_mask),
+            "rel_err": rel_to(torch, out, exact, exact_norm),
+            "crypto_s": st.crypto_s, "round_s": time.perf_counter() - t0,
+            "launches": launches}
+    row = {"phase": "robust_main_path", "check": "b_exclusion_proof",
+           "job": {"A": [m, d], "B": [d, n_out]}, **proofs,
+           "plain_equals_real_bitwise": torch.equal(outs["plain"],
+                                                    outs["real"]),
+           "mask_add_calls_held": len(mask_held),
+           "mask_add_calls_equal": sum(ok for *_, ok in mask_held),
+           "mask_add_shapes": sorted({str(shp) for shp, *_ in mask_held})}
+    emit(row)
+    for proof in proofs.values():
+        assert corrupted and proof["excluded_workers"] == corrupted, row
+        assert all(proof["decode_mask"][w] == 0 for w in corrupted), row
+        assert proof["rel_err"] <= DEFENDED_REL_MAX, row
+    assert row["plain_equals_real_bitwise"], row
+    assert mask_held and all(ok for *_, ok in mask_held), row
+    assert proofs["real"]["launches"]["mask_add"] == len(mask_held), row
+    del outs, a, b, exact
+    torch.cuda.empty_cache()
+
+    # ---- (c) a threshold scheme out of retries
+    wm, wd, wn = ANYTIME_WIDE
+    aw, bw = gaussian(torch, dev, (wm, wd), 44), gaussian(torch, dev,
+                                                         (wd, wn), 45)
+    mds = ClusterSpec(code=CodeSpec(scheme="mds", n_workers=8, k_blocks=4),
+                      straggler=StragglerSpec(n_stragglers=0), seed=2,
+                      fault=FaultSpec(crash_rate=0.7, handle=True,
+                                      max_retries=1, seed=1))
+    err, raised_at = None, None
+    with Session(mds, device=dev) as s:
+        for r in range(6):
+            try:
+                s.matmul(aw, bw)
+            except DegradedRoundError as e:
+                err, raised_at = e, r
+                break
+    row = {"phase": "robust_main_path", "check": "c_threshold_degraded",
+           "raised_at_round": raised_at,
+           "clean_slots": list(err.clean_slots) if err else None,
+           "excluded": list(err.excluded) if err else None,
+           "retries": err.retries if err else None,
+           "needed": err.needed if err else None,
+           "results_device": (str(err.results.device) if err is not None
+                              and err.results is not None else None),
+           "results_shape": (list(err.results.shape) if err is not None
+                             and err.results is not None else None)}
+    emit(row)
+    assert err is not None and err.needed >= 4, row
+    assert 1 <= len(err.clean_slots) < 4 and err.retries == 1, row
+    assert err.results.device.type == dev.type and tuple(err.results.shape) == (
+        len(err.clean_slots), wm // 4, wn), row
+
+    # ---- (d) adaptive against the kernels-off run and the fixed policies
+    am, ad, an = ADAPTIVE_JOB
+    a = gaussian(torch, dev, (am, ad), 46)
+    b = gaussian(torch, dev, (ad, an), 47)
+    exact = f64_product(torch, a, b)
+    exact_norm = float(torch.linalg.vector_norm(exact))
+    ad_spec = AdaptiveSpec(policy="adaptive", target_rel_err=ADAPTIVE_TARGET,
+                           warmup_rounds=6, retune_every=2, max_candidates=5)
+    cm_held: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def adaptive_runs():
+        undo = hold_first_coded_matmuls(torch, cm_held)
+        out = {"lat": [], "errs": [], "same": [], "kvp": 0.0, "built": [],
+               "builds": [], "rounds": []}
+        try:
+            with Session(adaptive_spec(adaptive=ad_spec), device=dev) as sk, \
+                    Session(adaptive_spec(adaptive=ad_spec,
+                                          use_kernel=False),
+                            device=dev) as sp:
+                for r in range(ADAPTIVE_ROUNDS):
+                    got, st = sk.matmul(a, b)
+                    sp.engine._worker_t = dict(sk.engine._worker_t)
+                    want, wst = sp.matmul(a, b)
+                    err = rel_to(torch, got, exact, exact_norm)
+                    out["lat"].append(lat_at_err(st, err))
+                    out["errs"].append(err)
+                    out["same"].append(
+                        sk.engine._scheme_token == sp.engine._scheme_token
+                        and st.decode_mask == wst.decode_mask
+                        and st.policy == wst.policy)
+                    out["kvp"] = max(out["kvp"], rel_diff(torch, got,
+                                                          want)[1])
+                    out["built"].append(len(sk.engine.adaptive._schemes))
+                    out["builds"].append(_build.build_count)
+                    out["rounds"].append({
+                        "round": r, "k_blocks": sk.engine.k,
+                        "policy": st.policy, "n_waited": st.n_waited,
+                        "decode_at_s": st.decode_at_s, "rel_err": err,
+                        "encode_s": st.encode_s, "launches": st.dispatches})
+                    del got, want
+                out["report"] = sk.adaptive_report()
+                out["report_plain"] = sp.adaptive_report()
+                out["health"] = sk.health.snapshot()
+        finally:
+            undo()
+        return out
+    t0 = time.perf_counter()
+    res, launches_ad = counted(kernels, total, adaptive_runs)
+    adaptive_s = time.perf_counter() - t0
+    peak_ad = torch.cuda.max_memory_allocated() / 1e9
+    fixed = {}
+    t0 = time.perf_counter()
+    for name, wait in fixed_policies().items():
+        def run_fixed(wait=wait):
+            lats, misses = [], 0
+            with Session(adaptive_spec(wait=wait), device=dev) as s:
+                for _ in range(ADAPTIVE_ROUNDS):
+                    got, st = s.matmul(a, b)
+                    err = rel_to(torch, got, exact, exact_norm)
+                    lats.append(lat_at_err(st, err))
+                    misses += err > ADAPTIVE_TARGET
+            return {"lat_at_err_ms": float(np.mean(lats)) * 1e3,
+                    "misses": int(misses)}
+        fixed[name], _ = counted(kernels, total, run_fixed)
+    fixed_s = time.perf_counter() - t0
+    best = min(fixed, key=lambda k: fixed[k]["lat_at_err_ms"])
+    ad_ms = float(np.mean(res["lat"])) * 1e3
+    tail = res["built"][-(ADAPTIVE_ROUNDS // 3):]
+    row = {"phase": "robust_main_path", "check": "d_adaptive",
+           "job": {"A": [am, ad], "B": [ad, an]}, "op": ADAPTIVE_OP,
+           "rounds": ADAPTIVE_ROUNDS, "regime_len": ADAPTIVE_REGIME,
+           "adaptive_lat_at_err_ms": ad_ms,
+           "adaptive_misses": int(sum(e > ADAPTIVE_TARGET
+                                      for e in res["errs"])),
+           "fixed": fixed, "best_fixed": best,
+           "adaptive_vs_best_fixed_x": fixed[best]["lat_at_err_ms"] / ad_ms,
+           "reference_floor_x": ADAPTIVE_RATIO_FLOOR,
+           "decisions": [(dd["round_idx"], dd["k_blocks"], dd["wait_for"])
+                         for dd in res["report"]["decisions"]],
+           "kernels_off_same_decisions": all(res["same"]) and
+           [dict(dd, predicted_rel_err=None)
+            for dd in res["report"]["decisions"]] ==
+           [dict(dd, predicted_rel_err=None)
+            for dd in res["report_plain"]["decisions"]],
+           "kernel_vs_plain_rel": res["kvp"],
+           "coded_matmul_held": {f"J={j},blk={blk}": v[1]
+                                 for (j, blk), v in sorted(cm_held.items())},
+           "schemes_built_by_round": res["built"],
+           "build_count": _build.build_count,
+           "launches": launches_ad, "per_round": res["rounds"],
+           "adaptive_s": adaptive_s, "fixed_s": fixed_s,
+           "peak_memory_gb": peak_ad}
+    emit(row)
+    assert row["kernels_off_same_decisions"], row
+    assert res["kvp"] <= ROUND_TOL, row
+    assert cm_held and all(v[1] <= TOL["float32"]
+                           for v in cm_held.values()), row
+    assert len(cm_held) == len({dd["k_blocks"] for dd in
+                                res["report"]["decisions"]} |
+                               {ADAPTIVE_OP["k_blocks"]}), row
+    assert tail[0] == tail[-1], row
+    assert set(res["builds"]) == {1}, row
+    assert res["report"]["decisions"], row
+    health_ad, report_ad = res["health"], res["report"]
+    del a, b, exact, res
+    torch.cuda.empty_cache()
+
+    # ---- (e) the later baselines, one loop round each at fig3_wide
+    exact_w = f64_product(torch, aw, bw)
+    norm_w = float(torch.linalg.vector_norm(exact_w))
+    base_rows = []
+    for name, extra, expect in (("lcc", {}, 2), ("glcc", {"n_groups": 1}, 2),
+                                ("glcc", {"n_groups": 2}, 4),
+                                ("secpoly", {}, 3), ("bacc", {}, 2)):
+        spec = ClusterSpec(
+            code=CodeSpec(scheme=name, n_workers=30, k_blocks=4,
+                          fused=False, extra=extra),
+            privacy=PrivacySpec(t_colluding=1, noise_scale=0.01),
+            straggler=StragglerSpec(n_stragglers=7), seed=0)
+        ratios: list = []
+        undo = hold_ops_combines(torch, ratios)
+        try:
+            (out, st), launches = counted(
+                kernels, total, lambda spec=spec: run_one(spec, aw, bw))
+        finally:
+            undo()
+        rel = rel_to(torch, out, exact_w, norm_w)
+        base_rows.append({"scheme": name, **extra, "rel_err_vs_f64": rel,
+                          "tol": BASELINE_REL_MAX[name],
+                          "n_waited": st.n_waited, "launches": launches,
+                          "held": len(ratios),
+                          "worst_bound_ratio": max(ratios)})
+        assert rel <= BASELINE_REL_MAX[name], base_rows[-1]
+        assert launches["berrut_combine"] == expect == len(ratios), \
+            base_rows[-1]
+        assert max(ratios) <= 1.0, base_rows[-1]
+    emit({"phase": "robust_main_path", "check": "e_baselines",
+          "job": {"A": [wm, wd], "B": [wd, wn]}, "rounds": base_rows})
+
+    # ---- (f) the health snapshot and the adaptive report, JSON
+    emit({"phase": "robust_main_path", "check": "f_health_snapshot",
+          "defended_trace": health_d, "adaptive_run": health_ad})
+    emit({"phase": "robust_main_path", "check": "f_adaptive_report",
+          "report": report_ad})
+    emit({"phase": "robust_main_path", "check": "phase_total",
+          "launches": total, "build_count": _build.build_count,
+          "phase_s": time.perf_counter() - phase_t0})
+    assert _build.build_count == 1, _build.build_count
+    return total
+
+
+def run_one(spec, a, b, worker_t=None):
+    """One round of ``spec`` in a fresh session on A's device (seeded with
+    ``worker_t``, the measured per-worker compute time, when given)."""
+    from repro_torch.api import Session
+    with Session(spec, device=a.device) as s:
+        if worker_t is not None:
+            s.engine._worker_t = dict(worker_t)
+        return s.matmul(a, b)
 
 
 if __name__ == "__main__":

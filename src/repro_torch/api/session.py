@@ -30,7 +30,12 @@ loop of ``runtime.serve_loop`` over a model built on the session's device
 (``models.build_model`` from a seeded generator; ``arch`` may also be a
 ``ModelConfig``, e.g. one whose depth is cut).  Families the port does not
 have yet (MLA, MoE, SSM) and the socket transport raise
-``NotImplementedError``.
+``NotImplementedError``.  As in the reference, the serve loop reads
+neither ``FaultSpec`` nor ``AdaptiveSpec``.
+
+Under an active ``FaultSpec`` or ``AdaptiveSpec(policy="adaptive")``,
+``Session.health`` is the engine's ``WorkerHealth`` and
+``Session.adaptive_report()`` the controller's JSON-ready state.
 """
 
 from __future__ import annotations
@@ -239,6 +244,41 @@ class Session:
     @property
     def closed(self) -> bool:
         return self._closed
+
+    @property
+    def health(self):
+        """The engine's :class:`~repro_torch.runtime.faults.WorkerHealth`
+        tracker (None unless the spec's ``FaultSpec`` is active or
+        ``AdaptiveSpec`` is enabled): EWMA latency, crash/drop/corrupt
+        counts, quarantine state per worker."""
+        return self.engine.health
+
+    def adaptive_report(self) -> dict:
+        """JSON-ready snapshot of the adaptive controller's state: the
+        fitted straggler model, the candidate space, every per-round
+        :class:`~repro_torch.runtime.adaptive.Decision`, and the
+        per-worker health (``WorkerHealth.to_dict``).  With
+        ``policy="fixed"`` the report just says so, so callers
+        (``launch/serve.py --report``) can dump it unconditionally."""
+        eng = self.engine
+        report = {
+            "scheme": self.spec.code.scheme,
+            "n_workers": self.spec.code.n_workers,
+            "adaptive": self.spec.adaptive.enabled,
+            "rounds_run": len(self.round_stats),
+        }
+        if eng.adaptive is not None:
+            report.update(eng.adaptive.report())
+            report["active"] = {
+                "k_blocks": int(getattr(eng.scheme, "k_blocks", eng.k)),
+                "policy": eng.policy.name,
+                "fh_degree": int(eng.fh_degree),
+            }
+        else:
+            report["policy"] = "fixed"
+        if eng.health is not None:
+            report["health"] = eng.health.to_dict()
+        return report
 
     def _check_open(self):
         if self._closed:

@@ -1,18 +1,20 @@
 """SPACDC core: Berrut coded computing, the scheme registry, the baseline
 schemes, coded training and privacy.
 
-Ports ``repro/core``.  Importing this package registers the ``spacdc``
-scheme and the baselines ``conv``, ``mds``, ``polynomial`` and ``matdot``,
-so ``repro_torch.core.registry.build(name, **cfg)`` is ready immediately.
-LCC, GLCC, SecPoly, BACC, ``berrut_grad``, ``BerrutGradientCode`` and
-``coded_psum`` come in later slices (see ROADMAP.md).
+Ports ``repro/core``.  Importing this package registers every scheme the
+reference registers (``bacc``, ``berrut_grad``, ``conv``, ``glcc``,
+``lcc``, ``matdot``, ``mds``, ``polynomial``, ``secpoly``, ``spacdc``), so
+``repro_torch.core.registry.build(name, **cfg)`` is ready immediately.
+``coded_psum`` needs a device mesh and raises until that slice (see
+ROADMAP.md).
 """
 
 from .berrut import (berrut_weight_matrix, berrut_weights, chebyshev_points,
                      combine, default_alpha_beta)
 from . import registry
 from .spacdc import SPACDCCode, SPACDCConfig, pad_to_blocks
-from .coded_training import coded_backprop_decode, coded_backprop_encode
+from .coded_training import (BerrutGradientCode, coded_backprop_decode,
+                             coded_backprop_encode, coded_psum)
 from . import baselines, privacy
 
 __all__ = [
@@ -20,6 +22,7 @@ __all__ = [
     "default_alpha_beta",
     "registry",
     "SPACDCCode", "SPACDCConfig", "pad_to_blocks",
-    "coded_backprop_decode", "coded_backprop_encode",
+    "BerrutGradientCode", "coded_backprop_decode", "coded_backprop_encode",
+    "coded_psum",
     "baselines", "privacy",
 ]

@@ -1,19 +1,36 @@
-"""SPACDC applied to distributed training: the paper's SPACDC-DL (§VI).
+"""SPACDC applied to distributed training: the paper's SPACDC-DL (§VI) and
+Berrut approximate gradient coding.
 
-Ports ``coded_backprop_encode`` and ``coded_backprop_decode`` of
-``repro/core/coded_training.py``: the layer-weight matrix Θ^l is split into
-K row-blocks, Berrut-encoded with T noise blocks, and N workers compute the
-backward product f_δ(Θ̃) = Θ̃^T δ^{l+1} ⊙ σ'(τ^l) on coded blocks; the
-master decodes δ^l ≈ ℵ(ξ_i) from whichever workers respond.  The TPU-pod
-half of the reference (``BerrutGradientCode``, ``coded_psum``) needs
-``torch.distributed`` and comes in a later slice (see ROADMAP.md).
+Ports ``repro/core/coded_training.py``:
+
+1. ``coded_backprop_encode`` / ``coded_backprop_decode``: the layer-weight
+   matrix Θ^l is split into K row-blocks, Berrut-encoded with T noise
+   blocks, and N workers compute the backward product
+   f_δ(Θ̃) = Θ̃^T δ^{l+1} ⊙ σ'(τ^l) on coded blocks; the master decodes
+   δ^l ≈ ℵ(ξ_i) from whichever workers respond.
+2. ``BerrutGradientCode`` (registered as ``berrut_grad``): approximate
+   gradient coding over the data-parallel axis.  Shard i combines the
+   gradients of the ``redundancy`` microbatch blocks cyclically assigned to
+   it with its row of a masked, renormalized Berrut encoder; the mean
+   gradient decodes from any survivor set.  The coding matrices are host
+   numpy, the decode weights and the per-shard combination tensors.
+
+``coded_psum``, the reference's decode as a mesh ``psum``, needs
+``torch.distributed`` and raises until that slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
-__all__ = ["coded_backprop_encode", "coded_backprop_decode"]
+from . import registry
+
+__all__ = ["coded_backprop_encode", "coded_backprop_decode",
+           "BerrutGradientCode", "coded_psum"]
 
 
 def coded_backprop_encode(code, theta_t: torch.Tensor,
@@ -36,3 +53,104 @@ def coded_backprop_decode(code, partials: torch.Tensor, responders,
     rows = sigma_prime.shape[0]
     flat = decoded.reshape((-1,) + tuple(decoded.shape[2:]))[:rows]
     return flat * sigma_prime
+
+
+@dataclasses.dataclass(frozen=True)
+class BerrutGradientCode:
+    """Berrut approximate gradient coding over ``n_shards`` dp workers.
+
+    The global batch is viewed as ``n_blocks`` microbatch blocks.  Shard i
+    is assigned blocks {i, i+1, ..., i+redundancy-1} (mod n_blocks) and
+    emits  e_i = Σ_j  E[i, j] · g(D_j)  where E is the Berrut encoder matrix
+    masked to the shard's assignment and renormalized.  The decoder
+    approximates the mean gradient from any responder subset via the
+    Berrut interpolant evaluated at the block nodes.
+
+    redundancy=1, n_blocks=n_shards  ⇒ e_i = g(D_i) (plain DP); the decode
+    then reduces to a survivor-renormalized mean.  redundancy>1 buys
+    straggler resilience at redundancy× compute, the paper's N/K trade.
+    """
+    n_shards: int
+    n_blocks: int
+    redundancy: int = 1
+    t_noise: int = 0
+    noise_scale: float = 0.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if not (1 <= self.redundancy <= self.n_blocks):
+            raise ValueError("redundancy must be in [1, n_blocks]")
+
+    @functools.cached_property
+    def _code(self):
+        """The underlying SPACDC node layout, via the scheme registry."""
+        return registry.build("spacdc", n_workers=self.n_shards,
+                              k_blocks=self.n_blocks,
+                              t_colluding=self.t_noise,
+                              noise_scale=self.noise_scale, seed=self.seed)
+
+    @functools.cached_property
+    def _assignment(self) -> np.ndarray:
+        base = np.arange(self.n_shards)[:, None] * max(
+            1, self.n_blocks // self.n_shards)
+        return (base + np.arange(self.redundancy)[None, :]) % self.n_blocks
+
+    def assignment(self) -> np.ndarray:
+        """(n_shards, redundancy) block ids per shard (cyclic)."""
+        return self._assignment
+
+    @functools.cached_property
+    def _encoder_matrix(self) -> np.ndarray:
+        full = self._code.enc_matrix.numpy()[:, : self.n_blocks]  # (N, B)
+        mask = np.zeros_like(full)
+        asn = self.assignment()
+        for i in range(self.n_shards):
+            mask[i, asn[i]] = 1.0
+        sparse = full * mask
+        # renormalize rows to sum 1 so each shard emits an affine combo
+        sparse /= np.maximum(np.abs(sparse.sum(axis=1, keepdims=True)),
+                             1e-9) * \
+            np.sign(sparse.sum(axis=1, keepdims=True) + 1e-12)
+        return sparse
+
+    def encoder_matrix(self) -> np.ndarray:
+        """(n_shards, n_blocks) row-sparse Berrut encoder (support =
+        assignment), float32."""
+        return self._encoder_matrix
+
+    def decoder_weights(self, mask) -> torch.Tensor:
+        """(n_shards,) decode weights for the masked responder set: the
+        mean over the B block nodes of ``decode_matrix_masked``."""
+        return self._code.decode_matrix_masked(mask).mean(dim=0)
+
+    def encode_local(self, block_grads: torch.Tensor,
+                     shard_index: int) -> torch.Tensor:
+        """Combine this shard's per-block gradients with its encoder row.
+
+        block_grads: (redundancy, ...) gradients of the assigned blocks in
+        assignment order; ``shard_index``: this shard's index."""
+        i = int(shard_index)
+        row = self.encoder_matrix()[i, self.assignment()[i]]      # (r,)
+        w = torch.as_tensor(row, dtype=torch.float32,
+                            device=block_grads.device)
+        flat = block_grads.reshape(self.redundancy, -1).to(torch.float32)
+        return torch.einsum("r,rf->f", w, flat).reshape(
+            block_grads.shape[1:])
+
+
+def coded_psum(encoded_grad, mask, gcode: BerrutGradientCode, axis_name):
+    """The coded all-reduce over a mesh axis: the reference's is a
+    ``jax.lax.psum`` inside ``shard_map``; the port's needs
+    ``torch.distributed`` and comes in a later slice (see ROADMAP.md)."""
+    raise NotImplementedError(
+        "coded_psum runs over a device mesh (torch.distributed), which "
+        "comes in a later slice of the port; see ROADMAP.md")
+
+
+# Gradient codes live in the same registry as the data/pair codes so launch
+# configs can name them ("berrut_grad") instead of importing classes.
+registry.register(
+    "berrut_grad",
+    lambda n_shards, n_blocks=None, redundancy=1, t_noise=0, noise_scale=0.0,
+    seed=0: BerrutGradientCode(n_shards, n_blocks or n_shards, redundancy,
+                               t_noise, noise_scale, seed))

@@ -17,11 +17,22 @@ decode weights of every prefix of an arrival order at once
 default), so a round's whole anytime curve is one batched
 ``kernels.ops.prefix_decode``.  Rateless schemes add a second decoder for
 the embedded-pair error proxy (``anytime_proxy_weights``); the default has
-none.  ``decode_residuals`` comes with the fault paths (see ROADMAP.md).
+none.
 
-Registered so far: ``spacdc`` (``core/spacdc.py``) and the baselines
-``conv``, ``mds``, ``polynomial`` and ``matdot`` (``core/baselines.py``);
-LCC, GLCC, SecPoly, BACC and ``berrut_grad`` come later (see ROADMAP.md).
+Byzantine screening (``decode_residuals``, read by
+``runtime.scheduler.screen_responders``): every responder's result is
+predicted from the other responders.  The reference loops over the
+responders in numpy, one float64 leave-one-out prediction each; the port
+stacks the R leave-one-out rows into one (R, R) float64 matrix with a zero
+diagonal (built on the host, as the reference builds each row) and
+predicts all R results in one float64 ``torch.matmul`` on the results'
+device (``_loo_scores``).  The reference runs this outside any Pallas
+kernel, so a library product is its port.
+
+Registered: ``spacdc`` (``core/spacdc.py``), the baselines ``conv``,
+``mds``, ``polynomial``, ``matdot``, ``lcc``, ``glcc``, ``secpoly`` and
+``bacc`` (``core/baselines.py``) and the gradient code ``berrut_grad``
+(``core/coded_training.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +67,29 @@ def _host(x) -> np.ndarray:
     if torch.is_tensor(x):
         x = x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _loo_scores(results, mask: np.ndarray, resp: np.ndarray,
+                weights: np.ndarray, scored: np.ndarray) -> np.ndarray:
+    """(N,) float64 leave-one-out scores: ``||r_i - pred_i|| / den`` for the
+    responders ``resp``, where ``pred = weights @ r[resp]`` ((R, R) float64,
+    row a predicting responder ``resp[a]`` from the others, zero diagonal)
+    and ``den`` is the MEDIAN responder norm.  One float64 product on the
+    results' device; only the responders' rows are read, so masked-out
+    garbage (NaN from a tampered ciphertext) never enters.  Responders not
+    ``scored`` and non-responders score 0."""
+    scores = np.zeros(mask.size, np.float64)
+    if resp.size == 0:
+        return scores
+    x = torch.as_tensor(results)
+    idx = torch.from_numpy(resp).to(x.device)
+    flat = x.reshape(mask.size, -1)[idx].double()            # (R, F)
+    norms = torch.linalg.vector_norm(flat, dim=1).cpu().numpy()
+    den = max(float(np.median(norms)), 1e-12)
+    pred = torch.from_numpy(weights).to(flat.device) @ flat
+    resid = torch.linalg.vector_norm(flat - pred, dim=1).cpu().numpy()
+    scores[resp] = np.where(scored, resid / den, 0.0)
+    return scores
 
 
 class SchemeDefaults:
@@ -221,6 +255,41 @@ class SchemeDefaults:
         prefixes 0 (ready) / inf (not).
         """
         return None
+
+    # -- Byzantine screening ---------------------------------------------
+    def decode_residuals(self, results, mask) -> np.ndarray:
+        """Leave-one-out consistency score per responder: (N,) float64.
+
+        For each responder i, predict its result from the OTHER responders
+        through the encoder's row space (float64 masked pinv, on the host
+        as in the reference) and score ``||r_i − pred_i||`` relative to the
+        MEDIAN responder norm, which stays at signal scale however many
+        corrupters pollute the predictions.  Responders whose
+        leave-one-out subset falls below ``min_responders`` score 0
+        (unscoreable); non-responder slots score 0.  ``results`` (N, ...)
+        is a tensor on any device (or an array); the predictions are one
+        float64 product there (``_loo_scores``).
+        """
+        enc = self.fused_encoder_matrix()
+        if enc is None:
+            raise NotImplementedError(
+                f"{self.name}: no linear encoder — no leave-one-out "
+                "residual screen")
+        enc = _host(enc).astype(np.float64)
+        mask = _host(mask).astype(bool)
+        resp = np.flatnonzero(mask)
+        weights = np.zeros((resp.size, resp.size), np.float64)
+        scored = np.zeros(resp.size, bool)
+        for a, i in enumerate(resp):
+            loo = mask.copy()
+            loo[i] = False
+            if int(loo.sum()) < self.min_responders:
+                continue
+            row = enc[i] @ np.linalg.pinv(enc * loo[:, None])   # (N,)
+            weights[a] = row[resp]
+            weights[a, a] = 0.0
+            scored[a] = True
+        return _loo_scores(results, mask, resp, weights, scored)
 
     def wait_policy(self, n_stragglers: int = 0) -> int:
         if self.rateless:

@@ -89,6 +89,8 @@ class SPACDCCode(registry.SchemeDefaults):
         # (bound per instance so the cache dies with the code object)
         self._decode_matrix_cached = functools.lru_cache(maxsize=256)(
             self._decode_matrix)
+        self._loo_weights_cached = functools.lru_cache(maxsize=1024)(
+            self._loo_weights)
 
     # ---------------------------------------------------------------- encode
     def make_noise(self, block_shape, dtype=torch.float32, device="cpu"):
@@ -237,6 +239,48 @@ class SPACDCCode(registry.SchemeDefaults):
             weights[p - 1, :, resp] = mat.T[: len(resp)]
             valid[p - 1] = True
         return weights, valid
+
+
+    # ------------------------------------------------- Byzantine screening
+    def _loo_weights(self, i: int, others: tuple) -> np.ndarray:
+        """(|others|,) Berrut interpolation weights predicting worker i's
+        value at alpha_i from the other responders' nodes (alternating sign
+        by sorted rank, as in the decode matrix, evaluated at alpha_i
+        instead of the betas), returned as float64.  Evaluated in float32
+        as the reference evaluates them; the normalizing sum runs left to
+        right, the order of XLA's CPU row sum up to 32 nodes, so the rows
+        match the reference's bit for bit there."""
+        alphas = self.alphas.numpy()
+        nodes = alphas[np.asarray(others, dtype=np.int64)]
+        rank = np.argsort(np.argsort(nodes.astype(np.float64)))
+        signs = np.where(rank % 2 == 0, 1.0, -1.0).astype(np.float32)
+        diff = (alphas[i] - nodes).astype(np.float32)
+        hit = np.abs(diff) < 1e-12
+        if hit.any():
+            w = hit.astype(np.float32) / np.float32(max(hit.sum(), 1))
+        else:
+            terms = (signs / diff).astype(np.float32)
+            w = terms / np.add.accumulate(terms, dtype=np.float32)[-1]
+        return w.astype(np.float64)
+
+    def decode_residuals(self, results, mask) -> np.ndarray:
+        """Leave-one-out Berrut residuals (see ``SchemeDefaults``): worker
+        i's result against the rational interpolant through the other
+        responders evaluated at alpha_i, normalized by the MEDIAN responder
+        norm.  The cached weight rows (responder sets recur every round)
+        are stacked into one (R, R) matrix and applied in one float64
+        product on the results' device (``registry._loo_scores``)."""
+        mask = registry._host(mask).astype(bool)
+        resp = np.flatnonzero(mask)
+        if resp.size < 3:    # LOO prediction from < 2 nodes says nothing
+            return np.zeros(mask.size, np.float64)
+        weights = np.zeros((resp.size, resp.size), np.float64)
+        for a, i in enumerate(resp):
+            others = tuple(int(j) for j in resp if j != i)
+            cols = [b for b in range(resp.size) if b != a]
+            weights[a, cols] = self._loo_weights_cached(int(i), others)
+        return registry._loo_scores(results, mask, resp, weights,
+                                    np.ones(resp.size, bool))
 
 
 registry.register(

@@ -18,13 +18,15 @@ per step.
 It runs on the card; ``--device cpu`` runs the plain versions of the
 kernels on the CPU.  ``--uncoded`` runs the same continuous-batching loop
 with no coded rounds (``coded_layers="none"``) for comparison.
-``--report`` needs ``Session.adaptive_report`` and ``--transport socket``
-the socket mesh: both come in later slices and raise.
+``--report`` prints the session's ``adaptive_report()`` as JSON after the
+serve.  ``--transport socket`` needs the socket mesh, which comes in a
+later slice and raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 
 import numpy as np
 
@@ -69,17 +71,12 @@ def main(argv=None):
                     "'socket' comes in a later slice and raises")
     ap.add_argument("--report", action="store_true",
                     help="after serving, print the session's adaptive/"
-                    "health report (Session.adaptive_report) as JSON; "
-                    "a later slice, raises")
+                    "health report (Session.adaptive_report) as JSON")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                     "plain versions of the kernels)")
     args = ap.parse_args(argv)
 
-    if args.report:
-        raise NotImplementedError(
-            "--report needs Session.adaptive_report (the adaptive "
-            "controller), a later slice of the port; see ROADMAP.md")
     n_requests = args.requests if args.requests is not None else \
         (args.batch if args.batch is not None else 8)
     if args.coded_layers is not None:
@@ -100,6 +97,7 @@ def main(argv=None):
                       prompt_len=args.prompt_len, gen=args.gen,
                       seed=args.seed, arrival_rate=args.rate,
                       ragged=args.ragged, admission=args.admission)
+        session_report = s.adaptive_report() if args.report else None
 
     label = ("uncoded" if coded_layers == "none" else
              f"coded[{coded_layers}], {spec.code.scheme} "
@@ -126,6 +124,8 @@ def main(argv=None):
               f"argmax agreement {rep.argmax_agreement:.2f})")
     for b in range(min(rep.tokens.shape[0], 2)):
         print(f"  req{b}: {rep.tokens[b][:16].tolist()}...")
+    if session_report is not None:
+        print(json.dumps(session_report, indent=2))
     return 0
 
 

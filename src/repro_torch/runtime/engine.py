@@ -51,6 +51,27 @@ credit, and these round paths on the engine's device:
   responder's result back through ``_wire``; ``encrypt="modeled"`` prices
   ``crypto_s`` as the fused round does.
 
+* **fault round** (``_matmul_faulted``, any active ``FaultSpec``): the
+  transport is wrapped by ``runtime.faults.FaultInjectingTransport``; work
+  travels in ``(worker, slot, payload[, nonce])`` envelopes
+  (``runtime.tasks.EnvelopeMatmulTask``, one ``torch.matmul`` per
+  dispatched worker, the shards and results on the device).  Defended
+  rounds (``FaultSpec.handle``) screen the clean set
+  (``scheduler.screen_responders``: float64 norms and leave-one-out
+  predictions on the device), record offenders in ``WorkerHealth`` and
+  re-dispatch missing slots with jittered backoff; exhausted rateless
+  rounds decode the surviving prefix (``degraded``, with the embedded-pair
+  ``achieved_rel_err`` in float64 on the device), exhausted threshold
+  rounds raise ``DegradedRoundError`` with their partial state on the
+  device.  The encode and the decode are the scheme's (``berrut_combine``
+  launches); ``encrypt="real"`` wires every envelope out and every result
+  back through ``MEAECC`` (``mask_add`` launches).
+* **adaptive** (``AdaptiveSpec(policy="adaptive")``): ``matmul`` brackets
+  every round with ``_adaptive_retune`` (the controller may swap the
+  scheme, wait policy and ``fh_degree``) and ``_adaptive_observe`` (the
+  consumed arrivals fed back).  A candidate at another K runs the same
+  kernels at other shapes; nothing is rebuilt.
+
 * **serving hooks** (``worker_time``, ``serve_round_plan``,
   ``serve_wire_params``, ``serve_wire_material``, ``serve_crypto_time``):
   the continuous-batching loop (``runtime.serve_loop``) prices, plans and
@@ -60,9 +81,10 @@ Differences from the reference, by design:
 
 * **No jit.**  PyTorch runs eagerly, so the reference's per-shape-class
   LRU of jitted rounds (``_fused_fn``, the anytime stages) and its
-  ``trace_count`` are not ported.  The kernels are built once per process
-  (``kernels._build``); a new straggler mask, arrival order or shape is a
-  kernel argument, never a new build.
+  ``trace_count`` are not ported; ``_scheme_token`` is kept for parity
+  (the adaptive controller's active candidate).  The kernels are built
+  once per process (``kernels._build``); a new straggler mask, arrival
+  order, shape or retuned scheme is a kernel argument, never a new build.
 * **The device** is the ``device=`` argument (``None`` = ``"cuda"``; with
   no CUDA device that raises rather than quietly running on the CPU), never
   a spec field.  The loop round's shards and results stay on it, where the
@@ -80,7 +102,9 @@ Differences from the reference, by design:
   matdot and polynomial (two encodes, one decode); ``encrypt="real"`` adds
   two ``mask_add`` launches per shard part sent and per result returned,
   2·(N + responders) for a data-coded scheme and 2·(2N + responders) for a
-  pair-coded one.  0 on the CPU.
+  pair-coded one.  On the fault path: the encode and the decode (2 for
+  spacdc), plus two ``mask_add`` launches per envelope sent and per result
+  returned under ``encrypt="real"``.  0 on the CPU.
 * **The virtual clock** prices a worker by timing one batched
   ``torch.matmul`` whose right factor is broadcast over the N workers; the
   reference gives every worker its own right factor, which only pair-coded
@@ -92,11 +116,14 @@ Differences from the reference, by design:
   its fast wires when ``use_kernel`` was unset).
 * The timers synchronise the device before each stop, where the reference
   calls ``block_until_ready``.
-* The loop round's float64 proxies are computed on the engine's device,
-  where the reference's run in numpy on the host.
+* The loop round's float64 proxies, the fault round's screening scores
+  and its degraded-decode error estimate are computed on the engine's
+  device, where the reference's run in numpy on the host.
+* ``DegradedRoundError.results`` is a tensor on the engine's device (the
+  reference's is a host array).
 
-Fault handling, adaptive redundancy and the socket transport raise
-``NotImplementedError`` until their slices are ported (see ROADMAP.md).
+The socket transport raises ``NotImplementedError`` until its slice is
+ported (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -111,9 +138,12 @@ import numpy as np
 import torch
 
 from ..kernels.ops import kernel_launches
+from .faults import (_BACKOFF_STREAM, DegradedRoundError,
+                     FaultInjectingTransport, ResultDropped, WorkerHealth,
+                     retry_round_index)
 from .scheduler import (EncodePipeline, assemble_curve, plan_round,
-                        virtual_events)
-from .tasks import MatmulTask, PairMatmulTask
+                        retry_backoff, screen_responders, virtual_events)
+from .tasks import EnvelopeMatmulTask, MatmulTask, PairMatmulTask
 from .transport import ThreadTransport, VirtualClockTransport, build_transport
 from .wait_policy import (RoundContext, WaitPolicy, resolve_policy,
                           scheme_min_responders)
@@ -155,15 +185,17 @@ class RoundStats:
     # or an anytime round on the card (coded_matmul + berrut_combine), 7
     # for an encrypted fused or fused anytime round, 3 + 2·(N + n_waited)
     # for a staged encrypted round, 0-3 berrut_combine launches for a loop
-    # round by scheme; 0 on the CPU, where the plain versions run
+    # round by scheme, the encode and the decode (+ 2 mask_add per wire)
+    # for a fault round; 0 on the CPU, where the plain versions run
     dispatches: int = 0
-    # --- fault-tolerant round fields (kept for parity; a later slice) ----
-    retries: int = 0
-    excluded: tuple = ()
-    quarantined: tuple = ()
-    degraded: bool = False
-    achieved_rel_err: Optional[float] = None
-    decode_mask: tuple = ()
+    # --- fault-tolerant round (runtime.faults; FaultSpec.handle) ---------
+    retries: int = 0                 # re-dispatch attempts this round
+    excluded: tuple = ()             # workers evicted by residual screening
+    quarantined: tuple = ()          # workers quarantined at round start
+    degraded: bool = False           # decoded below the policy's target
+    achieved_rel_err: Optional[float] = None   # embedded-pair estimate of
+                                     # a degraded decode's error (rateless)
+    decode_mask: tuple = ()          # (N,) 0/1 — slots that entered decode
 
     @property
     def total_s(self):
@@ -318,6 +350,7 @@ class RoundEngine:
         self.device = resolve_device(device)
         self.name = spec.code.scheme
         self.n = spec.code.n_workers
+        self.k = spec.code.k_blocks
         self.encrypt = spec.crypto.encrypt
         self.straggler = straggler if straggler is not None else \
             spec.straggler.build(self.n, spec.seed)
@@ -339,9 +372,39 @@ class RoundEngine:
         self.use_fused = (supports and stable) if fused is None else bool(fused)
         if spec.transport.backend != "virtual":
             self.use_fused = False
+        # fault injection / handling (runtime.faults): the injecting
+        # transport wraps whichever backend the pool selected (protocol
+        # unchanged), and the round runs the slot-envelope path (screening
+        # and re-dispatch act on per-worker results, which the one-launch
+        # fused round does not have)
         self.fault = spec.fault
+        self.health: Optional[WorkerHealth] = None
+        self._fault_transport = None
+        if self.fault.active:
+            fseed = (self.fault.seed if self.fault.seed is not None
+                     else spec.seed)
+            self._fault_seed = fseed        # jittered-backoff rng root
+            self._fault_transport = FaultInjectingTransport(
+                self.pool.transport, self.fault, fseed)
+            self.health = WorkerHealth(
+                self.n, quarantine_after=self.fault.quarantine_after,
+                quarantine_rounds=self.fault.quarantine_rounds)
+            self.use_fused = False
         self._worker_t = {}                 # shapes -> per-worker seconds
         self._encode_t = {}                 # shapes -> encode-only seconds
+        # adaptive redundancy (runtime.adaptive): the active candidate's
+        # identity, kept for parity with the reference's jit cache keys
+        self._scheme_token = ("base",)
+        self.adaptive = None
+        if spec.adaptive.enabled:
+            from .adaptive import AdaptiveController
+            self.adaptive = AdaptiveController(
+                spec.adaptive, self.n, self.scheme,
+                self._build_candidate_scheme, seed=spec.seed)
+            if self.health is None:
+                # the controller blends per-worker EWMA latency into its
+                # fits; outside fault mode nothing else creates the tracker
+                self.health = WorkerHealth(self.n)
         self._crypto = None
         self._crypto_per_elem = {}          # (dtype, mode) -> seconds/element
         mode = self.encrypt
@@ -871,6 +934,266 @@ class RoundEngine:
                             pipelined_s=self._account_encode(t_enc, wait_s))
         return out, stats
 
+    # ------------------------------------------------- fault-tolerant path
+    def _fault_policy_target(self) -> int:
+        """Clean-responder count the defended round drives toward (the
+        count-based policies' target; Deadline rounds are budget-bounded
+        instead and only need the scheme's minimum decodable prefix)."""
+        min_ready = scheme_min_responders(self.scheme)
+        ctx = RoundContext(scheme=self.scheme,
+                           n_stragglers=self.straggler.n_stragglers,
+                           events=[], min_ready=min_ready)
+        try:
+            tgt = int(self.policy.target(ctx))
+        except NotImplementedError:
+            tgt = min_ready
+        return max(min(tgt, self.n), min_ready)
+
+    def _degraded_rel_err(self, slots, stack) -> Optional[float]:
+        """Embedded-pair estimate of a degraded decode's error: the
+        disagreement between the scheme's decode and its higher-order
+        proxy decode over the surviving slots, in float64 on the stack's
+        device (rateless schemes; None when the pair is unavailable at
+        this prefix)."""
+        order = list(slots)
+        hi = self.scheme.anytime_proxy_weights(order,
+                                               fh_degree=self.fh_degree)
+        if hi is None:
+            return None
+        w_lo, ready = self.scheme.prefix_decode_weights(order)
+        if not bool(np.asarray(hi[1])[-1]) or not bool(np.asarray(ready)[-1]):
+            return None
+        flat = stack.reshape(len(order), -1).double()
+
+        def last(w):       # the whole prefix's (K, |slots|) weights
+            return torch.from_numpy(np.asarray(w[-1], np.float64)[:, order]
+                                    ).to(flat.device)
+        lo_d = last(w_lo) @ flat
+        hi_d = last(hi[0]) @ flat
+        den = max(float(torch.linalg.vector_norm(hi_d)), 1e-12)
+        return float(torch.linalg.vector_norm(lo_d - hi_d)) / den
+
+    def _matmul_faulted(self, a: torch.Tensor, b: torch.Tensor,
+                        round_idx: int, noise=None):
+        """The fault round: injected faults (via the wrapping transport)
+        and/or engine-side defenses (``FaultSpec.handle``).
+
+        Work travels in ``(worker, slot, payload)`` envelopes: slot s is
+        encoder row s, so a re-dispatch hands the SAME coded shard to a
+        different worker and the decode stays slot-indexed.  Defended
+        rounds drain arrivals, screen the accumulated clean set with
+        leave-one-out residuals (corrupted responders' mask bits are
+        cleared, their producers recorded in ``WorkerHealth``), and
+        re-dispatch missing slots to the healthiest workers with capped,
+        jittered exponential backoff until the policy's target is met, the
+        retry budget runs out, or no healthy workers remain.  Exhausted
+        rateless rounds decode the surviving prefix (``degraded=True`` with
+        the embedded-pair ``achieved_rel_err``); exhausted threshold rounds
+        raise :class:`~repro_torch.runtime.faults.DegradedRoundError`
+        carrying the partial state (its ``results`` on the device).
+        Undefended rounds (injection only) dispatch once and decode
+        whatever arrives, corrupt results included.
+        """
+        scheme, fault = self.scheme, self.fault
+        real = self.encrypt == "real"
+        handle_faults = fault.handle
+        min_ready = scheme_min_responders(scheme)
+        budget = getattr(self.policy, "t_budget", None)
+        needed = min_ready if budget is not None else \
+            self._fault_policy_target()
+        launches0 = kernel_launches()
+
+        _sync(self.device)
+        t0 = time.perf_counter()
+        enc = scheme.encode(a, noise)                   # (N, blk, d)
+        _sync(self.device)
+        t_enc = time.perf_counter() - t0
+        blk, t_comp = self._round_compute_time(a.shape, b.shape)
+        n_out = int(b.shape[-1])
+        crypto_s = 0.0
+        transport, health = self._fault_transport, self.health
+        worker_fn = EnvelopeMatmulTask(
+            b, mea=self._mea if real else None,
+            worker_kps=self._worker_kps if real else None,
+            master_pk=self._master_kp.pk if real else None)
+
+        def dispatch(assign: dict, attempt: int):
+            nonlocal crypto_s
+            envs = [None] * self.n
+            if real:
+                tw = time.perf_counter()
+                for w, slot in assign.items():
+                    envs[w] = (w, slot, self._mea.encrypt(
+                        enc[slot], self._worker_kps[w].pk,
+                        sender=self._master_kp, nonce=next(self._nonce)),
+                        next(self._nonce))
+                _sync(self.device)
+                crypto_s += time.perf_counter() - tw
+            else:
+                for w, slot in assign.items():
+                    envs[w] = (w, slot, enc[slot])
+            rid = retry_round_index(round_idx, attempt)
+            return transport.submit_round(envs, worker_fn, rid,
+                                          t_compute=t_comp, budget=budget,
+                                          min_ready=min_ready)
+
+        clean: dict = {}                   # slot -> (worker, result tensor)
+        arrivals: list = []                # (cumulative t, worker)
+        excluded_workers: list = []
+        offenders: set = set()
+        quarantined0 = tuple(health.quarantined(round_idx)) \
+            if (handle_faults and health is not None) else ()
+        wait_total, retries, attempt = 0.0, 0, 0
+        # full-jitter backoff, seeded off the round's fault SeedSequence
+        backoff_rng = np.random.default_rng(np.random.SeedSequence(
+            [int(self._fault_seed), int(round_idx), _BACKOFF_STREAM]))
+        if handle_faults and health is not None:
+            avail = [w for w in range(self.n)
+                     if not health.is_quarantined(w, round_idx)]
+        else:
+            avail = list(range(self.n))
+        assign = {w: w for w in avail}
+
+        def garbage():
+            return torch.full((blk, n_out), float("nan"), device=self.device)
+
+        while True:
+            handle = dispatch(assign, attempt)
+            targets = set(assign)
+            seen: set = set()
+            observed_t = 0.0
+            try:
+                for ev in handle.events():
+                    if ev.worker not in targets:
+                        continue           # stray slot from an earlier plan
+                    seen.add(ev.worker)
+                    observed_t = max(observed_t, float(ev.t))
+                    try:
+                        slot, payload = handle.result(ev.worker)
+                    except ResultDropped:
+                        offenders.add(ev.worker)
+                        if handle_faults and health is not None:
+                            health.record_drop(ev.worker, round_idx)
+                        continue
+                    if real:
+                        tw = time.perf_counter()
+                        try:
+                            arr = self._mea.decrypt(
+                                payload, self._master_kp).to(torch.float32)
+                        except Exception:
+                            # a tampered ciphertext that fails to decode at
+                            # all is still a response: screening evicts the
+                            # non-finite row before scoring
+                            arr = garbage()
+                        _sync(self.device)
+                        crypto_s += time.perf_counter() - tw
+                    else:
+                        arr = payload
+                    if tuple(arr.shape) != (blk, n_out):
+                        arr = garbage()
+                    clean[int(slot)] = (int(ev.worker), arr)
+                    arrivals.append((wait_total + float(ev.t),
+                                     int(ev.worker)))
+                    if handle_faults and health is not None:
+                        health.record_ok(ev.worker, float(ev.t))
+                    if budget is None and len(clean) >= needed:
+                        break
+            finally:
+                handle.finish()
+            if handle_faults and fault.screen and clean:
+                slots = sorted(clean)
+                results = torch.zeros((self.n, blk, n_out),
+                                      device=self.device)
+                mask = np.zeros(self.n, np.float32)
+                for sl in slots:
+                    results[sl] = clean[sl][1]
+                    mask[sl] = 1.0
+                _, evicted, _ = screen_responders(
+                    scheme, results, mask,
+                    threshold=fault.residual_threshold,
+                    factor=fault.residual_factor,
+                    norm_factor=fault.norm_factor,
+                    max_exclude=max(0, len(slots) - min_ready))
+                del results
+                for sl in evicted:
+                    w = clean[sl][0]
+                    excluded_workers.append(w)
+                    offenders.add(w)
+                    if health is not None:
+                        health.record_corrupt(w, round_idx)
+                    del clean[sl]
+            if len(clean) >= needed:
+                wait_total += observed_t
+                break
+            # target missed: charge what the master actually waited: the
+            # deadline budget, or the per-worker timeout on the crashed
+            # assignments (the stream exhausted without them)
+            if budget is not None:
+                wait_total += float(budget)
+            else:
+                timeout = (fault.worker_timeout_s
+                           if fault.worker_timeout_s is not None
+                           else fault.timeout_factor * max(observed_t,
+                                                           t_comp))
+                wait_total += max(observed_t, timeout)
+                if handle_faults and health is not None:
+                    for w in sorted(targets - seen):
+                        offenders.add(w)
+                        health.record_crash(w, round_idx)
+            attempt += 1
+            if not handle_faults or attempt > fault.max_retries:
+                break
+            missing = [sl for sl in range(self.n) if sl not in clean]
+            cands = (health.ranked(round_idx, exclude=offenders)
+                     if health is not None else
+                     [w for w in range(self.n) if w not in offenders])
+            if not cands:
+                break
+            wait_total += retry_backoff(attempt, fault.backoff_s,
+                                        fault.backoff_cap_s,
+                                        rng=backoff_rng)
+            retries += 1
+            assign = dict(zip(cands, missing))
+
+        slots = sorted(clean)
+        degraded = len(clean) < needed
+        achieved = None
+        if degraded:
+            stack = (torch.stack([clean[sl][1] for sl in slots])
+                     if slots else None)
+            if not slots or len(slots) < min_ready:
+                raise DegradedRoundError(
+                    f"round {round_idx}: {len(slots)} clean result(s) "
+                    f"after {retries} re-dispatch(es), scheme needs "
+                    f"{min_ready} (policy target {needed})",
+                    clean_slots=slots, results=stack,
+                    excluded=excluded_workers, retries=retries,
+                    needed=needed)
+            achieved = self._degraded_rel_err(slots, stack)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        stack = torch.stack([clean[sl][1] for sl in slots])
+        dec = scheme.decode(stack, list(slots))
+        out = scheme.reconstruct_matmul(dec, a.shape[0], b.shape[-1])
+        _sync(self.device)
+        t_dec = time.perf_counter() - t0
+        modeled = self._crypto_overhead_elems(self.n * blk * a.shape[1],
+                                              torch.float32)
+        stats = RoundStats(
+            encode_s=t_enc, compute_wait_s=wait_total, decode_s=t_dec,
+            crypto_s=crypto_s if real else modeled, n_waited=len(slots),
+            crypto_modeled_s=modeled if real else 0.0,
+            policy=self.policy.name, arrivals=tuple(arrivals),
+            decode_at_s=wait_total,
+            pipelined_s=self._account_encode(t_enc, wait_total),
+            dispatches=kernel_launches() - launches0,
+            retries=retries, excluded=tuple(excluded_workers),
+            quarantined=quarantined0, degraded=degraded,
+            achieved_rel_err=achieved,
+            decode_mask=tuple(1 if sl in clean else 0
+                              for sl in range(self.n)))
+        return out, stats
+
     # ---------------------------------------------------- anytime pipeline
     def _proxy_stop(self, events, prox) -> int:
         """The proxy-driven policy's stop prefix for one round timeline."""
@@ -1125,25 +1448,78 @@ class RoundEngine:
 
     def _unported_path(self) -> Optional[str]:
         """The reference path this spec would take that the port lacks."""
-        if self.fault.active:
-            return "fault injection and handling (FaultSpec)"
-        if self.spec.adaptive.enabled:
-            return "the adaptive redundancy controller (AdaptiveSpec)"
         if self.spec.transport.backend == "socket":
             return "transport 'socket'"
         return None
+
+    # ------------------------------------------------------------ adaptive
+    def _build_candidate_scheme(self, **overrides):
+        """Registry-backed scheme construction for the adaptive
+        controller's candidates: the spec's own build, with ``k_blocks``
+        (or a scheme-specific knob like GLCC's ``n_groups``) overridden."""
+        from ..core import registry
+        code = self.spec.code
+        kwargs = dict(n_workers=code.n_workers, k_blocks=code.k_blocks,
+                      t_colluding=self.spec.privacy.t_colluding,
+                      noise_scale=self.spec.privacy.noise_scale,
+                      seed=self.spec.seed, use_kernel=code.use_kernel,
+                      **dict(code.extra))
+        kwargs.update(overrides)
+        return registry.build(code.scheme, **kwargs)
+
+    def _adaptive_retune(self, round_idx: int) -> None:
+        """Apply the controller's decision (if one is due) BEFORE the
+        round runs: swap scheme / wait policy / fh_degree."""
+        dec = self.adaptive.maybe_decide(round_idx, health=self.health)
+        if dec is None:
+            return
+        scheme = self.adaptive.scheme_for(dec)
+        if scheme is not self.scheme:
+            self.scheme = scheme
+            self.k = int(dec.k_blocks)
+            self._scheme_token = self.adaptive._key(dec.overrides)
+            supports = bool(getattr(scheme, "supports_fused", False))
+            stable = bool(getattr(scheme, "fused_decode_stable", False))
+            fused = self.spec.code.fused
+            self.use_fused = (supports and stable) if fused is None \
+                else bool(fused)
+            if self.spec.transport.backend != "virtual" or self.fault.active:
+                self.use_fused = False
+        self.policy = self.adaptive.policy_for(dec)
+        self.fh_degree = dec.fh_degree
+
+    def _adaptive_observe(self, round_idx: int, stats: RoundStats) -> None:
+        """Feed the round's consumed arrivals back to the estimator and
+        the health tracker.  Only the consumed prefix is observed: the
+        real transports never see past what the policy waited for."""
+        consumed = tuple(stats.arrivals[: max(stats.n_waited, 1)])
+        self.adaptive.observe(round_idx, consumed,
+                              k_blocks=int(getattr(self.scheme, "k_blocks",
+                                                   self.k)))
+        if self.health is not None and not self.fault.active:
+            for t, w in consumed:
+                self.health.record_ok(int(w), float(t))
 
     def matmul(self, a, b, round_idx: int = 0, *, noise=None):
         """Returns (result (m, n) on the engine's device, RoundStats).
 
         On the fused path encode/compute/decode run as one unit, so the
         whole master-side wall time is reported as ``encode_s`` and
-        ``decode_s`` is 0; on the loop path ``encode_s`` and ``decode_s``
-        are the master's encode and decode.  ``compute_wait_s`` is the
-        virtual-clock wait either way.  ``noise`` optionally supplies the
-        scheme's (T, blk, d) noise blocks (the parity tests hand in the
-        reference's).
+        ``decode_s`` is 0; on the loop and fault paths ``encode_s`` and
+        ``decode_s`` are the master's encode and decode.
+        ``compute_wait_s`` is the virtual-clock wait either way.  ``noise``
+        optionally supplies the scheme's (T, blk, d) noise blocks (the
+        parity tests hand in the reference's).
+
+        Under ``AdaptiveSpec(policy="adaptive")`` each round is bracketed
+        by the controller: retune (maybe) before, observe arrivals after;
+        the round itself runs the unchanged paths.
         """
+        if self.adaptive is not None:
+            self._adaptive_retune(round_idx)
+            out, stats = self._matmul_inner(a, b, round_idx, noise=noise)
+            self._adaptive_observe(round_idx, stats)
+            return out, stats
         return self._matmul_inner(a, b, round_idx, noise=noise)
 
     def _matmul_inner(self, a, b, round_idx: int = 0, *, noise=None):
@@ -1153,6 +1529,8 @@ class RoundEngine:
                 f"{what} comes in a later slice of the port; see ROADMAP.md")
         a = torch.as_tensor(a, dtype=torch.float32, device=self.device)
         b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
+        if self.fault.active:
+            return self._matmul_faulted(a, b, round_idx, noise)
         if not self.use_fused:
             return self._matmul_loop(a, b, round_idx, noise)
         if self.policy.needs_proxy:

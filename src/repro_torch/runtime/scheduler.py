@@ -2,10 +2,14 @@
 the master decodes at any responder prefix a wait policy picks.
 
 Ports ``plan_round``, ``RoundPlan``, ``virtual_events``, ``AnytimePoint``,
-``assemble_curve`` and ``EncodePipeline`` of ``repro/runtime/scheduler.py``
-(numpy only): the same delays give exactly the reference's timeline,
-responders and mask.  ``screen_responders`` comes with the fault paths
-(see ROADMAP.md).
+``assemble_curve``, ``EncodePipeline``, ``observed_delays``,
+``screen_responders`` and ``retry_backoff`` of
+``repro/runtime/scheduler.py``: the same delays give exactly the
+reference's timeline, responders and mask.  ``screen_responders`` reads
+the round's results where they lie (a tensor on the engine's device): the
+finite check and the row norms (float64) run there, the eviction loop on
+the host, and the leave-one-out stage calls the scheme's
+``decode_residuals`` (one float64 product per pass on that device).
 """
 
 from __future__ import annotations
@@ -14,12 +18,37 @@ import dataclasses
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .wait_policy import (ArrivalEvent, RoundContext, WaitPolicy,
                           resolve_policy, scheme_min_responders)
 
 __all__ = ["RoundPlan", "AnytimePoint", "EncodePipeline", "virtual_events",
-           "plan_round", "assemble_curve"]
+           "plan_round", "assemble_curve", "screen_responders",
+           "retry_backoff", "observed_delays"]
+
+
+def observed_delays(arrivals, n_workers: int,
+                    quantize_s: float = 1e-3) -> np.ndarray:
+    """Per-worker delay observations off one round's recorded arrival
+    timestamps (``RoundStats.arrivals``: ((t, worker), ...)).
+
+    The round's fastest arrival is the baseline (subtracting it removes
+    the shared compute time and, on real transports, the wall-clock
+    offset); results are snapped to the ``quantize_s`` grid so sub-grid
+    scheduling noise on real threads cannot desynchronize the adaptive
+    estimator's fits across transports.  Unobserved workers are NaN.
+    """
+    obs = np.full(int(n_workers), np.nan, np.float64)
+    if not arrivals:
+        return obs
+    base = min(float(t) for t, _ in arrivals)
+    for t, w in arrivals:
+        w = int(w)
+        if 0 <= w < n_workers:
+            d = float(t) - base
+            obs[w] = round(d / quantize_s) * quantize_s
+    return obs
 
 
 @dataclasses.dataclass
@@ -131,3 +160,81 @@ class EncodePipeline:
         hidden = min(max(float(encode_s), 0.0), self._window)
         self._window = 0.0
         return float(encode_s) - hidden, hidden
+
+
+def screen_responders(scheme, results, mask, *, threshold: float = 2.0,
+                      factor: float = 8.0, norm_factor: float = 30.0,
+                      max_exclude: int = 0):
+    """Byzantine screening over one round's responder set, three stages:
+
+    1. **Non-finite pre-screen**: rows with NaN/inf (a tampered ciphertext
+       that decrypted to garbage) are evicted first.
+    2. **Robust norm screen**: rows whose float64 norm exceeds
+       ``norm_factor ×`` the median responder norm are evicted,
+       worst-first; the median is robust up to 50% corrupters, the regime
+       where leave-one-out alone fails.  Only the high side is screened.
+    3. **Leave-one-out residuals**: the scheme's ``decode_residuals``
+       catches subtler tampering; the worst scorer is evicted until every
+       survivor is below ``max(threshold, factor × median(scores))``.
+
+    ``results`` (N, ...) is a tensor (on the engine's device) or an array.
+    The eviction budget ``max_exclude`` caps total evictions across all
+    stages.  Returns ``(clean_mask, excluded, scores)``: the float32 mask
+    with offenders cleared, evicted worker indices in eviction order, and
+    the final residual scores.
+    """
+    mask = np.asarray(mask.cpu() if torch.is_tensor(mask) else mask,
+                      dtype=np.float32).copy()
+    flat = torch.as_tensor(results).reshape(mask.size, -1)
+    excluded: List[int] = []
+    if max_exclude <= 0:
+        return mask, excluded, np.zeros(mask.size, np.float64)
+    # stage 1: non-finite rows
+    finite = torch.isfinite(flat).all(dim=1).cpu().numpy()
+    for i in np.flatnonzero(mask):
+        if len(excluded) >= max_exclude:
+            break
+        if not finite[i]:
+            mask[i] = 0.0
+            excluded.append(int(i))
+    # stage 2: gross norm outliers (robust to many corrupters)
+    norms_all = torch.linalg.vector_norm(flat, dim=1,
+                                         dtype=torch.float64).cpu().numpy()
+    while len(excluded) < max_exclude:
+        resp = np.flatnonzero(mask)
+        if resp.size < 3:
+            break
+        norms = norms_all[resp]
+        cut = float(norm_factor) * max(float(np.median(norms)), 1e-12)
+        worst = int(np.argmax(norms))
+        if norms[worst] <= cut:
+            break
+        mask[resp[worst]] = 0.0
+        excluded.append(int(resp[worst]))
+    scores = np.zeros(mask.size, np.float64)
+    while len(excluded) < max_exclude:
+        resp = np.flatnonzero(mask)
+        if resp.size < 3:   # LOO says nothing below 3 responders
+            break
+        scores = np.asarray(scheme.decode_residuals(results, mask),
+                            np.float64)
+        med = float(np.median(scores[resp]))
+        cut = max(float(threshold), float(factor) * med)
+        worst = resp[int(np.argmax(scores[resp]))]
+        if scores[worst] <= cut:
+            break
+        mask[worst] = 0.0
+        excluded.append(int(worst))
+    return mask, excluded, scores
+
+
+def retry_backoff(attempt: int, base: float, cap: float,
+                  rng: Optional[np.random.Generator] = None) -> float:
+    """Capped exponential backoff before re-dispatch ``attempt``
+    (1-based).  With ``rng``, *full jitter*: a uniform draw in
+    ``[0, min(base·2^(attempt-1), cap)]``, reproducible when the generator
+    is seeded (the engine seeds one per round); without, the cap itself."""
+    ceil = float(min(base * (2.0 ** max(attempt - 1, 0)), cap))
+    if rng is None:
+        return ceil
+    return float(rng.uniform(0.0, ceil))

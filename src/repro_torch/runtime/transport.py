@@ -121,8 +121,10 @@ class VirtualClockTransport:
 # --------------------------------------------------------------------------
 
 def _tensors(x) -> list:
-    """The tensors of a shard or result (a tensor or a tuple of them)."""
+    """The tensors of a shard or result (a tensor, an MEA-ECC ciphertext's
+    limbs, or a tuple of them: the fault round's envelopes)."""
     parts = x if isinstance(x, tuple) else (x,)
+    parts = [getattr(t, "payload", t) for t in parts]
     return [t for t in parts if isinstance(t, torch.Tensor)]
 
 

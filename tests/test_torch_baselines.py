@@ -86,7 +86,8 @@ def _both(name, **kw):
 # the schemes: encode and decode parity, thresholds
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["conv", "mds", "polynomial", "matdot"])
+@pytest.mark.parametrize("name", ["conv", "mds", "polynomial", "matdot",
+                                  "lcc", "glcc", "secpoly", "bacc"])
 def test_registry_builds_the_same_scheme(name):
     port, ref = _both(name, n_workers=10, k_blocks=4, t_colluding=0)
     assert type(port).__name__ == type(ref).__name__
@@ -212,6 +213,173 @@ def test_uncoded_requires_all_and_reorders():
         cv.decode(torch.zeros((3, 6, 12)), [0, 1, 2])
     out = cv.decode(sh[torch.tensor([2, 0, 3, 1])], [2, 0, 3, 1])
     assert torch.equal(out, sh)
+
+
+# the later baselines: LCC, GLCC, SecPoly, BACC (tests/test_baselines.py and
+# tests/test_glcc.py), the gradient code and the registry -------------------
+
+def test_registry_names_match_the_reference():
+    from repro.core import registry as ref_registry
+    assert registry.names() == ref_registry.names()
+    assert {"bacc", "berrut_grad", "glcc", "lcc", "secpoly"} <= \
+        set(registry.names())
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("lcc", dict(n_workers=12, k_blocks=3, t_colluding=1, deg_f=2,
+                 noise_scale=0.05, seed=3)),
+    ("glcc", dict(n_workers=12, k_blocks=4, t_colluding=1, deg_f=2,
+                  n_groups=2, noise_scale=0.05, seed=3)),
+    ("bacc", dict(n_workers=10, k_blocks=2))])
+def test_later_data_coded_encode_and_decode_match(name, kw):
+    """The numpy-drawn LCC/GLCC noise is the reference's draw, so the
+    shards match; the decodes of the reference's own results too."""
+    port, ref = _both(name, **kw)
+    got, want = port.encode(_t(A)), np.asarray(ref.encode(A))
+    assert _rel(got, want) <= TOL
+    if name == "bacc":
+        res = want @ W
+    else:           # f(X) = X X^T, the degree-2 task LCC is exact for
+        res = want @ want.transpose(0, 2, 1)
+    resp = [9, 3, 7, 0, 5, 1, 2, 4, 8, 6, 11, 10][: ref.recovery_threshold
+                                                    if name != "bacc" else 6]
+    sub = res[np.asarray(resp)]
+    assert _rel(port.decode(_t(sub), resp), ref.decode(sub, resp)) <= TOL
+
+
+def test_lcc_exact_for_quadratic():
+    lcc = baselines.LCCScheme(n_workers=12, k_blocks=3, t_colluding=1,
+                              deg_f=2)
+    sh = lcc.encode(_t(A))
+    out = lcc.decode(torch.matmul(sh, sh.transpose(1, 2)), list(range(12)))
+    x = A.reshape(3, 8, 12)
+    np.testing.assert_allclose(_np(out), x @ x.transpose(0, 2, 1), atol=5e-2)
+
+
+def test_secpoly_masks_recovers_and_matches_the_reference():
+    from repro.core.baselines import SecPolyCode as RefSecPoly
+    port, ref = baselines.SecPolyCode(8, p=2, q=2), RefSecPoly(8, p=2, q=2)
+    (pa, pb), (ra, rb) = port.encode_pair(_t(A), _t(B)), \
+        ref.encode_pair(A, B)
+    assert _rel(pa, ra) <= TOL and _rel(pb, rb) <= TOL
+    prods = np.einsum("nij,njk->nik", np.asarray(ra), np.asarray(rb))
+    resp = list(range(ref.recovery_threshold))
+    out = port.decode(_t(prods[: len(resp)]), resp)
+    assert _rel(out, ref.decode(prods[: len(resp)], resp)) <= TOL
+    np.testing.assert_allclose(_np(port.reconstruct_matmul(out, 24, 10)),
+                               A @ B, atol=5e-2)
+    port.use_kernel = False         # reaches the inner polynomial code
+    assert port.inner.use_kernel is False
+
+
+def test_bacc_rateless():
+    bacc = baselines.BACCScheme(n_workers=10, k_blocks=2)
+    res = torch.matmul(bacc.encode(_t(A)), _t(W))
+    out = bacc.decode(res[:6], list(range(6)))
+    exact = A.reshape(2, 12, 12) @ W
+    assert np.abs(_np(out) - exact).max() / np.abs(exact).max() < 0.2
+    assert bacc.min_responders == 1 and bacc.supports_fused
+    bacc.use_kernel = False
+    assert bacc._code.use_kernel is False
+
+
+def _glcc_x(seed=0, rows=24, d=8):
+    return np.random.default_rng(seed).standard_normal(
+        (rows, d)).astype(np.float32)
+
+
+def test_glcc_degenerate_group_matches_lcc_bitwise():
+    kw = dict(n_workers=12, k_blocks=4, t_colluding=1, deg_f=2,
+              noise_scale=0.05, seed=3)
+    lcc, glcc = baselines.LCCScheme(**kw), baselines.GLCCScheme(n_groups=1,
+                                                                **kw)
+    assert glcc.recovery_threshold == lcc.recovery_threshold
+    np.testing.assert_array_equal(glcc.encoder, lcc.encoder)
+    x = _t(_glcc_x())
+    assert torch.equal(glcc.encode(x), lcc.encode(x))
+    shards = lcc.encode(x)
+    results = torch.matmul(shards, shards.transpose(1, 2))
+    resp = list(range(lcc.recovery_threshold))
+    assert torch.equal(glcc.decode(results, resp), lcc.decode(results, resp))
+
+
+def test_glcc_threshold_drops_and_shards_grow_with_groups():
+    from repro.core.baselines import GLCCScheme as RefGLCC
+    prev_thr, prev_rows = None, None
+    for g in (1, 2, 4):
+        kw = dict(n_workers=12, k_blocks=4, t_colluding=1, deg_f=2,
+                  n_groups=g, noise_scale=0.05, seed=3)
+        s = baselines.GLCCScheme(**kw)
+        shards = s.encode(_t(_glcc_x()))
+        assert _rel(shards, RefGLCC(**kw).encode(_glcc_x())) <= TOL
+        rows = shards.shape[1]
+        if prev_thr is not None:
+            assert s.recovery_threshold < prev_thr
+            assert rows > prev_rows     # the g× communication price
+        prev_thr, prev_rows = s.recovery_threshold, rows
+        assert rows == g * (24 // 4)
+
+
+def test_glcc_exactness_linear_f():
+    b = np.random.default_rng(1).standard_normal((8, 5)).astype(np.float32)
+    for g in (1, 2, 4):
+        s = baselines.GLCCScheme(n_workers=12, k_blocks=4, t_colluding=0,
+                                 deg_f=1, n_groups=g, seed=3)
+        x = _glcc_x()
+        resp = [11, 3, 7, 0, 5][: s.recovery_threshold]
+        shards = s.encode(_t(x))
+        out = _np(s.decode(torch.matmul(shards[torch.tensor(resp)], _t(b)),
+                           resp))
+        want = x.reshape(4, 6, 8) @ b
+        assert np.linalg.norm(out - want) / np.linalg.norm(want) < 1e-2
+
+
+def test_glcc_validation():
+    with pytest.raises(ValueError, match="dividing"):
+        baselines.GLCCScheme(n_workers=12, k_blocks=4, n_groups=3)
+    with pytest.raises(ValueError, match="dividing"):
+        baselines.GLCCScheme(n_workers=12, k_blocks=4, n_groups=0)
+    with pytest.raises(ValueError, match="N >="):
+        baselines.GLCCScheme(n_workers=4, k_blocks=6, n_groups=1, deg_f=2)
+    s = baselines.GLCCScheme(n_workers=12, k_blocks=4, n_groups=2, deg_f=2)
+    with pytest.raises(ValueError):
+        s.decode(torch.zeros((2, 12, 8)), [0, 1])
+    with pytest.raises(ValueError, match="noise"):
+        s.encode(_t(_glcc_x()), noise=torch.zeros(1))
+
+
+def test_glcc_registry_build():
+    s = registry.build("glcc", n_workers=12, k_blocks=6, t_colluding=1,
+                       deg_f=2, n_groups=3, noise_scale=0.05, seed=0)
+    assert isinstance(s, baselines.GLCCScheme)
+    assert s.n_groups == 3 and s.per_group == 2
+    s2 = registry.build("glcc", n_workers=12, k_blocks=6, use_kernel=None)
+    assert s2.n_groups == 1
+
+
+def test_berrut_gradient_code_matches_the_reference():
+    from repro.core import registry as ref_registry
+    port = registry.build("berrut_grad", n_shards=8, n_blocks=8,
+                          redundancy=2)
+    ref = ref_registry.build("berrut_grad", n_shards=8, n_blocks=8,
+                             redundancy=2)
+    np.testing.assert_array_equal(port.assignment(), ref.assignment())
+    np.testing.assert_allclose(port.encoder_matrix(), ref.encoder_matrix(),
+                               rtol=1e-6, atol=1e-7)
+    rng = np.random.default_rng(5)
+    for _ in range(5):
+        mask = np.zeros(8, np.float32)
+        mask[rng.choice(8, size=int(rng.integers(1, 9)), replace=False)] = 1
+        w = port.decoder_weights(torch.from_numpy(mask))
+        np.testing.assert_allclose(_np(w), np.asarray(ref.decoder_weights(
+            mask)), rtol=1e-5, atol=1e-6)
+        assert abs(float((w * torch.from_numpy(mask)).sum()) - 1.0) < 1e-3
+    grads = rng.standard_normal((2, 3, 4)).astype(np.float32)
+    got = port.encode_local(_t(grads), 5)
+    assert _rel(got, ref.encode_local(grads, 5)) <= TOL
+    with pytest.raises(NotImplementedError, match="later slice"):
+        from repro_torch.core import coded_psum
+        coded_psum(got, torch.ones(8), port, "dp")
 
 
 # --------------------------------------------------------------------------

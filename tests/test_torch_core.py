@@ -178,9 +178,11 @@ def test_generic_pinv_decode_matches():
 
 
 def test_registry_builds_spacdc_only_so_far():
-    # the name is kept from the first slice; the registry now also holds
-    # the baselines of core/baselines.py ported since, and no other scheme
-    assert registry.names() == ["conv", "matdot", "mds", "polynomial",
+    # the name is kept from the first slice; the registry now holds every
+    # scheme the reference registers (all of core/baselines.py and the
+    # gradient code), and no other
+    assert registry.names() == ["bacc", "berrut_grad", "conv", "glcc", "lcc",
+                                "matdot", "mds", "polynomial", "secpoly",
                                 "spacdc"]
     scheme = registry.build("spacdc", n_workers=8, k_blocks=4, t_colluding=1,
                             use_kernel=False, not_a_knob=3)
@@ -188,7 +190,7 @@ def test_registry_builds_spacdc_only_so_far():
     assert scheme.supports_fused and scheme.fused_decode_stable
     assert scheme.wait_policy(3) == 5 and scheme.min_responders == 1
     with pytest.raises(KeyError, match="unknown coding scheme"):
-        registry.build("lcc", n_workers=8, k_blocks=4)
+        registry.build("not_a_scheme", n_workers=8, k_blocks=4)
     with pytest.raises(ValueError, match="already registered"):
         registry.register("spacdc", lambda: None)
 

@@ -56,6 +56,8 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/models/coded.py",
                  "src/repro_torch/runtime/serve_loop.py",
                  "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/runtime/faults.py",
+                 "src/repro_torch/runtime/adaptive.py",
                  "chip_smoke.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
@@ -74,7 +76,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.runtime.engine, repro_torch.crypto, "
             "repro_torch.kernels.encrypted_round, repro_torch.models, "
             "repro_torch.configs, repro_torch.models.coded, "
-            "repro_torch.runtime.serve_loop, repro_torch.launch.serve\n"
+            "repro_torch.runtime.serve_loop, repro_torch.launch.serve, "
+            "repro_torch.runtime.faults, repro_torch.runtime.adaptive\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

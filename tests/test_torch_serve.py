@@ -26,6 +26,7 @@ The ``cuda`` cases run on the card and import no JAX.
 import dataclasses
 import functools
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -652,8 +653,14 @@ def test_launch_serve_prints_the_reports_lines(capsys):
     out = capsys.readouterr().out
     assert "served 2 requests" in out and "coded[unembed]" in out
     assert "steps decoded in budget" in out and "req1:" in out
-    with pytest.raises(NotImplementedError, match="adaptive_report"):
-        launch.main(["--tiny", "--device", "cpu", "--report"])
+    assert launch.main(["--tiny", "--device", "cpu", "--batch", "1",
+                        "--prompt-len", "2", "--gen", "2",
+                        "--coded-layers", "unembed", "--report"]) == 0
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("\n{") + 1:])
+    assert report.pop("rounds_run") >= 2          # one round per step
+    assert report == {"scheme": "spacdc", "n_workers": 8,
+                      "adaptive": False, "policy": "fixed"}
 
 
 # --------------------------------------------------------------------------

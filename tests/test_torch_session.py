@@ -91,11 +91,8 @@ def _unported_specs():
     api = port_api
     base = dict(code=api.CodeSpec(n_workers=8, k_blocks=4))
     return {
-        "fault": ClusterSpec(fault=api.FaultSpec(handle=True), **base),
         "socket": ClusterSpec(transport=api.TransportSpec(backend="socket"),
                               **base),
-        "adaptive": ClusterSpec(adaptive=api.AdaptiveSpec(policy="adaptive"),
-                                **base),
     }
 
 
@@ -105,6 +102,53 @@ def test_unported_round_paths_raise(path):
     with Session(spec, device="cpu") as s:
         with pytest.raises(NotImplementedError, match="later slice"):
             s.matmul(np.ones((8, 3), np.float32), np.ones((3, 2), np.float32))
+
+
+def _fault_and_adaptive_specs(api):
+    base = dict(code=api.CodeSpec(n_workers=8, k_blocks=4))
+    return {
+        "fault": api.ClusterSpec(fault=api.FaultSpec(
+            handle=True, crash_rate=0.1, corrupt_rate=0.1), **base),
+        "adaptive": api.ClusterSpec(adaptive=api.AdaptiveSpec(
+            policy="adaptive", warmup_rounds=2, retune_every=1), **base),
+    }
+
+
+@pytest.mark.parametrize("path", ["adaptive", "fault"])
+def test_fault_and_adaptive_paths_match_reference(monkeypatch, path):
+    """The paths that raised until the fault and adaptive slice: the same
+    spec in both packages, the per-worker compute time fixed to one
+    constant in both, gives the same responders, retries, exclusions and
+    decisions, and outputs within OUT_TOL."""
+    import repro.api as ref_api
+    from repro.runtime import engine as ref_engine
+    from repro_torch.runtime.engine import RoundEngine
+    for cls in (ref_engine.RoundEngine, RoundEngine):
+        monkeypatch.setattr(cls, "_worker_compute_time",
+                            lambda self, lhs, rhs: 1e-3)
+    ref_spec = _fault_and_adaptive_specs(ref_api)[path]
+    spec = _fault_and_adaptive_specs(port_api)[path]
+    assert spec.to_dict() == ref_spec.to_dict()
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((32, 6)).astype(np.float32)
+    b = rng.standard_normal((6, 5)).astype(np.float32)
+    with ref_api.Session(ref_spec) as rs, Session(spec, device="cpu") as ps:
+        for _ in range(5):
+            want, wst = rs.matmul(a, b)
+            got, gst = ps.matmul(a, b)
+            rel = float(np.max(np.abs(got.numpy() - want)) /
+                        np.max(np.abs(want)))
+            assert rel <= OUT_TOL, rel
+            assert gst.decode_mask == wst.decode_mask
+            assert (gst.retries, gst.excluded, gst.degraded) == \
+                (wst.retries, wst.excluded, wst.degraded)
+            assert gst.arrivals == wst.arrivals
+        assert ps.health.snapshot() == rs.health.snapshot()
+        got_rep, want_rep = ps.adaptive_report(), rs.adaptive_report()
+    for rep in (got_rep, want_rep):
+        for d in rep.get("decisions", ()):
+            d.pop("predicted_rel_err")
+    assert got_rep == want_rep
 
 
 def _unported_serves():

@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Seven main paths.  Two are SPACDC coded rounds through
+Eight main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -63,6 +63,15 @@ point and under ``AdaptiveSpec(policy="adaptive")`` at
 the fault round's encode and decode through ``berrut_combine``, its
 encrypted wires through ``mask_add``, the adaptive candidates' fused rounds
 through ``coded_matmul`` and ``berrut_combine`` at every chosen K.
+
+The eighth is the socket mesh: ``TransportSpec(backend="socket")`` spawns
+one OS process per worker (``python -m repro_torch.launch.worker --device
+cuda``, each a CUDA context of its own on the card), and work crosses
+loopback TCP as CRC-checked frames: the loop round's encode and decode
+through ``berrut_combine`` on the master, the sealed wire
+(``encrypt="real"``) through ``mask_add`` on the master and in every
+worker process, OS-level faults (real SIGKILLs and tampered frames) and
+the serve's round mode over the mesh.
 
 Phases, one JSON line each:
 
@@ -195,6 +204,26 @@ Phases, one JSON line each:
     lcc, glcc (1 and 2 groups), secpoly and bacc loop rounds at fig3_wide
     against float64, every ``berrut_combine`` call held; (f) the health
     snapshot and the adaptive report.
+
+11. the socket main path (``socket_main_path``): (a) three plain and three
+    sealed loop rounds under ``paper_fig3()`` at the qwen2-7b q|k|v job A
+    (4608, 3584) @ B (3584, 512), 30 worker processes on the card, a row
+    each (wall, encode / crypto / decode seconds, wire bytes each way, the
+    master's framing seconds, arrival lag behind the virtual clock): each
+    bit-identical to the virtual loop round fed its arrival order (round 0
+    to real threads too), within 1e-4 of the kernels-off decode of its
+    responders, exact master launches; one held round (every
+    ``berrut_combine`` call within float32's bound), ciphertext overhead
+    < 256 B, every worker with ``libcuda`` and the ``mask_add`` library
+    mapped, mesh start, device memory with 30 contexts, a bounded close;
+    (b) OS-level faults: (i) bench_transport's SIGKILL point (a real
+    kill, a respawn, a retry, the decode bit-identical to the plan
+    simulated on threads), (ii) bench_faults' point with drops, two
+    rounds, exclusions, retries and decode equal to threads'; (c) phase 9
+    (e)'s serve over an 8-worker mesh at full width, tokens equal to phase
+    9 (e)'s threads tokens, step walls and the framing share.  Only the
+    master's launches are counted; the workers' happen in their own
+    processes.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -578,13 +607,18 @@ def main() -> int:
         launches[kname] += count
 
     # -------------------------------------- 9. coded serving main path
+    serve_tokens = {}
     for kname, count in serving_main_path(
-            torch, dev, ptxas["berrut_combine"]).items():
+            torch, dev, ptxas["berrut_combine"], keep=serve_tokens).items():
         launches[kname] += count
     torch.cuda.empty_cache()
 
     # ------------------ 10. fault-tolerant and adaptive rounds, baselines
     for kname, count in robust_main_path(torch, dev).items():
+        launches[kname] += count
+
+    # ------------- 11. the socket mesh of worker processes, sealed wire
+    for kname, count in socket_main_path(torch, dev, serve_tokens).items():
         launches[kname] += count
 
     # --------------------------------------------------------- summary
@@ -2310,7 +2344,7 @@ def serve_combines(torch, randn, ptxas: dict) -> list:
     return rows
 
 
-def serving_main_path(torch, dev, ptxas: dict) -> dict:
+def serving_main_path(torch, dev, ptxas: dict, keep=None) -> dict:
     """Phase 9: continuous-batching coded serving of qwen2-7b at full
     width.  (a) ``Session(ClusterSpec.serve_deadline()).serve`` (spacdc
     N=8, K=4, T=1, two stragglers, an 8 ms Deadline,
@@ -2326,7 +2360,9 @@ def serving_main_path(torch, dev, ptxas: dict) -> dict:
     ``mask_add`` launches; (e) the ``threads`` transport's round mode at
     full width against the virtual round mode, the pool closed within
     ``join_timeout_s``; (f) ``_build.build_count`` still 1.  Returns the
-    counted runs' launches."""
+    counted runs' launches; (e)'s tokens go to ``keep["e_threads"]`` when
+    a dict is given (phase 11 c serves the same workload over the socket
+    mesh)."""
     import gc
 
     import numpy as np
@@ -2597,6 +2633,8 @@ def serving_main_path(torch, dev, ptxas: dict) -> dict:
     emit(row)
     assert threads.mode == "round" and virtual.mode == "round", row
     assert same, row
+    if keep is not None:
+        keep["e_threads"] = [r.tokens for r in threads.requests]
     assert close_s <= join_s + 0.1, row
 
     # ---- (f) churn rebuilt nothing
@@ -3197,6 +3235,555 @@ def robust_main_path(torch, dev) -> dict:
           "report": report_ad})
     emit({"phase": "robust_main_path", "check": "phase_total",
           "launches": total, "build_count": _build.build_count,
+          "phase_s": time.perf_counter() - phase_t0})
+    assert _build.build_count == 1, _build.build_count
+    return total
+
+
+# --------------------------------------------------------------------------
+# phase 11: the socket process mesh and the sealed MEA-ECC wire
+# --------------------------------------------------------------------------
+
+# (a): the qwen2-7b q|k|v projection of one 512-token prefill chunk, A =
+# W_qkv^T (3584 + 512 + 512 rows) @ B (hidden 3584, 512 tokens), Gaussian
+SOCKET_JOB = (4608, 3584, 512)
+SOCKET_ROUNDS = 3
+# paper_fig3's (N, K, T, S): 30 worker processes; a fixed-quantile round
+# waits for the N - S = 23 that do not straggle
+SOCKET_FIG3 = (30, 24, 3, 7)
+# 30 CUDA contexts time-share the card and 8 host cores: a heartbeat may
+# wait seconds behind the others' keystreams, so liveness is generous
+# (nothing is meant to expire in (a) or (c))
+SOCKET_LIVENESS_S = 30.0
+# spacing of the replayed arrival order (threads sleep it)
+REPLAY_SPACING_S = 0.01
+# (b i): benchmarks/bench_transport.py's SIGKILL point (fault seed 139 puts
+# one crash, worker 1, in round 0 and leaves the retries clean)
+KILL_OP = dict(n_workers=6, k_blocks=2, seed=7, fault_seed=139,
+               crash_rate=0.25, max_retries=3, worker_timeout_s=1.5)
+# (b ii): bench_faults' point with drops (tampered frames) added
+MESH_FAULT_ROUNDS = 2
+MESH_DROP_RATE = 0.12
+# a respawned worker re-creates its CUDA context and reloads the kernel
+# libraries before its HELLO; the liveness deadline covers live workers
+MESH_FAULT_LIVENESS_S = 5.0
+MESH_MAX_RESPAWNS = 8
+# (c): phase 9 (e)'s workload, cut (gen) if it would pass this
+SOCKET_SERVE_MAX_S = 90.0
+
+
+class ReplayStraggler:
+    """A straggler model that replays recorded arrival orders: in round
+    (or retry round index) ``r``, worker ``orders[r][i]`` is delayed ``i *
+    spacing_s`` and the workers missing from it come after all of them, so
+    the virtual clock and real threads consume the responders a socket
+    round consumed.  ``orders`` maps round indices to orders; a plain list
+    is every round's."""
+
+    def __init__(self, n_workers: int, n_stragglers: int, orders,
+                 spacing_s: float = REPLAY_SPACING_S):
+        self.n_workers, self.n_stragglers = n_workers, n_stragglers
+        self._orders = orders
+        self._spacing = spacing_s
+
+    def delays(self, round_idx: int):
+        import numpy as np
+        order = (self._orders.get(int(round_idx), [])
+                 if isinstance(self._orders, dict) else self._orders)
+        rank = {int(w): i for i, w in enumerate(order)}
+        return np.asarray([rank.get(w, len(order) + w) * self._spacing
+                           for w in range(self.n_workers)], np.float64)
+
+
+def record_arrival_orders(mesh, orders: dict) -> None:
+    """Record, per round index the mesh is handed (retries have their
+    own), the workers in the order the engine consumed their arrivals."""
+    submit = mesh.submit_round
+
+    def recorded(shards, f, round_idx, **kw):
+        handle = submit(shards, f, round_idx, **kw)
+        order = orders.setdefault(int(round_idx), [])
+        events = handle.events
+
+        def consumed():
+            for ev in events():
+                order.append(ev.worker)
+                yield ev
+        handle.events = consumed
+        return handle
+    mesh.submit_round = recorded
+
+
+def socket_spec(backend: str, *, encrypt=None, **transport):
+    """``ClusterSpec.paper_fig3()`` (N=30, K=24, T=3, S=7) on ``backend``;
+    the virtual clock runs the loop round (``fused=False``), as a real
+    transport does."""
+    from repro_torch.api import ClusterSpec, CryptoSpec, TransportSpec
+    spec = ClusterSpec.paper_fig3()
+    transport.setdefault("liveness_timeout_s", SOCKET_LIVENESS_S)
+    return dataclasses.replace(
+        spec, crypto=CryptoSpec(encrypt=encrypt),
+        transport=TransportSpec(backend=backend, **transport),
+        code=dataclasses.replace(
+            spec.code, fused=False if backend == "virtual" else None))
+
+
+def worker_maps(mesh) -> dict:
+    """Per live worker: whether ``/proc/<pid>/maps`` has ``libcuda`` (a
+    CUDA context) and the ``mask_add`` kernel library."""
+    out = {}
+    for w in range(mesh.n):
+        text = Path(f"/proc/{mesh.worker_pid(w)}/maps").read_text()
+        out[w] = ("libcuda" in text, "libmask_add-" in text)
+    return out
+
+
+def mesh_counters(mesh) -> dict:
+    keys = ("bytes_sent", "bytes_received", "frame_s", "unframe_s",
+            "frames_sent", "frames_received")
+    return {k: mesh.stats.get(k, 0) for k in keys}
+
+
+def counter_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in before}
+
+
+def replay_round(torch, backend: str, st, a, b, round_idx: int):
+    """The same round on ``backend`` (the virtual loop round or threads),
+    fed the socket round's arrival order: the same responders."""
+    from repro_torch.runtime.engine import RoundEngine
+    spec = socket_spec(backend)
+    order = [w for _, w in st.arrivals]
+    eng = RoundEngine(spec, device=a.device, straggler=ReplayStraggler(
+        spec.code.n_workers, spec.straggler.n_stragglers, order))
+    try:
+        return eng.matmul(a, b, round_idx=round_idx)
+    finally:
+        eng.close()
+
+
+def fixed_health_latency(latency_s: float = 1e-3):
+    """Make every ``WorkerHealth.record_ok`` record ``latency_s``; returns
+    the undo.  The defended round ranks re-dispatch candidates by their
+    measured latency, which the mesh and threads measure differently; the
+    comparison of (b ii) fixes it in both runs, as the parity tests fix the
+    compute time."""
+    from repro_torch.runtime.faults import WorkerHealth
+    real = WorkerHealth.record_ok
+
+    def record_ok(self, worker, measured_s):
+        return real(self, worker, latency_s)
+    WorkerHealth.record_ok = record_ok
+
+    def undo():
+        WorkerHealth.record_ok = real
+    return undo
+
+
+def socket_main_path(torch, dev, serve_tokens=None) -> dict:
+    """Phase 11: the socket mesh of worker processes on the card, and the
+    sealed MEA-ECC wire.  (a) three plain and three sealed loop rounds
+    under ``paper_fig3()`` at the qwen2-7b q|k|v job, 30 worker processes
+    on the card: each round bit-identical to the virtual loop round (and
+    round 0 to real threads) fed its arrival order, within 1e-4 of the
+    kernels-off decode of its responders, a held round's ``berrut_combine``
+    calls within float32's bound, every worker with ``libcuda`` and the
+    ``mask_add`` library mapped, mesh start, wire bytes, framing seconds,
+    device memory and a bounded close; (b) OS-level faults: (i)
+    bench_transport's SIGKILL point (real kills, respawns, the defended
+    decode equal to the plan simulated on threads), (ii) bench_faults'
+    point with drops (the exclusions and the decode equal to threads');
+    (c) phase 9 (e)'s serve over the mesh, its tokens equal to phase 9
+    (e)'s threads tokens (``serve_tokens["e_threads"]``; served here on
+    threads first when not given, as when phase 11 runs alone).  Returns
+    the master's counted launches (worker processes count their own).
+    Phase 11 alone: ``build_kernels(torch)`` then ``socket_main_path(torch,
+    torch.device("cuda"))``."""
+    import gc
+    import statistics
+
+    import numpy as np
+    from repro_torch.api import (ClusterSpec, CodeSpec, FaultSpec,
+                                 PrivacySpec, ServeSpec, Session,
+                                 StragglerSpec, TransportSpec, WaitSpec)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.runtime import wire
+    from repro_torch.runtime.serve_loop import poisson_workload
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel}
+    total = {k: 0 for k in kernels}
+    phase_t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # ---- (a) plain and sealed loop rounds, 30 worker processes
+    m, d, n_out = SOCKET_JOB
+    a = gaussian(torch, dev, (m, d), 60)
+    b = gaussian(torch, dev, (d, n_out), 61)
+    exact = f64_product(torch, a, b)
+    exact_norm = float(torch.linalg.vector_norm(exact))
+    plain_scheme = _use_plain(socket_spec("socket")).build_scheme()
+    n_workers, _, _, n_slow = SOCKET_FIG3
+    for encrypt in (None, "real"):
+        spec = socket_spec("socket", encrypt=encrypt)
+        assert (spec.code.n_workers, spec.code.k_blocks,
+                spec.privacy.t_colluding, spec.straggler.n_stragglers) == \
+            SOCKET_FIG3
+        wire_name = "sealed" if encrypt else "plain"
+        free()
+        dev_used0 = torch.cuda.mem_get_info(dev)
+        s = Session(spec, device=dev)
+        try:
+            mesh = s.engine.pool.transport
+            t0 = time.perf_counter()
+            mesh.start()
+            start_s = time.perf_counter() - t0
+            free_b, total_b = torch.cuda.mem_get_info(dev)
+            mem = {"device_used_gb_before": (dev_used0[1] - dev_used0[0])
+                   / 1e9,
+                   "device_used_gb_with_mesh": (total_b - free_b) / 1e9,
+                   "master_allocated_gb": torch.cuda.memory_allocated(dev)
+                   / 1e9}
+            mem["per_worker_context_gb"] = (
+                mem["device_used_gb_with_mesh"] -
+                mem["device_used_gb_before"]) / n_workers
+            t_comp = s.engine._round_compute_time(a.shape, b.shape)[1]
+            rows = []
+            for r in range(SOCKET_ROUNDS):
+                c0 = mesh_counters(mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (out, st), launched = counted(
+                    kernels, total, lambda: s.matmul(a, b, round_idx=r))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                io = counter_delta(c0, mesh_counters(mesh))
+                vout, vst = replay_round(torch, "virtual", st, a, b, r)
+                want = threads_plain_decode(torch, plain_scheme, a, b, st)
+                torch.cuda.synchronize()
+                resp = sorted(w for _, w in st.arrivals[:st.n_waited])
+                vresp = sorted(w for _, w in vst.arrivals[:vst.n_waited])
+                delays = s.engine.straggler.delays(r)
+                plan_resp = sorted(np.argsort(delays + t_comp,
+                                              kind="stable")[:st.n_waited]
+                                   .tolist())
+                lag = [t - (float(delays[w]) + t_comp)
+                       for t, w in st.arrivals]
+                err, rel = rel_diff(torch, out, want)
+                rel_x = rel_to(torch, out, exact, exact_norm)
+                row = {"phase": "socket_main_path",
+                       "check": f"a_{wire_name}_round", "round": r,
+                       "A": [m, d], "B": [d, n_out],
+                       "n_waited": st.n_waited, "responders": resp,
+                       "same_responders_as_spec_virtual_plan":
+                           resp == plan_resp,
+                       "bit_identical_to_virtual_replay":
+                           bool(torch.equal(out, vout)),
+                       "virtual_replay_responders_equal": resp == vresp,
+                       "vs_plain_decode_max_abs": err,
+                       "vs_plain_decode_rel": rel,
+                       "rel_err_vs_f64": rel_x,
+                       "round_wall_s": wall_s, "encode_s": st.encode_s,
+                       "crypto_s": st.crypto_s, "decode_s": st.decode_s,
+                       "compute_wait_s": st.compute_wait_s,
+                       "arrival_lag_behind_virtual_clock_ms": {
+                           "median": 1e3 * statistics.median(lag),
+                           "max": 1e3 * max(lag)},
+                       "wire": io, "launches": launched,
+                       "dispatches": st.dispatches}
+                if r == 0:
+                    tout, tst = replay_round(torch, "threads", st, a, b, r)
+                    row["bit_identical_to_threads_replay"] = bool(
+                        torch.equal(out, tout))
+                    row["threads_replay_responders"] = sorted(
+                        w for _, w in tst.arrivals[:tst.n_waited])
+                    del tout
+                emit(row)
+                rows.append(row)
+                assert out.device == a.device and out.shape == (m, n_out)
+                assert bool(torch.isfinite(out).all()), row
+                assert st.n_waited == n_workers - n_slow, row
+                assert resp == vresp, row
+                assert row["bit_identical_to_virtual_replay"], row
+                if r == 0:
+                    assert row["bit_identical_to_threads_replay"], row
+                    assert row["threads_replay_responders"] == resp, row
+                assert rel <= ROUND_TOL, row
+                assert launched["berrut_combine"] == 2, row
+                assert launched["coded_matmul"] == \
+                    launched["flash_attention"] == 0, row
+                if encrypt:
+                    # one mask_add per shard sealed and per result opened;
+                    # a session's first round adds the cipher's rate probe
+                    probe = 4 if r == 0 else 0
+                    assert launched["mask_add"] == \
+                        n_workers + st.n_waited + probe, row
+                    assert st.crypto_s > 0, row
+                else:
+                    assert launched["mask_add"] == 0, row
+                    assert st.crypto_s == 0, row
+                del out, vout, want
+            maps = worker_maps(mesh)
+            # one more round with every berrut_combine call held (outside
+            # the timed rounds: the float64 bound is not the round's work)
+            ratios = []
+            hold_combines(torch, s.engine.scheme, ratios)
+            (out, st), launched = counted(
+                kernels, total,
+                lambda: s.matmul(a, b, round_idx=SOCKET_ROUNDS))
+            held = {"calls": len(ratios), "worst_bound_ratio": max(ratios)}
+            if encrypt:
+                ct = s.engine._mea.encrypt(
+                    torch.zeros((m // 24, d), device=dev),
+                    s.engine._worker_kps[0].pk, sender=s.engine._master_kp,
+                    nonce=1 << 40)
+                enc_b, limb_b = wire.ciphertext_wire_overhead(ct)
+                held["ciphertext_wire_overhead_bytes"] = enc_b - limb_b
+                del ct
+            del out
+        finally:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.close()
+            close_s = time.perf_counter() - t0
+        summary = {"phase": "socket_main_path",
+                   "check": f"a_{wire_name}_mesh", "workers": n_workers,
+                   "mesh_start_s": start_s, "close_s": close_s,
+                   "join_timeout_s": mesh.join_timeout_s,
+                   "liveness_timeout_s": mesh.liveness_timeout_s,
+                   "memory": mem, "held": held,
+                   "worker_maps_libcuda_mask_add": sorted(
+                       set(maps.values())),
+                   "mesh_stats": dict(mesh.stats),
+                   "build_count": _build.build_count,
+                   "t_compute_virtual_s": t_comp}
+        emit(summary)
+        assert all(cu and lib for cu, lib in maps.values()), summary
+        assert held["calls"] == 2 and held["worst_bound_ratio"] <= 1.0, \
+            summary
+        if encrypt:
+            assert held["ciphertext_wire_overhead_bytes"] < 256, summary
+        assert close_s <= mesh.join_timeout_s + 1.5, summary
+        assert all(p.poll() is not None for p in mesh._procs.values())
+        assert _build.build_count == 1, _build.build_count
+        del s
+    # the sealed rounds decode the plain rounds' bits: each matched the
+    # plain virtual loop round of its own responders
+    free()
+
+    # ---- (b i) bench_transport's SIGKILL point, real kills
+    def kill_spec(backend):
+        op = KILL_OP
+        return ClusterSpec(
+            code=CodeSpec(scheme="spacdc", n_workers=op["n_workers"],
+                          k_blocks=op["k_blocks"]),
+            straggler=StragglerSpec(n_stragglers=0, delay_s=0.02),
+            transport=TransportSpec(
+                backend=backend, heartbeat_s=0.1,
+                liveness_timeout_s=MESH_FAULT_LIVENESS_S,
+                max_respawns=MESH_MAX_RESPAWNS),
+            fault=FaultSpec(crash_rate=op["crash_rate"], handle=True,
+                            os_level=backend == "socket",
+                            seed=op["fault_seed"],
+                            worker_timeout_s=op["worker_timeout_s"],
+                            max_retries=op["max_retries"]),
+            seed=op["seed"])
+
+    def mesh_run(spec, rounds: int, orders=None):
+        """``rounds`` rounds of ``spec`` on one engine; returns (outputs,
+        stats, mesh stats, per round with a kill the seconds from its
+        start until every worker is registered again (kills land at its
+        dispatch), health snapshot).  On the mesh the consumed arrival
+        orders go to ``orders``; on threads, ``orders`` given, they are
+        replayed (``ReplayStraggler``)."""
+        from repro_torch.runtime.engine import RoundEngine
+        on_mesh = spec.transport.backend == "socket"
+        outs, stats, whole_s = [], [], []
+        straggler = None
+        if orders is not None and not on_mesh:
+            straggler = ReplayStraggler(spec.code.n_workers,
+                                        spec.straggler.n_stragglers, orders)
+        eng = RoundEngine(spec, device=dev, straggler=straggler)
+        try:
+            mesh = eng.pool.transport
+            if on_mesh:
+                mesh.start()
+                if orders is not None:
+                    record_arrival_orders(mesh, orders)
+            for r in range(rounds):
+                kills = mesh.stats["kills"] if on_mesh else 0
+                t0 = time.perf_counter()
+                (out, st), _ = counted(kernels, total,
+                                       lambda: eng.matmul(a, b, round_idx=r))
+                outs.append(out)
+                stats.append(st)
+                if on_mesh and mesh.stats["kills"] > kills:
+                    mesh.start()            # waits for the respawns
+                    whole_s.append(time.perf_counter() - t0)
+            ms = dict(mesh.stats) if on_mesh else {}
+            health = eng.health.snapshot()
+        finally:
+            eng.close()
+        return outs, stats, ms, whole_s, health
+
+    free()
+    outs_k, st_k, ms_k, respawn_k, health_k = mesh_run(
+        kill_spec("socket"), 1)
+    outs_t, st_t, _, _, _ = mesh_run(kill_spec("threads"), 1)
+    out, st = outs_k[0], st_k[0]
+    rel_x = rel_to(torch, out, exact, exact_norm)
+    row = {"phase": "socket_main_path", "check": "b_i_sigkill",
+           "spec": KILL_OP, "A": [m, d], "B": [d, n_out],
+           "kills": ms_k.get("kills", 0), "respawns": ms_k.get("respawns", 0),
+           "worker_deaths": ms_k.get("worker_deaths", 0),
+           "retries": st.retries, "degraded": st.degraded,
+           "decode_mask": st.decode_mask, "rel_err_vs_f64": rel_x,
+           "bit_identical_to_simulated_threads": bool(
+               torch.equal(out, outs_t[0])),
+           "threads_retries": st_t[0].retries,
+           "round_start_to_mesh_whole_s": respawn_k,
+           "compute_wait_s": st.compute_wait_s, "encode_s": st.encode_s,
+           "decode_s": st.decode_s,
+           "crashed_in_health": [w for w, n in enumerate(
+               health_k.get("n_crash", [])) if n]}
+    emit(row)
+    assert row["kills"] >= 1 and row["respawns"] >= 1, row
+    assert st.retries >= 1 and not st.degraded, row
+    assert rel_x <= DEFENDED_REL_MAX, row
+    assert row["bit_identical_to_simulated_threads"], row
+    del outs_k, outs_t, out
+    free()
+
+    # ---- (b ii) bench_faults' point with drops, OS-level
+    def faults_spec(backend):
+        spec = fault_spec(handle=True)
+        return dataclasses.replace(
+            spec, transport=TransportSpec(
+                backend=backend, heartbeat_s=0.1,
+                liveness_timeout_s=MESH_FAULT_LIVENESS_S,
+                max_respawns=MESH_MAX_RESPAWNS),
+            fault=dataclasses.replace(spec.fault, drop_rate=MESH_DROP_RATE,
+                                      os_level=backend == "socket"))
+
+    orders = {}
+    undo = fixed_health_latency()
+    try:
+        outs_s, st_s, ms_s, respawn_s, _ = mesh_run(
+            faults_spec("socket"), MESH_FAULT_ROUNDS, orders=orders)
+        outs_t, st_t, _, _, _ = mesh_run(faults_spec("threads"),
+                                         MESH_FAULT_ROUNDS, orders=orders)
+        outs_o, st_o, _, _, _ = mesh_run(faults_spec("threads"),
+                                         MESH_FAULT_ROUNDS)
+    finally:
+        undo()
+    rounds = []
+    for r in range(MESH_FAULT_ROUNDS):
+        o_s, o_t, s_s, s_t = outs_s[r], outs_t[r], st_s[r], st_t[r]
+        rounds.append({
+            "round": r, "excluded": list(s_s.excluded),
+            "threads_excluded": list(s_t.excluded),
+            "retries": s_s.retries, "threads_retries": s_t.retries,
+            "degraded": s_s.degraded, "decode_mask": s_s.decode_mask,
+            "decode_mask_equal": s_s.decode_mask == s_t.decode_mask,
+            "bit_identical_to_simulated_threads": bool(torch.equal(o_s,
+                                                                   o_t)),
+            "equal_to_threads_on_its_own_arrivals": bool(
+                torch.equal(o_s, outs_o[r])),
+            "threads_own_decode_mask": st_o[r].decode_mask,
+            "rel_err_vs_f64": rel_to(torch, o_s, exact, exact_norm),
+            "compute_wait_s": s_s.compute_wait_s})
+    op = dict(FAULT_OP, drop_rate=MESH_DROP_RATE)
+    row = {"phase": "socket_main_path", "check": "b_ii_os_level_faults",
+           "spec": op, "A": [m, d], "B": [d, n_out], "rounds": rounds,
+           "kills": ms_s.get("kills", 0),
+           "crc_failures": ms_s.get("crc_failures", 0),
+           "respawns": ms_s.get("respawns", 0),
+           "liveness_expired": ms_s.get("liveness_expired", 0),
+           "round_start_to_mesh_whole_s": respawn_s,
+           "consumed_arrival_orders": {str(k): v for k, v in
+                                       sorted(orders.items())},
+           "health_latency_fixed_s": 1e-3, "mesh_stats": ms_s}
+    emit(row)
+    for rr in rounds:
+        assert rr["excluded"] == rr["threads_excluded"], row
+        assert rr["retries"] == rr["threads_retries"], row
+        assert rr["decode_mask_equal"], row
+        assert rr["bit_identical_to_simulated_threads"], row
+    assert row["kills"] >= 1 and row["crc_failures"] >= 1, row
+    del outs_s, outs_t, outs_o, a, b, exact
+    free()
+
+    # ---- (c) phase 9 (e)'s serve over the mesh, full width
+    cfg = get_config(SERVE_ARCH)
+    reqs = poisson_workload(2, rate_rps=0.0, prompt_len=4, gen=4,
+                            vocab=cfg.vocab_size, seed=0, ragged=False)
+
+    def serve_spec(backend):
+        # phase 9 (e)'s exact spec: mds N=8, K=4, all 8 waited for
+        return ClusterSpec(
+            code=CodeSpec(scheme="mds", n_workers=8, k_blocks=4),
+            wait=WaitSpec(policy="first_k", k=8),
+            straggler=StragglerSpec(n_stragglers=0),
+            transport=TransportSpec(backend=backend,
+                                    liveness_timeout_s=SOCKET_LIVENESS_S),
+            serve=ServeSpec(coded_layers="unembed", max_slots=8))
+    serve_tokens = {} if serve_tokens is None else serve_tokens
+    if "e_threads" not in serve_tokens:
+        with Session(serve_spec("threads"), device=dev) as s:
+            rep = s.serve(arch=SERVE_ARCH, tiny=False, requests=reqs,
+                          check_agreement=False)
+        serve_tokens["e_threads"] = [r.tokens for r in rep.requests]
+        del s, rep
+        free()
+    t_phase = time.perf_counter()
+    s = Session(serve_spec("socket"), device=dev)
+    try:
+        mesh = s.engine.pool.transport
+        mesh.start()
+        c0 = mesh_counters(mesh)
+        rep, launched = counted(kernels, total, lambda: s.serve(
+            arch=SERVE_ARCH, tiny=False, requests=reqs,
+            check_agreement=False))
+        io = counter_delta(c0, mesh_counters(mesh))
+        maps = worker_maps(mesh)
+    finally:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.close()
+        close_s = time.perf_counter() - t0
+    serve_s = time.perf_counter() - t_phase
+    walls = float(np.sum(rep.step_wall_s))
+    same = all(np.array_equal(r.tokens, t)
+               for r, t in zip(rep.requests, serve_tokens["e_threads"]))
+    row = {"phase": "socket_main_path", "check": "c_serve_over_mesh",
+           **serve_summary(rep), "tokens_equal_phase9_e_threads": same,
+           "wire": io, "framing_share_of_step_wall":
+               io["frame_s"] / max(walls, 1e-12),
+           "step_wall_s": [float(w) for w in rep.step_wall_s],
+           "bytes_sent_per_step": io["bytes_sent"] / max(len(
+               rep.step_stats), 1),
+           "launches": launched, "close_s": close_s,
+           "join_timeout_s": mesh.join_timeout_s, "phase_c_s": serve_s,
+           "worker_maps_libcuda_mask_add": sorted(set(maps.values()))}
+    emit(row)
+    assert rep.mode == "round" and same, row
+    assert all(cu and lib for cu, lib in maps.values()), row
+    assert close_s <= mesh.join_timeout_s + 1.5, row
+    del s, rep
+    free()
+
+    emit({"phase": "socket_main_path", "check": "phase_total",
+          "launches_master": total, "build_count": _build.build_count,
           "phase_s": time.perf_counter() - phase_t0})
     assert _build.build_count == 1, _build.build_count
     return total

@@ -29,9 +29,9 @@ Serving (``ServeReport``, ``Session.serve``) drives the continuous-batching
 loop of ``runtime.serve_loop`` over a model built on the session's device
 (``models.build_model`` from a seeded generator; ``arch`` may also be a
 ``ModelConfig``, e.g. one whose depth is cut).  Families the port does not
-have yet (MLA, MoE, SSM) and the socket transport raise
-``NotImplementedError``.  As in the reference, the serve loop reads
-neither ``FaultSpec`` nor ``AdaptiveSpec``.
+have yet (MLA, MoE, SSM) raise ``NotImplementedError``.  As in the
+reference, the serve loop reads neither ``FaultSpec`` nor
+``AdaptiveSpec``.
 
 Under an active ``FaultSpec`` or ``AdaptiveSpec(policy="adaptive")``,
 ``Session.health`` is the engine's ``WorkerHealth`` and
@@ -371,8 +371,8 @@ class Session:
         round under one straggler plan and the spec's wait policy; with
         ``WaitSpec(policy="deadline", t_budget=...)`` every step decodes
         at (or before) the budget from whatever responder prefix arrived.
-        The ``threads`` transport runs the unembed as one real round per
-        step.
+        The real transports (``threads``, the ``socket`` mesh of worker
+        processes) run the unembed as one real round per step.
 
         ``arch`` is an architecture name (``tiny`` picks its reduced
         config) or a ``ModelConfig``.  The model is built once per
@@ -387,11 +387,6 @@ class Session:
         reports the fraction of coded tokens that match.
         """
         self._check_open()
-        what = self.engine._unported_path()
-        if what is not None:
-            raise NotImplementedError(
-                f"serving over {what} comes in a later slice of the port; "
-                "see ROADMAP.md")
         from ..configs import get_config, tiny_config
         from ..models import build_model
         from ..runtime.serve_loop import ContinuousBatcher, poisson_workload

@@ -17,7 +17,7 @@ one JSON blob pins down an entire experiment:
         out, stats = s.matmul(a, b)
 
 Every workload (matmul, anytime curves, MLP training, serving) and every
-transport (virtual clock, threads, a future socket backend) plugs into
+transport (virtual clock, threads, the socket mesh) plugs into
 the same spec — swapping ``TransportSpec(backend="threads")`` for
 ``"virtual"`` changes nothing else.  The legacy ``DistributedMatmul``
 constructor knobs map 1:1 onto spec fields via
@@ -378,7 +378,7 @@ class TransportSpec:
     * ``bind`` — master listen address (``"127.0.0.1:0"`` = any port;
       bind a routable address to accept workers started by hand);
     * ``spawn_workers`` — False = only listen, workers are launched
-      externally (``python -m repro.launch.worker``).
+      externally (``python -m repro_torch.launch.worker``).
     """
     backend: str = "virtual"
     heartbeat_s: float = 0.2

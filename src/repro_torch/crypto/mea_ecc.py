@@ -100,6 +100,16 @@ class MEAECC:
         self.use_kernel = use_kernel
         self.device = resolve_device(device)
 
+    def to(self, device) -> "MEAECC":
+        """This cipher on another device (a copy; the keys and the codec
+        are shared).  A worker process binds the cipher of a task it
+        unpickled to its own device with it."""
+        import copy
+        from ..runtime.engine import resolve_device
+        out = copy.copy(self)
+        out.device = resolve_device(device)
+        return out
+
     # ---- dispatch: the tensor cores vs the numpy codec path ----------------
     def _core_eligible(self, dtype, codec: Optional[str] = None,
                        mode: Optional[str] = None) -> bool:

@@ -31,8 +31,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["library", "function", "build_count", "build_log", "BUILD_DIR",
-           "NVCC_FLAGS"]
+__all__ = ["library", "function", "load_prebuilt", "build_count",
+           "build_log", "BUILD_DIR", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -146,6 +146,19 @@ def function(name: str):
             _libs = _build_all()
             build_count += 1
     return _libs[name]
+
+
+def load_prebuilt() -> None:
+    """Load every kernel library that another process of this checkout
+    built, and never compile: a socket-mesh worker calls this at start-up,
+    after its master built them.  Raises when one is missing."""
+    missing = [f"{stem}.cu" for stem in _ENTRY if not _target(stem).exists()]
+    if missing:
+        raise RuntimeError(
+            f"kernel libraries not built under {BUILD_DIR}: "
+            f"{', '.join(missing)} (the master builds them before it starts "
+            "its workers; a worker never compiles)")
+    function(_ENTRY["mask_add"][0])
 
 
 def library(stem: str):

@@ -19,8 +19,9 @@ It runs on the card; ``--device cpu`` runs the plain versions of the
 kernels on the CPU.  ``--uncoded`` runs the same continuous-batching loop
 with no coded rounds (``coded_layers="none"``) for comparison.
 ``--report`` prints the session's ``adaptive_report()`` as JSON after the
-serve.  ``--transport socket`` needs the socket mesh, which comes in a
-later slice and raises.
+serve.  ``--transport socket`` serves the unembed as one round per step
+over a mesh of worker processes (``python -m repro_torch.launch.worker``,
+spawned on the same device as the master).
 """
 
 from __future__ import annotations
@@ -67,8 +68,7 @@ def main(argv=None):
     from ..runtime.transport import available_backends
     ap.add_argument("--transport", default="virtual",
                     choices=available_backends(),
-                    help="round backend (from the transport registry); "
-                    "'socket' comes in a later slice and raises")
+                    help="round backend (from the transport registry)")
     ap.add_argument("--report", action="store_true",
                     help="after serving, print the session's adaptive/"
                     "health report (Session.adaptive_report) as JSON")

@@ -10,8 +10,9 @@ Ports ``repro/runtime``: ``RoundEngine``, ``RoundStats``, ``WorkerPool``
 (``runtime.faults``), the adaptive controller (``runtime.adaptive``),
 ``DistributedMatmul`` and the SPACDC-DL master ``CodedMaster``; the
 continuous-batching serve loop is ``runtime.serve_loop`` (not re-exported
-here, as in the reference).  The socket mesh comes in a later slice (see
-ROADMAP.md).
+here, as in the reference), and so is the socket mesh of worker processes
+(``runtime.socket_transport``, with its wire codec ``runtime.wire``), which
+``build_transport("socket", ...)`` loads when it is asked for.
 """
 
 from .straggler import StragglerModel
@@ -27,7 +28,8 @@ from .transport import (ThreadTransport, VirtualClockTransport,
                         virtual_timeline)
 from .faults import (DegradedRoundError, FaultInjectingTransport,
                      ResultDropped, WorkerHealth, plan_faults)
-from .tasks import EnvelopeMatmulTask, MatmulTask, PairMatmulTask
+from .tasks import (EnvelopeMatmulTask, MatmulTask, PairMatmulTask,
+                    SealedMatmulTask)
 from .engine import RoundEngine, RoundStats, WorkerPool
 from .master_worker import CodedMaster, DistributedMatmul
 
@@ -41,6 +43,6 @@ __all__ = [
     "ThreadTransport", "available_backends", "build_transport",
     "virtual_timeline", "DegradedRoundError", "FaultInjectingTransport",
     "ResultDropped", "WorkerHealth", "plan_faults", "EnvelopeMatmulTask",
-    "MatmulTask", "PairMatmulTask", "RoundEngine", "RoundStats",
-    "WorkerPool", "CodedMaster", "DistributedMatmul",
+    "MatmulTask", "PairMatmulTask", "SealedMatmulTask", "RoundEngine",
+    "RoundStats", "WorkerPool", "CodedMaster", "DistributedMatmul",
 ]

@@ -47,15 +47,23 @@ credit, and these round paths on the engine's device:
   (``_loop_round``) need every worker's product.  On the ``threads``
   transport (``WorkerPool.run_round_real``) every worker's product runs on
   a thread and a CUDA stream of its own and the policy consumes real
-  completions.  ``encrypt="real"`` wires every shard out and every
-  responder's result back through ``_wire``; ``encrypt="modeled"`` prices
-  ``crypto_s`` as the fused round does.
+  completions.  On the ``socket`` mesh (``runtime.socket_transport``)
+  every worker's product runs in a worker process of its own and the
+  policy consumes real completions the same way.  ``encrypt="real"``
+  wires every shard out and every responder's result back through
+  ``_wire``; on the mesh the round is **sealed** instead: every shard
+  leaves the master as a genuine ciphertext (one encrypt each, plus a
+  reply nonce), the worker process decrypts, multiplies and encrypts its
+  product back (``tasks.SealedMatmulTask``, ``mask_add`` launches in the
+  worker), and the master decrypts the responders' products.
+  ``encrypt="modeled"`` prices ``crypto_s`` as the fused round does.
 
 * **fault round** (``_matmul_faulted``, any active ``FaultSpec``): the
   transport is wrapped by ``runtime.faults.FaultInjectingTransport``; work
   travels in ``(worker, slot, payload[, nonce])`` envelopes
   (``runtime.tasks.EnvelopeMatmulTask``, one ``torch.matmul`` per
-  dispatched worker, the shards and results on the device).  Defended
+  dispatched worker, the shards and results on the device; on the mesh
+  they cross as host bytes and come back on the device).  Defended
   rounds (``FaultSpec.handle``) screen the clean set
   (``scheduler.screen_responders``: float64 norms and leave-one-out
   predictions on the device), record offenders in ``WorkerHealth`` and
@@ -65,7 +73,10 @@ credit, and these round paths on the engine's device:
   rounds raise ``DegradedRoundError`` with their partial state on the
   device.  The encode and the decode are the scheme's (``berrut_combine``
   launches); ``encrypt="real"`` wires every envelope out and every result
-  back through ``MEAECC`` (``mask_add`` launches).
+  back through ``MEAECC`` (``mask_add`` launches), the reply nonce drawn by
+  the master and carried in the envelope.  Under ``FaultSpec.os_level``
+  the mesh realizes the seeded plan on its live processes
+  (``runtime.faults``).
 * **adaptive** (``AdaptiveSpec(policy="adaptive")``): ``matmul`` brackets
   every round with ``_adaptive_retune`` (the controller may swap the
   scheme, wait policy and ``fh_degree``) and ``_adaptive_observe`` (the
@@ -102,7 +113,10 @@ Differences from the reference, by design:
   matdot and polynomial (two encodes, one decode); ``encrypt="real"`` adds
   two ``mask_add`` launches per shard part sent and per result returned,
   2·(N + responders) for a data-coded scheme and 2·(2N + responders) for a
-  pair-coded one.  On the fault path: the encode and the decode (2 for
+  pair-coded one; on the socket mesh only the master's side is counted,
+  one ``mask_add`` per shard part sealed and per result opened (N +
+  responders, data-coded), the workers' launches happen in their own
+  processes.  On the fault path: the encode and the decode (2 for
   spacdc), plus two ``mask_add`` launches per envelope sent and per result
   returned under ``encrypt="real"``.  0 on the CPU.
 * **The virtual clock** prices a worker by timing one batched
@@ -121,9 +135,9 @@ Differences from the reference, by design:
   device, where the reference's run in numpy on the host.
 * ``DegradedRoundError.results`` is a tensor on the engine's device (the
   reference's is a host array).
-
-The socket transport raises ``NotImplementedError`` until its slice is
-ported (see ROADMAP.md).
+* On the socket mesh the workers compute on the engine's device (``cuda``:
+  one CUDA context per worker process), where the reference's workers run
+  jax on the CPU (``JAX_PLATFORMS=cpu``).
 """
 
 from __future__ import annotations
@@ -143,7 +157,8 @@ from .faults import (_BACKOFF_STREAM, DegradedRoundError,
                      retry_round_index)
 from .scheduler import (EncodePipeline, assemble_curve, plan_round,
                         retry_backoff, screen_responders, virtual_events)
-from .tasks import EnvelopeMatmulTask, MatmulTask, PairMatmulTask
+from .tasks import (EnvelopeMatmulTask, MatmulTask, PairMatmulTask,
+                    SealedMatmulTask)
 from .transport import ThreadTransport, VirtualClockTransport, build_transport
 from .wait_policy import (RoundContext, WaitPolicy, resolve_policy,
                           scheme_min_responders)
@@ -207,27 +222,25 @@ class WorkerPool:
     """N simulated workers behind the event-driven round API.
 
     A facade over the transports (``runtime.transport``): the analytic
-    virtual clock and the real-thread backend with one long-lived
-    executor.  ``real_threads`` is a flippable property consulted per
-    round, so callers can flip a pool between the virtual clock and real
-    threads mid-life.  The ``"socket"`` backend keeps its name and raises
-    when a round would reach it, as do ``transport_options`` (only the
-    socket backend reads them): they come in a later slice (see
-    ROADMAP.md).
+    virtual clock, the real-thread backend with one long-lived executor,
+    and the socket process mesh.  ``real_threads`` is a flippable property
+    consulted per round, so callers can flip a pool between the virtual
+    clock and real threads mid-life.  The mesh is built once, when first
+    used (its workers start at its first round), from
+    ``transport_options`` (the socket knobs and the ``device``), and is
+    closed with the pool.
     """
 
     def __init__(self, n_workers: int, straggler, real_threads: bool = False,
                  *, backend: Optional[str] = None, transport_options=None):
-        if transport_options:
-            raise NotImplementedError(
-                "transport_options configure the socket backend, which "
-                "comes in a later slice of the port; see ROADMAP.md")
         self.n = n_workers
         self.straggler = straggler
         self._backend = backend if backend is not None else \
             ("threads" if real_threads else "virtual")
+        self._options = dict(transport_options or {})
         self._virtual = VirtualClockTransport(straggler)
         self._threads = ThreadTransport(n_workers, straggler)
+        self._socket = None
 
     @property
     def backend(self) -> str:
@@ -251,7 +264,11 @@ class WorkerPool:
     def transport(self):
         """The backend the next round runs on."""
         if self._backend == "socket":
-            return build_transport("socket", self.n, self.straggler)
+            if self._socket is None:
+                self._socket = build_transport("socket", self.n,
+                                               self.straggler,
+                                               **self._options)
+            return self._socket
         return self._threads if self._backend == "threads" else self._virtual
 
     @property
@@ -260,10 +277,15 @@ class WorkerPool:
         return self._threads._executor
 
     def close(self):
-        """Shut the thread transport down (stragglers of the last round
-        included, within its bounded ``join_timeout_s``); surfaces any
-        failure an unconsumed straggler hit after its round.  Idempotent."""
-        self._threads.close()
+        """Shut the real transports down (stragglers of the last round
+        included, worker processes terminated, each within its bounded
+        ``join_timeout_s``); surfaces any failure an unconsumed straggler
+        hit after its round.  Idempotent."""
+        try:
+            self._threads.close()
+        finally:
+            if self._socket is not None:
+                self._socket.close()
 
     def __del__(self):
         try:
@@ -301,9 +323,9 @@ class WorkerPool:
                        policy: Optional[WaitPolicy] = None, scheme=None,
                        n_stragglers: int = 0,
                        stop_after: Optional[int] = None):
-        """Event-driven real-thread round.
+        """Event-driven round on a real transport (threads or the mesh).
 
-        Drains the thread transport's completion stream until
+        Drains the transport's completion stream until
         ``policy.satisfied``, or after ``stop_after`` arrivals when given.
         Returns (events_consumed, {worker: result}, elapsed_s); stragglers
         the policy never waited for keep running and are discarded.
@@ -360,10 +382,12 @@ class RoundEngine:
                                      else spec.wait.build())
         # the embedded-pair proxy decoder's Floater–Hormann degree
         self.fh_degree = spec.wait.fh_degree
-        # the socket backend keeps raising in _unported_path, so its
-        # options are not handed to the pool
-        self.pool = WorkerPool(self.n, self.straggler,
-                               backend=spec.transport.backend)
+        # the socket knobs and the device reach the mesh (the in-process
+        # backends ignore them)
+        self.pool = WorkerPool(
+            self.n, self.straggler, backend=spec.transport.backend,
+            transport_options={**spec.transport.backend_options(),
+                               "device": self.device})
         # encode-of-next-round pipelining (opt-in, virtual-clock credit)
         self._pipeline = EncodePipeline() if spec.pipeline_encode else None
         supports = bool(getattr(self.scheme, "supports_fused", False))
@@ -871,9 +895,10 @@ class RoundEngine:
     def _matmul_loop(self, a: torch.Tensor, b: torch.Tensor, round_idx: int,
                      noise=None):
         """The loop round: encode (pair-coded: both factors), the wire out
-        (``encrypt="real"``), one product per responder, the wire back,
-        the scheme's exact decode and reassembly.  The bits-codec wire is
-        lossless, so the encrypted round's output equals the plain one's."""
+        (``encrypt="real"``; sealed on the socket mesh), one product per
+        responder, the wire back, the scheme's exact decode and reassembly.
+        The bits-codec wire is lossless, so the encrypted round's output
+        equals the plain one's."""
         scheme = self.scheme
         real = self.encrypt == "real"
         launches0 = kernel_launches()
@@ -893,7 +918,8 @@ class RoundEngine:
         t_enc = time.perf_counter() - t0
 
         crypto_s = 0.0
-        if real:
+        sealed = real and self.pool.backend == "socket"
+        if real and not sealed:
             # in-process wire: every worker decrypts bit-identical shard
             # bytes, round-tripped master-side
             t0 = time.perf_counter()
@@ -904,12 +930,38 @@ class RoundEngine:
                 for i, s in enumerate(shards)]
             _sync(self.device)
             crypto_s += time.perf_counter() - t0
+        elif sealed:
+            # the mesh's wire: shards leave the master SEALED (genuine
+            # ciphertext limbs cross the socket), the worker process
+            # decrypts, multiplies and encrypts its product back under the
+            # reply nonce drawn here
+            t0 = time.perf_counter()
+            f = SealedMatmulTask(self._mea, self._worker_kps,
+                                 self._master_kp.pk,
+                                 b=None if scheme.pair_coded else b)
+            shards = [
+                (i,
+                 tuple(self._mea.encrypt(part, self._worker_kps[i].pk,
+                                         sender=self._master_kp,
+                                         nonce=next(self._nonce))
+                       for part in (s if isinstance(s, tuple) else (s,))),
+                 next(self._nonce))          # the worker's reply nonce
+                for i, s in enumerate(shards)]
+            _sync(self.device)
+            crypto_s += time.perf_counter() - t0
 
         t_comp = self._worker_compute_time(lhs_shape, rhs_shape)
         resp, results, wait_s, events = self._loop_round(shards, f,
                                                          round_idx, t_comp)
         _sync(self.device)              # the responders' products
-        if real:
+        if sealed:
+            # the responders' products arrive sealed to the master's key
+            t0 = time.perf_counter()
+            results = [self._mea.decrypt(ct, self._master_kp)
+                       for ct in results]
+            _sync(self.device)
+            crypto_s += time.perf_counter() - t0
+        elif real:
             # wire back: responders encrypt their products to the master
             t0 = time.perf_counter()
             results = [self._wire(r, self._worker_kps[i], self._master_kp)
@@ -1446,12 +1498,6 @@ class RoundEngine:
         return assemble_curve(events, rel.cpu().numpy().astype(np.float64),
                               ready, prox)
 
-    def _unported_path(self) -> Optional[str]:
-        """The reference path this spec would take that the port lacks."""
-        if self.spec.transport.backend == "socket":
-            return "transport 'socket'"
-        return None
-
     # ------------------------------------------------------------ adaptive
     def _build_candidate_scheme(self, **overrides):
         """Registry-backed scheme construction for the adaptive
@@ -1523,10 +1569,6 @@ class RoundEngine:
         return self._matmul_inner(a, b, round_idx, noise=noise)
 
     def _matmul_inner(self, a, b, round_idx: int = 0, *, noise=None):
-        what = self._unported_path()
-        if what is not None:
-            raise NotImplementedError(
-                f"{what} comes in a later slice of the port; see ROADMAP.md")
         a = torch.as_tensor(a, dtype=torch.float32, device=self.device)
         b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
         if self.fault.active:

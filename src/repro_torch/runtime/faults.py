@@ -7,8 +7,8 @@ of the reference):
   which workers crash / drop / corrupt / spike this round, deterministic
   per ``(seed, round_idx)`` exactly like ``StragglerModel.delays``, and
   the same numpy draws as the reference, so the plans are identical;
-* :class:`FaultInjectingTransport`: wraps the virtual clock or the thread
-  transport (the protocol is unchanged) and injects the planned faults:
+* :class:`FaultInjectingTransport`: wraps any transport (the protocol is
+  unchanged) and injects the planned faults:
   a crashed worker's completion event never arrives, a dropped worker's
   ``result()`` raises :class:`ResultDropped`, a delay spike flows through
   the wrapped transport's own ``StragglerModel``, and a corrupted worker's
@@ -31,9 +31,16 @@ float32 bits with 0x84000000 through an int32 view, the limbs through
 the int64 masking of ``crypto.field.to_i64``/``to_u32`` (torch has no
 uint32 arithmetic).  Results are bit-identical to the reference's
 (numpy values, as the transport tests hand in, go through a CPU tensor
-and come back as numpy).  ``os_level`` injection needs the socket mesh, which comes in a
-later slice; on the virtual clock and on threads the reference ignores
-it, and so does the port.
+and come back as numpy).
+
+**OS-level injection** (``FaultSpec.os_level``, the socket mesh only): the
+same seeded plan is armed on the mesh (``SocketTransport.
+schedule_os_faults``) and the raw handle is returned: crashes are SIGKILLed
+worker processes, drops are CRC failures of tampered frames, corruption
+runs inside the worker process on its device through
+:func:`corrupt_value` on the same stream, and delay spikes are SIGSTOP /
+SIGCONT.  On the virtual clock and on threads the flag has no effect, as
+in the reference (spec validation requires the socket backend for it).
 """
 
 from __future__ import annotations
@@ -302,7 +309,12 @@ class FaultInjectingTransport:
         self.fault = fault
         self.seed = int(seed)
         self.name = f"faulty+{inner.name}"
-        if fault.delay_spike_rate > 0:
+        # OS-level mode: the inner mesh realizes the plan (SIGKILL, SIGSTOP
+        # + SIGCONT, worker-side corrupt and frame tamper) instead of this
+        # wrapper simulating it on the event stream
+        self.os_level = (bool(getattr(fault, "os_level", False)) and
+                         hasattr(inner, "schedule_os_faults"))
+        if fault.delay_spike_rate > 0 and not self.os_level:
             # route spikes through the inner transport's own latency model
             inner.straggler = _SpikedStraggler(inner.straggler, fault, seed)
 
@@ -313,6 +325,15 @@ class FaultInjectingTransport:
     def submit_round(self, shards, f, round_idx, *, t_compute=None,
                      budget=None, min_ready=1):
         plan = plan_faults(self.fault, self.seed, round_idx, len(shards))
+        if self.os_level:
+            # the same seeded plan, with real consequences: arm the mesh and
+            # return the RAW handle
+            self.inner.schedule_os_faults(round_idx, plan, self.fault,
+                                          self.seed)
+            return self.inner.submit_round(shards, f, round_idx,
+                                           t_compute=t_compute,
+                                           budget=budget,
+                                           min_ready=min_ready)
         handle = self.inner.submit_round(shards, f, round_idx,
                                          t_compute=t_compute, budget=budget,
                                          min_ready=min_ready)

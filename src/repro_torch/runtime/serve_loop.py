@@ -195,10 +195,10 @@ class ContinuousBatcher:
       still continuously batched (the uncoded baseline);
     * virtual transport + a fused-capable scheme → **instep**: the whole
       step (all selected coded sites) runs under one straggler plan;
-    * real transports (threads) → **round**: the hidden state on the
-      master, the unembed projection as one real ``engine.matmul`` round
-      per step (spec validation already restricts real transports to
-      ``coded_layers="unembed"``).
+    * real transports (threads, the socket mesh) → **round**: the hidden
+      state on the master, the unembed projection as one real
+      ``engine.matmul`` round per step (spec validation already restricts
+      real transports to ``coded_layers="unembed"``).
 
     The mode follows ``backend``, not the engine's transport: over a
     virtual engine, ``backend="threads"`` gives the virtual clock's round

@@ -1,7 +1,8 @@
 """The transport seam: how one coded round's work reaches N workers and
 how their completions stream back.
 
-Ports ``repro/runtime/transport.py``'s in-process backends:
+Ports ``repro/runtime/transport.py``: its registry and its in-process
+backends:
 
 * :class:`VirtualClockTransport` — the analytic clock: per-worker latency
   = representative compute time + injected straggler delay, the arrival
@@ -14,10 +15,10 @@ Ports ``repro/runtime/transport.py``'s in-process backends:
   that round's ``finish()`` or the next submit; ``close`` is bounded by
   ``join_timeout_s``.
 
-:func:`build_transport` maps ``TransportSpec.backend`` to a class.  The
-socket mesh comes in a later slice: :func:`available_backends` still names
-every backend the reference registers, so one ``ClusterSpec`` JSON
-validates in both packages, and building ``"socket"`` raises.
+:func:`build_transport` maps ``TransportSpec.backend`` to a class through
+the ``TRANSPORTS`` registry, as the reference's does; the third backend,
+the socket mesh of worker processes, is ``runtime.socket_transport``
+(imported only when it is built).
 
 **Threads on CUDA.**  The reference's worker blocks on ``np.asarray``, so
 its arrival is a finished product.  A PyTorch call on a CUDA tensor
@@ -53,11 +54,8 @@ import torch
 from .straggler import StragglerModel
 from .wait_policy import ArrivalEvent
 
-__all__ = ["VirtualClockTransport", "ThreadTransport", "available_backends",
-           "build_transport", "virtual_timeline"]
-
-# the reference's TRANSPORTS registry keys
-_REFERENCE_BACKENDS = ("socket", "threads", "virtual")
+__all__ = ["VirtualClockTransport", "ThreadTransport", "TRANSPORTS",
+           "available_backends", "build_transport", "virtual_timeline"]
 
 
 def virtual_timeline(delays: np.ndarray, t_compute: float) -> List[ArrivalEvent]:
@@ -352,23 +350,35 @@ class ThreadTransport:
                           "decoded")
 
 
+def _build_socket(n_workers: int, straggler: StragglerModel, **options):
+    # lazy import: the process mesh (and its subprocess machinery) loads
+    # only when a socket backend is built
+    from .socket_transport import SocketTransport
+    return SocketTransport(n_workers, straggler, **options)
+
+
+#: backend name -> factory(n_workers, straggler, **options).  Spec
+#: validation and the CLI's ``--transport`` choices enumerate this dict.
+TRANSPORTS = {
+    "virtual": lambda n, straggler, **options: VirtualClockTransport(
+        straggler),
+    "threads": lambda n, straggler, **options: ThreadTransport(n, straggler),
+    "socket": _build_socket,
+}
+
+
 def available_backends() -> tuple:
-    """Sorted names of every transport backend the reference registers."""
-    return _REFERENCE_BACKENDS
+    """Sorted names of every registered transport backend."""
+    return tuple(sorted(TRANSPORTS))
 
 
 def build_transport(backend: str, n_workers: int,
-                    straggler: StragglerModel):
-    """``TransportSpec.backend`` -> transport instance (``"virtual"`` or
-    ``"threads"``; ``"socket"`` comes in a later slice and raises)."""
-    if backend == "virtual":
-        return VirtualClockTransport(straggler)
-    if backend == "threads":
-        return ThreadTransport(n_workers, straggler)
-    if backend in _REFERENCE_BACKENDS:
-        raise NotImplementedError(
-            f"transport {backend!r} comes in a later slice of the port; "
-            "see ROADMAP.md")
-    raise ValueError(f"unknown transport backend {backend!r} (expected one "
-                     f"of: {' | '.join(available_backends())})")
-
+                    straggler: StragglerModel, **options):
+    """``TransportSpec.backend`` -> transport instance.  ``options`` are the
+    socket mesh's knobs (``TransportSpec.backend_options()``) and its
+    ``device``; the in-process backends accept and ignore them."""
+    factory = TRANSPORTS.get(backend)
+    if factory is None:
+        raise ValueError(f"unknown transport backend {backend!r} (expected "
+                         f"one of: {' | '.join(available_backends())})")
+    return factory(n_workers, straggler, **options)

@@ -608,13 +608,30 @@ def test_worker_pool_virtual_round_matches_reference():
 
 
 def test_worker_pool_real_backends_come_later():
-    pool = WorkerPool(4, StragglerModel(4, 0), backend="socket")
-    assert pool.backend == "socket" and pool.real_threads
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pool.run_round([None] * 4, lambda s: s, 0, 4, t_compute=0.0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        WorkerPool(4, StragglerModel(4, 0), backend="socket",
-                   transport_options={"timeout_s": 1.0})
+    """The socket backend, which raised until its slice: the pool builds
+    its mesh ONCE from ``transport_options`` (worker processes on the
+    CPU), runs real rounds on it and closes it with the pool."""
+    from repro_torch.runtime.tasks import MatmulTask
+    pool = WorkerPool(4, StragglerModel(4, 0), backend="socket",
+                      transport_options={"heartbeat_s": 0.1,
+                                         "liveness_timeout_s": 5.0,
+                                         "device": "cpu"})
+    try:
+        assert pool.backend == "socket" and pool.real_threads
+        mesh = pool.transport
+        assert pool.transport is mesh and mesh.heartbeat_s == 0.1
+        assert not mesh._procs                  # lazy until a round
+        b = torch.arange(6, dtype=torch.float32).reshape(3, 2)
+        shards = [torch.full((2, 3), float(i)) for i in range(4)]
+        resp, results, _ = pool.run_round(shards, MatmulTask(b), 0, 4)
+        assert list(resp) == [0, 1, 2, 3]
+        for i, r in zip(resp, results):
+            assert torch.equal(r, shards[i] @ b)
+    finally:
+        pool.close()
+    assert mesh._closed and all(p.poll() is not None
+                                for p in mesh._procs.values())
+    pool.close()                                         # idempotent
 
 
 def test_worker_pool_threads_backend_runs_like_the_reference():

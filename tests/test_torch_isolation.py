@@ -58,6 +58,9 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/launch/serve.py",
                  "src/repro_torch/runtime/faults.py",
                  "src/repro_torch/runtime/adaptive.py",
+                 "src/repro_torch/runtime/wire.py",
+                 "src/repro_torch/runtime/socket_transport.py",
+                 "src/repro_torch/launch/worker.py",
                  "chip_smoke.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
@@ -77,7 +80,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.encrypted_round, repro_torch.models, "
             "repro_torch.configs, repro_torch.models.coded, "
             "repro_torch.runtime.serve_loop, repro_torch.launch.serve, "
-            "repro_torch.runtime.faults, repro_torch.runtime.adaptive\n"
+            "repro_torch.runtime.faults, repro_torch.runtime.adaptive, "
+            "repro_torch.runtime.wire, repro_torch.runtime.socket_transport, "
+            "repro_torch.launch.worker\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -85,3 +90,69 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+
+def test_a_spawned_worker_loads_neither_jax_nor_repro(tmp_path):
+    """A mesh worker's whole path in a process of its own, as the master
+    spawns it: ``python -m repro_torch.launch.worker`` registers with a
+    listening master, runs a plain and a sealed task and obeys SHUTDOWN.
+    ``-X importtime`` lists every module the process imported, lazily
+    imported ones too: neither JAX nor the reference is among them."""
+    import pickle
+    import socket
+
+    import torch
+
+    from repro_torch.crypto import MEAECC, generate_keypair
+    from repro_torch.runtime import wire
+    from repro_torch.runtime.tasks import MatmulTask, SealedMatmulTask
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    lst.settimeout(120.0)
+    port = lst.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = tmp_path / "importtime.log"
+    with open(log, "w") as sink:    # a file: the log outgrows a pipe
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m",
+             "repro_torch.launch.worker", "--connect", f"127.0.0.1:{port}",
+             "--worker-id", "0", "--device", "cpu"],
+            env=env, stdout=subprocess.DEVNULL, stderr=sink)
+    try:
+        conn, _ = lst.accept()
+        conn.settimeout(120.0)
+        assert wire.read_frame(conn).type == wire.HELLO
+        mea = MEAECC(codec="bits", mode="stream", device="cpu")
+        kp, master = generate_keypair(), generate_keypair()
+        b = torch.ones((3, 2))
+        ct = mea.encrypt(torch.ones((4, 3)), kp.pk, sender=master, nonce=1)
+        for sub, (task, shard) in enumerate(
+                [(MatmulTask(b), torch.ones((4, 3))),
+                 (SealedMatmulTask(mea, [kp], master.pk, b=b),
+                  (0, (ct,), 2))], 1):
+            conn.sendall(wire.pack_frame(wire.TASK, 0, sub, wire.dumps(
+                {"sub": sub, "round": 0, "delay": 0.0,
+                 "task": pickle.dumps(task), "shard": shard,
+                 "inject": None})))
+            fr = wire.read_frame(conn)
+            while fr.type == wire.PING:
+                fr = wire.read_frame(conn)
+            assert (fr.type, fr.sub) == (wire.RESULT, sub), \
+                bytes(fr.payload)
+        conn.sendall(wire.pack_frame(wire.SHUTDOWN, 0, 0))
+        proc.wait(timeout=60.0)
+    finally:
+        lst.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = log.read_text()
+    assert proc.returncode == 0, err[-2000:]
+    mods = {ln.split("|")[-1].strip() for ln in err.splitlines()
+            if ln.startswith("import time:") and "|" in ln}
+    assert "repro_torch.runtime.wire" in mods
+    assert "repro_torch.kernels.ops" in mods        # the sealed task ran
+    bad = sorted(m for m in mods if _forbidden(m))
+    assert not bad, bad

@@ -212,18 +212,22 @@ Phases, one JSON line each:
     master's framing seconds, arrival lag behind the virtual clock): each
     bit-identical to the virtual loop round fed its arrival order (round 0
     to real threads too), within 1e-4 of the kernels-off decode of its
-    responders, exact master launches; one held round (every
-    ``berrut_combine`` call within float32's bound), ciphertext overhead
-    < 256 B, every worker with ``libcuda`` and the ``mask_add`` library
-    mapped, mesh start, device memory with 30 contexts, a bounded close;
-    (b) OS-level faults: (i) bench_transport's SIGKILL point (a real
-    kill, a respawn, a retry, the decode bit-identical to the plan
-    simulated on threads), (ii) bench_faults' point with drops, two
-    rounds, exclusions, retries and decode equal to threads'; (c) phase 9
-    (e)'s serve over an 8-worker mesh at full width, tokens equal to phase
-    9 (e)'s threads tokens, step walls and the framing share.  Only the
-    master's launches are counted; the workers' happen in their own
-    processes.
+    responders, exact master launches, every responder reporting its
+    task's launches (two ``mask_add`` sealed, none plain); one held round
+    (every ``berrut_combine`` call within float32's bound and, sealed,
+    every ``mask_add`` call of the master and the workers exact),
+    ciphertext overhead < 256 B, every worker with a CUDA context, no
+    live worker written off at the default liveness deadline, mesh
+    start, device memory with 30 contexts, a bounded close; (b) OS-level
+    faults: (i) bench_transport's SIGKILL point (a real kill, a respawn,
+    a retry, the decode bit-identical to the plan simulated on threads),
+    (ii) bench_faults' point with drops, two rounds, exclusions, retries
+    and decode equal to threads fed the mesh's arrival orders and
+    liveness write-offs; (c) phase 9 (e)'s serve over an 8-worker mesh at
+    full width (gen cut from 4 to 2), its tokens equal to the first two of
+    phase 9 (e)'s threads tokens, step walls and the framing share.  Only the master's launches are counted; the
+    workers' happen in their own processes and come back in their
+    RESULTs.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -3251,10 +3255,6 @@ SOCKET_ROUNDS = 3
 # paper_fig3's (N, K, T, S): 30 worker processes; a fixed-quantile round
 # waits for the N - S = 23 that do not straggle
 SOCKET_FIG3 = (30, 24, 3, 7)
-# 30 CUDA contexts time-share the card and 8 host cores: a heartbeat may
-# wait seconds behind the others' keystreams, so liveness is generous
-# (nothing is meant to expire in (a) or (c))
-SOCKET_LIVENESS_S = 30.0
 # spacing of the replayed arrival order (threads sleep it)
 REPLAY_SPACING_S = 0.01
 # (b i): benchmarks/bench_transport.py's SIGKILL point (fault seed 139 puts
@@ -3264,12 +3264,16 @@ KILL_OP = dict(n_workers=6, k_blocks=2, seed=7, fault_seed=139,
 # (b ii): bench_faults' point with drops (tampered frames) added
 MESH_FAULT_ROUNDS = 2
 MESH_DROP_RATE = 0.12
-# a respawned worker re-creates its CUDA context and reloads the kernel
-# libraries before its HELLO; the liveness deadline covers live workers
-MESH_FAULT_LIVENESS_S = 5.0
+# (b)'s respawns per worker.  (b) runs at TransportSpec's default liveness
+# deadline, as (a) and (c) do.  While SIGKILLed CUDA workers are torn down
+# and respawned, a live worker's frames have come 16.09 and 39.78 s apart
+# on the card: the mesh writes it off, and (b ii)'s simulated run is told
+# so (replay_write_offs)
 MESH_MAX_RESPAWNS = 8
-# (c): phase 9 (e)'s workload, cut (gen) if it would pass this
-SOCKET_SERVE_MAX_S = 90.0
+# (c): phase 9 (e)'s workload with gen cut from 4 to 2 (5 steps, not 7): at
+# 4 the phase took 85.34-95.49 s on the card, past its 90 s budget; the
+# tokens are held against the first 2 of each of phase 9 (e)'s requests
+SOCKET_SERVE_GEN = 2
 
 
 class ReplayStraggler:
@@ -3295,13 +3299,17 @@ class ReplayStraggler:
                            for w in range(self.n_workers)], np.float64)
 
 
-def record_arrival_orders(mesh, orders: dict) -> None:
+def record_arrival_orders(mesh, orders: dict,
+                          written_off: dict = None) -> None:
     """Record, per round index the mesh is handed (retries have their
-    own), the workers in the order the engine consumed their arrivals."""
+    own), the workers in the order the engine consumed their arrivals and
+    (into ``written_off``) those the liveness deadline wrote off."""
     submit = mesh.submit_round
 
     def recorded(shards, f, round_idx, **kw):
         handle = submit(shards, f, round_idx, **kw)
+        if written_off is not None:
+            written_off[int(round_idx)] = handle.written_off
         order = orders.setdefault(int(round_idx), [])
         events = handle.events
 
@@ -3320,7 +3328,6 @@ def socket_spec(backend: str, *, encrypt=None, **transport):
     transport does."""
     from repro_torch.api import ClusterSpec, CryptoSpec, TransportSpec
     spec = ClusterSpec.paper_fig3()
-    transport.setdefault("liveness_timeout_s", SOCKET_LIVENESS_S)
     return dataclasses.replace(
         spec, crypto=CryptoSpec(encrypt=encrypt),
         transport=TransportSpec(backend=backend, **transport),
@@ -3329,13 +3336,95 @@ def socket_spec(backend: str, *, encrypt=None, **transport):
 
 
 def worker_maps(mesh) -> dict:
-    """Per live worker: whether ``/proc/<pid>/maps`` has ``libcuda`` (a
-    CUDA context) and the ``mask_add`` kernel library."""
-    out = {}
-    for w in range(mesh.n):
-        text = Path(f"/proc/{mesh.worker_pid(w)}/maps").read_text()
-        out[w] = ("libcuda" in text, "libmask_add-" in text)
-    return out
+    """Per live worker: whether ``/proc/<pid>/maps`` has ``libcuda``, i.e.
+    whether the process made a CUDA context.  (Which path its tasks took is
+    what their RESULTs report: ``record_round_handles``.)"""
+    return {w: "libcuda" in Path(f"/proc/{mesh.worker_pid(w)}/maps")
+            .read_text() for w in range(mesh.n)}
+
+
+def record_round_handles(mesh) -> list:
+    """Keep every round handle the mesh hands out, in order, in the list
+    returned: after a round, ``handle.worker_launches[w]`` is the kernel
+    launches worker ``w``'s RESULT reported for its task."""
+    handles = []
+    submit = mesh.submit_round
+
+    def recorded(*args, **kw):
+        handle = submit(*args, **kw)
+        handles.append(handle)
+        return handle
+    mesh.submit_round = recorded
+    return handles
+
+
+def responder_launches(handle, st) -> dict:
+    """The kernel launches each consumed responder of a round reported."""
+    return {w: handle.worker_launches.get(w)
+            for _, w in st.arrivals[:st.n_waited]}
+
+
+def hold_sealed_round(torch, engine, b):
+    """Hold every ``mask_add`` call of one sealed mesh round of ``engine``
+    (the loop round with ``encrypt="real"`` on the socket mesh): the
+    master's seal and open calls one by one against the plain version
+    (``hold_ops_mask_adds``), and each responder's open and seal through the
+    reply it sent.  The plain version opens the sealed shard the worker was
+    sent with the worker's key pair, multiplies (by ``b``, or the pair) and
+    seals the product to the master under the reply nonce the master drew;
+    the worker's ciphertext must be that, limb for limb.  So the worker's
+    open, product and seal were all exact, and it replied under the nonce
+    it was given (an open that hands back the product does not show that:
+    a reply carries its own nonce).  Returns ``(undo, check)``;
+    ``check()`` returns the counts and flags the caller asserts.  The plain
+    versions launch no kernel."""
+    mea = engine._mea
+    plain = mea.to(mea.device)
+    plain.use_kernel = False
+    kps, master = engine._worker_kps, engine._master_kp
+    rounds, masks = [], []
+    run = engine._loop_round
+
+    def loop_round(shards, f, *args, **kw):
+        out = run(shards, f, *args, **kw)
+        rounds.append((list(shards), out[0], out[1]))
+        return out
+    engine._loop_round = loop_round
+    undo_masks = hold_ops_mask_adds(torch, masks)
+
+    def undo():
+        engine._loop_round = run
+        undo_masks()
+
+    def check() -> dict:
+        replies = exact = 0
+        for shards, resp, results in rounds:
+            for w, ct in zip(resp, results):
+                _, cts, reply_nonce = shards[w]
+                parts = [plain.decrypt(c, kps[w]) for c in cts]
+                prod = torch.matmul(parts[0], parts[1] if len(parts) == 2
+                                    else b)
+                want = plain.encrypt(prod, master.pk, sender=kps[w],
+                                     nonce=reply_nonce)
+                replies += 1
+                exact += (ct.nonce == reply_nonce and
+                          ct.ephemeral == kps[w].pk and
+                          tuple(ct.shape) == tuple(want.shape) and
+                          torch.equal(ct.payload.view(torch.int32),
+                                      want.payload.view(torch.int32)))
+        return {"master_calls": len(masks),
+                "master_calls_exact": sum(ok for *_, ok in masks),
+                "master_shapes": sorted({shape for shape, *_ in masks}),
+                "rounds": len(rounds),
+                "shards_sealed": sum(len(sh) for sh, _, _ in rounds),
+                "worker_replies": replies, "worker_replies_exact": exact}
+    return undo, check
+
+
+def silences(mesh, t0: float) -> list:
+    """The mesh's gaps of a second or more between two frames of one
+    connection: [worker, seconds from ``t0`` to the gap's end, gap]."""
+    return [[w, end - t0, gap] for w, end, gap in mesh.silences]
 
 
 def mesh_counters(mesh) -> dict:
@@ -3362,6 +3451,32 @@ def replay_round(torch, backend: str, st, a, b, round_idx: int):
         eng.close()
 
 
+def replay_write_offs(written_off: dict):
+    """Make the seeded fault plan of round index ``r`` also crash the
+    workers in ``written_off[r]``: the live workers a mesh round wrote off
+    at its liveness deadline, which never arrive in that round, as a
+    crashed worker never does.  A simulated run fed these and the mesh's
+    arrival orders sees the round the mesh saw.  Returns the undo."""
+    from repro_torch.runtime import faults
+    real = faults.plan_faults
+
+    def plan_faults(fault, seed, round_idx, n):
+        plan = real(fault, seed, round_idx, n)
+        off = [w for w in written_off.get(int(round_idx), ()) if w < n]
+        if not off:
+            return plan
+        crash = plan.crash.copy()
+        crash[off] = True
+        return dataclasses.replace(plan, crash=crash,
+                                   drop=plan.drop & ~crash,
+                                   corrupt=plan.corrupt & ~crash)
+    faults.plan_faults = plan_faults
+
+    def undo():
+        faults.plan_faults = real
+    return undo
+
+
 def fixed_health_latency(latency_s: float = 1e-3):
     """Make every ``WorkerHealth.record_ok`` record ``latency_s``; returns
     the undo.  The defended round ranks re-dispatch candidates by their
@@ -3386,17 +3501,24 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
     under ``paper_fig3()`` at the qwen2-7b q|k|v job, 30 worker processes
     on the card: each round bit-identical to the virtual loop round (and
     round 0 to real threads) fed its arrival order, within 1e-4 of the
-    kernels-off decode of its responders, a held round's ``berrut_combine``
-    calls within float32's bound, every worker with ``libcuda`` and the
-    ``mask_add`` library mapped, mesh start, wire bytes, framing seconds,
-    device memory and a bounded close; (b) OS-level faults: (i)
+    kernels-off decode of its responders, every responder's task reporting
+    its own kernel launches (two ``mask_add`` sealed, none plain), a held
+    round's ``berrut_combine`` calls within float32's bound and, sealed,
+    its every ``mask_add`` call exact (``hold_sealed_round``: the master's
+    calls one by one, the workers' through their replies), no live worker
+    written off at ``TransportSpec``'s default liveness deadline, every
+    worker with ``libcuda`` mapped, mesh start, wire bytes, framing seconds, device
+    memory and a bounded close; (b) OS-level faults: (i)
     bench_transport's SIGKILL point (real kills, respawns, the defended
     decode equal to the plan simulated on threads), (ii) bench_faults'
-    point with drops (the exclusions and the decode equal to threads');
-    (c) phase 9 (e)'s serve over the mesh, its tokens equal to phase 9
+    point with drops (the exclusions and the decode equal to threads fed
+    the mesh's arrival orders and liveness write-offs);
+    (c) phase 9 (e)'s serve over the mesh with gen cut to
+    ``SOCKET_SERVE_GEN``, its tokens equal to the first ones of phase 9
     (e)'s threads tokens (``serve_tokens["e_threads"]``; served here on
     threads first when not given, as when phase 11 runs alone).  Returns
-    the master's counted launches (worker processes count their own).
+    the master's counted launches (worker processes count their own and
+    report them in their RESULTs).
     Phase 11 alone: ``build_kernels(torch)`` then ``socket_main_path(torch,
     torch.device("cuda"))``."""
     import gc
@@ -3445,9 +3567,10 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
         s = Session(spec, device=dev)
         try:
             mesh = s.engine.pool.transport
-            t0 = time.perf_counter()
+            t_mesh = t0 = time.perf_counter()
             mesh.start()
             start_s = time.perf_counter() - t0
+            handles = record_round_handles(mesh)
             free_b, total_b = torch.cuda.mem_get_info(dev)
             mem = {"device_used_gb_before": (dev_used0[1] - dev_used0[0])
                    / 1e9,
@@ -3479,6 +3602,9 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                                    .tolist())
                 lag = [t - (float(delays[w]) + t_comp)
                        for t, w in st.arrivals]
+                # a sealed task opens its shard and seals its product: two
+                # mask_add launches in the worker; a plain task launches none
+                w_launches = responder_launches(handles[-1], st)
                 err, rel = rel_diff(torch, out, want)
                 rel_x = rel_to(torch, out, exact, exact_norm)
                 row = {"phase": "socket_main_path",
@@ -3500,6 +3626,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                            "median": 1e3 * statistics.median(lag),
                            "max": 1e3 * max(lag)},
                        "wire": io, "launches": launched,
+                       "worker_launches_per_responder": sorted(
+                           {json.dumps(v) for v in w_launches.values()}),
                        "dispatches": st.dispatches}
                 if r == 0:
                     tout, tst = replay_round(torch, "threads", st, a, b, r)
@@ -3522,6 +3650,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                 assert launched["berrut_combine"] == 2, row
                 assert launched["coded_matmul"] == \
                     launched["flash_attention"] == 0, row
+                assert all(v == ({"mask_add": 2} if encrypt else {})
+                           for v in w_launches.values()), row
                 if encrypt:
                     # one mask_add per shard sealed and per result opened;
                     # a session's first round adds the cipher's rate probe
@@ -3534,14 +3664,22 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                     assert st.crypto_s == 0, row
                 del out, vout, want
             maps = worker_maps(mesh)
-            # one more round with every berrut_combine call held (outside
-            # the timed rounds: the float64 bound is not the round's work)
+            # one more round with every berrut_combine call held and, sealed,
+            # every mask_add call of the master and the workers (outside the
+            # timed rounds: the float64 bound is not the round's work)
             ratios = []
             hold_combines(torch, s.engine.scheme, ratios)
-            (out, st), launched = counted(
-                kernels, total,
-                lambda: s.matmul(a, b, round_idx=SOCKET_ROUNDS))
-            held = {"calls": len(ratios), "worst_bound_ratio": max(ratios)}
+            undo_seal, check_seal = (hold_sealed_round(torch, s.engine, b)
+                                     if encrypt else (lambda: None, dict))
+            try:
+                (out, st), launched = counted(
+                    kernels, total,
+                    lambda: s.matmul(a, b, round_idx=SOCKET_ROUNDS))
+            finally:
+                undo_seal()
+            held = {"calls": len(ratios), "worst_bound_ratio": max(ratios),
+                    "mask_add": check_seal(), "n_waited": st.n_waited}
+            del out
             if encrypt:
                 ct = s.engine._mea.encrypt(
                     torch.zeros((m // 24, d), device=dev),
@@ -3550,7 +3688,6 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                 enc_b, limb_b = wire.ciphertext_wire_overhead(ct)
                 held["ciphertext_wire_overhead_bytes"] = enc_b - limb_b
                 del ct
-            del out
         finally:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -3561,17 +3698,33 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                    "mesh_start_s": start_s, "close_s": close_s,
                    "join_timeout_s": mesh.join_timeout_s,
                    "liveness_timeout_s": mesh.liveness_timeout_s,
+                   "liveness_expired": mesh.stats["liveness_expired"],
+                   "max_silence_s": mesh.stats["max_silence_s"],
+                   "silences": silences(mesh, t_mesh),
                    "memory": mem, "held": held,
-                   "worker_maps_libcuda_mask_add": sorted(
-                       set(maps.values())),
+                   "workers_with_libcuda": sum(maps.values()),
                    "mesh_stats": dict(mesh.stats),
                    "build_count": _build.build_count,
                    "t_compute_virtual_s": t_comp}
         emit(summary)
-        assert all(cu and lib for cu, lib in maps.values()), summary
+        assert all(maps.values()), summary
         assert held["calls"] == 2 and held["worst_bound_ratio"] <= 1.0, \
             summary
+        # TransportSpec's default liveness deadline: no live worker is
+        # written off
+        assert summary["liveness_expired"] == 0, summary
+        seal = held["mask_add"]
         if encrypt:
+            rows_k = m // SOCKET_FIG3[1]
+            assert seal["master_calls"] == seal["master_calls_exact"] == \
+                n_workers + held["n_waited"], summary
+            assert [[rows_k * d, 8], [rows_k * n_out, 8]] == sorted(
+                [list(x) for x in seal["master_shapes"]], reverse=True), \
+                summary
+            assert seal["rounds"] == 1, summary
+            assert seal["shards_sealed"] == n_workers, summary
+            assert seal["worker_replies"] == seal["worker_replies_exact"] \
+                == held["n_waited"], summary
             assert held["ciphertext_wire_overhead_bytes"] < 256, summary
         assert close_s <= mesh.join_timeout_s + 1.5, summary
         assert all(p.poll() is not None for p in mesh._procs.values())
@@ -3588,10 +3741,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
             code=CodeSpec(scheme="spacdc", n_workers=op["n_workers"],
                           k_blocks=op["k_blocks"]),
             straggler=StragglerSpec(n_stragglers=0, delay_s=0.02),
-            transport=TransportSpec(
-                backend=backend, heartbeat_s=0.1,
-                liveness_timeout_s=MESH_FAULT_LIVENESS_S,
-                max_respawns=MESH_MAX_RESPAWNS),
+            transport=TransportSpec(backend=backend, heartbeat_s=0.1,
+                                    max_respawns=MESH_MAX_RESPAWNS),
             fault=FaultSpec(crash_rate=op["crash_rate"], handle=True,
                             os_level=backend == "socket",
                             seed=op["fault_seed"],
@@ -3599,13 +3750,14 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                             max_retries=op["max_retries"]),
             seed=op["seed"])
 
-    def mesh_run(spec, rounds: int, orders=None):
+    def mesh_run(spec, rounds: int, orders=None, offs=None):
         """``rounds`` rounds of ``spec`` on one engine; returns (outputs,
         stats, mesh stats, per round with a kill the seconds from its
         start until every worker is registered again (kills land at its
         dispatch), health snapshot).  On the mesh the consumed arrival
-        orders go to ``orders``; on threads, ``orders`` given, they are
-        replayed (``ReplayStraggler``)."""
+        orders go to ``orders`` and the liveness write-offs to ``offs``;
+        on threads, given, they are replayed (``ReplayStraggler``,
+        ``replay_write_offs``)."""
         from repro_torch.runtime.engine import RoundEngine
         on_mesh = spec.transport.backend == "socket"
         outs, stats, whole_s = [], [], []
@@ -3614,12 +3766,15 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
             straggler = ReplayStraggler(spec.code.n_workers,
                                         spec.straggler.n_stragglers, orders)
         eng = RoundEngine(spec, device=dev, straggler=straggler)
+        undo = (replay_write_offs(offs) if offs is not None and not on_mesh
+                else (lambda: None))
         try:
             mesh = eng.pool.transport
+            t_mesh = time.perf_counter()
             if on_mesh:
                 mesh.start()
                 if orders is not None:
-                    record_arrival_orders(mesh, orders)
+                    record_arrival_orders(mesh, orders, offs)
             for r in range(rounds):
                 kills = mesh.stats["kills"] if on_mesh else 0
                 t0 = time.perf_counter()
@@ -3630,9 +3785,11 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                 if on_mesh and mesh.stats["kills"] > kills:
                     mesh.start()            # waits for the respawns
                     whole_s.append(time.perf_counter() - t0)
-            ms = dict(mesh.stats) if on_mesh else {}
+            ms = (dict(mesh.stats, silences=silences(mesh, t_mesh))
+                  if on_mesh else {})
             health = eng.health.snapshot()
         finally:
+            undo()
             eng.close()
         return outs, stats, ms, whole_s, health
 
@@ -3652,6 +3809,10 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                torch.equal(out, outs_t[0])),
            "threads_retries": st_t[0].retries,
            "round_start_to_mesh_whole_s": respawn_k,
+           "liveness_timeout_s": TransportSpec().liveness_timeout_s,
+           "liveness_expired": ms_k.get("liveness_expired", 0),
+           "max_silence_s": ms_k.get("max_silence_s", 0.0),
+           "silences": ms_k.get("silences", []),
            "compute_wait_s": st.compute_wait_s, "encode_s": st.encode_s,
            "decode_s": st.decode_s,
            "crashed_in_health": [w for w, n in enumerate(
@@ -3668,20 +3829,20 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
     def faults_spec(backend):
         spec = fault_spec(handle=True)
         return dataclasses.replace(
-            spec, transport=TransportSpec(
-                backend=backend, heartbeat_s=0.1,
-                liveness_timeout_s=MESH_FAULT_LIVENESS_S,
-                max_respawns=MESH_MAX_RESPAWNS),
+            spec, transport=TransportSpec(backend=backend, heartbeat_s=0.1,
+                                          max_respawns=MESH_MAX_RESPAWNS),
             fault=dataclasses.replace(spec.fault, drop_rate=MESH_DROP_RATE,
                                       os_level=backend == "socket"))
 
-    orders = {}
+    orders, offs = {}, {}
     undo = fixed_health_latency()
     try:
         outs_s, st_s, ms_s, respawn_s, _ = mesh_run(
-            faults_spec("socket"), MESH_FAULT_ROUNDS, orders=orders)
+            faults_spec("socket"), MESH_FAULT_ROUNDS, orders=orders,
+            offs=offs)
         outs_t, st_t, _, _, _ = mesh_run(faults_spec("threads"),
-                                         MESH_FAULT_ROUNDS, orders=orders)
+                                         MESH_FAULT_ROUNDS, orders=orders,
+                                         offs=offs)
         outs_o, st_o, _, _, _ = mesh_run(faults_spec("threads"),
                                          MESH_FAULT_ROUNDS)
     finally:
@@ -3708,7 +3869,11 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
            "kills": ms_s.get("kills", 0),
            "crc_failures": ms_s.get("crc_failures", 0),
            "respawns": ms_s.get("respawns", 0),
+           "liveness_timeout_s": TransportSpec().liveness_timeout_s,
            "liveness_expired": ms_s.get("liveness_expired", 0),
+           "written_off_by_liveness": {str(k): v for k, v in
+                                       sorted(offs.items()) if v},
+           "max_silence_s": ms_s.get("max_silence_s", 0.0),
            "round_start_to_mesh_whole_s": respawn_s,
            "consumed_arrival_orders": {str(k): v for k, v in
                                        sorted(orders.items())},
@@ -3727,6 +3892,9 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
     cfg = get_config(SERVE_ARCH)
     reqs = poisson_workload(2, rate_rps=0.0, prompt_len=4, gen=4,
                             vocab=cfg.vocab_size, seed=0, ragged=False)
+    cut = poisson_workload(2, rate_rps=0.0, prompt_len=4,
+                           gen=SOCKET_SERVE_GEN, vocab=cfg.vocab_size,
+                           seed=0, ragged=False)
 
     def serve_spec(backend):
         # phase 9 (e)'s exact spec: mds N=8, K=4, all 8 waited for
@@ -3734,8 +3902,7 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
             code=CodeSpec(scheme="mds", n_workers=8, k_blocks=4),
             wait=WaitSpec(policy="first_k", k=8),
             straggler=StragglerSpec(n_stragglers=0),
-            transport=TransportSpec(backend=backend,
-                                    liveness_timeout_s=SOCKET_LIVENESS_S),
+            transport=TransportSpec(backend=backend),
             serve=ServeSpec(coded_layers="unembed", max_slots=8))
     serve_tokens = {} if serve_tokens is None else serve_tokens
     if "e_threads" not in serve_tokens:
@@ -3752,7 +3919,7 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
         mesh.start()
         c0 = mesh_counters(mesh)
         rep, launched = counted(kernels, total, lambda: s.serve(
-            arch=SERVE_ARCH, tiny=False, requests=reqs,
+            arch=SERVE_ARCH, tiny=False, requests=cut,
             check_agreement=False))
         io = counter_delta(c0, mesh_counters(mesh))
         maps = worker_maps(mesh)
@@ -3763,10 +3930,11 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
         close_s = time.perf_counter() - t0
     serve_s = time.perf_counter() - t_phase
     walls = float(np.sum(rep.step_wall_s))
-    same = all(np.array_equal(r.tokens, t)
+    same = all(np.array_equal(r.tokens, t[:SOCKET_SERVE_GEN])
                for r, t in zip(rep.requests, serve_tokens["e_threads"]))
     row = {"phase": "socket_main_path", "check": "c_serve_over_mesh",
-           **serve_summary(rep), "tokens_equal_phase9_e_threads": same,
+           **serve_summary(rep), "gen": SOCKET_SERVE_GEN,
+           "tokens_equal_phase9_e_threads_prefix": same,
            "wire": io, "framing_share_of_step_wall":
                io["frame_s"] / max(walls, 1e-12),
            "step_wall_s": [float(w) for w in rep.step_wall_s],
@@ -3774,10 +3942,16 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                rep.step_stats), 1),
            "launches": launched, "close_s": close_s,
            "join_timeout_s": mesh.join_timeout_s, "phase_c_s": serve_s,
-           "worker_maps_libcuda_mask_add": sorted(set(maps.values()))}
+           "liveness_timeout_s": mesh.liveness_timeout_s,
+           "liveness_expired": mesh.stats["liveness_expired"],
+           "max_silence_s": mesh.stats["max_silence_s"],
+           "silences": silences(mesh, t_phase),
+           "worker_launches": {k: v for k, v in mesh.stats.items()
+                               if k.startswith("worker_launches_")},
+           "workers_with_libcuda": sum(maps.values())}
     emit(row)
     assert rep.mode == "round" and same, row
-    assert all(cu and lib for cu, lib in maps.values()), row
+    assert all(maps.values()), row
     assert close_s <= mesh.join_timeout_s + 1.5, row
     del s, rep
     free()

@@ -29,7 +29,8 @@ from .mask_add import mask_add_kernel
 __all__ = ["berrut_combine", "prefix_decode", "coded_matmul",
            "precoded_matmul", "mask_add",
            "mea_encrypt_core", "mea_decrypt_core", "encrypted_coded_matmul",
-           "fused_wire", "flash_attention", "kernel_launches"]
+           "fused_wire", "flash_attention", "kernel_launches",
+           "kernel_launch_counts"]
 
 
 def _use_kernel(t: torch.Tensor, force_kernel) -> bool:
@@ -41,11 +42,19 @@ def _use_kernel(t: torch.Tensor, force_kernel) -> bool:
     return bool(force_kernel)
 
 
+def kernel_launch_counts() -> dict:
+    """Launches of each of the port's kernels so far in this process (the
+    wrappers' counters), by kernel name."""
+    return {"berrut_combine": berrut_encode_kernel.launches,
+            "coded_matmul": coded_matmul_kernel.launches,
+            "mask_add": mask_add_kernel.launches,
+            "flash_attention": flash_attention_kernel.launches}
+
+
 def kernel_launches() -> int:
     """Launches of the port's kernels so far in this process (the sum of
     the wrappers' counters)."""
-    return (berrut_encode_kernel.launches + coded_matmul_kernel.launches +
-            mask_add_kernel.launches + flash_attention_kernel.launches)
+    return sum(kernel_launch_counts().values())
 
 
 def berrut_combine(weights, blocks, *, force_kernel: bool | None = None):

@@ -25,6 +25,12 @@ optional fault directive:
 * ``tamper``: flip payload bytes after the frame's CRC is computed, so the
   master's CRC check fails and the result counts as dropped.
 
+A RESULT carries ``{"result": value, "launches": {kernel: n}}``: the
+value, and the port's kernel launches (``kernels.ops.kernel_launch_counts``)
+that this task made in this process, the ones with n > 0 (a sealed task on
+the card: ``{"mask_add": 2}``, its open and its seal).  The reference's
+RESULT is the bare value.
+
 ``--device`` is the explicit counterpart of the reference's
 ``JAX_PLATFORMS=cpu`` for its workers; it defaults to the card, like every
 entry point of the port.  A worker that cannot make its device ready (no
@@ -52,6 +58,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import kernel_launch_counts
 from repro_torch.runtime import wire
 from repro_torch.runtime.faults import _CORRUPT_STREAM, corrupt_value
 from repro_torch.runtime.scheduler import retry_backoff
@@ -155,13 +162,17 @@ def _run_task(conn: _Connection, frame: wire.Frame,
         bind = getattr(f, "bind", None)
         if bind is not None:
             f = bind(device)
+        launches0 = kernel_launch_counts()
         result = f(wire.to_device(msg["shard"], device))
+        launches = {k: n - launches0[k]
+                    for k, n in kernel_launch_counts().items()
+                    if n != launches0[k]}
         inject = msg.get("inject")
         if inject and inject.get("kind") == "corrupt":
             result = _apply_inject(result, inject, wid)
         # dumps copies the result to the host (synchronizing the card)
-        data = wire.pack_frame(wire.RESULT, wid, frame.sub,
-                               wire.dumps(result))
+        data = wire.pack_frame(wire.RESULT, wid, frame.sub, wire.dumps(
+            {"result": result, "launches": launches}))
         if inject and inject.get("kind") == "tamper":
             rng = np.random.default_rng(np.random.SeedSequence(
                 [int(inject["seed"]), int(inject["round"]),

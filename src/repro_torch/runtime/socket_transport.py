@@ -112,12 +112,18 @@ class _SocketRoundHandle:
         self._min_ready = max(int(min_ready), 1)
         self._queue: "queue_mod.Queue" = queue_mod.Queue()
         self._results = {}
+        # worker -> the kernel launches its RESULT reported ({name: n})
+        self.worker_launches: dict = {}
+        # the live workers written off by the liveness deadline, in order
+        self.written_off: list = []
         self._consumed = 0
         self._finished_at: Optional[float] = None
         self._t0 = time.perf_counter()
 
     # -- called from receiver / monitor threads ---------------------------
-    def _post_result(self, worker: int, outcome) -> None:
+    def _post_result(self, worker: int, outcome, launches=None) -> None:
+        if launches is not None:
+            self.worker_launches[int(worker)] = launches
         self._queue.put(("result", int(worker), outcome,
                          time.perf_counter() - self._t0))
 
@@ -150,6 +156,7 @@ class _SocketRoundHandle:
                     # worker is suspended or wedged; write it off for this
                     # round (the engine sees a crash, not a hang)
                     self._pending.discard(w)
+                    self.written_off.append(w)
                     self._tr.stats["liveness_expired"] += 1
                 continue
             if w not in self._pending:
@@ -193,6 +200,11 @@ class SocketTransport:
     framing outgoing tasks (``frame_s``, on the submitting thread) and
     deserializing results (``unframe_s``, on the receiver threads), and the
     robustness events (kills, respawns, CRC failures, orphans, ...).
+    ``max_silence_s`` is the longest gap between two frames of one
+    connection (what ``liveness_timeout_s`` has to exceed for a live
+    worker; ``silences`` lists those of a second or more), and ``worker_launches_<kernel>`` sums the kernel launches that
+    the workers' routed RESULTs reported; each round handle keeps its own
+    per worker (``worker_launches``).
     """
 
     name = "socket"
@@ -216,6 +228,9 @@ class SocketTransport:
         self.host: Optional[str] = None
         self.port: Optional[int] = None
         self.stats: collections.Counter = collections.Counter()
+        # (worker, perf_counter at its end, seconds) of each gap of 1 s or
+        # more between two frames of one connection, the first 256
+        self.silences: list = []
         self._lock = threading.RLock()
         self._conns: dict = {}               # wid -> _WorkerConn
         self._rounds: dict = {}              # submission id -> handle
@@ -381,7 +396,13 @@ class SocketTransport:
         try:
             while True:
                 frame = wire.read_frame(sock)
-                conn.last_seen = time.perf_counter()
+                now = time.perf_counter()
+                gap = now - conn.last_seen
+                self.stats["max_silence_s"] = max(
+                    self.stats["max_silence_s"], gap)
+                if gap >= 1.0 and len(self.silences) < 256:
+                    self.silences.append((wid, now, gap))
+                conn.last_seen = now
                 if frame.type == wire.PING:
                     self.stats["heartbeats"] += 1
                 elif frame.type in (wire.RESULT, wire.ERROR):
@@ -421,7 +442,8 @@ class SocketTransport:
             return
         t0 = time.perf_counter()
         try:
-            value = wire.loads(frame.payload)
+            msg = wire.loads(frame.payload)
+            value, launches = msg["result"], msg["launches"]
         except Exception as e:          # undecodable yet CRC-valid payload
             self.stats["decode_failures"] += 1
             handle._post_result(w, ("dropped",
@@ -429,7 +451,9 @@ class SocketTransport:
                                     f"undecodable ({e})"))
             return
         self.stats["unframe_s"] += time.perf_counter() - t0
-        handle._post_result(w, ("ok", value))
+        for name, n in launches.items():
+            self.stats[f"worker_launches_{name}"] += int(n)
+        handle._post_result(w, ("ok", value), launches)
 
     def _on_worker_down(self, wid: int, conn: _WorkerConn) -> None:
         with self._lock:

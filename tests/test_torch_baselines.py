@@ -607,36 +607,9 @@ def test_worker_pool_virtual_round_matches_reference():
     port.close()                                         # idempotent
 
 
-def test_worker_pool_real_backends_come_later():
-    """The socket backend, which raised until its slice: the pool builds
-    its mesh ONCE from ``transport_options`` (worker processes on the
-    CPU), runs real rounds on it and closes it with the pool."""
-    from repro_torch.runtime.tasks import MatmulTask
-    pool = WorkerPool(4, StragglerModel(4, 0), backend="socket",
-                      transport_options={"heartbeat_s": 0.1,
-                                         "liveness_timeout_s": 5.0,
-                                         "device": "cpu"})
-    try:
-        assert pool.backend == "socket" and pool.real_threads
-        mesh = pool.transport
-        assert pool.transport is mesh and mesh.heartbeat_s == 0.1
-        assert not mesh._procs                  # lazy until a round
-        b = torch.arange(6, dtype=torch.float32).reshape(3, 2)
-        shards = [torch.full((2, 3), float(i)) for i in range(4)]
-        resp, results, _ = pool.run_round(shards, MatmulTask(b), 0, 4)
-        assert list(resp) == [0, 1, 2, 3]
-        for i, r in zip(resp, results):
-            assert torch.equal(r, shards[i] @ b)
-    finally:
-        pool.close()
-    assert mesh._closed and all(p.poll() is not None
-                                for p in mesh._procs.values())
-    pool.close()                                         # idempotent
-
-
 def test_worker_pool_threads_backend_runs_like_the_reference():
-    """Once the raising half of the test above: the threads backend runs
-    real rounds.  With a zero straggler delay both packages consume all
+    """The threads backend runs real rounds (the socket mesh's pool is
+    ``tests/test_torch_socket.py``'s).  With a zero straggler delay both packages consume all
     workers; the results are the task's, in responder order."""
     from repro.runtime.master_worker import WorkerPool as RefPool
     from repro.runtime.straggler import StragglerModel as RefModel

@@ -647,10 +647,11 @@ def _wait_for_stray(tr, timeout=10.0):
 
 
 def _failing_round(tr, round_idx):
-    release = threading.Event()
+    started, release = threading.Event(), threading.Event()
 
     def f(x):
         if x == 1:
+            started.set()
             release.wait(10.0)
             raise RuntimeError("boom")
         return x
@@ -658,6 +659,8 @@ def _failing_round(tr, round_idx):
     h = tr.submit_round([0, 1], f, round_idx=round_idx, t_compute=1e-4)
     ev = next(h.events())           # consume the healthy worker only
     assert ev.worker == 0
+    # finish() drops work not yet started: wait until the straggler runs
+    assert started.wait(10.0)
     h.finish()                      # straggler still running: no error yet
     release.set()
     _wait_for_stray(tr)

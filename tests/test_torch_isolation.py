@@ -141,6 +141,12 @@ def test_a_spawned_worker_loads_neither_jax_nor_repro(tmp_path):
                 fr = wire.read_frame(conn)
             assert (fr.type, fr.sub) == (wire.RESULT, sub), \
                 bytes(fr.payload)
+            reply = wire.loads(fr.payload)
+            got = reply["result"]
+            if sub == 2:
+                got = mea.decrypt(got, master)
+            assert torch.equal(got, torch.full((4, 2), 3.0))
+            assert reply["launches"] == {}      # the CPU runs no kernel
         conn.sendall(wire.pack_frame(wire.SHUTDOWN, 0, 0))
         proc.wait(timeout=60.0)
     finally:
@@ -153,6 +159,6 @@ def test_a_spawned_worker_loads_neither_jax_nor_repro(tmp_path):
     mods = {ln.split("|")[-1].strip() for ln in err.splitlines()
             if ln.startswith("import time:") and "|" in ln}
     assert "repro_torch.runtime.wire" in mods
-    assert "repro_torch.kernels.ops" in mods        # the sealed task ran
+    assert "repro_torch.kernels.ops" in mods        # the launch counts
     bad = sorted(m for m in mods if _forbidden(m))
     assert not bad, bad

@@ -87,32 +87,6 @@ def test_session_defaults_to_the_card_and_raises_without_one(monkeypatch):
         "cpu"
 
 
-def _unported_specs():
-    api = port_api
-    base = dict(code=api.CodeSpec(n_workers=4, k_blocks=2))
-    return {
-        "socket": ClusterSpec(transport=api.TransportSpec(
-            backend="socket", liveness_timeout_s=5.0), **base),
-    }
-
-
-@pytest.mark.parametrize("path", sorted(_unported_specs()))
-def test_unported_round_paths_raise(path):
-    """The round paths that raised until their slice.  The socket mesh
-    (ported since) runs the round on worker processes and gives the
-    virtual loop round's output, bit for bit."""
-    spec = _unported_specs()[path]
-    a, b = np.ones((8, 3), np.float32), np.ones((3, 2), np.float32)
-    loop = dataclasses.replace(
-        spec, transport=port_api.TransportSpec(),
-        code=dataclasses.replace(spec.code, fused=False))
-    with Session(loop, device="cpu") as s:
-        want, wst = s.matmul(a, b, round_idx=0)
-    with Session(spec, device="cpu") as s:
-        got, st = s.matmul(a, b, round_idx=0)
-    assert torch.equal(got, want) and st.n_waited == wst.n_waited == 4
-
-
 def _fault_and_adaptive_specs(api):
     base = dict(code=api.CodeSpec(n_workers=8, k_blocks=4))
     return {
@@ -161,26 +135,15 @@ def test_fault_and_adaptive_paths_match_reference(monkeypatch, path):
 
 
 def _unported_serves():
-    api = port_api
-    socket = ClusterSpec(code=api.CodeSpec(n_workers=4, k_blocks=2),
-                         transport=api.TransportSpec(
-                             backend="socket", liveness_timeout_s=5.0),
-                         serve=api.ServeSpec(coded_layers="unembed"))
-    return {"mla_family": (ClusterSpec(), dict(arch="deepseek-v2-lite-16b")),
-            "socket": (socket, dict(arch="qwen2-7b"))}
+    return {"mla_family": (ClusterSpec(), dict(arch="deepseek-v2-lite-16b"))}
 
 
 @pytest.mark.parametrize("case", sorted(_unported_serves()))
 def test_unported_session_methods_raise(case):
     """``Session.serve`` on what the port lacks: a family of a later slice
-    (MLA) raises.  The socket transport, which raised until its slice,
-    serves in round mode over worker processes."""
+    (MLA) raises."""
     spec, kw = _unported_serves()[case]
     with Session(spec, device="cpu") as s:
-        if case == "socket":
-            rep = s.serve(tiny=True, batch=1, prompt_len=2, gen=1, **kw)
-            assert rep.mode == "round" and rep.tokens.shape == (1, 1)
-            return
         with pytest.raises(NotImplementedError, match="later slice|ROADMAP"):
             s.serve(tiny=True, batch=1, prompt_len=2, gen=1, **kw)
 

@@ -517,6 +517,32 @@ def test_bounded_close_with_frozen_worker():
     tr.close()                                     # idempotent
 
 
+def test_worker_pool_builds_one_mesh_and_closes_it():
+    """The engine's pool builds its mesh once from ``transport_options``
+    (worker processes on the CPU), lazily, runs real rounds on it and
+    closes it with the pool; a second close is a no-op."""
+    from repro_torch.runtime import WorkerPool
+    pool = WorkerPool(4, StragglerModel(4, 0), backend="socket",
+                      transport_options={"heartbeat_s": 0.1,
+                                         "liveness_timeout_s": LIVENESS_S,
+                                         "device": "cpu"})
+    try:
+        assert pool.backend == "socket" and pool.real_threads
+        mesh = pool.transport
+        assert pool.transport is mesh and mesh.heartbeat_s == 0.1
+        assert not mesh._procs                  # lazy until a round
+        shards = [torch.full((2, 3), float(i)) for i in range(4)]
+        resp, results, _ = pool.run_round(shards, MatmulTask(_B), 0, 4)
+        assert list(resp) == [0, 1, 2, 3]
+        for i, r in zip(resp, results):
+            assert torch.equal(r, shards[i] @ _B)
+    finally:
+        pool.close()
+    assert mesh._closed and all(p.poll() is not None
+                                for p in mesh._procs.values())
+    pool.close()
+
+
 def test_lazy_until_first_round():
     tr = _mesh(3)
     assert not tr._procs and tr._listener is None
@@ -693,6 +719,69 @@ def _chip_smoke():
     return mod
 
 
+def _held_sealed_round(tamper=None):
+    """One sealed CPU mesh round under ``chip_smoke.hold_sealed_round``;
+    ``tamper(engine, resp, results)`` may replace the replies the engine
+    receives.  Returns (output, stats, check(), RESULT launches per
+    responder, the mesh's ``max_silence_s``)."""
+    cs = _chip_smoke()
+    a, b = (torch.from_numpy(x) for x in _mats())
+    with Session(_parity_spec("socket", encrypt="real"), device="cpu") as s:
+        eng = s.engine
+        mesh = eng.pool.transport
+        mesh.start()
+        handles = cs.record_round_handles(mesh)
+        if tamper is not None:
+            run = eng._loop_round
+
+            def loop_round(*args, **kw):
+                resp, results, *rest = run(*args, **kw)
+                return (resp, tamper(eng, resp, results), *rest)
+            eng._loop_round = loop_round
+        undo, check = cs.hold_sealed_round(torch, eng, b)
+        try:
+            out, st = s.matmul(a, b, round_idx=0)
+        finally:
+            undo()
+        return (out, st, check(), cs.responder_launches(handles[-1], st),
+                mesh.stats["max_silence_s"])
+
+
+def test_sealed_round_held_through_the_workers_replies():
+    """``chip_smoke.hold_sealed_round`` on a CPU mesh: every responder's
+    reply is, limb for limb, the plain version's open of its shard,
+    product and seal under the reply nonce the master drew; every RESULT
+    reports its task's kernel launches (none on the CPU); the master saw
+    each worker's frames at most ``max_silence_s`` apart, inside the
+    liveness deadline."""
+    out, st, got, launches, silence = _held_sealed_round()
+    want, _ = _run_matmul(_parity_spec("virtual", fused=False))
+    assert torch.equal(out, want)
+    assert got["rounds"] == 1 and got["shards_sealed"] == 5
+    assert got["master_calls"] == 0         # the CPU runs no kernel
+    assert got["worker_replies"] == got["worker_replies_exact"] == \
+        st.n_waited == 5
+    assert launches == {w: {} for w in range(5)}
+    assert 0.0 < silence < LIVENESS_S
+
+
+def test_hold_sealed_round_catches_a_reply_under_another_nonce():
+    """A reply sealed under another nonce than the one the master drew
+    opens to the right product (a ciphertext carries its nonce), so the
+    round's output stays right; the hold still finds it."""
+    def renonce(eng, resp, results):
+        w, ct = resp[0], results[0]
+        prod = eng._mea.decrypt(ct, eng._master_kp)
+        moved = eng._mea.encrypt(prod, eng._master_kp.pk,
+                                 sender=eng._worker_kps[w],
+                                 nonce=ct.nonce + 10 ** 6)
+        return [moved] + list(results[1:])
+    out, st, got, _, _ = _held_sealed_round(renonce)
+    want, _ = _run_matmul(_parity_spec("virtual", fused=False))
+    assert torch.equal(out, want)
+    assert got["worker_replies"] == 5 and got["worker_replies_exact"] == 4
+
+
 @pytest.mark.parametrize("encrypt", [None, "real"])
 def test_pair_coded_round_on_the_mesh(encrypt):
     """A pair-coded scheme (matdot, recovery threshold 3 of 5): both coded
@@ -836,6 +925,53 @@ def test_os_level_corrupt_and_drop_match_simulated_threads(monkeypatch):
     assert stats["kills"] + stats["crc_failures"] >= 1
 
 
+def test_liveness_write_offs_replayed_on_threads(monkeypatch):
+    """A live worker frozen past the liveness deadline is written off by
+    the defended mesh round (``handle.written_off``); threads fed the
+    mesh's consumed arrival orders and, as crashes, its write-offs
+    (``chip_smoke.ReplayStraggler``, ``replay_write_offs``) give the same
+    retries, exclusions, decode mask and output."""
+    from repro_torch.runtime.engine import RoundEngine
+    from repro_torch.runtime.faults import WorkerHealth
+    cs = _chip_smoke()
+    real = WorkerHealth.record_ok
+    monkeypatch.setattr(WorkerHealth, "record_ok",
+                        lambda self, w, _measured: real(self, w, 1e-3))
+    a, b = (torch.from_numpy(x) for x in _mats())
+
+    def spec(backend):
+        s = _sigkill_spec(backend, crash_rate=0.0, worker_timeout_s=2.0)
+        return dataclasses.replace(s, transport=TransportSpec(
+            backend=backend, heartbeat_s=0.1, liveness_timeout_s=1.0))
+    orders, offs = {}, {}
+    eng = RoundEngine(spec("socket"), device="cpu")
+    try:
+        mesh = eng.pool.transport
+        mesh.start()
+        cs.record_arrival_orders(mesh, orders, offs)
+        pid = mesh.worker_pid(2)
+        os.kill(pid, signal.SIGSTOP)
+        try:
+            out_s, st_s = eng.matmul(a, b, round_idx=0)
+        finally:
+            os.kill(pid, signal.SIGCONT)
+    finally:
+        eng.close()
+    assert offs[0] == [2] and 2 not in orders[0]
+    eng = RoundEngine(spec("threads"), device="cpu",
+                      straggler=cs.ReplayStraggler(6, 0, orders))
+    undo = cs.replay_write_offs(offs)
+    try:
+        out_t, st_t = eng.matmul(a, b, round_idx=0)
+    finally:
+        undo()
+        eng.close()
+    assert st_s.retries == st_t.retries >= 1
+    assert (st_s.excluded, st_s.decode_mask, st_s.degraded) == \
+        (st_t.excluded, st_t.decode_mask, st_t.degraded)
+    assert torch.equal(out_s, out_t)
+
+
 # --------------------------------------------------------------------------
 # serving on the mesh
 # --------------------------------------------------------------------------
@@ -887,7 +1023,8 @@ def test_cuda_socket_round_matches_virtual_loop_round(cuda, encrypt):
     """A 3-worker mesh on the card (each worker a CUDA context, the kernel
     libraries loaded, never built, in the workers): the plain and the
     sealed round with the kernels equal the virtual loop round with the
-    kernels, bit for bit, and every worker has ``libcuda`` mapped."""
+    kernels, bit for bit, every worker has ``libcuda`` mapped and every
+    responder reports its task's ``mask_add`` launches."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.berrut_encode import berrut_encode_kernel
     from repro_torch.kernels.mask_add import mask_add_kernel
@@ -906,16 +1043,23 @@ def test_cuda_socket_round_matches_virtual_loop_round(cuda, encrypt):
     b = torch.randn((64, 32), generator=gen, device=cuda)
     with Session(spec("virtual"), device=cuda) as s:
         want, _ = s.matmul(a, b)
+    cs = _chip_smoke()
     with Session(spec("socket"), device=cuda) as s:
         s.matmul(a, b)              # the first round adds one-time probes
         launches = (berrut_encode_kernel.launches, mask_add_kernel.launches)
-        got, st = s.matmul(a, b)
         mesh = s.engine.pool.transport
+        handles = cs.record_round_handles(mesh)
+        got, st = s.matmul(a, b)
         maps = [Path(f"/proc/{mesh.worker_pid(w)}/maps").read_text()
                 for w in range(3)]
     assert got.device.type == "cuda" and torch.equal(got, want)
     assert _build.build_count == 1
-    assert all("libcuda" in m and "libmask_add" in m for m in maps)
+    assert all("libcuda" in m for m in maps)
+    # each responder's task ran the kernel in its worker: the sealed task
+    # opened its shard and sealed its product (two mask_add launches)
+    assert set(map(json.dumps, cs.responder_launches(handles[-1], st)
+                   .values())) == {json.dumps(
+                       {} if encrypt is None else {"mask_add": 2})}
     # the master's launches: encode + decode, and on the sealed round one
     # mask_add per shard sealed and per result opened
     assert berrut_encode_kernel.launches - launches[0] == 2

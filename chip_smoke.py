@@ -239,7 +239,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -624,6 +626,12 @@ def main() -> int:
     # ------------- 11. the socket mesh of worker processes, sealed wire
     for kname, count in socket_main_path(torch, dev, serve_tokens).items():
         launches[kname] += count
+    torch.cuda.empty_cache()
+
+    # ------- 12. deepseek-v2-lite-16b: MLA and the MoE FFN at full width
+    ds_launches, mla_row = deepseek_main_path(torch, dev)
+    for kname, count in ds_launches.items():
+        launches[kname] += count
 
     # --------------------------------------------------------- summary
     n, j, (m, d, n_out) = 30, 27, FULL
@@ -651,6 +659,11 @@ def main() -> int:
                         "bound_by": row["bound_by"],
                         "bound_rate": row["bound_rate"],
                         "library_ms": row["library_ms"]})
+    # the flash kernel at MLA's widths (phase 12 a), beside its main row
+    kernels[-1]["mla_192_128"] = {
+        key: mla_row[key] for key in ("max_abs_err", "kernel_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "library")}
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -780,12 +793,14 @@ MODEL_TOKENS = 4096
 LOGIT_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 
 
-def flash_work(b, sq, skv, h, kv, hd, causal, elt) -> tuple:
+def flash_work(b, sq, skv, h, kv, hd, causal, elt, hd_v=None) -> tuple:
     """(bytes, FLOP) of one attention forward: q, k, v read and out written
-    once; both products over the (query, key) pairs the mask keeps."""
+    once; both products (q . k over hd, P . v over hd_v, which defaults to
+    hd) over the (query, key) pairs the mask keeps."""
+    hd_v = hd if hd_v is None else hd_v
     pairs = sum(min(skv, i + 1) for i in range(sq)) if causal else sq * skv
-    return (elt * (2 * b * sq * h * hd + 2 * b * skv * kv * hd),
-            4 * b * h * hd * pairs)
+    return (elt * (b * sq * h * (hd + hd_v) + b * skv * kv * (hd + hd_v)),
+            2 * b * h * (hd + hd_v) * pairs)
 
 
 def check_flash(torch, gen, dev, ptxas: dict) -> dict:
@@ -2194,6 +2209,20 @@ SERVE_CLASSES = (("berrut_combine", ("berrut_stream",)),
                  ("casts", ("copy_kernel",)))
 
 
+def exact_spec(coded_layers: str, backend: str = "virtual", fused=None):
+    """The serve's exact spec (``tests/test_serve.py:18``): mds N = 8, K =
+    4, all 8 waited for, no stragglers, 8 slots; the decode is exact up to
+    float32 rounding."""
+    from repro_torch.api import (ClusterSpec, CodeSpec, ServeSpec,
+                                 StragglerSpec, TransportSpec, WaitSpec)
+    return ClusterSpec(
+        code=CodeSpec(scheme="mds", n_workers=8, k_blocks=4, fused=fused),
+        wait=WaitSpec(policy="first_k", k=8),
+        straggler=StragglerSpec(n_stragglers=0),
+        transport=TransportSpec(backend=backend),
+        serve=ServeSpec(coded_layers=coded_layers, max_slots=8))
+
+
 def hold_ops_combines(torch, ratios: list):
     """Make every ``ops.berrut_combine`` call in the process also run the
     plain version on the same inputs and append their
@@ -2298,20 +2327,42 @@ def serve_summary(rep) -> dict:
 
 
 def teacher_forced(torch, model, step, cache_c, cache_p, tokens, offsets,
-                   tol: float) -> dict:
+                   tol: float, cache_u=None) -> dict:
     """The coded step's logits (``step.logits``) against the plain
     ``decode_step``'s on the same token and per-slot pos stream: the
     largest difference over max |plain|, the near-ties (top-2 margin of
     the plain logits within 2 tol max |plain|) and the argmax
-    disagreements outside them."""
-    worst, ties, flips, same = 0.0, 0, 0, 0
+    disagreements outside them.  A MoE model's plain step replays the
+    coded step's expert choices (``replay_routes``): at random weights the
+    routers' top-k near-ties are everywhere, and one choice that the
+    projections' rounding tips the other way makes the logits jump.  With
+    ``cache_u`` a third, plain run routes on its own, and the slot-steps
+    where some layer chose other experts than the coded step are
+    counted."""
+    worst, ties, flips, same, other = 0.0, 0, 0, 0, 0
     mask = torch.ones(8)
     for t in range(tokens.shape[1]):
         tok = tokens[:, t:t + 1]
         pos = offsets + t
-        got, cache_c = step.logits(cache_c, tok, pos, mask)
-        with torch.no_grad():
-            want, cache_p = model.decode_step(cache_p, tok, pos)
+        routes_c, undo = record_routes()
+        try:
+            got, cache_c = step.logits(cache_c, tok, pos, mask)
+        finally:
+            undo()
+        undo = replay_routes(torch, routes_c)
+        try:
+            with torch.no_grad():
+                want, cache_p = model.decode_step(cache_p, tok, pos)
+        finally:
+            undo()
+        if cache_u is not None:
+            routes_u, undo = record_routes()
+            try:
+                with torch.no_grad():
+                    _, cache_u = model.decode_step(cache_u, tok, pos)
+            finally:
+                undo()
+            other += int(other_experts(torch, routes_c, routes_u).sum())
         want = want[:, 0].float()
         scale = float(want.abs().max())
         worst = max(worst, float((got.float() - want).abs().max()) / scale)
@@ -2322,9 +2373,12 @@ def teacher_forced(torch, model, step, cache_c, cache_p, tokens, offsets,
         flips += int((differ & ~tie).sum())
         same += int((~differ).sum())
     rows = tokens.shape[0] * tokens.shape[1]
-    return {"max_rel_diff": worst, "tol": tol, "near_ties": ties,
-            "flips_outside_near_ties": flips, "argmax_agreement": same / rows,
-            "steps": int(tokens.shape[1]), "slots": int(tokens.shape[0])}
+    out = {"max_rel_diff": worst, "tol": tol, "near_ties": ties,
+           "flips_outside_near_ties": flips, "argmax_agreement": same / rows,
+           "steps": int(tokens.shape[1]), "slots": int(tokens.shape[0])}
+    if cache_u is not None:
+        out["slot_steps_routed_otherwise_unreplayed"] = other
+    return out
 
 
 def serve_combines(torch, randn, ptxas: dict) -> list:
@@ -2370,9 +2424,7 @@ def serving_main_path(torch, dev, ptxas: dict, keep=None) -> dict:
     import gc
 
     import numpy as np
-    from repro_torch.api import ClusterSpec, CodeSpec, CryptoSpec, Session
-    from repro_torch.api import (ServeSpec, StragglerSpec, TransportSpec,
-                                 WaitSpec)
+    from repro_torch.api import ClusterSpec, CryptoSpec, ServeSpec, Session
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.berrut_encode import berrut_encode_kernel
@@ -2398,15 +2450,6 @@ def serving_main_path(torch, dev, ptxas: dict, keep=None) -> dict:
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-
-    def exact_spec(coded_layers, backend="virtual", fused=None):
-        return ClusterSpec(
-            code=CodeSpec(scheme="mds", n_workers=8, k_blocks=4,
-                          fused=fused),
-            wait=WaitSpec(policy="first_k", k=8),
-            straggler=StragglerSpec(n_stragglers=0),
-            transport=TransportSpec(backend=backend),
-            serve=ServeSpec(coded_layers=coded_layers, max_slots=8))
 
     free()
     gen = torch.Generator(device=dev)
@@ -3270,6 +3313,10 @@ MESH_DROP_RATE = 0.12
 # on the card: the mesh writes it off, and (b ii)'s simulated run is told
 # so (replay_write_offs)
 MESH_MAX_RESPAWNS = 8
+# (b ii)'s stall probe: each worker process dumps every thread's stack
+# once it has sent no frame for this long (launch/worker.py), into
+# build/stall_dumps/ (the dumps' text also goes into the phase's row)
+STALL_DUMP_S = 5.0
 # (c): phase 9 (e)'s workload with gen cut from 4 to 2 (5 steps, not 7): at
 # 4 the phase took 85.34-95.49 s on the card, past its 90 s budget; the
 # tokens are held against the first 2 of each of phase 9 (e)'s requests
@@ -3493,6 +3540,20 @@ def fixed_health_latency(latency_s: float = 1e-3):
     def undo():
         WorkerHealth.record_ok = real
     return undo
+
+
+def stall_dumps(folder: Path) -> dict:
+    """The stall probe's dumps: {file: the first dump's text} for every
+    worker process that went ``STALL_DUMP_S`` without sending a frame
+    (``faulthandler`` writes "Thread 0x..." headers, the current thread
+    first, then each thread's frames innermost first)."""
+    out = {}
+    for path in sorted(folder.glob("worker*.txt")):
+        text = path.read_text(errors="replace")
+        if text.strip():
+            out[path.name] = {"dump_lines": text.count("\n"),
+                              "first_dump": text[:4000]}
+    return out
 
 
 def socket_main_path(torch, dev, serve_tokens=None) -> dict:
@@ -3835,11 +3896,17 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                                       os_level=backend == "socket"))
 
     orders, offs = {}, {}
+    stall_dir = ROOT / "build" / "stall_dumps"
+    shutil.rmtree(stall_dir, ignore_errors=True)
     undo = fixed_health_latency()
     try:
-        outs_s, st_s, ms_s, respawn_s, _ = mesh_run(
-            faults_spec("socket"), MESH_FAULT_ROUNDS, orders=orders,
-            offs=offs)
+        os.environ["SPACDC_WORKER_STALL_DUMP"] = f"{STALL_DUMP_S}:{stall_dir}"
+        try:
+            outs_s, st_s, ms_s, respawn_s, _ = mesh_run(
+                faults_spec("socket"), MESH_FAULT_ROUNDS, orders=orders,
+                offs=offs)
+        finally:
+            del os.environ["SPACDC_WORKER_STALL_DUMP"]
         outs_t, st_t, _, _, _ = mesh_run(faults_spec("threads"),
                                          MESH_FAULT_ROUNDS, orders=orders,
                                          offs=offs)
@@ -3879,6 +3946,9 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                                        sorted(orders.items())},
            "health_latency_fixed_s": 1e-3, "mesh_stats": ms_s}
     emit(row)
+    emit({"phase": "socket_main_path", "check": "b_ii_stall_dumps",
+          "after_silent_s": STALL_DUMP_S, "dir": str(stall_dir),
+          "dumps": stall_dumps(stall_dir)})
     for rr in rounds:
         assert rr["excluded"] == rr["threads_excluded"], row
         assert rr["retries"] == rr["threads_retries"], row
@@ -3961,6 +4031,582 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
           "phase_s": time.perf_counter() - phase_t0})
     assert _build.build_count == 1, _build.build_count
     return total
+
+
+# --------------------------------------------------------------------------
+# phase 12: DeepSeek-V2's multi-head latent attention and the MoE FFN
+# --------------------------------------------------------------------------
+
+DEEPSEEK_ARCH = "deepseek-v2-lite-16b"
+# MLA's prefill attention at full width: B, S, H, hd (nope 128 + rope
+# 64), hd_v, causal
+MLA_FLASH = (1, 4096, 16, 192, 128)
+# the room phase 12 asks of the card before it builds the full model: its
+# peak, 77.13 GB on the H100 while serving "all" (15.71 B float32
+# parameters, 62.83 GB; 4.74 GB of shards, 2 x 592 M coded weights; the
+# unembed's encode held against its plain version, 2 x 1.68 GB; one
+# layer's bfloat16 expert casts, 1.1 GB), and a margin
+DEEPSEEK_ROOM_GB = 78.0
+DEEPSEEK_SERVE = dict(batch=4, prompt_len=6, gen=6)
+DEEPSEEK_TF_STEPS = 8
+# the forward's device time by kernel class: MoE routing's dispatch and
+# combine are index, gather, scatter, cumsum and top-k kernels (the
+# embedding's one gather lands there too)
+DEEPSEEK_CLASSES = (("flash_attention", ("flash_fwd",)),
+                    ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
+                    ("moe_dispatch_combine", ("index", "gather", "scatter",
+                                              "cumsum", "scan", "topk",
+                                              "sort", "radix")),
+                    ("casts", ("copy_kernel",)))
+
+
+def record_routes():
+    """Make every MoE router call of the process also append its top-k
+    expert indices to the returned list.  Returns (the list, the function
+    that undoes it)."""
+    from repro_torch.models import moe
+    routes, run = [], moe._router
+
+    def router(p, x, cfg):
+        out = run(p, x, cfg)
+        routes.append(out[1])
+        return out
+    moe._router = router
+
+    def undo():
+        moe._router = run
+    return routes, undo
+
+
+def replay_routes(torch, routes: list):
+    """Make the MoE router calls of the process take their top-k experts
+    from ``routes`` (a recorded run's, call by call) and their weights
+    from their own probabilities at those experts, renormalised as the
+    router does; the load-balance and z losses stay their own.  With the
+    same experts, capacity drops the same choices.  Returns the function
+    that undoes it (and checks that every recorded call was replayed)."""
+    from repro_torch.models import moe
+    run, queue = moe._router, list(routes)
+
+    def router(p, x, cfg):
+        _, _, lb, z = run(p, x, cfg)
+        idx = queue.pop(0)
+        probs = torch.softmax(x.to(torch.float32)
+                              @ p["router"].to(torch.float32), dim=-1)
+        w = probs.gather(-1, idx)
+        return w / w.sum(dim=-1, keepdim=True).clamp_min(1e-9), idx, lb, z
+    moe._router = router
+
+    def undo():
+        moe._router = run
+        assert not queue, f"{len(queue)} recorded router calls not replayed"
+    return undo
+
+
+def capture_layers(model):
+    """Forward hooks keeping every layer's (input, output) hidden state of
+    the next forwards, in layer order.  Returns (the list, the function
+    that removes the hooks)."""
+    kept = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, out: kept.append((args[0], out[0])))
+        for layer in model.layers]
+
+    def undo():
+        for h in hooks:
+            h.remove()
+    return kept, undo
+
+
+def other_experts(torch, routes_a: list, routes_b: list):
+    """(B, S) bool: the positions that some layer routed to another set of
+    experts in run a than in run b."""
+    assert len(routes_a) == len(routes_b) and routes_a
+    differ = torch.zeros(routes_a[0].shape[:-1], dtype=torch.bool,
+                         device=routes_a[0].device)
+    for ra, rb in zip(routes_a, routes_b):
+        differ |= (ra.sort(dim=-1).values
+                   != rb.sort(dim=-1).values).any(dim=-1)
+    return differ
+
+
+def logits_rel(torch, got, want, keep=None, chunk: int = 512) -> dict:
+    """max |got - want| over max |want| of (B, S, V) logits, over all
+    positions and over the ``keep`` (B, S) ones (default: all), in float32
+    chunks of positions; and the argmax agreement over both."""
+    if keep is None:
+        keep = torch.ones(got.shape[:2], dtype=torch.bool,
+                          device=got.device)
+    den = num_all = num_keep = 0.0
+    same_all = same_keep = 0
+    for s0 in range(0, got.shape[1], chunk):
+        g = got[:, s0:s0 + chunk].float()
+        w = want[:, s0:s0 + chunk].float()
+        k = keep[:, s0:s0 + chunk]
+        den = max(den, float(w.abs().max()))
+        d = (g - w).abs().amax(dim=-1)
+        num_all = max(num_all, float(d.max()))
+        if bool(k.any()):
+            num_keep = max(num_keep, float(d[k].max()))
+        same = g.argmax(-1) == w.argmax(-1)
+        same_all += int(same.sum())
+        same_keep += int((same & k).sum())
+    n, n_keep = keep.numel(), int(keep.sum())
+    return {"rel_all": num_all / den, "rel_same_experts": num_keep / den,
+            "positions": n, "positions_same_experts": n_keep,
+            "argmax_agreement": same_all / n,
+            "argmax_agreement_same_experts": same_keep / max(n_keep, 1)}
+
+
+def check_mla_flash(torch, gen, dev) -> dict:
+    """The flash kernel at MLA's prefill shape (q, k (1, 4096, 16, 192), v
+    (1, 4096, 16, 128), causal) against its plain version: bfloat16 on the
+    TMA route (contiguous) and the plain-load route (views into rows two
+    elements wider), float32 on the CUDA cores; each timed beside the
+    plain version, with its bound and ``scaled_dot_product_attention`` on
+    the same inputs (the backend it picked named by its kernels).  Returns
+    the bfloat16 TMA row."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     load_width)
+    b, s, h, hd, hd_v = MLA_FLASH
+    main = None
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        q, k = (torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        v = torch.randn((b, s, h, hd_v), generator=gen, device=dev).to(dt)
+        want = ref.mha_reference(q, k, v, causal=True)
+        routes = [("tma" if dt == torch.bfloat16 else "cuda_cores",
+                   (q, k, v))]
+        if dt == torch.bfloat16:
+            routes.append(("plain_loads", [F.pad(t, (0, 2))[..., :-2]
+                                           for t in (q, k, v)]))
+        for route, args in routes:
+            got = flash_attention_kernel(*args, causal=True)
+            torch.cuda.synchronize()
+            assert got.shape == want.shape == (b, s, h, hd_v)
+            assert bool(torch.isfinite(got.float()).all())
+            err, rel = rel_diff(torch, got, want)
+            row = {"phase": "deepseek_main_path", "check": "a_mla_flash",
+                   "kernel": "flash_attention",
+                   "shape": {"B": b, "S": s, "H": h, "hd": hd, "hd_v": hd_v,
+                             "causal": True},
+                   "dtype": dname, "route": route,
+                   "load_width": (load_width(*args)
+                                  if dt == torch.bfloat16 else None),
+                   "max_abs_err": err, "rel_err": rel, "tol": TOL[dname]}
+            if route != "plain_loads":
+                row["kernel_ms"] = timed_ms(
+                    torch, lambda: flash_attention_kernel(q, k, v,
+                                                          causal=True))
+                row["plain_ms"] = timed_ms(torch, lambda: ref.mha_reference(
+                    q, k, v, causal=True))
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+                try:
+                    sdpa()
+                except RuntimeError as exc:   # no backend takes hd_v != hd
+                    row.update(library_ms=None, library="none",
+                               library_error=repr(exc)[:300])
+                else:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        sdpa()
+                        torch.cuda.synchronize()
+                    names = sorted({e.name[:80] for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA})
+                    row.update(library_ms=timed_ms(torch, sdpa),
+                               library="F.scaled_dot_product_attention, "
+                               "is_causal", library_kernels=names)
+                nbytes, flops = flash_work(b, s, s, h, h, hd, True,
+                                           q.element_size(), hd_v=hd_v)
+                row.update(**bound(nbytes, flops, BF16_TC
+                                   if dt == torch.bfloat16 else F32_CUDA),
+                           flop=flops, bytes=nbytes,
+                           tflop_per_s=flops / row["kernel_ms"] / 1e9)
+            emit(row)
+            assert rel <= TOL[dname], row
+            assert route != "plain_loads" or row["load_width"] < 16, row
+            if route == "tma":
+                main = row
+            del got
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    return main
+
+
+def exact_teacher_forced(torch, model, tokens, tol: float) -> dict:
+    """``teacher_forced`` under ``exact_spec("all")``: the model's sites
+    encoded, then 8 slots at offsets (0, 1, 2, 0, ...) stepped through
+    ``tokens``, the plain step replaying the coded step's experts and a
+    third run counting where it would have routed otherwise."""
+    from repro_torch.models.coded import (build_coded_step,
+                                          encode_serving_weights)
+    from repro_torch.runtime.engine import RoundEngine
+    engine = RoundEngine(exact_spec("all"), device=tokens.device)
+    try:
+        code = encode_serving_weights(engine.scheme, model, "all")
+        step = build_coded_step(model, engine.scheme, code)
+        offsets = torch.arange(8, dtype=torch.int32,
+                               device=tokens.device) % 3
+        caches = [model.init_cache(8, 24) for _ in range(3)]
+        return teacher_forced(torch, model, step, *caches[:2], tokens,
+                              offsets, tol, cache_u=caches[2])
+    finally:
+        engine.close()
+
+
+def deepseek_main_path(torch, dev) -> dict:
+    """Phase 12: deepseek-v2-lite-16b (27 layers, MLA in each, a MoE FFN
+    of 64 routed experts, top 6, and 2 shared in layers 1-26) at full
+    width and depth on the card.  (a) the flash kernel at MLA's prefill
+    shape (hd 192, hd_v 128) against its plain version; (b) the forward on
+    1 x 4096 tokens in bfloat16 compute, counted from zero (27 flash
+    launches a forward), tokens dropped by capacity per layer, a profiled
+    forward; held: every layer's attention through the kernel against the
+    plain version on the kernel forward's own input to it (2e-2), and the
+    float32-compute forward at full depth against the kernels-off one
+    replaying its expert choices (``replay_routes``; 1e-4); measured: the
+    bfloat16 logits and each layer's output against the kernels-off
+    forward's, replaying or on its own routing; (c) the first 2 layers in
+    float32
+    compute, ``capacity_factor`` raised so that nothing drops, forward
+    against 16 decode steps; (d) ``Session(ClusterSpec.serve_deadline(
+    coded_layers="all")).serve`` at full width and depth (MLA's qkv and o
+    sites and layer 0's FFN coded, the MoE FFNs not: 57 sites), counted,
+    every ``berrut_combine`` call held; on the served code the
+    ``encrypt="real"`` step bit-identical to the plain coded step with
+    every ``mask_add`` call held; the exact spec's (mds) teacher-forced
+    coded logits against the plain step's, the plain step replaying the
+    coded step's expert choices, in bfloat16 (measured) and in float32
+    compute (phase 9's rule, held).  Returns
+    (the counted launches, the MLA flash row).  Phase 12 alone:
+    ``build_kernels(torch)`` then ``deepseek_main_path(torch,
+    torch.device("cuda"))``."""
+    import gc
+
+    import numpy as np
+    from repro_torch.api import ClusterSpec, CryptoSpec, Session
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import mla_forward
+    from repro_torch.models.coded import build_coded_step
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.moe import capacity
+    from repro_torch.runtime.engine import RoundEngine
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel}
+    total = {k: 0 for k in kernels}
+    phase_t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    free()
+    cfg = get_config(DEEPSEEK_ARCH)
+    free_b, total_b = torch.cuda.mem_get_info()
+    n_params = cfg.param_count()
+    room = {"phase": "deepseek_main_path", "check": "room",
+            "free_gb": free_b / 1e9, "card_gb": total_b / 1e9,
+            "allocated_here_gb": torch.cuda.memory_allocated() / 1e9,
+            "param_count": n_params, "params_gb_float32": 4 * n_params / 1e9,
+            "asked_gb": DEEPSEEK_ROOM_GB}
+    emit(room)
+    assert free_b / 1e9 >= DEEPSEEK_ROOM_GB, \
+        f"phase 12 needs {DEEPSEEK_ROOM_GB} GB free on the card: {room}"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+
+    # ---- (a) the flash kernel at MLA's prefill shape
+    flash_row = check_mla_flash(torch, gen, dev)
+    free()
+
+    # ---- (b) the full-width forward, counted from zero
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)                   # on the card
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (1, MODEL_TOKENS),
+                           generator=gen, device=dev)
+    want_launch = {"coded_matmul": 0, "berrut_combine": 0, "mask_add": 0,
+                   "flash_attention": cfg.n_layers}
+    forward_s, drops = [], []
+    with torch.inference_mode():
+        for r in range(3):
+            layer_drops = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (logits, aux), got = counted(kernels, total, lambda: model(
+                tokens, moe_drops=layer_drops))
+            torch.cuda.synchronize()
+            forward_s.append(time.perf_counter() - t)
+            assert got == want_launch, (r, got)
+            drops.append([int(n) for n in layer_drops])
+        forward_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert tuple(logits.shape) == (1, MODEL_TOKENS, cfg.vocab_size)
+        assert logits.dtype == torch.bfloat16
+        assert bool(torch.isfinite(logits).all())
+        lb, z = float(aux["lb_loss"]), float(aux["z_loss"])
+        assert np.isfinite(lb) and np.isfinite(z) and lb > 0 and z > 0
+        breakdown = profile_device(torch, lambda: model(tokens),
+                                   DEEPSEEK_CLASSES)
+        del logits
+        layers_k, undo_hooks = capture_layers(model)
+        routes_k, undo = record_routes()
+        try:
+            logits, _ = model(tokens)
+        finally:
+            undo()
+            undo_hooks()
+        c0 = {k: f.launches for k, f in kernels.items()}
+        # the plain attention routing on its own: where it chose other
+        # experts than the kernel forward (measured, not held)
+        routes_p, undo = record_routes()
+        try:
+            plain, _ = model(tokens, force_kernel=False)
+        finally:
+            undo()
+        differ = other_experts(torch, routes_k, routes_p)
+        own = logits_rel(torch, logits, plain, ~differ)
+        del plain, routes_p
+        # the plain attention replaying the kernel forward's experts:
+        # logits and every layer's output against the kernel forward's
+        # (measured: in bfloat16 the two roundings of the attention drift
+        # apart layer by layer through the random weights)
+        layers_p, undo_hooks = capture_layers(model)
+        undo = replay_routes(torch, routes_k)
+        try:
+            plain, _ = model(tokens, force_kernel=False)
+        finally:
+            undo()
+            undo_hooks()
+        cmp_b = logits_rel(torch, logits, plain)
+        drift = [rel_diff(torch, k_out, p_out)[1]
+                 for (_, k_out), (_, p_out) in zip(layers_k, layers_p)]
+        del plain, layers_p
+        # held: every layer's attention on the kernel forward's own input
+        # to that layer, through the kernel against the plain version
+        positions = torch.arange(MODEL_TOKENS, dtype=torch.int32,
+                                 device=dev)[None]
+        in_situ = []
+        for layer, (x_in, _) in zip(model.layers, layers_k):
+            h = apply_norm(layer.norm1, x_in, cfg)
+            y_k = mla_forward(layer.mixer, h, cfg, positions)
+            y_p = mla_forward(layer.mixer, h, cfg, positions,
+                              force_kernel=False)
+            in_situ.append(rel_diff(torch, y_k, y_p)[1])
+        torch.cuda.synchronize()
+        plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del logits, routes_k, layers_k, model
+    free()
+
+    # the same weights in float32 compute at full depth: kernel forward
+    # against the plain attention replaying its experts (held)
+    model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                        seed=0)
+    with torch.inference_mode():
+        routes_k, undo = record_routes()
+        try:
+            logits, _ = model(tokens)
+        finally:
+            undo()
+        undo = replay_routes(torch, routes_k)
+        try:
+            plain, _ = model(tokens, force_kernel=False)
+        finally:
+            undo()
+        cmp_f32 = logits_rel(torch, logits, plain)
+    del logits, plain, routes_k, model
+    free()
+    fwd = float(np.median(forward_s))
+    row = {"phase": "deepseek_main_path", "check": "b_forward",
+           "arch": cfg.name, "tokens": [1, MODEL_TOKENS], "params": n_params,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_lora_rank": cfg.kv_lora_rank,
+           "head_dims": [cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim],
+           "experts": [cfg.n_experts, cfg.top_k, cfg.n_shared_experts],
+           "moe_d_ff": cfg.moe_d_ff, "vocab": cfg.vocab_size,
+           "compute_dtype": cfg.compute_dtype, "build_s": build_s,
+           "forward_s": forward_s, "tokens_per_s": MODEL_TOKENS / fwd,
+           "launches_per_forward": want_launch,
+           "capacity": capacity(cfg, MODEL_TOKENS),
+           "choices_dropped_by_layer": drops[0],
+           "choices_dropped_same_every_run": drops[0] == drops[1] == drops[2],
+           "choices_per_layer": MODEL_TOKENS * cfg.top_k,
+           "lb_loss": lb, "z_loss": z, "breakdown": breakdown,
+           "b_kernel_vs_plain_same_experts": cmp_b,
+           "b_tol": LOGIT_TOL["bfloat16"],
+           "b_kernel_vs_plain_own_routing": own,
+           "b_layer_output_drift_same_experts": drift,
+           "b_attention_in_situ_rel": in_situ,
+           "b_float32_kernel_vs_plain_same_experts": cmp_f32,
+           "peak_memory_gb": {"forward": forward_peak_gb,
+                              "with_plain_forward": plain_peak_gb}}
+    emit(row)
+    assert len(drops[0]) == cfg.n_layers - cfg.first_dense_layers, row
+    assert row["choices_dropped_same_every_run"], row
+    assert max(in_situ) <= TOL["bfloat16"], row
+    assert cmp_f32["rel_all"] <= LOGIT_TOL["float32"], row
+
+    # ---- (c) 2 layers in float32 compute: forward against 16 decode steps
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32",
+                               capacity_factor=2.0 * cfg.n_experts
+                               / cfg.top_k)
+    model2 = build_model(cfg2, seed=0)
+    with torch.inference_mode():
+        dropped = []
+        model2(tokens[:, :16], moe_drops=dropped)
+        err_c, excess_c = forward_vs_decode(torch, model2, tokens)
+    del model2
+    free()
+    row = {"phase": "deepseek_main_path", "check": "c_forward_vs_decode",
+           "layers": 2, "compute_dtype": "float32",
+           "capacity_factor": cfg2.capacity_factor,
+           "choices_dropped": [int(n) for n in dropped],
+           "max_abs_diff": err_c, "excess_over_atol_rtol_0.05": excess_c}
+    emit(row)
+    assert row["choices_dropped"] == [0], row
+    assert excess_c <= 0.0, row
+
+    # ---- (d) serving at full width and depth, coded_layers="all"
+    spec = ClusterSpec.serve_deadline(coded_layers="all")
+    assert (spec.code.scheme, spec.code.n_workers, spec.code.k_blocks,
+            spec.serve.coded_layers) == ("spacdc", 8, 4, "all")
+    ratios = []
+    torch.cuda.reset_peak_memory_stats()
+    with Session(spec, device=dev) as s:
+        undo = hold_ops_combines(torch, ratios)
+        try:
+            t0 = time.perf_counter()
+            rep, launched = counted(kernels, total, lambda: s.serve(
+                arch=DEEPSEEK_ARCH, tiny=False, seed=0,
+                check_agreement=False, **DEEPSEEK_SERVE))
+            serve_s = time.perf_counter() - t0
+        finally:
+            undo()
+        serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model = s._serve_models[(DEEPSEEK_ARCH, False, 0)]
+        bat = next(iter(s._serve_batchers.values()))
+        code = bat.code
+        sites = code.n_instances
+        steps = len(rep.step_stats)
+        want = {"coded_matmul": 0, "berrut_combine": sites * (1 + steps),
+                "mask_add": 0, "flash_attention": 0}
+        row = {"phase": "deepseek_main_path", "check": "d_serve_all",
+               "layers": cfg.n_layers, "sites_per_step": sites,
+               "workload": DEEPSEEK_SERVE, **serve_summary(rep),
+               "serve_call_s": serve_s, "launches": launched,
+               "expected_launches": want, "held_calls": len(ratios),
+               "max_bound_ratio": max(ratios),
+               "shards_gb": sum(c.numel() for layer in code.layer_shards
+                                for c in layer.values()) * 4 / 1e9
+               + code.unembed_shards.numel() * 4 / 1e9,
+               "peak_memory_gb": serve_peak_gb}
+        emit(row)
+        assert sites == 4 + 2 * (cfg.n_layers - 1) + 1, row
+        assert launched == want, row
+        assert all(st.dispatches == sites for st in rep.step_stats), row
+        assert len(ratios) == want["berrut_combine"], row
+        assert max(ratios) <= 1.0, row
+        assert rep.tokens.shape == (DEEPSEEK_SERVE["batch"],
+                                    DEEPSEEK_SERVE["gen"]), row
+        assert (rep.tokens >= 0).all() and \
+            (rep.tokens < cfg.vocab_size).all(), row
+
+        # the encrypted step against the plain coded step, on the served
+        # code, two stragglers masked out, every mask_add call held
+        enc = RoundEngine(dataclasses.replace(
+            spec, crypto=CryptoSpec(encrypt="real")), device=dev)
+        plain_step = build_coded_step(model, s.engine.scheme, code)
+        wired_step = build_coded_step(model, enc.scheme, code,
+                                      wire_params=enc.serve_wire_params())
+        mask = torch.ones(8)
+        mask[[1, 5]] = 0.0
+        b_enc, t_enc = 4, 4
+        toks = torch.randint(1, cfg.vocab_size, (b_enc, t_enc),
+                             generator=gen, device=dev)
+        offsets = torch.arange(b_enc, dtype=torch.int32, device=dev) % 3
+        held = []
+
+        def wired_vs_plain():
+            cw, cp = model.init_cache(b_enc, 16), model.init_cache(b_enc, 16)
+            equal = []
+            for t in range(t_enc):
+                tok, pos = toks[:, t:t + 1], offsets + t
+                lw, cw = wired_step.logits(cw, tok, pos, mask,
+                                           code.step_materials(enc))
+                lp, cp = plain_step.logits(cp, tok, pos, mask)
+                equal.append(bool(torch.equal(lw, lp)))
+            return equal
+        undo = hold_ops_mask_adds(torch, held)
+        try:
+            equal, launched = counted(kernels, total, wired_vs_plain)
+        finally:
+            undo()
+        enc.close()
+        want = {"coded_matmul": 0, "berrut_combine": 2 * sites * t_enc,
+                "mask_add": 4 * sites * t_enc, "flash_attention": 0}
+        row = {"phase": "deepseek_main_path", "check": "d_encrypted_step",
+               "slots": b_enc, "steps": t_enc, "stragglers_masked": [1, 5],
+               "logits_bit_identical_by_step": equal, "launches": launched,
+               "expected_launches": want, "mask_add_held_calls": len(held),
+               "mask_add_held_equal": sum(ok for *_, ok in held)}
+        emit(row)
+        assert all(equal), row
+        assert launched == want, row
+        assert len(held) == want["mask_add"], row
+        assert all(ok for *_, ok in held), row
+        s._serve_batchers.clear()
+        del bat, code, plain_step, wired_step, enc
+        free()
+
+        # the exact spec (mds, all 8 waited for): teacher-forced coded
+        # logits against the plain decode step's, bfloat16 as served
+        # (measured: through 27 random-weight layers the two roundings
+        # drift apart as (b)'s do), then float32 (held, phase 9's rule)
+        toks = torch.randint(1, cfg.vocab_size, (8, DEEPSEEK_TF_STEPS),
+                             generator=gen, device=dev)
+        tf_bf16 = exact_teacher_forced(torch, model, toks, TOL["bfloat16"])
+        row = {"phase": "deepseek_main_path",
+               "check": "d_exact_teacher_forced_bf16", "scheme": "mds",
+               "coded_layers": "all", **tf_bf16}
+        emit(row)
+        del model
+    del s
+    free()
+    model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                        seed=0)
+    tf = exact_teacher_forced(torch, model, toks, LOGIT_TOL["float32"])
+    del model
+    free()
+    row = {"phase": "deepseek_main_path",
+           "check": "d_exact_teacher_forced_f32", "scheme": "mds",
+           "coded_layers": "all", "compute_dtype": "float32", **tf}
+    emit(row)
+    assert tf["max_rel_diff"] <= LOGIT_TOL["float32"], row
+    assert tf["flips_outside_near_ties"] == 0, row
+    emit({"phase": "deepseek_main_path", "check": "phase_total",
+          "launches": total, "phase_s": time.perf_counter() - phase_t0})
+    assert total["flash_attention"] == 3 * cfg.n_layers, total
+    assert total["berrut_combine"] > 0 and total["mask_add"] > 0, total
+    return total, flash_row
 
 
 def run_one(spec, a, b, worker_t=None):

@@ -28,8 +28,10 @@ weights rounded to float32 bit for bit.
 Serving (``ServeReport``, ``Session.serve``) drives the continuous-batching
 loop of ``runtime.serve_loop`` over a model built on the session's device
 (``models.build_model`` from a seeded generator; ``arch`` may also be a
-``ModelConfig``, e.g. one whose depth is cut).  Families the port does not
-have yet (MLA, MoE, SSM) raise ``NotImplementedError``.  As in the
+``ModelConfig``, e.g. one whose depth is cut): the dense GQA families and
+deepseek-v2's MLA with its MoE FFN (MLA's wq|w_dkv and wo sites coded, the
+MoE FFN uncoded, as in the reference).  Families the port does not have
+yet (SSM, M-RoPE, the encoder-decoder) raise ``NotImplementedError``.  As in the
 reference, the serve loop reads neither ``FaultSpec`` nor
 ``AdaptiveSpec``.
 

@@ -55,7 +55,7 @@ _ENTRY = {
                  [_VP, _VP, _VP, _I64, _I, _I64,
                   ctypes.POINTER(ctypes.c_uint32), _I, _I, _VP]),
     "flash_attention": ("flash_attention_launch",
-                        [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                        [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.POINTER(ctypes.c_int64), _F, _F, _I, _I, _I,
                          _VP]),
 }

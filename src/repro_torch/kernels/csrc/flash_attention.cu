@@ -1,10 +1,13 @@
 // flash_attention: causal or full GQA attention forward with an online
 // softmax.
 //
-//   q   (B, Sq, H, hd)    float32 or bfloat16, unit stride along hd
-//   k/v (B, Skv, KV, hd)  q's dtype, unit stride along hd; H = KV * G and
-//                         query head h reads kv head h / G
-//   out (B, Sq, H, hd)    contiguous, in q's dtype
+//   q, k (B, Sq, H, hd), (B, Skv, KV, hd)  float32 or bfloat16, unit
+//                         stride along hd; H = KV * G and query head h
+//                         reads kv head h / G
+//   v    (B, Skv, KV, hd_v)  q's dtype, unit stride along hd_v
+//   out  (B, Sq, H, hd_v) contiguous, in q's dtype
+//   hd <= 192 and hd_v <= min(hd, 128): hd_v < hd is DeepSeek-V2's MLA,
+//   whose q . k spans nope + rope = 192 and whose values are 128 wide
 //
 //   key j of query i is masked when j >= Skv or, causal, j > i; both
 //   positions start at 0, also when Sq != Skv
@@ -49,9 +52,16 @@
 //    * the online softmax runs on the accumulator fragment: a thread holds
 //      two rows of S, and a row's max reduces over the 4 threads of its
 //      quad (the row sum stays a per-thread partial until the end);
-//    * O += P V: wgmma m64n{hd}k16 with P as bf16 in registers (the score
-//      fragment of S is the A-operand fragment of P) and V from shared
-//      memory, MN-major (hd contiguous) through the transpose bit;
+//    * O += P V: wgmma m64n{hd_v}k16 with P as bf16 in registers (the
+//      score fragment of S is the A-operand fragment of P) and V from shared
+//      memory, MN-major (hd_v contiguous) through the transpose bit;
+//    * the tiles are templated on the 64-wide chunk counts of q . k (QC)
+//      and of v (VC) apart.  At MLA's (3, 2) the dynamic shared memory is
+//      Q 48 KB + 2 stages x (K 48 KB + V 32 KB) = 208 KB, under the 227 KB
+//      a block may use (one 3-chunk tile size for K and V would need 240
+//      KB); S = Q K^T takes 12 k16 steps, and O and its registers stay
+//      those of hd_v 128.  At QC == VC the layout is the one of equal
+//      widths;
 //    * causal: tiles above the diagonal are never loaded, and only the
 //      tiles that cross the diagonal or Skv are masked.
 //   Numerics: s = scale * (q . k) in float32 (the scale applies to the
@@ -64,8 +74,15 @@
 //   first port: float32 FMAs in the reference's arithmetic,
 //   s = (q * scale) . k.  Both products are float32 FMAs (a 4 x 4 score
 //   micro-tile per thread), K and V share one shared-memory buffer, hd is
-//   padded to 16, 32, 64 or 128 (a template parameter), two blocks per SM.
-//   It serves float32 compute, where float32 arithmetic is the point.
+//   padded to 16, 32, 64, 128 or 192 and hd_v, with an extent of its own,
+//   to 16, 32, 64 or 128 (template parameters; V's tile and the output
+//   registers are hd_v wide, not padded to hd).  Up to hd 128 a block takes
+//   at most 82 KB, two blocks per SM.  At hd 192 it takes 115,456 bytes
+//   (Q and the K/V buffer 64 x 193 floats each, P 64 x 65): two such
+//   blocks with their 1 KB reserve each come to 232,960 of the SM's
+//   233,472 bytes, so whether two fit depends on the shared-memory
+//   carveout chosen at launch (not measured).  It serves float32 compute, where float32
+//   arithmetic is the point.
 //
 // Plain C interface (bound with ctypes): every launch returns
 // cudaGetLastError() (or the tensor-map error) so the Python wrapper can
@@ -127,19 +144,20 @@ __device__ __forceinline__ void load_tile(float* dst,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int n_heads,
-                 int group, int sq, int skv, int hd, int64_t q_sb,
+                 int group, int sq, int skv, int hd, int hd_v, int64_t q_sb,
                  int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                  int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                  float scale, float softcap, int causal) {
   constexpr int kLd = HD + 1;
-  constexpr int kTD = HD / 16;  // output columns per thread
+  constexpr int kLdV = HDV + 1;
+  constexpr int kTD = HDV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;                 // [kBQ][kLd], q * scale
-  float* kv_s = q_s + kBQ * kLd;     // [kBKV][kLd], K then V
+  float* kv_s = q_s + kBQ * kLd;     // [kBKV][kLd] K, then [kBKV][kLdV] V
   float* p_s = kv_s + kBKV * kLd;    // [kBQ][kLdP]
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // last tiles first
@@ -222,7 +240,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p_s[(ty + 16 * r) * kLdP + tx + 16 * c] = s[r][c];
     }
     __syncthreads();  // K consumed, P written
-    load_tile<T, HD>(kv_s, v_base, v_ss, j0, skv, hd, 1.f);
+    load_tile<T, HDV>(kv_s, v_base, v_ss, j0, skv, hd_v, 1.f);
     __syncthreads();
 
 #pragma unroll 8
@@ -231,7 +249,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < kTM; ++r) p[r] = p_s[(ty + 16 * r) * kLdP + j];
 #pragma unroll
-      for (int c = 0; c < kTD; ++c) vv[c] = kv_s[j * kLd + tx + 16 * c];
+      for (int c = 0; c < kTD; ++c) vv[c] = kv_s[j * kLdV + tx + 16 * c];
 #pragma unroll
       for (int r = 0; r < kTM; ++r)
 #pragma unroll
@@ -244,31 +262,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty + 16 * r;
     if (qi >= sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* row = out + ((static_cast<int64_t>(b) * sq + qi) * n_heads + h) * hd;
+    T* row = out + ((static_cast<int64_t>(b) * sq + qi) * n_heads + h) * hd_v;
 #pragma unroll
     for (int c = 0; c < kTD; ++c) {
       const int col = tx + 16 * c;
-      if (col < hd) store(row + col, acc[r][c] / denom);
+      if (col < hd_v) store(row + col, acc[r][c] / denom);
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
                  int batch, int sq, int skv, int n_heads, int group, int hd,
-                 const int64_t* strides, float scale, float softcap,
-                 int causal, cudaStream_t stream) {
+                 int hd_v, const int64_t* strides, float scale,
+                 float softcap, int causal, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((kBQ + kBKV) * (HD + 1) + kBQ * kLdP);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, HD, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * n_heads);
-  flash_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, HD, HDV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), n_heads, group, sq,
-      skv, hd, strides[0], strides[1], strides[2], strides[3], strides[4],
+      skv, hd, hd_v, strides[0], strides[1], strides[2], strides[3], strides[4],
       strides[5], strides[6], strides[7], strides[8], scale, softcap, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -288,19 +306,21 @@ constexpr uint32_t kChunkBytes = 128 * 128;  // 128 rows of 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;
 
-// shared-memory byte offsets from the 1024-aligned base, HDC 64-wide
-// chunks of hd per tile
-template <int HDC>
+// shared-memory byte offsets from the 1024-aligned base: QC 64-wide chunks
+// of hd in the Q and K tiles, VC of hd_v in the V tile
+template <int QC, int VC>
 struct Layout {
-  static constexpr uint32_t kTile = HDC * kChunkBytes;
+  static constexpr uint32_t kQKTile = QC * kChunkBytes;
+  static constexpr uint32_t kVTile = VC * kChunkBytes;
+  static constexpr uint32_t kStage = kQKTile + kVTile;
   static constexpr uint32_t kQ = 0;
   __host__ __device__ static constexpr uint32_t k(int s) {
-    return kTile * (1 + 2 * s);
+    return kQKTile + kStage * s;
   }
   __host__ __device__ static constexpr uint32_t v(int s) {
-    return kTile * (2 + 2 * s);
+    return k(s) + kQKTile;
   }
-  static constexpr uint32_t kBars = kTile * (1 + 2 * kStages);
+  static constexpr uint32_t kBars = kQKTile + kStage * kStages;
   // barriers: full_q, full[kStages], empty[kStages]; 1024 of align slack
   static constexpr uint32_t kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
@@ -348,16 +368,16 @@ __device__ __forceinline__ void load_plain(uint8_t* dst,
   }
 }
 
-template <int HDC>
-__device__ __forceinline__ void pv_step(float (&o)[32 * HDC],
+template <int VC>
+__device__ __forceinline__ void pv_step(float (&o)[32 * VC],
                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HDC == 2)
+  if constexpr (VC == 2)
     hopper::wgmma_m64n128k16_rs_tb(o, a, db, 1);
   else
     hopper::wgmma_m64n64k16_rs_tb(o, a, db, 1);
 }
 
-template <int HDC>
+template <int QC, int VC>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -366,12 +386,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ out, int n_heads,
-                       int group, int sq, int skv, int hd, int64_t q_sb,
+                       int group, int sq, int skv, int hd, int hd_v,
+                       int64_t q_sb,
                        int64_t q_ss, int64_t q_sh, int64_t k_sb,
                        int64_t k_ss, int64_t k_sh, int64_t v_sb,
                        int64_t v_ss, int64_t v_sh, float scale,
                        float softcap, int causal, int load_bytes) {
-  using L = Layout<HDC>;
+  using L = Layout<QC, VC>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -407,35 +428,35 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const __nv_bfloat16* v_base = v + b * v_sb + kvh * v_sh;
     if (tma) {
       if (lane != 0) return;
-      hopper::mbar_arrive_expect_tx(full_q, L::kTile);
-      for (int c = 0; c < HDC; ++c)
+      hopper::mbar_arrive_expect_tx(full_q, L::kQKTile);
+      for (int c = 0; c < QC; ++c)
         hopper::tma_load_4d(base + L::kQ + c * kChunkBytes, &q_map, full_q,
                             64 * c, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         const int f = t / kStages;
         if (f > 0) hopper::mbar_wait(&empty[s], (f - 1) & 1);
-        hopper::mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
-        for (int c = 0; c < HDC; ++c) {
+        hopper::mbar_arrive_expect_tx(&full[s], L::kStage);
+        for (int c = 0; c < QC; ++c)
           hopper::tma_load_4d(base + L::k(s) + c * kChunkBytes, &k_map,
                               &full[s], 64 * c, kvh, t * kBKV, b);
+        for (int c = 0; c < VC; ++c)
           hopper::tma_load_4d(base + L::v(s) + c * kChunkBytes, &v_map,
                               &full[s], 64 * c, kvh, t * kBKV, b);
-        }
       }
     } else {
-      load_plain<HDC>(base + L::kQ, q + b * q_sb + h * q_sh, q_ss, q0, sq,
-                      hd, load_bytes, lane);
+      load_plain<QC>(base + L::kQ, q + b * q_sb + h * q_sh, q_ss, q0, sq,
+                     hd, load_bytes, lane);
       hopper::fence_proxy_async();
       hopper::mbar_arrive(full_q);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         const int f = t / kStages;
         if (f > 0) hopper::mbar_wait(&empty[s], (f - 1) & 1);
-        load_plain<HDC>(base + L::k(s), k_base, k_ss, t * kBKV, skv, hd,
-                        load_bytes, lane);
-        load_plain<HDC>(base + L::v(s), v_base, v_ss, t * kBKV, skv, hd,
-                        load_bytes, lane);
+        load_plain<QC>(base + L::k(s), k_base, k_ss, t * kBKV, skv, hd,
+                       load_bytes, lane);
+        load_plain<VC>(base + L::v(s), v_base, v_ss, t * kBKV, skv, hd_v,
+                       load_bytes, lane);
         hopper::fence_proxy_async();
         hopper::mbar_arrive(&full[s]);
       }
@@ -450,11 +471,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const uint32_t smem_base = hopper::smem_u32(base);
   const float scale_log2 = scale * kLog2e;
 
-  float o[32 * HDC];
+  float o[32 * VC];
   float sc[64];
   uint32_t p[8][4];
 #pragma unroll
-  for (int i = 0; i < 32 * HDC; ++i) o[i] = 0.f;
+  for (int i = 0; i < 32 * VC; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 64; ++i) sc[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
@@ -468,7 +489,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(sc);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < HDC; ++c) {
+    for (int c = 0; c < QC; ++c) {
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t da = desc_sw128(
@@ -535,7 +556,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l0 = l0 * corr0 + rs0;  // per-thread partial of the row sum
     l1 = l1 * corr1 + rs1;
 #pragma unroll
-    for (int i = 0; i < 8 * HDC; ++i) {
+    for (int i = 0; i < 8 * VC; ++i) {
       o[4 * i] *= corr0;
       o[4 * i + 1] *= corr0;
       o[4 * i + 2] *= corr1;
@@ -557,7 +578,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk)
-      pv_step<HDC>(o, p[kk],
+      pv_step<VC>(o, p[kk],
                    desc_sw128(smem_base + L::v(s) + kk * 2048, kChunkBytes,
                               1024));
     hopper::wgmma_commit();
@@ -575,25 +596,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  const bool pairs = (hd % 2) == 0;
+  const bool pairs = (hd_v % 2) == 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = r0 + 8 * half;
     if (qi >= sq) continue;
     const float inv = half ? inv1 : inv0;
     __nv_bfloat16* row =
-        out + ((static_cast<int64_t>(b) * sq + qi) * n_heads + h) * hd;
+        out + ((static_cast<int64_t>(b) * sq + qi) * n_heads + h) * hd_v;
 #pragma unroll
-    for (int i = 0; i < 8 * HDC; ++i) {
+    for (int i = 0; i < 8 * VC; ++i) {
       const int col = 8 * i + 2 * quad;
       const float x0 = o[4 * i + 2 * half] * inv;
       const float x1 = o[4 * i + 2 * half + 1] * inv;
-      if (pairs && col + 1 < hd) {
+      if (pairs && col + 1 < hd_v) {
         *reinterpret_cast<__nv_bfloat162*>(row + col) =
             __floats2bfloat162_rn(x0, x1);
       } else {
-        if (col < hd) row[col] = __float2bfloat16(x0);
-        if (col + 1 < hd) row[col + 1] = __float2bfloat16(x1);
+        if (col < hd_v) row[col] = __float2bfloat16(x0);
+        if (col + 1 < hd_v) row[col + 1] = __float2bfloat16(x1);
       }
     }
   }
@@ -615,9 +636,9 @@ inline int make_qkv_map(CUtensorMap* map, const void* ptr, int batch,
                                dims, strides, box);
 }
 
-template <int HDC>
+template <int QC, int VC>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int sq, int skv, int n_heads, int group, int hd,
+           int sq, int skv, int n_heads, int group, int hd, int hd_v,
            const int64_t* strides, float scale, float softcap, int causal,
            int load_bytes, cudaStream_t stream) {
   CUtensorMap maps[3];
@@ -627,21 +648,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
     int err = make_qkv_map(&maps[0], q, batch, sq, n_heads, hd, strides);
     if (!err) err = make_qkv_map(&maps[1], k, batch, skv, n_kv, hd,
                                  strides + 3);
-    if (!err) err = make_qkv_map(&maps[2], v, batch, skv, n_kv, hd,
+    if (!err) err = make_qkv_map(&maps[2], v, batch, skv, n_kv, hd_v,
                                  strides + 6);
     if (err) return err;
   }
-  const size_t smem = Layout<HDC>::kBytes;
+  const size_t smem = Layout<QC, VC>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<HDC>,
+      flash_fwd_wgmma_kernel<QC, VC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * n_heads);
-  flash_fwd_wgmma_kernel<HDC><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_wgmma_kernel<QC, VC><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), n_heads, group, sq, skv, hd,
+      static_cast<__nv_bfloat16*>(out), n_heads, group, sq, skv, hd, hd_v,
       strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
       strides[6], strides[7], strides[8], scale, softcap, causal,
       load_bytes);
@@ -650,26 +671,68 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 
 }  // namespace bf16
 
+// the float32 kernel's padded widths: hd to 16, 32, 64, 128 or 192, hd_v
+// to 16, 32, 64 or 128 (never above hd's)
+template <int HD>
+int launch_f32_hd(const void* q, const void* k, const void* v, void* out,
+                  int batch, int sq, int skv, int n_heads, int group, int hd,
+                  int hd_v, const int64_t* strides, float scale,
+                  float softcap, int causal, cudaStream_t stream) {
+#define FLASH_F32(HDV)                                                     \
+  return f32::launch_typed<float, HD, HDV>(q, k, v, out, batch, sq, skv,   \
+                                           n_heads, group, hd, hd_v,       \
+                                           strides, scale, softcap,        \
+                                           causal, stream)
+  if (hd_v <= 16) FLASH_F32(16);
+  if constexpr (HD >= 32) {
+    if (hd_v <= 32) FLASH_F32(32);
+  }
+  if constexpr (HD >= 64) {
+    if (hd_v <= 64) FLASH_F32(64);
+  }
+  if constexpr (HD >= 128) {
+    if (hd_v <= 128) FLASH_F32(128);
+  }
+#undef FLASH_F32
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int batch, int sq, int skv, int n_heads, int group, int hd,
-               const int64_t* strides, float scale, float softcap,
+               int hd_v, const int64_t* strides, float scale, float softcap,
                int causal, cudaStream_t stream) {
-  using f32::launch_typed;
-  if (hd <= 16)
-    return launch_typed<float, 16>(q, k, v, out, batch, sq, skv, n_heads,
-                                   group, hd, strides, scale, softcap,
-                                   causal, stream);
-  if (hd <= 32)
-    return launch_typed<float, 32>(q, k, v, out, batch, sq, skv, n_heads,
-                                   group, hd, strides, scale, softcap,
-                                   causal, stream);
-  if (hd <= 64)
-    return launch_typed<float, 64>(q, k, v, out, batch, sq, skv, n_heads,
-                                   group, hd, strides, scale, softcap,
-                                   causal, stream);
-  return launch_typed<float, 128>(q, k, v, out, batch, sq, skv, n_heads,
-                                  group, hd, strides, scale, softcap, causal,
-                                  stream);
+#define FLASH_F32_HD(HD)                                                  \
+  return launch_f32_hd<HD>(q, k, v, out, batch, sq, skv, n_heads, group,  \
+                           hd, hd_v, strides, scale, softcap, causal,     \
+                           stream)
+  if (hd <= 16) FLASH_F32_HD(16);
+  if (hd <= 32) FLASH_F32_HD(32);
+  if (hd <= 64) FLASH_F32_HD(64);
+  if (hd <= 128) FLASH_F32_HD(128);
+  FLASH_F32_HD(192);
+#undef FLASH_F32_HD
+}
+
+// the bfloat16 kernel's 64-wide chunk counts: QC of hd (1 to 3), VC of
+// hd_v (1 or 2, never above QC)
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int batch, int sq, int skv, int n_heads, int group, int hd,
+                int hd_v, const int64_t* strides, float scale, float softcap,
+                int causal, int load_bytes, cudaStream_t stream) {
+  const int qc = (hd + 63) / 64;
+  const int vc = (hd_v + 63) / 64;
+#define FLASH_BF16(QC, VC)                                                 \
+  if (qc == QC && vc == VC)                                                \
+  return bf16::launch<QC, VC>(q, k, v, out, batch, sq, skv, n_heads,       \
+                              group, hd, hd_v, strides, scale, softcap,    \
+                              causal, load_bytes, stream)
+  FLASH_BF16(1, 1);
+  FLASH_BF16(2, 1);
+  FLASH_BF16(2, 2);
+  FLASH_BF16(3, 1);
+  FLASH_BF16(3, 2);
+#undef FLASH_BF16
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -678,35 +741,34 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // in that order (9 values).  dtype: 0 = float32, 1 = bfloat16.
 // load_bytes (bfloat16 only): 16 loads the tiles by TMA (every base address
 // and stride 16-byte aligned); 8, 4 or 2 loads them with plain loads of
-// that many bytes, which must divide every base address, stride and hd.
+// that many bytes, which must divide every base address, stride, hd and
+// hd_v.  hd <= 192 and hd_v <= min(hd, 128).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int sq, int skv, int n_heads,
-                                      int n_kv_heads, int hd,
+                                      int n_kv_heads, int hd, int hd_v,
                                       const int64_t* strides, float scale,
                                       float softcap, int causal, int dtype,
                                       int load_bytes, void* stream) {
   cudaGetLastError();  // clear any stale error so the return value is ours
   if (batch <= 0 || sq <= 0 || skv < 0 || n_kv_heads <= 0 ||
-      n_heads % n_kv_heads != 0 || hd <= 0 || hd > 128 ||
+      n_heads % n_kv_heads != 0 || hd <= 0 || hd > 192 || hd_v <= 0 ||
+      hd_v > hd || hd_v > 128 ||
       static_cast<int64_t>(batch) * n_heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = n_heads / n_kv_heads;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, batch, sq, skv, n_heads, group, hd,
+    return launch_f32(q, k, v, out, batch, sq, skv, n_heads, group, hd, hd_v,
                       strides, scale, softcap, causal, s);
   if (dtype != 1 || (load_bytes != 16 && load_bytes != 8 &&
                      load_bytes != 4 && load_bytes != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   if (skv == 0) {  // nothing to attend to: the output is 0, as in float32
     const cudaError_t err = cudaMemsetAsync(
-        out, 0, static_cast<size_t>(batch) * sq * n_heads * hd * 2, s);
+        out, 0, static_cast<size_t>(batch) * sq * n_heads * hd_v * 2, s);
     return static_cast<int>(err);
   }
-  if (hd <= 64)
-    return bf16::launch<1>(q, k, v, out, batch, sq, skv, n_heads, group, hd,
-                           strides, scale, softcap, causal, load_bytes, s);
-  return bf16::launch<2>(q, k, v, out, batch, sq, skv, n_heads, group, hd,
-                         strides, scale, softcap, causal, load_bytes, s);
+  return launch_bf16(q, k, v, out, batch, sq, skv, n_heads, group, hd, hd_v,
+                     strides, scale, softcap, causal, load_bytes, s);
 }

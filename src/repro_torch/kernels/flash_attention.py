@@ -7,10 +7,15 @@ its source note says what bounds them on the H100 and why they read q, k
 and v in place where the TPU wrapper broadcast k and v per group and
 padded hd in HBM.  Their plain version is ``kernels.ref.mha_reference``.
 
-  q   (B, Sq, H, hd)    float32 or bfloat16, unit stride along hd
-  k/v (B, Skv, KV, hd)  q's dtype; H = KV * G, query head h reads kv head
-                        h // G (the reference's (B, S, KV, G, hd) grouping)
-  out (B, Sq, H, hd)    contiguous, in q's dtype
+  q   (B, Sq, H, hd)      float32 or bfloat16, unit stride along hd
+  k   (B, Skv, KV, hd)    q's dtype; H = KV * G, query head h reads kv head
+                          h // G (the reference's (B, S, KV, G, hd) grouping)
+  v   (B, Skv, KV, hd_v)  q's dtype
+  out (B, Sq, H, hd_v)    contiguous, in q's dtype
+
+``hd <= 192`` and ``hd_v <= min(hd, 128)``; anything else raises.  hd_v <
+hd is DeepSeek-V2's MLA (``models.attention.mla_forward``): q . k over
+nope + rope = 192, values 128 wide.
 
 The kernel is chosen by dtype; neither is a fallback of the other:
 
@@ -26,10 +31,10 @@ The kernel is chosen by dtype; neither is a fallback of the other:
   ``(q * scale) . k`` (the model path's rounding: the Pallas wrapper
   rounded ``q * scale`` back to q's dtype first).
 
-``scale = 1/sqrt(hd)``, optionally soft-capped; key j of query i is masked
-when ``j > i`` (causal; both positions start at 0).  There is no backward:
-an input that requires grad raises, so nothing trains through the kernel
-silently.
+``scale = 1/sqrt(hd)`` (the q . k width), optionally soft-capped; key j
+of query i is masked when ``j > i`` (causal; both positions start at 0).
+There is no backward: an input that requires grad raises, so nothing
+trains through the kernel silently.
 """
 
 from __future__ import annotations
@@ -41,10 +46,12 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_kernel", "load_width", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention_kernel", "load_width", "MAX_HEAD_DIM",
+           "MAX_V_HEAD_DIM"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128      # hd is padded in shared memory (64 or 128 in bf16)
+MAX_HEAD_DIM = 192      # hd is padded in shared memory (64, 128, 192 in bf16)
+MAX_V_HEAD_DIM = 128    # hd_v, also at most hd
 
 
 def _strides(t: torch.Tensor) -> tuple:
@@ -69,7 +76,8 @@ def load_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     when every base address and (batch, sequence, head) stride is 16-byte
     aligned and the strides nest (head inside sequence inside batch, as in
     a contiguous or fused-projection layout); else the widest plain load,
-    8, 4 or 2 bytes, that divides every address, stride and the hd row."""
+    8, 4 or 2 bytes, that divides every address, stride and the hd and
+    hd_v rows."""
     elt = q.element_size()
     parts, nested = [], True
     for t in (q, k, v):
@@ -80,16 +88,17 @@ def load_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     g = math.gcd(16, *parts)
     if g == 16 and nested:
         return 16
-    g = math.gcd(g, 8, q.shape[3] * elt)
+    g = math.gcd(g, 8, q.shape[3] * elt, v.shape[3] * elt)
     return 8 if g % 8 == 0 else 4 if g % 4 == 0 else 2
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, causal: bool = True,
                            softcap: float = 0.0) -> torch.Tensor:
-    """q (B, Sq, H, hd), k and v (B, Skv, KV, hd), one dtype (float32 or
-    bfloat16) on one CUDA device, each with unit stride along hd
-    -> (B, Sq, H, hd) attention output in q's dtype.
+    """q (B, Sq, H, hd), k (B, Skv, KV, hd) and v (B, Skv, KV, hd_v), one
+    dtype (float32 or bfloat16) on one CUDA device, each with unit stride
+    along its last axis -> (B, Sq, H, hd_v) attention output in q's dtype.
+    hd <= 192 and hd_v <= min(hd, 128), else ``ValueError``.
 
     Launches the kernel on the current stream and adds one to
     ``flash_attention_kernel.launches``.  There is no CPU path: a CPU tensor
@@ -108,25 +117,30 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must all be float32 or all bfloat16, "
                         f"got {q.dtype}, {k.dtype} and {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
-            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
-        raise ValueError(f"need q (B, Sq, H, hd) and k, v (B, Skv, KV, hd); "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            v.shape[:3] != k.shape[:3] or k.shape[0] != q.shape[0] or \
+            k.shape[3] != q.shape[3]:
+        raise ValueError(f"need q (B, Sq, H, hd), k (B, Skv, KV, hd) and v "
+                         f"(B, Skv, KV, hd_v); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, hd = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
     if kvh == 0 or h % kvh:
         raise ValueError(f"{h} query heads do not split into groups over "
                          f"{kvh} kv heads")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_kernel takes 1 <= hd <= "
                          f"{MAX_HEAD_DIM}, got {hd}")
+    if not 1 <= hd_v <= min(hd, MAX_V_HEAD_DIM):
+        raise ValueError(f"flash_attention_kernel takes 1 <= hd_v <= "
+                         f"min(hd, {MAX_V_HEAD_DIM}), got hd {hd}, hd_v "
+                         f"{hd_v}")
     if any(t.stride(3) != 1 for t in tensors):
         raise ValueError("flash_attention_kernel needs unit stride along hd")
     if b * h > 65535:
         raise ValueError(f"flash_attention_kernel takes B * H <= 65535, got "
                          f"{b * h}")
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     strides = (ctypes.c_int64 * 9)(*(s for t in tensors
@@ -136,7 +150,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     b, sq, skv, h, kvh, hd, strides, 1.0 / hd ** 0.5,
+                     b, sq, skv, h, kvh, hd, hd_v, strides, 1.0 / hd ** 0.5,
                      float(softcap), int(bool(causal)), _DTYPES[q.dtype],
                      width, stream)
     _build.check(err, "flash_attention")

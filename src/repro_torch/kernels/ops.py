@@ -277,8 +277,9 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
                     force_kernel: bool | None = None):
     """GQA attention forward with kernel dispatch.
 
-    q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype;
-    positions are implicit, ``arange`` from 0 for both q and k.  On the
+    q (B, Sq, H, hd), k (B, Skv, KV, hd), v (B, Skv, KV, hd_v) -> (B, Sq,
+    H, hd_v) in q's dtype, scaled by 1/sqrt(hd); hd_v < hd is MLA's
+    prefill.  Positions are implicit, ``arange`` from 0 for both q and k.  On the
     kernel path the CUDA flash kernel reads q, k and v in place through
     their strides (unit stride along hd); the plain version is the dense
     ``ref.mha_reference``.

@@ -93,7 +93,9 @@ def encrypted_coded_matmul(weights, blocks, rhs, material_out, material_back,
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, softcap: float = 0.0) -> torch.Tensor:
     """Dense multi-head attention oracle: the plain version of the flash
-    attention kernel.  q (B,Sq,H,hd) k/v (B,Skv,KV,hd) -> (B,Sq,H,hd).
+    attention kernel.  q (B,Sq,H,hd) k (B,Skv,KV,hd) v (B,Skv,KV,hd_v) ->
+    (B,Sq,H,hd_v), scaled by 1/sqrt(hd) over the q . k width, as the
+    reference's blockwise attention.
 
     GQA by grouping q as (B,Sq,KV,G,hd): query head h reads kv head h // G.
     The (Sq, Skv) scores and probabilities are materialised in float32; the

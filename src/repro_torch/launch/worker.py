@@ -42,11 +42,22 @@ If the connection drops while the master is still there, the worker
 redials with capped exponential backoff and full jitter and re-registers
 under the same id; a SHUTDOWN frame, or a master that stays unreachable,
 ends the process.
+
+A stall probe, for finding what a live worker blocks on when the master
+hears nothing from it: with ``SPACDC_WORKER_STALL_DUMP=SECONDS:DIR`` in
+its environment (the master's spawns inherit it), the worker re-arms
+``faulthandler.dump_traceback_later(SECONDS, repeat=True)`` after every
+frame it sends, so once it has sent nothing for SECONDS the interpreter's
+watchdog thread, which needs no lock a stuck thread could hold, writes
+every thread's stack to ``DIR/worker<id>-pid<pid>.txt`` (again every
+SECONDS while the silence lasts).  Unset, nothing is armed.
 """
 
 from __future__ import annotations
 
 import argparse
+import faulthandler
+import os
 import pickle
 import socket
 import sys
@@ -70,10 +81,11 @@ class _Connection:
     """One live connection to the master: socket + send lock + heartbeat."""
 
     def __init__(self, sock: socket.socket, worker_id: int,
-                 heartbeat_s: float):
+                 heartbeat_s: float, stall=None):
         self.sock = sock
         self.worker_id = worker_id
         self.heartbeat_s = heartbeat_s
+        self.stall = stall          # (seconds, open file) of the stall probe
         self.lock = threading.Lock()
         self.broken = threading.Event()
 
@@ -84,6 +96,9 @@ class _Connection:
         except OSError:
             self.broken.set()
             raise
+        if self.stall is not None:
+            faulthandler.dump_traceback_later(self.stall[0], repeat=True,
+                                              file=self.stall[1])
 
     def start_heartbeat(self) -> None:
         def _beat():
@@ -204,6 +219,18 @@ def _report_start_failure(host: str, port: int, worker_id: int,
         sock.close()
 
 
+def _stall_probe(worker_id: int):
+    """(seconds, open file) from ``SPACDC_WORKER_STALL_DUMP=SECONDS:DIR``,
+    or None when it is unset."""
+    setting = os.environ.get("SPACDC_WORKER_STALL_DUMP")
+    if not setting:
+        return None
+    seconds, _, folder = setting.partition(":")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, f"worker{worker_id}-pid{os.getpid()}.txt")
+    return float(seconds), open(path, "w")
+
+
 def serve(host: str, port: int, worker_id: int, *,
           heartbeat_s: float = 0.2, connect_timeout_s: float = 60.0,
           max_reconnects: int = 100, device: str = "cuda") -> int:
@@ -219,13 +246,14 @@ def serve(host: str, port: int, worker_id: int, *,
         return 1
     executor = ThreadPoolExecutor(max_workers=1,
                                   thread_name_prefix=f"w{worker_id}-compute")
+    stall = _stall_probe(worker_id)
     reconnects = 0
     while True:
         try:
             sock = _connect(host, port, connect_timeout_s, rng)
         except OSError:
             return 1                # master permanently unreachable
-        conn = _Connection(sock, worker_id, heartbeat_s)
+        conn = _Connection(sock, worker_id, heartbeat_s, stall)
         try:
             conn.send(wire.pack_frame(wire.HELLO, worker_id, 0))
             conn.start_heartbeat()

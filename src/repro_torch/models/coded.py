@@ -7,6 +7,7 @@ step computes ``C[n] @ x^T``; any decodable responder prefix reconstructs
 ``y^T``.  Every per-step projection the ``ServeSpec`` selects runs so:
 
 * ``qkv`` — attention q|k|v stacked (they share the post-norm input);
+  for MLA, wq|w_dkv;
 * ``o``   — the output projection (``wo`` flattened to 2-D);
 * ``up``  — FFN up (gate|up stacked for swiglu);
 * ``down``— FFN down;
@@ -46,11 +47,14 @@ Differences from the reference, by design:
   as every port round does: None = the ``mask_add`` kernel for CUDA
   tensors.  The reference's in-step wire takes its Pallas kernel only
   when forced (``models/coded.py:359``).
-* **No MLA sites**: MLA models are not ported yet (ROADMAP queue item 6);
-  MoE and SSM mixers stay uncoded in both packages.
+* MoE FFNs and SSM mixers stay uncoded in both packages (data-dependent
+  routing, recurrence); MLA's per-head latent maps ``w_uk``/``w_uv`` stay
+  on the master, as in the reference.
 
 Each coded site's decode is one ``berrut_combine`` launch on the card:
-one per step for ``coded_layers="unembed"``, 4·L + 1 for ``"all"``.
+one per step for ``coded_layers="unembed"``, 4·L + 1 for ``"all"`` on a
+dense model (2 per MLA layer with a MoE FFN, 4 per layer with a dense
+one, + 1: 57 for the full deepseek-v2-lite-16b).
 """
 
 from __future__ import annotations
@@ -91,7 +95,8 @@ def layer_sites(cfg: ModelConfig, desc,
     """The coded sites of one layer under a ``coded_layers`` setting.
 
     MoE and SSM mixers have no fixed ``x @ W`` to pre-encode and stay
-    uncoded (they only show up in the FLOP-fraction denominator)."""
+    uncoded (they only show up in the FLOP-fraction denominator); MLA's
+    sites are wq|w_dkv and wo."""
     sites: Dict[str, SiteMeta] = {}
     want_attn = coded_layers in ("attn", "all")
     want_ffn = coded_layers in ("ffn", "all")
@@ -101,6 +106,12 @@ def layer_sites(cfg: ModelConfig, desc,
         sites["qkv"] = SiteMeta("qkv", d, (hq + 2 * kv) * hd,
                                 (hq * hd, kv * hd, kv * hd))
         sites["o"] = SiteMeta("o", hq * hd, d, (d,))
+    elif want_attn and desc.mixer == "mla":
+        h = cfg.n_heads_padded
+        qw = h * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+        dkv = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        sites["qkv"] = SiteMeta("qkv", d, qw + dkv, (qw, dkv))
+        sites["o"] = SiteMeta("o", h * cfg.v_head_dim, d, (d,))
     if want_ffn and desc.ffn == "dense":
         ff = cfg.d_ff
         if cfg.activation == "swiglu":
@@ -116,7 +127,10 @@ def _site_weight(layer, name: str, cfg: ModelConfig) -> torch.Tensor:
     dtype (the values the plain path multiplies by)."""
     cd = dtype_of(cfg, "compute")
     d = cfg.d_model
-    if name == "qkv":
+    if name == "qkv" and layer.desc.mixer == "mla":
+        m = layer.mixer
+        w = torch.cat([m["wq"].reshape(d, -1), m["w_dkv"]], dim=1)
+    elif name == "qkv":
         m = layer.mixer
         w = torch.cat([m["wq"].reshape(d, -1), m["wk"].reshape(d, -1),
                        m["wv"].reshape(d, -1)], dim=1)
@@ -263,10 +277,13 @@ def _coded_apply(c, x2d, dec_w, meta: SiteMeta, *, wire=None, mats=None,
     return dec.reshape(-1, b)[: meta.d_out].T
 
 
-def _layer_proj(cfg: ModelConfig, metas, shards, dec_w, *, wire=None,
+def _layer_proj(cfg: ModelConfig, desc, metas, shards, dec_w, *, wire=None,
                 mats=None, layer=None, force_kernel=None):
     """The ``proj`` dict for ``DecoderLayer.decode``: closures running this
-    layer's coded sites against the step's shared decode weights."""
+    layer's coded sites against the step's shared decode weights.  ``desc``
+    is the layer's ``LayerDesc``: an MLA layer's ``qkv`` returns (q, dkv)
+    and its ``o`` maps (B, H v) to (B, d), as ``attention.mla_decode``
+    takes them."""
     if not metas:
         return None
     cd = dtype_of(cfg, "compute")
@@ -278,7 +295,18 @@ def _layer_proj(cfg: ModelConfig, metas, shards, dec_w, *, wire=None,
                             force_kernel=force_kernel)
 
     proj = {}
-    if "qkv" in metas:
+    mla = desc.mixer == "mla"
+    if "qkv" in metas and mla:                            # wq | w_dkv
+        h, qk = cfg.n_heads_padded, cfg.qk_nope_head_dim + \
+            cfg.qk_rope_head_dim
+
+        def qkv(x):                                       # (B, 1, d)
+            b = x.shape[0]
+            y = run("qkv", x.reshape(b, -1)).to(cd)
+            qw = metas["qkv"].split[0]
+            return y[:, :qw].reshape(b, 1, h, qk), y[:, None, qw:]
+        proj["qkv"] = qkv
+    elif "qkv" in metas:
         hd, hq, kvh = cfg.head_dim_, cfg.n_heads_padded, cfg.n_kv_heads_padded
 
         def qkv(x):                                       # (B, 1, d)
@@ -289,7 +317,11 @@ def _layer_proj(cfg: ModelConfig, metas, shards, dec_w, *, wire=None,
                     y[:, s0:s0 + s1].reshape(b, 1, kvh, hd),
                     y[:, s0 + s1:].reshape(b, 1, kvh, hd))
         proj["qkv"] = qkv
-    if "o" in metas:
+    if "o" in metas and mla:
+        def o_fn(o2d):                                    # (B, H v) -> (B, d)
+            return run("o", o2d).to(cd)
+        proj["o"] = o_fn
+    elif "o" in metas:
         def o_fn(out):                                    # (B,1,f) -> (B,1,d)
             b = out.shape[0]
             return run("o", out.reshape(b, -1)).to(cd)[:, None, :]
@@ -326,8 +358,9 @@ def coded_step_logits(model, scheme, code: ServingCode, cache, tokens, pos,
         device=tokens.device, dtype=torch.float32)           # (K, N)
     x = embed(model.embedding, tokens, cfg)
     for i, layer in enumerate(model.layers):
-        proj = _layer_proj(cfg, code.layer_meta[i], code.layer_shards[i],
-                           dec_w, wire=wire, mats=materials, layer=i,
+        proj = _layer_proj(cfg, layer.desc, code.layer_meta[i],
+                           code.layer_shards[i], dec_w, wire=wire,
+                           mats=materials, layer=i,
                            force_kernel=force_kernel)
         x, cache[i] = layer.decode(x, cache[i], pos, proj=proj)
     x = apply_norm(model.final_norm, x, cfg)

@@ -1,9 +1,10 @@
-"""Decoder-only LM for the dense attention architectures.
+"""Decoder-only LM for the attention architectures: GQA or MLA mixers with a
+dense or MoE FFN.
 
 Ports ``repro/models/transformer.py``: ``LayerDesc``, ``layer_desc``,
-``layer_pattern``, the attention layer with a dense FFN (``apply_layer``,
-``decode_layer``) and ``TransformerLM`` with ``forward``, ``loss_fn``,
-``init_cache`` and ``decode_step``, plus ``softmax_xent``.
+``layer_pattern``, the layer (``init_layer``, ``apply_layer``,
+``decode_layer``, ``layer_cache``) and ``TransformerLM`` with ``forward``,
+``loss_fn``, ``init_cache`` and ``decode_step``, plus ``softmax_xent``.
 
 The reference scans over stacked groups of ``period`` layers (one XLA body
 for any depth, ``jax.checkpoint`` on the group for training, and the FSDP
@@ -14,10 +15,12 @@ inside the scan).  Eager PyTorch has no scan, so the port holds an
 ``models.convert`` maps the reference's stacked ``groups`` leaves onto the
 list.  Parameter names follow the reference's pytree:
 ``layers.<i>.mixer.wq`` is ``groups["pos0"]["mixer"]["wq"][i]`` for a
-dense architecture.
+dense architecture, and deepseek's first (dense) layer is the reference's
+``prelude[0]``.  ``forward`` sums every MoE layer's load-balance and z
+losses into its aux dict, as the reference's.
 
-MoE, MLA, mamba and rwkv layers and M-RoPE raise ``NotImplementedError``:
-later slices of the port (ROADMAP.md).
+Mamba and rwkv layers, M-RoPE and the encoder-decoder raise
+``NotImplementedError``: later slices of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import (apply_ffn, apply_norm, dtype_of, embed, init_embedding,
                      init_ffn, init_norm, unembed)
 
@@ -92,9 +96,9 @@ def _check_ported(cfg: ModelConfig, descs: List[LayerDesc]) -> None:
     if cfg.mrope_sections:
         raise attn._later("M-RoPE (qwen2-vl)")
     for desc in descs:
-        if desc.mixer != "attn":
+        if desc.mixer not in ("attn", "mla"):
             raise attn._later(f"the {desc.mixer} mixer")
-        if desc.ffn != "dense":
+        if desc.ffn not in ("dense", "moe"):
             raise attn._later(f"the {desc.ffn} FFN")
 
 
@@ -103,8 +107,8 @@ def _check_ported(cfg: ModelConfig, descs: List[LayerDesc]) -> None:
 # --------------------------------------------------------------------------
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention layer with a dense FFN: sequential
-    (``x + attn``, then ``+ ffn`` of the second norm) or, with
+    """Pre-norm layer: a GQA or MLA mixer and a dense or MoE FFN,
+    sequential (``x + attn``, then ``+ ffn`` of the second norm) or, with
     ``cfg.parallel_block``, ``x + attn(h) + ffn(h)`` of one norm."""
 
     def __init__(self, cfg: ModelConfig, desc: LayerDesc,
@@ -112,41 +116,69 @@ class DecoderLayer(nn.Module):
         super().__init__()
         self.cfg, self.desc = cfg, desc
         self.norm1 = init_norm(gen, cfg)
-        self.mixer = attn.init_attention(gen, cfg)
+        self.mixer = (attn.init_mla(gen, cfg) if desc.mixer == "mla"
+                      else attn.init_attention(gen, cfg))
         self.norm2 = init_norm(gen, cfg)
-        self.ffn = init_ffn(gen, cfg)
+        self.ffn = (moe_mod.init_moe(gen, cfg) if desc.ffn == "moe"
+                    else init_ffn(gen, cfg))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                force_kernel: bool | None = None) -> torch.Tensor:
-        """Full-sequence layer (train / prefill), ``apply_layer``."""
+                force_kernel: bool | None = None, moe_drops=None):
+        """Full-sequence layer (train / prefill), ``apply_layer``.
+        Returns (x, (lb_loss, z_loss)), zeros for a dense FFN;
+        ``moe_drops`` is ``moe.moe_ffn``'s ``drops``."""
         cfg = self.cfg
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
         h = apply_norm(self.norm1, x, cfg)
-        y = attn.attn_forward(self.mixer, h, cfg, positions,
-                              use_rope=self.desc.rope,
-                              force_kernel=force_kernel)
+        if self.desc.mixer == "mla":
+            y = attn.mla_forward(self.mixer, h, cfg, positions,
+                                 force_kernel=force_kernel)
+        else:
+            y = attn.attn_forward(self.mixer, h, cfg, positions,
+                                  use_rope=self.desc.rope,
+                                  force_kernel=force_kernel)
         if cfg.parallel_block:
-            return x + y + apply_ffn(self.ffn, h, cfg)
+            return x + y + apply_ffn(self.ffn, h, cfg), (zero, zero)
         x = x + y
-        return x + apply_ffn(self.ffn, apply_norm(self.norm2, x, cfg), cfg)
+        h2 = apply_norm(self.norm2, x, cfg)
+        if self.desc.ffn == "moe":
+            f, lb, z = moe_mod.moe_ffn(self.ffn, h2, cfg, drops=moe_drops)
+            return x + f, (lb, z)
+        return x + apply_ffn(self.ffn, h2, cfg), (zero, zero)
 
     def decode(self, x: torch.Tensor, cache: dict, pos, *, proj=None):
         """One-token layer step, ``decode_layer``.  ``pos`` is a scalar or
         (B,) per-slot positions; ``proj`` optionally reroutes this layer's
-        projections through coded sites: ``{"qkv", "o"}`` feed the
-        attention, ``{"up", "down"}`` the FFN.  Returns (x, cache)."""
+        projections through coded sites: ``{"qkv", "o"}`` feed the GQA or
+        MLA mixer, ``{"up", "down"}`` the dense FFN (a MoE FFN stays
+        uncoded, as in the reference).  Returns (x, cache)."""
         cfg = self.cfg
         proj = proj or {}
         h = apply_norm(self.norm1, x, cfg)
-        y, cache = attn.attn_decode(
-            self.mixer, h, cache, pos, cfg, use_rope=self.desc.rope,
-            proj={k: proj.get(k) for k in ("qkv", "o")})
+        mix = {k: proj.get(k) for k in ("qkv", "o")}
+        if self.desc.mixer == "mla":
+            y, cache = attn.mla_decode(self.mixer, h, cache, pos, cfg,
+                                       proj=mix)
+        else:
+            y, cache = attn.attn_decode(self.mixer, h, cache, pos, cfg,
+                                        use_rope=self.desc.rope, proj=mix)
         ffn_mm = {"matmul_up": proj.get("up"),
                   "matmul_down": proj.get("down")}
         if cfg.parallel_block:
             return x + y + apply_ffn(self.ffn, h, cfg, **ffn_mm), cache
         x = x + y
-        return x + apply_ffn(self.ffn, apply_norm(self.norm2, x, cfg), cfg,
-                             **ffn_mm), cache
+        h2 = apply_norm(self.norm2, x, cfg)
+        if self.desc.ffn == "moe":
+            return x + moe_mod.moe_ffn_decode(self.ffn, h2, cfg), cache
+        return x + apply_ffn(self.ffn, h2, cfg, **ffn_mm), cache
+
+    def init_cache(self, batch: int, max_len: int, device) -> dict:
+        """This layer's decode cache (``layer_cache``): ``{k, v}`` for GQA,
+        ``{ckv, kpe}`` for MLA, zeros in the compute dtype."""
+        if self.desc.mixer == "mla":
+            return attn.init_mla_cache(self.cfg, batch, max_len,
+                                       device=device)
+        return attn.init_kv_cache(self.cfg, batch, max_len, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -157,8 +189,8 @@ class TransformerLM(nn.Module):
     """Decoder-only LM: forward (train / prefill), loss and decode.
 
     Built by ``models.build_model`` on one device from a seeded
-    ``torch.Generator``.  On CUDA tensors every attention layer of
-    ``forward`` launches the flash kernel once; run it under
+    ``torch.Generator``.  On CUDA tensors every attention layer (GQA or
+    MLA) of ``forward`` launches the flash kernel once; run it under
     ``torch.inference_mode()`` (the kernel has no backward yet).
     """
 
@@ -178,9 +210,12 @@ class TransformerLM(nn.Module):
 
     # ---- forward (train / prefill) ------------------------------------
     def forward(self, tokens: torch.Tensor, *, mrope_positions=None,
-                force_kernel: bool | None = None):
-        """tokens (B, S) -> (logits (B, S, V), aux dict).  ``force_kernel``
-        reaches every layer's ``kernels.ops.flash_attention``."""
+                force_kernel: bool | None = None, moe_drops=None):
+        """tokens (B, S) -> (logits (B, S, V), aux dict with the summed
+        ``lb_loss`` and ``z_loss`` of the MoE layers).  ``force_kernel``
+        reaches every layer's ``kernels.ops.flash_attention``;
+        ``moe_drops`` (optional list) gets each MoE layer's count of
+        capacity-dropped (token, choice) pairs, in layer order."""
         if mrope_positions is not None:
             raise attn._later("M-RoPE (mrope_positions=)")
         cfg = self.cfg
@@ -188,12 +223,15 @@ class TransformerLM(nn.Module):
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
         x = embed(self.embedding, tokens, cfg)
+        lb_tot = z_tot = torch.zeros((), dtype=torch.float32,
+                                     device=tokens.device)
         for layer in self.layers:
-            x = layer(x, positions, force_kernel=force_kernel)
+            x, (lb, z) = layer(x, positions, force_kernel=force_kernel,
+                               moe_drops=moe_drops)
+            lb_tot, z_tot = lb_tot + lb, z_tot + z
         x = apply_norm(self.final_norm, x, cfg)
         logits = unembed(self.embedding, x, cfg)
-        zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        return logits, {"lb_loss": zero, "z_loss": zero}
+        return logits, {"lb_loss": lb_tot, "z_loss": z_tot}
 
     def loss_fn(self, batch: dict):
         """batch: tokens (B, S), targets (B, S) -> (loss, metrics)."""
@@ -206,10 +244,11 @@ class TransformerLM(nn.Module):
 
     # ---- decode --------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> List[dict]:
-        """One KV cache dict per layer, zeros in the compute dtype."""
+        """One cache dict per layer (``DecoderLayer.init_cache``), zeros
+        in the compute dtype."""
         dev = self.embedding["table"].device
-        return [attn.init_kv_cache(self.cfg, batch, max_len, device=dev)
-                for _ in self.layers]
+        return [layer.init_cache(batch, max_len, dev)
+                for layer in self.layers]
 
     def decode_step(self, cache: List[dict], tokens: torch.Tensor, pos, *,
                     return_hidden: bool = False):

@@ -1,7 +1,8 @@
 """Model zoo: build an assigned architecture on one device.
 
-Ports ``repro/models/zoo.py``'s ``build_model`` for the decoder-only dense
-attention architectures (``TransformerLM``).  The dry run's
+Ports ``repro/models/zoo.py``'s ``build_model`` for the decoder-only
+attention architectures (``TransformerLM``): GQA or MLA mixers with a dense
+or MoE FFN.  The dry run's
 ``input_specs``/``input_shardings`` have no counterpart: eager PyTorch
 needs no shape stand-ins.
 """
@@ -25,8 +26,8 @@ def build_model(cfg: ModelConfig, *, device=None,
     reference's ``init``.
 
     ``device=None`` means the card, and raises without one; the tests pass
-    ``"cpu"``.  Encoder-decoder, MoE, MLA, SSM and M-RoPE configs raise
-    ``NotImplementedError`` (later slices).
+    ``"cpu"``.  Encoder-decoder, SSM (mamba, rwkv) and M-RoPE configs
+    raise ``NotImplementedError`` (later slices).
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)

@@ -252,6 +252,40 @@ def test_gqa_head_h_reads_kv_head_h_over_g():
     torch.testing.assert_close(out[:, :, g:], torch.ones(b, s, h - g, hd))
 
 
+# MLA's widths, (B, Sq, Skv, H, KV, hd, hd_v, causal): the tiny deepseek's
+# q . k over nope 16 + rope 8 = 24 against v 16, and the full model's 192
+# against 128 at a short sequence
+MLA_CASES = [(2, 40, 40, 4, 4, 24, 16, True),
+             (1, 130, 130, 3, 3, 192, 128, True),
+             (1, 70, 140, 2, 2, 192, 128, False)]
+
+
+def _mla_inputs(case, seed):
+    b, sq, skv, h, kv, hd, hd_v = case[:7]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kv, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kv, hd_v)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MLA_CASES[:2])
+def test_plain_mla_widths_match_the_blockwise_reference(case, dtype):
+    """A v narrower than q . k (MLA): the plain version returns hd_v
+    columns, scaled by 1/sqrt(hd) of the q . k width, as the reference's
+    blockwise ``models.attention.flash_attention``, which its
+    ``mla_forward`` calls."""
+    import jax.numpy as jnp
+    causal = case[7]
+    q, k, v = _mla_inputs(case, seed=3)
+    got = ops.flash_attention(_torch(q, dtype), _torch(k, dtype),
+                              _torch(v, dtype), causal=causal)
+    assert tuple(got.shape) == q.shape[:3] + (case[6],)
+    jq, jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v))
+    _check(got, _jax_reference("model", jq, jk, jv, causal=causal,
+                               softcap=0.0), dtype)
+
+
 # --------------------------------------------------------------------------
 # dispatch rules
 # --------------------------------------------------------------------------
@@ -283,7 +317,7 @@ def test_the_wrapper_refuses_inputs_that_require_grad():
 
 def test_the_build_table_names_the_flash_entry():
     name, argtypes = _build._ENTRY["flash_attention"]
-    assert name == "flash_attention_launch" and len(argtypes) == 17
+    assert name == "flash_attention_launch" and len(argtypes) == 18
     assert _build._target("flash_attention").name.startswith(
         "libflash_attention-")
 
@@ -351,6 +385,42 @@ def test_cuda_bf16_hd20_on_both_load_paths(cuda, causal):
         got = flash_attention_kernel(q, k, v, causal=causal)
         torch.cuda.synchronize()
         _check(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_cuda_mla_widths_match_plain(cuda, case, dtype):
+    """hd_v < hd on both kernels, and in bfloat16 on both load routes:
+    contiguous (TMA) and as views into rows 2 elements wider, whose
+    strides TMA cannot take (plain loads)."""
+    causal = case[7]
+    q, k, v = (_torch(x, dtype, cuda) for x in _mla_inputs(case, seed=9))
+    want = ref.mha_reference(q, k, v, causal=causal)
+    routes = [(q, k, v)]
+    if dtype == "bfloat16":
+        wide = [torch.nn.functional.pad(t, (0, 2)) for t in (q, k, v)]
+        views = [t[..., :-2] for t in wide]
+        assert load_width(q, k, v) == 16 and load_width(*views) < 16
+        routes.append(views)
+    for args in routes:
+        n0 = flash_attention_kernel.launches
+        got = flash_attention_kernel(*args, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention_kernel.launches == n0 + 1
+        assert tuple(got.shape) == tuple(q.shape[:3]) + (case[6],)
+        _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(256, 128), (64, 96), (192, 160)])
+def test_cuda_kernel_refuses_widths_it_does_not_take(cuda, hd, hd_v):
+    """hd above 192, hd_v above hd or above 128: a ValueError, never the
+    plain version in the kernel's place."""
+    q = torch.zeros(1, 8, 2, hd, device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros(1, 8, 2, hd_v, device=cuda, dtype=torch.bfloat16)
+    n0 = flash_attention_kernel.launches
+    with pytest.raises(ValueError, match="hd"):
+        ops.flash_attention(q, q, v, causal=True)
+    assert flash_attention_kernel.launches == n0
 
 
 def test_cuda_kernel_refuses_grad_and_mixed_dtypes(cuda):

@@ -51,6 +51,7 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/crypto/mea_ecc.py",
                  "src/repro_torch/kernels/encrypted_round.py",
                  "src/repro_torch/models/transformer.py",
+                 "src/repro_torch/models/moe.py",
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/configs/base.py",
                  "src/repro_torch/models/coded.py",
@@ -79,6 +80,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.runtime.engine, repro_torch.crypto, "
             "repro_torch.kernels.encrypted_round, repro_torch.models, "
             "repro_torch.configs, repro_torch.models.coded, "
+            "repro_torch.models.moe, "
             "repro_torch.runtime.serve_loop, repro_torch.launch.serve, "
             "repro_torch.runtime.faults, repro_torch.runtime.adaptive, "
             "repro_torch.runtime.wire, repro_torch.runtime.socket_transport, "

@@ -20,6 +20,13 @@ run it.  Tolerances:
   step wall and worker time replaced by constants in both packages, since
   the virtual clock adds each package's own measurements.
 
+The MLA case (``tests/test_serve.py:68``, ``deepseek-v2-lite-16b``: MLA's
+wq|w_dkv and wo sites coded in every layer, the dense prelude layer's FFN
+coded, the MoE FFNs uncoded) is held the same way: its sites and shards
+against the reference's, its teacher-forced float32 step logits against
+the reference's, its bfloat16 coded step against the port's plain step and
+its encrypted step bit for bit against its plain coded step.
+
 The ``cuda`` cases run on the card and import no JAX.
 """
 
@@ -47,6 +54,7 @@ from repro_torch.runtime.serve_loop import (ContinuousBatcher, Request,
                                             poisson_workload)
 
 ARCH = "qwen2-7b"
+MLA_ARCH = "deepseek-v2-lite-16b"
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SITE_TOL = 1e-5
 WALL_S = 2e-3              # the injected step wall of the scheduling cases
@@ -116,12 +124,12 @@ def _ref_requests(reqs):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(dtype: str):
+def _reference(dtype: str, arch: str = ARCH):
     """(reference model, its params as JAX arrays, the same as numpy)."""
     import jax
     from repro.configs import tiny_config as ref_tiny_config
     from repro.models import build_model as ref_build_model
-    cfg = dataclasses.replace(ref_tiny_config(ARCH), compute_dtype=dtype)
+    cfg = dataclasses.replace(ref_tiny_config(arch), compute_dtype=dtype)
     model = ref_build_model(cfg)
     params = model.init(jax.random.PRNGKey(0))
     rng = np.random.default_rng(11)
@@ -132,10 +140,10 @@ def _reference(dtype: str):
     return model, jax.tree.map(jax.numpy.asarray, tree), tree
 
 
-def _port(dtype: str):
-    cfg = dataclasses.replace(tiny_config(ARCH), compute_dtype=dtype)
+def _port(dtype: str, arch: str = ARCH):
+    cfg = dataclasses.replace(tiny_config(arch), compute_dtype=dtype)
     return load_jax_params(build_model(cfg, device="cpu"),
-                           _reference(dtype)[2])
+                           _reference(dtype, arch)[2])
 
 
 def _np(x) -> np.ndarray:
@@ -171,10 +179,19 @@ def _ref_coded_logits(model, scheme, code, params, cache, tokens, pos, mask):
     from repro.models.coded import _coded_apply as ref_apply
     from repro.models.coded import _layer_proj as ref_proj
     from repro.models.layers import apply_norm, embed, unembed
-    from repro.models.transformer import decode_layer
+    from repro.models.transformer import decode_layer, layer_desc
     cfg = model.cfg
     dec_w = scheme.decode_matrix_masked(mask)
     x = embed(params["embedding"], tokens, cfg)
+    prelude = []
+    for i, lp in enumerate(params["prelude"]):
+        desc = layer_desc(cfg, i)
+        proj = ref_proj(cfg, desc, code.prelude_meta[i],
+                        code.arrays["prelude"][i], dec_w,
+                        force_kernel=scheme.use_kernel)
+        x, c = decode_layer(lp, x, cfg, desc, cache=cache["prelude"][i],
+                            pos=pos, proj=proj)
+        prelude.append(c)
 
     def body(x, xs):
         gp, gc, gw = xs
@@ -189,7 +206,6 @@ def _ref_coded_logits(model, scheme, code, params, cache, tokens, pos, mask):
                                              proj=proj)
         return x, new
 
-    assert not params["prelude"]
     x, groups = jax.lax.scan(body, x, (params["groups"], cache["groups"],
                                        code.arrays["group"]))
     x = apply_norm(params["final_norm"], x, cfg)
@@ -198,7 +214,7 @@ def _ref_coded_logits(model, scheme, code, params, cache, tokens, pos, mask):
                            code.unembed_meta, force_kernel=scheme.use_kernel)
     else:
         logits = unembed(params["embedding"], x, cfg)[:, 0, :]
-    return logits, {"prelude": [], "groups": groups}
+    return logits, {"prelude": prelude, "groups": groups}
 
 
 # a teacher-forced stream: B slots at ragged positions, random tokens
@@ -207,11 +223,11 @@ STREAM_TOKENS = np.random.default_rng(2).integers(
     1, 256, (STREAM_B, STREAM_T)).astype(np.int32)
 
 
-def _ref_stream_logits(dtype: str, coded_layers: str):
+def _ref_stream_logits(dtype: str, coded_layers: str, arch: str = ARCH):
     import jax
     from repro.models.coded import encode_serving_weights as ref_encode
     from repro.runtime.engine import RoundEngine as RefEngine
-    model, params, _ = _reference(dtype)
+    model, params, _ = _reference(dtype, arch)
     engine = RefEngine(ref_exact_spec(coded_layers))
     code = ref_encode(engine.scheme, model, params, coded_layers)
     fn = jax.jit(functools.partial(_ref_coded_logits, model, engine.scheme,
@@ -388,6 +404,173 @@ def test_wired_step_is_bit_identical_to_the_plain_coded_step():
             encrypt="real")), wire=True)
     for g, w in zip(wired, plain):
         assert torch.equal(g, w)
+
+
+# --------------------------------------------------------------------------
+# the MLA case (tests/test_serve.py:68): deepseek-v2-lite-16b
+# --------------------------------------------------------------------------
+
+def test_mla_sites_and_shards_match_reference():
+    """``coded_layers="all"`` on the tiny deepseek: the dense prelude layer
+    has the qkv (wq|w_dkv), o, up and down sites, each MoE layer only qkv
+    and o, then the unembed; every site's meta and shards equal the
+    reference's (mds, exact spec)."""
+    from repro.models.coded import encode_serving_weights as ref_encode
+    from repro.runtime.engine import RoundEngine as RefEngine
+    model, params, _ = _reference("float32", MLA_ARCH)
+    ref_engine = RefEngine(ref_exact_spec("all"))
+    rcode = ref_encode(ref_engine.scheme, model, params, "all")
+    port = _port("float32", MLA_ARCH)
+    engine = RoundEngine(exact_spec("all"), device="cpu")
+    code = encode_serving_weights(engine.scheme, port, "all")
+    cfg = port.cfg
+    h = cfg.n_heads
+    assert sorted(code.layer_meta[0]) == ["down", "o", "qkv", "up"]
+    assert code.layer_meta[0]["qkv"].split == (
+        h * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim),
+        cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    assert code.layer_meta[0]["o"].d_in == h * cfg.v_head_dim
+    want = {(0, name): (rcode.prelude_meta[0][name],
+                        np.asarray(rcode.arrays["prelude"][0][name]))
+            for name in rcode.prelude_meta[0]}
+    for i in range(1, cfg.n_layers):
+        assert sorted(code.layer_meta[i]) == ["o", "qkv"]
+        for name, meta in rcode.group_meta["pos0"].items():
+            want[(i, name)] = (meta, np.asarray(
+                rcode.arrays["group"]["pos0"][name])[i - 1])
+    assert len(want) == sum(len(m) for m in code.layer_meta)
+    for (i, name), (meta, arr) in want.items():
+        assert dataclasses.astuple(code.layer_meta[i][name]) == \
+            dataclasses.astuple(meta), (i, name)
+        assert _rel(code.layer_shards[i][name], arr) <= SITE_TOL, (i, name)
+    assert _rel(code.unembed_shards,
+                np.asarray(rcode.arrays["unembed"])) <= SITE_TOL
+    assert code.n_instances == rcode.n_instances == \
+        4 + 2 * (cfg.n_layers - 1) + 1
+    ref_engine.close()
+    engine.close()
+
+
+def test_mla_teacher_forced_step_matches_reference():
+    """The reference's coded step and the port's on one teacher-forced
+    stream, float32 compute: every coded MLA site, the prelude's FFN
+    sites, the uncoded all-expert MoE decode and the coded unembed."""
+    want = _ref_stream_logits("float32", "all", MLA_ARCH)
+    got = _port_stream_logits(_port("float32", MLA_ARCH), "all")
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert _rel(g, w) <= LOGIT_TOL["float32"], (t, _rel(g, w))
+        assert not len(_argmax_agrees(g, w, LOGIT_TOL["float32"])), t
+
+
+def test_mla_coded_step_matches_plain_step_inside_the_port():
+    """bfloat16 compute as served: the coded step's logits against the
+    port's plain step (``"none"``) on the same stream, within 2e-2 and
+    with the argmax rule."""
+    model = _port("bfloat16", MLA_ARCH)
+    want = _port_stream_logits(model, "none")
+    got = _port_stream_logits(model, "all")
+    tol = LOGIT_TOL["bfloat16"]
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert _rel(g, w) <= tol, (t, _rel(g, w))
+        assert not len(_argmax_agrees(g, w, tol)), t
+
+
+def test_mla_wired_step_is_bit_identical_to_the_plain_coded_step():
+    model = _port("bfloat16", MLA_ARCH)
+    plain = _port_stream_logits(model, "all")
+    wired = _port_stream_logits(
+        model, "all", spec=exact_spec("all", crypto=CryptoSpec(
+            encrypt="real")), wire=True)
+    for g, w in zip(wired, plain):
+        assert torch.equal(g, w)
+
+
+def test_mla_serve_runs_the_reference_workload():
+    """``Session.serve(arch="deepseek-v2-lite-16b", tiny=True)`` on the
+    reference test's workload, coded and uncoded: every request gets its
+    tokens and every step decodes its 11 coded sites in-step."""
+    reqs = ragged_requests(n=3, seed=5)
+    with Session(exact_spec("all"), device="cpu") as s:
+        rep = s.serve(arch=MLA_ARCH, tiny=True, requests=reqs,
+                      check_agreement=False)
+        assert s._serve_models[(MLA_ARCH, True, 0)].cfg.mla
+    with Session(exact_spec("none"), device="cpu") as s:
+        plain = s.serve(arch=MLA_ARCH, tiny=True, requests=reqs,
+                        check_agreement=False)
+    assert rep.mode == "instep"
+    for r, p, q in zip(rep.requests, plain.requests, reqs):
+        assert len(r.tokens) == len(p.tokens) == q.gen
+    assert 0 < rep.coded_fraction < 1
+
+
+def test_mla_reference_serve_failure_is_an_exact_argmax_tie(monkeypatch):
+    """Why ``tests/test_serve.py::test_parity_holds_on_mla_arch`` fails: its
+    request 1 (prompt 71, 98, 146) is served 5, 113, 65, 17 uncoded and
+    23, 116, 209, 154 coded.  Teacher-forced through the reference's own
+    jitted step (its weights, ``PRNGKey(0)``), the uncoded logits of
+    tokens 5 and 23 at the first generated position are the same bfloat16
+    value, and argmax takes the lower index; the coded unembed's float32
+    decode puts 23 above 5 by less than a bfloat16 ulp.  No router top-k
+    choice differs between the two runs up to that token.  The port,
+    given the same weights, serves 5 first both ways."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import tiny_config as ref_tiny_config
+    from repro.models import build_model as ref_build_model
+    from repro.models import moe as ref_moe
+    from repro.models.coded import encode_serving_weights as ref_encode
+    from repro.runtime.engine import RoundEngine as RefEngine
+    model = ref_build_model(ref_tiny_config(MLA_ARCH))
+    params = model.init(jax.random.PRNGKey(0))
+    req = ragged_requests(n=3, seed=5)[1]
+    assert req.prompt.tolist() == [71, 98, 146]
+    routed = []
+    router = ref_moe._router
+
+    def recording(p, x, cfg):
+        out = router(p, x, cfg)
+        jax.debug.callback(lambda i: routed.append(np.asarray(i).tolist()),
+                           out[1])
+        return out
+    monkeypatch.setattr(ref_moe, "_router", recording)
+    logits, routes = {}, {}
+    for name in ("none", "all"):
+        engine = RefEngine(ref_exact_spec(name))
+        code = ref_encode(engine.scheme, model, params, name)
+        fn = jax.jit(functools.partial(_ref_coded_logits, model,
+                                       engine.scheme, code))
+        cache = model.init_cache(1, 8)
+        routed.clear()
+        for t, tok in enumerate(req.prompt):
+            out, cache = fn(params, cache, np.array([[tok]], np.int32),
+                            np.array([t], np.int32), np.ones(8, np.float32))
+        jax.effects_barrier()
+        logits[name] = np.asarray(out, np.float32)[0]
+        routes[name] = list(routed)
+        engine.close()
+    plain, coded = logits["none"], logits["all"]
+    assert int(plain.argmax()) == 5 and int(coded.argmax()) == 23
+    assert plain[5] == plain[23] == plain.max()          # an exact tie
+    assert 0 < coded[23] - coded[5] < 2.0 ** -6          # under one ulp
+    assert len(routes["none"]) == 3 * 3                  # 3 MoE layers
+    assert routes["all"] == routes["none"]
+
+    monkeypatch.setattr(ref_moe, "_router", router)
+    port = load_jax_params(build_model(tiny_config(MLA_ARCH), device="cpu"),
+                           jax.tree.map(np.asarray, params))
+    first = []
+    for name in ("none", "all"):
+        engine = RoundEngine(exact_spec(name), device="cpu")
+        step = build_coded_step(port, engine.scheme, encode_serving_weights(
+            engine.scheme, port, name))
+        cache = port.init_cache(1, 8)
+        for t, tok in enumerate(req.prompt):
+            nxt, cache = step(cache, torch.tensor([[int(tok)]]),
+                              torch.tensor([t], dtype=torch.int32),
+                              torch.ones(8))
+        first.append(int(nxt[0]))
+        engine.close()
+    assert first == [5, 5]
 
 
 # --------------------------------------------------------------------------
@@ -661,6 +844,18 @@ def test_launch_serve_prints_the_reports_lines(capsys):
     assert report.pop("rounds_run") >= 2          # one round per step
     assert report == {"scheme": "spacdc", "n_workers": 8,
                       "adaptive": False, "policy": "fixed"}
+
+
+def test_launch_serve_serves_the_mla_arch(capsys):
+    """``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b``
+    with every MLA site coded."""
+    from repro_torch.launch import serve as launch
+    assert launch.main(["--arch", MLA_ARCH, "--tiny", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "4", "--gen", "3",
+                        "--coded-layers", "all"]) == 0
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and "coded[all]" in out
+    assert "req1:" in out
 
 
 # --------------------------------------------------------------------------

@@ -1066,3 +1066,38 @@ def test_cuda_socket_round_matches_virtual_loop_round(cuda, encrypt):
     want_mask = 0 if encrypt is None else 3 + st.n_waited
     assert mask_add_kernel.launches - launches[1] == want_mask
     assert st.dispatches == 2 + want_mask
+
+
+# --------------------------------------------------------------------------
+# the worker's stall probe
+# --------------------------------------------------------------------------
+
+def test_worker_stall_probe_dumps_every_thread_after_a_silence(
+        tmp_path, monkeypatch):
+    """With ``SPACDC_WORKER_STALL_DUMP=SECONDS:DIR`` a worker's connection
+    re-arms ``faulthandler`` on every frame it sends: a silence longer
+    than SECONDS writes every thread's stack, the silent one's frames
+    included, to ``DIR/worker<id>-pid<pid>.txt``; unset, nothing is
+    armed."""
+    import faulthandler
+    from repro_torch.launch import worker
+    monkeypatch.delenv("SPACDC_WORKER_STALL_DUMP", raising=False)
+    assert worker._stall_probe(3) is None
+    monkeypatch.setenv("SPACDC_WORKER_STALL_DUMP", f"0.2:{tmp_path}")
+    stall = worker._stall_probe(3)
+    a, b = socket.socketpair()
+    try:
+        conn = worker._Connection(a, 3, 0.1, stall)
+        conn.send(b"x")
+        time.sleep(0.3)
+        conn.send(b"y")               # a frame re-arms the probe
+        time.sleep(0.7)               # a silence of 3.5 periods
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        a.close()
+        b.close()
+        stall[1].close()
+    text = (tmp_path / f"worker3-pid{os.getpid()}.txt").read_text()
+    assert text.count("most recent call first") >= 2
+    assert "test_worker_stall_probe_dumps_every_thread_after_a_silence" \
+        in text

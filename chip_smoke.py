@@ -229,6 +229,18 @@ Phases, one JSON line each:
     workers' happen in their own processes and come back in their
     RESULTs.
 
+12. deepseek-v2-lite-16b at full width and depth (``deepseek_main_path``):
+    flash at MLA's 192/128 shape, the forward, coded serving.
+
+13. the SSM mixers (``ssm_main_path``): rwkv6-1.6b at full width and
+    depth and jamba at full width over 8 of its 32 layers, each (a, c)
+    the forward on 1 x 4096 tokens (the scans' share of a profiled
+    forward, jamba's attention through the flash kernel against the plain
+    version, the float32 forward against decode) and (b, d) coded serving
+    under ``serve_deadline(coded_layers="all")`` (the encrypted step
+    bit-identical, a slot reused after an eviction serving as a fresh
+    one).
+
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is then non-zero and no result line is printed.  The script imports
@@ -633,6 +645,11 @@ def main() -> int:
     for kname, count in ds_launches.items():
         launches[kname] += count
 
+    # --------- 13. the SSM mixers: rwkv6-1.6b and jamba at full width
+    ssm_launches, jamba_row = ssm_main_path(torch, dev)
+    for kname, count in ssm_launches.items():
+        launches[kname] += count
+
     # --------------------------------------------------------- summary
     n, j, (m, d, n_out) = 30, 27, FULL
     blk = m // 24
@@ -660,8 +677,10 @@ def main() -> int:
                         "bound_rate": row["bound_rate"],
                         "library_ms": row["library_ms"]})
     # the flash kernel at MLA's widths (phase 12 a), beside its main row
-    kernels[-1]["mla_192_128"] = {
-        key: mla_row[key] for key in ("max_abs_err", "kernel_ms", "plain_ms",
+    # and at jamba's GQA shape (phase 13 c)
+    for name, row in (("mla_192_128", mla_row), ("jamba_gqa_128", jamba_row)):
+        kernels[-1][name] = {
+            key: row[key] for key in ("max_abs_err", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
                                       "library")}
     print(nvidia_smi(), flush=True)
@@ -1021,18 +1040,23 @@ def model_main_path(torch, dev) -> dict:
     return launches
 
 
-def forward_vs_decode(torch, model, tokens, n: int = 16) -> tuple:
-    """The forward's logits on the first n tokens against n teacher-forced
-    ``decode_step`` calls: (max |diff|, max of |diff| - (0.05 + 0.05 *
-    |forward|)), which is <= 0 when they agree to atol = rtol = 0.05."""
+def forward_and_decode(torch, model, tokens, n: int) -> tuple:
+    """(the forward's float32 logits on the first n tokens, those of n
+    teacher-forced ``decode_step`` calls)."""
     full, _ = model(tokens[:, :n])
     cache = model.init_cache(1, n)
     steps = []
     for t in range(n):
         step, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
         steps.append(step[:, 0])
-    inc = torch.stack(steps, dim=1).float()
-    full = full.float()
+    return full.float(), torch.stack(steps, dim=1).float()
+
+
+def forward_vs_decode(torch, model, tokens, n: int = 16) -> tuple:
+    """The forward's logits on the first n tokens against n teacher-forced
+    ``decode_step`` calls: (max |diff|, max of |diff| - (0.05 + 0.05 *
+    |forward|)), which is <= 0 when they agree to atol = rtol = 0.05."""
+    full, inc = forward_and_decode(torch, model, tokens, n)
     diff = (inc - full).abs()
     return float(diff.max()), float((diff - (0.05 + 0.05 * full.abs())).max())
 
@@ -1043,6 +1067,10 @@ def forward_vs_decode(torch, model, tokens, n: int = 16) -> tuple:
 FORWARD_CLASSES = (("flash_attention", ("flash_fwd",)),
                    ("matmul", ("gemm", "xmma", "cutlass", "nvjet")),
                    ("casts", ("copy_kernel",)))   # dtype casts, layout copies
+# a device activity between two marker kernels (``torch.cuda._sleep(0)``'s
+# spin kernel, launched around each ``chunked_scan`` of the SSM mixers by
+# ``annotate_scans``) is "scan" whatever its class
+SCAN_MARKER = "spin_kernel"
 STEP_CLASSES = (("berrut_combine", ("berrut_stream",)),
                 ("coded_matmul", ("encode_split_kernel", "split_b_kernel",
                                   "gemm_3xtf32_kernel")),
@@ -1051,38 +1079,54 @@ STEP_CLASSES = (("berrut_combine", ("berrut_stream",)),
 
 
 def profile_device(torch, fn, classes) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: device time by kernel
-    class, the top kernels, and the device's idle share of the span from
-    its first kernel's start to its last kernel's end and of the host's
-    wall time.  Outside the counted main paths."""
+    """One call of ``fn`` under ``torch.profiler``: device time by class
+    (an activity between an odd and the next ``SCAN_MARKER`` kernel is
+    "scan", the rest go by ``classes``' names), the count of device
+    activities less the markers (kernels, copies and sets: the launches),
+    the top kernels, and the device's idle share of the span from the
+    first activity's start to the last one's end and of the host's wall.
+    It records device activities only and reads the profiler's raw
+    events: an SSM forward launches ~4 x 10^5 kernels, host op events
+    would add ~4 per launch, and the Python event list costs ~66 us an
+    event to build.  Outside the counted main paths."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    by_class = {key: 0.0 for key, _ in classes}
-    by_class["other"] = 0.0
+    device = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e.start_ns())
+    by_class = {"scan": 0.0, **{key: 0.0 for key, _ in classes},
+                "other": 0.0}
+    launches = dict.fromkeys(by_class, 0)
     top = {}
+    markers, in_scan = 0, False
     first, last = float("inf"), float("-inf")
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in device:
+        name = e.name()
+        if SCAN_MARKER in name:
+            markers += 1
+            in_scan = not in_scan
             continue
-        ms = e.time_range.elapsed_us() / 1e3
-        first = min(first, e.time_range.start)
-        last = max(last, e.time_range.end)
-        low = e.name.lower()
-        key = next((k for k, subs in classes
-                    if any(w in low for w in subs)), "other")
+        ms = e.duration_ns() / 1e6
+        first, last = min(first, e.start_ns()), max(last, e.end_ns())
+        low = name.lower()
+        key = "scan" if in_scan else next(
+            (k for k, subs in classes if any(w in low for w in subs)),
+            "other")
         by_class[key] += ms
-        top[e.name[:90]] = top.get(e.name[:90], 0.0) + ms
+        launches[key] += 1
+        top[name[:90]] = top.get(name[:90], 0.0) + ms
     busy = sum(by_class.values())
-    span_ms = (last - first) / 1e3 if busy else 0.0
-    return {"device_ms_by_class": by_class, "device_busy_ms": busy,
-            "device_span_ms": span_ms, "profiled_wall_ms": wall_ms,
+    span_ms = (last - first) / 1e6 if busy else 0.0
+    return {"device_ms_by_class": by_class, "launches_by_class": launches,
+            "launches": sum(launches.values()), "scan_calls": markers // 2,
+            "device_busy_ms": busy, "device_span_ms": span_ms,
+            "profiled_wall_ms": wall_ms,
             "idle_share_of_span": 1.0 - busy / span_ms if busy else None,
             "idle_share_of_wall": 1.0 - busy / wall_ms,
             "top_kernels_ms": dict(sorted(top.items(),
@@ -2362,7 +2406,8 @@ def teacher_forced(torch, model, step, cache_c, cache_p, tokens, offsets,
                     _, cache_u = model.decode_step(cache_u, tok, pos)
             finally:
                 undo()
-            other += int(other_experts(torch, routes_c, routes_u).sum())
+            if routes_c:                      # a model with MoE layers
+                other += int(other_experts(torch, routes_c, routes_u).sum())
         want = want[:, 0].float()
         scale = float(want.abs().max())
         worst = max(worst, float((got.float() - want).abs().max()) / scale)
@@ -3300,6 +3345,12 @@ SOCKET_ROUNDS = 3
 SOCKET_FIG3 = (30, 24, 3, 7)
 # spacing of the replayed arrival order (threads sleep it)
 REPLAY_SPACING_S = 0.01
+# every mesh's start-up deadline (``TransportSpec.connect_timeout_s``,
+# default 60 s): 30 CUDA worker processes on the H100 machine's 8 shared
+# cores registered in 34-49 s, and not one of them within 60 s on a host
+# that ran phases 7-10 1.5-2x slower; the start time is reported, not
+# held
+MESH_CONNECT_S = 180.0
 # (b i): benchmarks/bench_transport.py's SIGKILL point (fault seed 139 puts
 # one crash, worker 1, in round 0 and leaves the retries clean)
 KILL_OP = dict(n_workers=6, k_blocks=2, seed=7, fault_seed=139,
@@ -3377,7 +3428,9 @@ def socket_spec(backend: str, *, encrypt=None, **transport):
     spec = ClusterSpec.paper_fig3()
     return dataclasses.replace(
         spec, crypto=CryptoSpec(encrypt=encrypt),
-        transport=TransportSpec(backend=backend, **transport),
+        transport=TransportSpec(backend=backend,
+                                connect_timeout_s=MESH_CONNECT_S,
+                                **transport),
         code=dataclasses.replace(
             spec.code, fused=False if backend == "virtual" else None))
 
@@ -3803,7 +3856,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                           k_blocks=op["k_blocks"]),
             straggler=StragglerSpec(n_stragglers=0, delay_s=0.02),
             transport=TransportSpec(backend=backend, heartbeat_s=0.1,
-                                    max_respawns=MESH_MAX_RESPAWNS),
+                                    max_respawns=MESH_MAX_RESPAWNS,
+                                    connect_timeout_s=MESH_CONNECT_S),
             fault=FaultSpec(crash_rate=op["crash_rate"], handle=True,
                             os_level=backend == "socket",
                             seed=op["fault_seed"],
@@ -3891,7 +3945,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
         spec = fault_spec(handle=True)
         return dataclasses.replace(
             spec, transport=TransportSpec(backend=backend, heartbeat_s=0.1,
-                                          max_respawns=MESH_MAX_RESPAWNS),
+                                          max_respawns=MESH_MAX_RESPAWNS,
+                                          connect_timeout_s=MESH_CONNECT_S),
             fault=dataclasses.replace(spec.fault, drop_rate=MESH_DROP_RATE,
                                       os_level=backend == "socket"))
 
@@ -3972,7 +4027,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
             code=CodeSpec(scheme="mds", n_workers=8, k_blocks=4),
             wait=WaitSpec(policy="first_k", k=8),
             straggler=StragglerSpec(n_stragglers=0),
-            transport=TransportSpec(backend=backend),
+            transport=TransportSpec(backend=backend,
+                                    connect_timeout_s=MESH_CONNECT_S),
             serve=ServeSpec(coded_layers="unembed", max_slots=8))
     serve_tokens = {} if serve_tokens is None else serve_tokens
     if "e_threads" not in serve_tokens:
@@ -4038,9 +4094,9 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
 # --------------------------------------------------------------------------
 
 DEEPSEEK_ARCH = "deepseek-v2-lite-16b"
-# MLA's prefill attention at full width: B, S, H, hd (nope 128 + rope
-# 64), hd_v, causal
-MLA_FLASH = (1, 4096, 16, 192, 128)
+# MLA's prefill attention at full width: B, S, H, KV (= H), hd (nope 128
+# + rope 64), hd_v; causal
+MLA_FLASH = (1, 4096, 16, 16, 192, 128)
 # the room phase 12 asks of the card before it builds the full model: its
 # peak, 77.13 GB on the H100 while serving "all" (15.71 B float32
 # parameters, 62.83 GB; 4.74 GB of shards, 2 x 592 M coded weights; the
@@ -4158,27 +4214,29 @@ def logits_rel(torch, got, want, keep=None, chunk: int = 512) -> dict:
             "argmax_agreement_same_experts": same_keep / max(n_keep, 1)}
 
 
-def check_mla_flash(torch, gen, dev) -> dict:
-    """The flash kernel at MLA's prefill shape (q, k (1, 4096, 16, 192), v
-    (1, 4096, 16, 128), causal) against its plain version: bfloat16 on the
-    TMA route (contiguous) and the plain-load route (views into rows two
-    elements wider), float32 on the CUDA cores; each timed beside the
+def check_model_flash(torch, gen, dev, shape: tuple, phase: str,
+                      check: str) -> dict:
+    """The flash kernel at a model's prefill shape (``shape`` = B, S, H,
+    KV, hd (q . k), hd_v; causal) against its plain version: bfloat16 on
+    the TMA route (contiguous) and the plain-load route (views into rows
+    two elements wider), float32 on the CUDA cores; each timed beside the
     plain version, with its bound and ``scaled_dot_product_attention`` on
-    the same inputs (the backend it picked named by its kernels).  Returns
-    the bfloat16 TMA row."""
+    the same inputs (``enable_gqa`` where KV < H; the backend it picked
+    named by its kernels).  Returns the bfloat16 TMA row."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      load_width)
-    b, s, h, hd, hd_v = MLA_FLASH
+    b, s, h, kvh, hd, hd_v = shape
+    gqa = {"enable_gqa": True} if kvh < h else {}
     main = None
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
-        q, k = (torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
-                for _ in range(2))
-        v = torch.randn((b, s, h, hd_v), generator=gen, device=dev).to(dt)
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, kvh, hd_v), generator=gen, device=dev).to(dt)
         want = ref.mha_reference(q, k, v, causal=True)
         routes = [("tma" if dt == torch.bfloat16 else "cuda_cores",
                    (q, k, v))]
@@ -4191,10 +4249,10 @@ def check_mla_flash(torch, gen, dev) -> dict:
             assert got.shape == want.shape == (b, s, h, hd_v)
             assert bool(torch.isfinite(got.float()).all())
             err, rel = rel_diff(torch, got, want)
-            row = {"phase": "deepseek_main_path", "check": "a_mla_flash",
+            row = {"phase": phase, "check": check,
                    "kernel": "flash_attention",
-                   "shape": {"B": b, "S": s, "H": h, "hd": hd, "hd_v": hd_v,
-                             "causal": True},
+                   "shape": {"B": b, "S": s, "H": h, "KV": kvh, "hd": hd,
+                             "hd_v": hd_v, "causal": True},
                    "dtype": dname, "route": route,
                    "load_width": (load_width(*args)
                                   if dt == torch.bfloat16 else None),
@@ -4208,8 +4266,8 @@ def check_mla_flash(torch, gen, dev) -> dict:
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
                 def sdpa():
-                    return F.scaled_dot_product_attention(qt, kt, vt,
-                                                          is_causal=True)
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, **gqa)
                 try:
                     sdpa()
                 except RuntimeError as exc:   # no backend takes hd_v != hd
@@ -4223,8 +4281,9 @@ def check_mla_flash(torch, gen, dev) -> dict:
                                     if e.device_type == DeviceType.CUDA})
                     row.update(library_ms=timed_ms(torch, sdpa),
                                library="F.scaled_dot_product_attention, "
-                               "is_causal", library_kernels=names)
-                nbytes, flops = flash_work(b, s, s, h, h, hd, True,
+                               "is_causal" + ", enable_gqa" * bool(gqa),
+                               library_kernels=names)
+                nbytes, flops = flash_work(b, s, s, h, kvh, hd, True,
                                            q.element_size(), hd_v=hd_v)
                 row.update(**bound(nbytes, flops, BF16_TC
                                    if dt == torch.bfloat16 else F32_CUDA),
@@ -4332,7 +4391,8 @@ def deepseek_main_path(torch, dev) -> dict:
     gen.manual_seed(12)
 
     # ---- (a) the flash kernel at MLA's prefill shape
-    flash_row = check_mla_flash(torch, gen, dev)
+    flash_row = check_model_flash(torch, gen, dev, MLA_FLASH,
+                                  "deepseek_main_path", "a_mla_flash")
     free()
 
     # ---- (b) the full-width forward, counted from zero
@@ -4605,6 +4665,545 @@ def deepseek_main_path(torch, dev) -> dict:
     emit({"phase": "deepseek_main_path", "check": "phase_total",
           "launches": total, "phase_s": time.perf_counter() - phase_t0})
     assert total["flash_attention"] == 3 * cfg.n_layers, total
+    assert total["berrut_combine"] > 0 and total["mask_add"] > 0, total
+    return total, flash_row
+
+
+# --------------------------------------------------------------------------
+# phase 13: the SSM mixers, rwkv6-1.6b and the jamba hybrid
+# --------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-1.6b"
+JAMBA_ARCH = "jamba-v0.1-52b"
+# jamba at full width over one period of its layer pattern: 8 of its 32
+# layers (7 mamba and the attention at layer 4, 4 dense and 4 MoE FFNs;
+# 13.27 B float32 parameters, 53.1 GB); the whole model's 51.45 B (206
+# GB in float32, 103 GB in bf16) does not fit the card
+JAMBA_LAYERS = 8
+# jamba's prefill attention: B, S, H, KV, hd (q . k), hd_v (GQA 32/8, no
+# RoPE), causal
+JAMBA_FLASH = (1, 4096, 32, 8, 128, 128)
+# the room phase 13 asks of the card: jamba's serving peak, 69.45 GB on
+# the H100 (53.2 GB of parameters, 8.1 GB of shards, the held unembed
+# encode), and a margin
+SSM_ROOM_GB = 74.0
+SSM_SLOTS = 4
+SSM_REQUESTS = 5                 # the fifth takes a slot freed by eviction
+SSM_PROMPT, SSM_GEN = 6, 6
+SSM_FVD_STEPS = 16
+SSM_TF_STEPS = 8
+SSM_CLASSES = (("flash_attention", ("flash_fwd",)),
+               ("conv", ("conv", "fprop")),
+               ("matmul", ("gemm", "gemv", "xmma", "cutlass", "nvjet")),
+               ("moe_dispatch_combine", ("index", "gather", "scatter",
+                                         "cumsum", "scan", "topk", "sort",
+                                         "radix")),
+               ("casts", ("copy_kernel",)))
+
+
+def annotate_scans(torch):
+    """Make every ``chunked_scan`` call of the SSM mixers launch a marker
+    kernel (``SCAN_MARKER``, a zero-cycle ``torch.cuda._sleep``) just
+    before and just after it, so that a device trace of one stream shows
+    where each scan's kernels start and end.  Returns the function that
+    undoes it."""
+    from repro_torch.models import ssm
+    run = ssm.chunked_scan
+
+    def chunked_scan(*args):
+        torch.cuda._sleep(0)
+        try:
+            return run(*args)
+        finally:
+            torch.cuda._sleep(0)
+    ssm.chunked_scan = chunked_scan
+
+    def undo():
+        ssm.chunked_scan = run
+    return undo
+
+
+def timed_forwards(torch, model, tokens, kernels: dict, total: dict,
+                   want_launch: dict) -> dict:
+    """Two counted forwards on ``tokens`` between device syncs (each
+    launching ``want_launch``), then one more profiled by
+    ``profile_device`` with the scans annotated: wall seconds, each MoE
+    layer's dropped choices per run, the profile, and the peak memory of
+    the counted runs."""
+    import numpy as np
+    torch.cuda.reset_peak_memory_stats()
+    forward_s, drops = [], []
+    with torch.inference_mode():
+        for r in range(2):
+            layer_drops = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (logits, _), got = counted(kernels, total, lambda: model(
+                tokens, moe_drops=layer_drops))
+            torch.cuda.synchronize()
+            forward_s.append(time.perf_counter() - t)
+            assert got == want_launch, (r, got)
+            drops.append([int(n) for n in layer_drops])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        assert tuple(logits.shape) == (*tokens.shape, model.cfg.vocab_size)
+        assert logits.dtype == getattr(torch, model.cfg.compute_dtype)
+        assert bool(torch.isfinite(logits).all())
+        del logits
+        undo = annotate_scans(torch)
+        try:
+            split = profile_device(torch, lambda: model(tokens), SSM_CLASSES)
+        finally:
+            undo()
+    fwd = float(np.median(forward_s))
+    return {"forward_s": forward_s, "tokens_per_s": tokens.numel() / fwd,
+            "choices_dropped_by_layer": drops[0],
+            "choices_dropped_same_every_run": all(d == drops[0]
+                                                  for d in drops),
+            "launches_per_forward": want_launch, "breakdown": split,
+            "scan_share_of_busy": split["device_ms_by_class"]["scan"]
+            / split["device_busy_ms"],
+            "peak_memory_gb": peak_gb}
+
+
+def jittered_rel(torch, model, tokens, full) -> float:
+    """The model's own float32 noise on ``tokens``: max |forward - full|
+    over max |full|, the forward run with the embedding table scaled by
+    (1 + 2^-23 N), N a seeded standard normal draw (its inputs moved by
+    float32 rounding), the table restored after."""
+    table = model.embedding["table"]
+    saved = table.detach().clone()
+    g = torch.Generator(device=table.device)
+    g.manual_seed(99)
+    with torch.no_grad():
+        table.mul_(1 + 2.0 ** -23 * torch.randn(
+            table.shape, generator=g, device=table.device))
+        try:
+            with torch.inference_mode():
+                jit, _ = model(tokens)
+        finally:
+            table.copy_(saved)
+    return float((jit.float() - full.float()).abs().max()
+                 / full.float().abs().max())
+
+
+def forward_vs_decode_rel(torch, model, tokens, n: int) -> dict:
+    """The forward's logits on the first n tokens against n teacher-forced
+    ``decode_step`` calls, over max |forward|, and the float32 rule that
+    holds them: 1e-4, or twice the model's own float32 noise
+    (``jittered_rel``) where that is larger, for a model whose logits
+    move more than that under float32 rounding of its inputs.  An RWKV6
+    head's output is ``r . (u k) v^T`` at the first token and then that
+    sum over a decayed state, and its group norm rescales the head to
+    unit variance: where the sum nearly cancels, rounding of r and k is
+    rescaled with it."""
+    with torch.inference_mode():
+        full, inc = forward_and_decode(torch, model, tokens, n)
+    rel = float((inc - full).abs().max() / full.abs().max())
+    noise = jittered_rel(torch, model, tokens[:, :n], full)
+    return {"steps": n, "rel": rel, "own_float32_noise": noise,
+            "tol": max(LOGIT_TOL["float32"], 2 * noise),
+            "argmax_agreement": float((inc.argmax(-1) == full.argmax(-1))
+                                      .float().mean())}
+
+
+def ssm_requests(cfg):
+    """``SSM_REQUESTS`` requests at t = 0 of ``SSM_PROMPT`` prompt tokens
+    and ``SSM_GEN`` to generate, prompts from a seeded generator: over
+    ``SSM_SLOTS`` slots the first four finish together and the fifth is
+    admitted into slot 0, which request 0's state fills."""
+    import numpy as np
+    from repro_torch.runtime.serve_loop import Request
+    rng = np.random.default_rng(13)
+    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size, SSM_PROMPT)
+                    .astype(np.int32), gen=SSM_GEN)
+            for i in range(SSM_REQUESTS)]
+
+
+def ssm_serving(torch, dev, cfg, gen, kernels: dict, total: dict,
+                label: str, hold_bf16: bool) -> None:
+    """(b) and (d): ``cfg`` served under ``serve_deadline(coded_layers=
+    "all")`` over ``SSM_SLOTS`` slots (counted: one ``berrut_combine`` per
+    site at the encode and per step, every call held); on the served
+    code, the ``encrypt="real"`` step bit-identical to the plain coded
+    step with every ``mask_add`` call held; the exact spec's
+    teacher-forced coded logits against the plain step's (MoE choices
+    replayed), bfloat16 as served (held at 2e-2 when ``hold_bf16``, else
+    reported) and in float32 compute (held at 1e-4); the fifth request
+    admitted into a freed slot served as it is alone (exact spec; the
+    tokens with the admission reset skipped are reported)."""
+    import gc
+
+    import numpy as np
+    from repro_torch.api import ClusterSpec, CryptoSpec, ServeSpec, Session
+    from repro_torch.models import build_model
+    from repro_torch.models.coded import build_coded_step
+    from repro_torch.runtime.engine import RoundEngine
+    from repro_torch.runtime.serve_loop import ContinuousBatcher
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    phase = "ssm_main_path"
+    serve = ServeSpec(coded_layers="all", max_slots=SSM_SLOTS)
+    spec = dataclasses.replace(ClusterSpec.serve_deadline(coded_layers="all"),
+                               serve=serve)
+    reqs = ssm_requests(cfg)
+    ratios = []
+    free()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    with Session(spec, device=dev) as s:
+        undo = hold_ops_combines(torch, ratios)
+        try:
+            t0 = time.perf_counter()
+            rep, launched = counted(kernels, total, lambda: s.serve(
+                arch=cfg, requests=reqs, check_agreement=False))
+            serve_s = time.perf_counter() - t0
+        finally:
+            undo()
+        serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        model = s._serve_models[(cfg, True, 0)]
+        code = next(iter(s._serve_batchers.values())).code
+        sites, steps = code.n_instances, len(rep.step_stats)
+        want = {"coded_matmul": 0, "berrut_combine": sites * (1 + steps),
+                "mask_add": 0, "flash_attention": 0}
+        fifth = next(r for r in rep.requests if r.rid == SSM_REQUESTS - 1)
+        row = {"phase": phase, "check": f"{label}_serve_all",
+               "arch": cfg.name, "layers": cfg.n_layers,
+               "sites_per_step": sites, "slots": SSM_SLOTS,
+               "requests": [SSM_REQUESTS, SSM_PROMPT, SSM_GEN],
+               **serve_summary(rep), "serve_call_s": serve_s,
+               "fifth_admitted_s": fifth.admitted_s, "launches": launched,
+               "expected_launches": want, "held_calls": len(ratios),
+               "max_bound_ratio": max(ratios),
+               "shards_gb": (sum(c.numel() for layer in code.layer_shards
+                                 for c in layer.values())
+                             + code.unembed_shards.numel()) * 4 / 1e9,
+               "peak_memory_gb": serve_peak_gb,
+               "allocated_before_serve_gb": before_gb}
+        emit(row)
+        assert launched == want, row
+        assert all(st.dispatches == sites for st in rep.step_stats), row
+        assert len(ratios) == want["berrut_combine"], row
+        assert max(ratios) <= 1.0, row
+        assert fifth.admitted_s > 0, row
+        assert all(len(r.tokens) == SSM_GEN for r in rep.requests), row
+        assert all(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
+                   for r in rep.requests), row
+
+        # the encrypted step against the plain coded step, on the served
+        # code, two stragglers masked out, every mask_add call held
+        enc = RoundEngine(dataclasses.replace(
+            spec, crypto=CryptoSpec(encrypt="real")), device=dev)
+        plain_step = build_coded_step(model, s.engine.scheme, code)
+        wired_step = build_coded_step(model, enc.scheme, code,
+                                      wire_params=enc.serve_wire_params())
+        mask = torch.ones(8)
+        mask[[1, 5]] = 0.0
+        b_enc, t_enc = 4, 4
+        toks = torch.randint(1, cfg.vocab_size, (b_enc, t_enc),
+                             generator=gen, device=dev)
+        offsets = torch.arange(b_enc, dtype=torch.int32, device=dev) % 3
+        held = []
+
+        def wired_vs_plain():
+            cw, cp = model.init_cache(b_enc, 16), model.init_cache(b_enc, 16)
+            equal = []
+            for t in range(t_enc):
+                tok, pos = toks[:, t:t + 1], offsets + t
+                lw, cw = wired_step.logits(cw, tok, pos, mask,
+                                           code.step_materials(enc))
+                lp, cp = plain_step.logits(cp, tok, pos, mask)
+                equal.append(bool(torch.equal(lw, lp)))
+            return equal
+        undo = hold_ops_mask_adds(torch, held)
+        try:
+            equal, launched = counted(kernels, total, wired_vs_plain)
+        finally:
+            undo()
+        enc.close()
+        want = {"coded_matmul": 0, "berrut_combine": 2 * sites * t_enc,
+                "mask_add": 4 * sites * t_enc, "flash_attention": 0}
+        row = {"phase": phase, "check": f"{label}_encrypted_step",
+               "slots": b_enc, "steps": t_enc, "stragglers_masked": [1, 5],
+               "logits_bit_identical_by_step": equal, "launches": launched,
+               "expected_launches": want, "mask_add_held_calls": len(held),
+               "mask_add_held_equal": sum(ok for *_, ok in held)}
+        emit(row)
+        assert all(equal), row
+        assert launched == want, row
+        assert len(held) == want["mask_add"], row
+        assert all(ok for *_, ok in held), row
+        s._serve_batchers.clear()
+        del plain_step, wired_step, enc, code
+
+        # the exact spec (mds, all 8 waited for): teacher-forced coded
+        # logits against the plain decode step's, bfloat16 as served
+        tf_toks = torch.randint(1, cfg.vocab_size, (8, SSM_TF_STEPS),
+                                generator=gen, device=dev)
+        tf_bf16 = exact_teacher_forced(torch, model, tf_toks,
+                                       TOL["bfloat16"])
+        row = {"phase": phase, "check": f"{label}_teacher_forced_bf16",
+               "scheme": "mds", "coded_layers": "all",
+               "held": hold_bf16, **tf_bf16}
+        emit(row)
+        if hold_bf16:
+            assert tf_bf16["max_rel_diff"] <= TOL["bfloat16"], row
+            assert tf_bf16["flips_outside_near_ties"] == 0, row
+        del model
+    del s
+    free()
+
+    # the fifth request, admitted into the slot that request 0's state
+    # filled, against the same request served alone (exact spec, 4 slots)
+    spec_x = dataclasses.replace(exact_spec("all"), serve=serve)
+    with Session(spec_x, device=dev) as s:
+        tokens = {}
+        for name, batch in (("shared", reqs), ("alone", reqs[-1:])):
+            rep, _ = counted(kernels, total, lambda: s.serve(
+                arch=cfg, requests=batch, check_agreement=False))
+            tokens[name] = next(r.tokens for r in rep.requests
+                                if r.rid == SSM_REQUESTS - 1)
+        reset = ContinuousBatcher.__dict__["_zero_slot"]
+        ContinuousBatcher._zero_slot = staticmethod(lambda cache, i: cache)
+        try:
+            rep, _ = counted(kernels, total, lambda: s.serve(
+                arch=cfg, requests=reqs, check_agreement=False))
+        finally:
+            ContinuousBatcher._zero_slot = reset
+        tokens["no_reset"] = next(r.tokens for r in rep.requests
+                                  if r.rid == SSM_REQUESTS - 1)
+    del s
+    free()
+    row = {"phase": phase, "check": f"{label}_reused_slot",
+           "tokens": {k: v.tolist() for k, v in tokens.items()},
+           "equal_to_alone": bool(np.array_equal(tokens["shared"],
+                                                 tokens["alone"])),
+           "no_reset_equal_to_alone": bool(np.array_equal(
+               tokens["no_reset"], tokens["alone"]))}
+    emit(row)
+    assert row["equal_to_alone"], row
+
+    # the exact spec's teacher-forced step in float32 compute (held)
+    model = build_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                        seed=0)
+    tf = exact_teacher_forced(torch, model, tf_toks, LOGIT_TOL["float32"])
+    del model
+    free()
+    row = {"phase": phase, "check": f"{label}_teacher_forced_f32",
+           "scheme": "mds", "coded_layers": "all",
+           "compute_dtype": "float32", **tf}
+    emit(row)
+    assert tf["max_rel_diff"] <= LOGIT_TOL["float32"], row
+    assert tf["flips_outside_near_ties"] == 0, row
+
+
+def attention_in_situ(torch, model, layers_in_out: list) -> dict:
+    """{layer: max |kernel - plain| over max |plain|} of every GQA
+    attention layer's mixer, fed that layer's input from a recorded
+    forward (``capture_layers``), through the flash kernel and through
+    the plain version."""
+    from repro_torch.models.attention import attn_forward
+    from repro_torch.models.layers import apply_norm
+    cfg = model.cfg
+    s = layers_in_out[0][0].shape[1]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=layers_in_out[0][0].device)[None]
+    out = {}
+    with torch.inference_mode():
+        for i, (layer, (x_in, _)) in enumerate(zip(model.layers,
+                                                   layers_in_out)):
+            if layer.desc.mixer != "attn":
+                continue
+            h = apply_norm(layer.norm1, x_in, cfg)
+            y_k = attn_forward(layer.mixer, h, cfg, positions,
+                               use_rope=layer.desc.rope)
+            y_p = attn_forward(layer.mixer, h, cfg, positions,
+                               use_rope=layer.desc.rope, force_kernel=False)
+            out[i] = rel_diff(torch, y_k, y_p)[1]
+    return out
+
+
+def ssm_main_path(torch, dev) -> tuple:
+    """Phase 13: the SSM mixers on the card, both models' weights float32
+    from seed 0, compute bf16.  (a) rwkv6-1.6b at full width and depth (24
+    layers): the forward on 1 x 4096 tokens, counted (no kernel: the WKV
+    scan is plain PyTorch) and timed twice, a profiled forward's device
+    split (the scans' launches told apart by ``annotate_scans``), idle
+    share and launches, peak memory; the forward against 16 decode steps
+    in float32 compute (held, ``forward_vs_decode_rel``) and bf16 (reported).
+    (b) its coded serving (``ssm_serving``: the unembed its one site).
+    (c) jamba-v0.1-52b at full width over one period of its pattern (8 of
+    32 layers): the flash kernel at its attention's shape against its
+    plain version (``check_model_flash``); the bf16 forward on 1 x 4096
+    tokens as (a) (one flash launch, dropped MoE choices per layer); the
+    attention layer through the kernel against the plain version on that
+    layer's own input (2e-2); the float32-compute forward, kernel against
+    plain with the expert choices replayed (1e-4); the float32 forward
+    against 16 decode steps with ``capacity_factor`` raised so that
+    nothing drops (held as (a)).  (d) its coded serving (11 sites:
+    attention's qkv and o, the dense FFNs' up and down, the unembed).
+    Returns (the counted launches, the jamba flash row).  Phase 13 alone:
+    ``build_kernels(torch)`` then ``ssm_main_path(torch,
+    torch.device("cuda"))``."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import capacity
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel}
+    total = {k: 0 for k in kernels}
+    phase = "ssm_main_path"
+    phase_t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    free()
+    rwkv = get_config(RWKV_ARCH)
+    jamba = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    free_b, total_b = torch.cuda.mem_get_info()
+    room = {"phase": phase, "check": "room", "free_gb": free_b / 1e9,
+            "card_gb": total_b / 1e9,
+            "allocated_here_gb": torch.cuda.memory_allocated() / 1e9,
+            "param_count": {RWKV_ARCH: rwkv.param_count(),
+                            f"{JAMBA_ARCH}[:{JAMBA_LAYERS}]":
+                                jamba.param_count()},
+            "asked_gb": SSM_ROOM_GB}
+    emit(room)
+    assert free_b / 1e9 >= SSM_ROOM_GB, \
+        f"phase 13 needs {SSM_ROOM_GB} GB free on the card: {room}"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    tokens = torch.randint(0, rwkv.vocab_size, (1, MODEL_TOKENS),
+                           generator=gen, device=dev)
+    no_launch = dict.fromkeys(kernels, 0)
+
+    # ---- (a) rwkv6-1.6b: the forward, counted from zero
+    t0 = time.perf_counter()
+    model = build_model(rwkv, seed=0)                    # on the card
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fwd = timed_forwards(torch, model, tokens, kernels, total, no_launch)
+    n_params = sum(p.numel() for p in model.parameters())
+    fvd_bf16 = forward_vs_decode_rel(torch, model, tokens, SSM_FVD_STEPS)
+    del model
+    free()
+    model = build_model(dataclasses.replace(rwkv, compute_dtype="float32"),
+                        seed=0)
+    fvd = forward_vs_decode_rel(torch, model, tokens, SSM_FVD_STEPS)
+    del model
+    free()
+    row = {"phase": phase, "check": "a_rwkv_forward", "arch": rwkv.name,
+           "tokens": [1, MODEL_TOKENS], "params": n_params,
+           "layers": rwkv.n_layers, "d_model": rwkv.d_model,
+           "heads": [rwkv.d_model // rwkv.rwkv_head_dim, rwkv.rwkv_head_dim],
+           "d_ff": rwkv.d_ff, "vocab": rwkv.vocab_size,
+           "compute_dtype": rwkv.compute_dtype, "build_s": build_s, **fwd,
+           "a_forward_vs_decode_f32": fvd,
+           "a_forward_vs_decode_bf16": fvd_bf16}
+    emit(row)
+    assert fwd["breakdown"]["scan_calls"] == rwkv.n_layers, row
+    assert fvd["rel"] <= fvd["tol"], row
+
+    # ---- (b) rwkv6-1.6b: coded serving, the unembed its one site
+    ssm_serving(torch, dev, rwkv, gen, kernels, total, "b_rwkv",
+                hold_bf16=True)
+
+    # ---- (c) jamba: flash at its attention's shape, then the forward
+    flash_row = check_model_flash(torch, gen, dev, JAMBA_FLASH, phase,
+                                  "c_jamba_flash")
+    free()
+    t0 = time.perf_counter()
+    model = build_model(jamba, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_attn = sum(layer.desc.mixer == "attn" for layer in model.layers)
+    fwd = timed_forwards(torch, model, tokens, kernels, total,
+                         dict(no_launch, flash_attention=n_attn))
+    n_params = sum(p.numel() for p in model.parameters())
+    # held: the attention layer through the kernel against the plain
+    # version on the kernel forward's own input to that layer
+    layers_k, undo_hooks = capture_layers(model)
+    try:
+        with torch.inference_mode():
+            model(tokens)
+    finally:
+        undo_hooks()
+    in_situ = attention_in_situ(torch, model, layers_k)
+    del layers_k, model
+    free()
+    # the same weights in float32 compute: kernel forward against the
+    # plain attention replaying its experts (held)
+    model = build_model(dataclasses.replace(jamba, compute_dtype="float32"),
+                        seed=0)
+    with torch.inference_mode():
+        routes_k, undo = record_routes()
+        try:
+            logits, _ = model(tokens)
+        finally:
+            undo()
+        undo = replay_routes(torch, routes_k)
+        try:
+            plain, _ = model(tokens, force_kernel=False)
+        finally:
+            undo()
+        cmp_f32 = logits_rel(torch, logits, plain)
+    del logits, plain, routes_k, model
+    free()
+    # float32, nothing dropped: the forward against 16 decode steps
+    cfg_c = dataclasses.replace(jamba, compute_dtype="float32",
+                                capacity_factor=2.0 * jamba.n_experts
+                                / jamba.top_k)
+    model = build_model(cfg_c, seed=0)
+    with torch.inference_mode():
+        dropped = []
+        model(tokens[:, :SSM_FVD_STEPS], moe_drops=dropped)
+    fvd = forward_vs_decode_rel(torch, model, tokens, SSM_FVD_STEPS)
+    del model
+    free()
+    row = {"phase": phase, "check": "c_jamba_forward", "arch": jamba.name,
+           "layers": [jamba.n_layers, get_config(JAMBA_ARCH).n_layers],
+           "tokens": [1, MODEL_TOKENS], "params": n_params,
+           "d_model": jamba.d_model, "heads": [jamba.n_heads,
+                                               jamba.n_kv_heads],
+           "mamba": {"d_state": jamba.d_state, "conv": jamba.conv_width,
+                     "expand": jamba.expand},
+           "experts": [jamba.n_experts, jamba.top_k],
+           "capacity": capacity(jamba, MODEL_TOKENS),
+           "choices_per_layer": MODEL_TOKENS * jamba.top_k,
+           "compute_dtype": jamba.compute_dtype, "build_s": build_s, **fwd,
+           "c_attention_in_situ_rel": in_situ, "c_tol": TOL["bfloat16"],
+           "c_float32_kernel_vs_plain_same_experts": cmp_f32,
+           "c_forward_vs_decode_f32": dict(
+               fvd, capacity_factor=cfg_c.capacity_factor,
+               choices_dropped=[int(n) for n in dropped])}
+    emit(row)
+    assert n_attn == 1 and fwd["breakdown"]["scan_calls"] == 7, row
+    assert len(fwd["choices_dropped_by_layer"]) == 4, row
+    assert fwd["choices_dropped_same_every_run"], row
+    assert max(in_situ.values()) <= TOL["bfloat16"], row
+    assert cmp_f32["rel_all"] <= LOGIT_TOL["float32"], row
+    assert row["c_forward_vs_decode_f32"]["choices_dropped"] == [0] * 4, row
+    assert fvd["rel"] <= fvd["tol"], row
+
+    # ---- (d) jamba: coded serving, 11 sites
+    ssm_serving(torch, dev, jamba, gen, kernels, total, "d_jamba",
+                hold_bf16=False)
+    emit({"phase": phase, "check": "phase_total", "launches": total,
+          "phase_s": time.perf_counter() - phase_t0})
+    assert total["flash_attention"] == 2 * n_attn, total
     assert total["berrut_combine"] > 0 and total["mask_add"] > 0, total
     return total, flash_row
 

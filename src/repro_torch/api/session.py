@@ -30,8 +30,11 @@ loop of ``runtime.serve_loop`` over a model built on the session's device
 (``models.build_model`` from a seeded generator; ``arch`` may also be a
 ``ModelConfig``, e.g. one whose depth is cut): the dense GQA families and
 deepseek-v2's MLA with its MoE FFN (MLA's wq|w_dkv and wo sites coded, the
-MoE FFN uncoded, as in the reference).  Families the port does not have
-yet (SSM, M-RoPE, the encoder-decoder) raise ``NotImplementedError``.  As in the
+MoE FFN uncoded, as in the reference), and the SSM families (rwkv6, whose
+only coded site is the unembed, and jamba, whose attention layers and
+dense FFNs are coded and whose mamba mixers and MoE FFNs are not).
+Families the port does not have yet (M-RoPE, the encoder-decoder) raise
+``NotImplementedError``.  As in the
 reference, the serve loop reads neither ``FaultSpec`` nor
 ``AdaptiveSpec``.
 

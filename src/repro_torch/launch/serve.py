@@ -9,7 +9,8 @@ their slots refilled, and each decode step runs as ONE coded round under a
 ``--coded-layers`` selects how much of the step is coded — from just the
 unembed projection up to every attention/FFN projection (``all``, virtual
 transport).  ``--transport threads`` serves the unembed as a real round
-per step.
+per step.  ``--arch`` takes every decoder-only family the port has (the
+dense GQA ones, deepseek-v2's MLA and MoE, rwkv6 and jamba).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --tiny \\
       --requests 8 --rate 20 --prompt-len 16 --gen 32 --deadline-ms 8 \\

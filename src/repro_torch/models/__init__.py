@@ -1,6 +1,7 @@
-"""Model zoo: the dense decoder-only LM (layers, GQA attention through the
-flash kernel, the transformer), its weight converter and the coded serving
-step (``models.coded``).  Ports ``repro/models`` for the dense attention
+"""Model zoo: the decoder-only LM (layers, GQA and MLA attention through
+the flash kernel, the MoE FFN, the RWKV6 and Mamba mixers, the
+transformer), its weight converter and the coded serving step
+(``models.coded``).  Ports ``repro/models`` for the decoder-only
 architectures."""
 
 from .convert import load_jax_params

@@ -54,7 +54,9 @@ Differences from the reference, by design:
 Each coded site's decode is one ``berrut_combine`` launch on the card:
 one per step for ``coded_layers="unembed"``, 4·L + 1 for ``"all"`` on a
 dense model (2 per MLA layer with a MoE FFN, 4 per layer with a dense
-one, + 1: 57 for the full deepseek-v2-lite-16b).
+one, + 1: 57 for the full deepseek-v2-lite-16b; 1 for rwkv6, whose
+every layer is recurrent; 2 per jamba attention layer, 2 per dense FFN,
++ 1: 11 over one period of 8 layers).
 """
 
 from __future__ import annotations

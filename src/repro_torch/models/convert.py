@@ -11,7 +11,10 @@ layer ``n_pre + g * period + i``; ``prelude[j]`` is layer j.  Every other
 leaf keeps its layout: the port's parameters have the reference's shapes
 (``wq`` (d, H, hd), ``wo`` (H, hd, d), ...), and its names are the pytree
 paths joined by dots (``layers.<n>.mixer.wq``, ``embedding.table``).  Tied
-embeddings have no ``unembed`` leaf on either side.
+embeddings have no ``unembed`` leaf on either side.  The SSM families
+need nothing more: an rwkv layer's leaves are ``norm1``, ``norm2`` and its
+``mixer``'s (no ``ffn``), and jamba's groups are stacked with period 8
+(lcm of its attention period 8 and MoE period 2; 4 at tiny size).
 """
 
 from __future__ import annotations

@@ -4,9 +4,9 @@ dicts.
 
 Ports ``repro/models/layers.py``: ``dtype_of``, ``dense_init``,
 ``init_norm``/``apply_norm``, ``rms_normalize``, ``init_ffn``/``apply_ffn``,
-``init_embedding``/``embed``/``unembed`` and the NeoX RoPE.  The sharding
-``*_specs``, ``chunked_scan``, ``sinusoidal_positions`` and M-RoPE are not
-on the dense decoder's path and are not ported here.
+``init_embedding``/``embed``/``unembed``, the NeoX RoPE and
+``chunked_scan`` (the SSM mixers' recurrence).  The sharding ``*_specs``,
+``sinusoidal_positions`` and M-RoPE are not ported here.
 
 Conventions, as in the reference: activations flow in
 ``cfg.compute_dtype`` (bf16 by default); parameters and norm math are
@@ -30,7 +30,7 @@ from ..configs.base import ModelConfig
 
 __all__ = ["dtype_of", "dense_init", "const_init", "init_norm", "apply_norm",
            "rms_normalize", "init_ffn", "apply_ffn", "init_embedding",
-           "embed", "unembed", "apply_rope"]
+           "embed", "unembed", "apply_rope", "chunked_scan"]
 
 
 # --------------------------------------------------------------------------
@@ -192,3 +192,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x (B, S, H, hd), positions (B, S)."""
     angles = _rope_angles(positions, x.shape[-1], theta)      # (B, S, hd/2)
     return _rotate(x, angles[..., None, :])                   # broadcast heads
+
+
+# --------------------------------------------------------------------------
+# the SSM mixers' scan
+# --------------------------------------------------------------------------
+
+def chunked_scan(step_fn, init_state: torch.Tensor, xs: tuple,
+                 chunk_size: int):
+    """``scan(step_fn)`` over time: ``step_fn(state, x_t) -> (state, y_t)``
+    with ``x_t`` the tuple of every ``xs`` tensor's row t (leading time
+    axis S).  Returns (the final state, the y_t stacked on a leading
+    axis).
+
+    The reference splits S into chunks of ``chunk_size`` so that its
+    backward (``jax.checkpoint``) stores only the chunk boundaries' states.
+    Inference stores no states, so the port steps once per token over all
+    S in one loop, calling ``step_fn`` in the reference's order.  It keeps
+    the reference's refusal of an S that ``chunk_size`` does not divide
+    (its callers pad)."""
+    s = xs[0].shape[0]
+    if s % chunk_size:
+        raise ValueError(f"time axis {s} not divisible by chunk {chunk_size}")
+    state, ys = init_state, []
+    for t in range(s):
+        state, y = step_fn(state, tuple(a[t] for a in xs))
+        ys.append(y)
+    return state, torch.stack(ys)

@@ -1,5 +1,5 @@
-"""Decoder-only LM for the attention architectures: GQA or MLA mixers with a
-dense or MoE FFN.
+"""Decoder-only LM: GQA, MLA, Mamba or RWKV6 mixers with a dense, MoE or
+(RWKV6's channel mix) no FFN.
 
 Ports ``repro/models/transformer.py``: ``LayerDesc``, ``layer_desc``,
 ``layer_pattern``, the layer (``init_layer``, ``apply_layer``,
@@ -19,8 +19,16 @@ dense architecture, and deepseek's first (dense) layer is the reference's
 ``prelude[0]``.  ``forward`` sums every MoE layer's load-balance and z
 losses into its aux dict, as the reference's.
 
-Mamba and rwkv layers, M-RoPE and the encoder-decoder raise
-``NotImplementedError``: later slices of the port (ROADMAP.md).
+The SSM mixers (``models.ssm``) follow the reference's layer: an rwkv
+layer is norm1 -> time mix -> norm2 -> channel mix with no ``ffn`` leaf;
+a mamba layer (jamba's) takes a dense or MoE FFN like an attention layer.
+``forward`` hands each SSM layer a zero float32 state and drops the new
+one (``layer_init_state``); ``decode`` writes the new state into the
+cache's tensors in place, as the KV cache is written, so that a step on
+views of a larger cache (the serve loop's bucket) lands in it.
+
+M-RoPE and the encoder-decoder raise ``NotImplementedError``: later
+slices of the port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm
 from .layers import (apply_ffn, apply_norm, dtype_of, embed, init_embedding,
                      init_ffn, init_norm, unembed)
 
@@ -91,15 +100,24 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[int, int, List[LayerDesc]]:
     return n_pre, period, descs
 
 
-def _check_ported(cfg: ModelConfig, descs: List[LayerDesc]) -> None:
-    """Raise before anything is allocated for what this slice lacks."""
-    if cfg.mrope_sections:
-        raise attn._later("M-RoPE (qwen2-vl)")
-    for desc in descs:
-        if desc.mixer not in ("attn", "mla"):
-            raise attn._later(f"the {desc.mixer} mixer")
-        if desc.ffn not in ("dense", "moe"):
-            raise attn._later(f"the {desc.ffn} FFN")
+def layer_init_state(cfg: ModelConfig, desc: LayerDesc, batch: int,
+                     device) -> dict | None:
+    """An SSM layer's zero float32 recurrent state (None for attention):
+    the forward's initial state, and the layer's decode cache."""
+    if desc.mixer == "rwkv":
+        return ssm.init_rwkv_state(cfg, batch, device=device)
+    if desc.mixer == "mamba":
+        return ssm.init_mamba_state(cfg, batch, device=device)
+    return None
+
+
+def _write_state(cache: dict, new: dict) -> dict:
+    """Copy a new recurrent state into the cache's tensors (which may be
+    views of a larger cache); returns the cache."""
+    for key, value in new.items():
+        if value is not cache[key]:
+            cache[key].copy_(value)
+    return cache
 
 
 # --------------------------------------------------------------------------
@@ -107,20 +125,24 @@ def _check_ported(cfg: ModelConfig, descs: List[LayerDesc]) -> None:
 # --------------------------------------------------------------------------
 
 class DecoderLayer(nn.Module):
-    """Pre-norm layer: a GQA or MLA mixer and a dense or MoE FFN,
-    sequential (``x + attn``, then ``+ ffn`` of the second norm) or, with
-    ``cfg.parallel_block``, ``x + attn(h) + ffn(h)`` of one norm."""
+    """Pre-norm layer: a GQA, MLA or Mamba mixer and a dense or MoE FFN,
+    sequential (``x + mixer``, then ``+ ffn`` of the second norm) or, with
+    ``cfg.parallel_block``, ``x + mixer(h) + ffn(h)`` of one norm; or an
+    RWKV6 block (time mix, then channel mix of the second norm, no
+    ``ffn``)."""
 
     def __init__(self, cfg: ModelConfig, desc: LayerDesc,
                  gen: torch.Generator):
         super().__init__()
         self.cfg, self.desc = cfg, desc
         self.norm1 = init_norm(gen, cfg)
-        self.mixer = (attn.init_mla(gen, cfg) if desc.mixer == "mla"
-                      else attn.init_attention(gen, cfg))
+        init_mixer = {"attn": attn.init_attention, "mla": attn.init_mla,
+                      "mamba": ssm.init_mamba_block,
+                      "rwkv": ssm.init_rwkv_block}[desc.mixer]
+        self.mixer = init_mixer(gen, cfg)
         self.norm2 = init_norm(gen, cfg)
         self.ffn = (moe_mod.init_moe(gen, cfg) if desc.ffn == "moe"
-                    else init_ffn(gen, cfg))
+                    else init_ffn(gen, cfg) if desc.ffn == "dense" else None)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 force_kernel: bool | None = None, moe_drops=None):
@@ -130,7 +152,16 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         h = apply_norm(self.norm1, x, cfg)
-        if self.desc.mixer == "mla":
+        state = layer_init_state(cfg, self.desc, x.shape[0], x.device)
+        if self.desc.mixer == "rwkv":
+            y, state = ssm.rwkv_time_mix(self.mixer, h, state, cfg)
+            x = x + y
+            h2 = apply_norm(self.norm2, x, cfg)
+            y2, _ = ssm.rwkv_channel_mix(self.mixer, h2, state, cfg)
+            return x + y2, (zero, zero)
+        if self.desc.mixer == "mamba":
+            y, _ = ssm.mamba_forward(self.mixer, h, state, cfg)
+        elif self.desc.mixer == "mla":
             y = attn.mla_forward(self.mixer, h, cfg, positions,
                                  force_kernel=force_kernel)
         else:
@@ -150,13 +181,25 @@ class DecoderLayer(nn.Module):
         """One-token layer step, ``decode_layer``.  ``pos`` is a scalar or
         (B,) per-slot positions; ``proj`` optionally reroutes this layer's
         projections through coded sites: ``{"qkv", "o"}`` feed the GQA or
-        MLA mixer, ``{"up", "down"}`` the dense FFN (a MoE FFN stays
-        uncoded, as in the reference).  Returns (x, cache)."""
+        MLA mixer, ``{"up", "down"}`` the dense FFN (a MoE FFN and the SSM
+        mixers stay uncoded, as in the reference).  Returns (x, cache),
+        the cache written in place.  An rwkv layer runs the time mix's
+        and the channel mix's decode steps; a mamba layer its decode
+        step; each writes its new state into the cache."""
         cfg = self.cfg
         proj = proj or {}
         h = apply_norm(self.norm1, x, cfg)
         mix = {k: proj.get(k) for k in ("qkv", "o")}
-        if self.desc.mixer == "mla":
+        if self.desc.mixer == "rwkv":
+            y, new = ssm.rwkv_decode_step(self.mixer, h, cache, cfg)
+            x = x + y
+            h2 = apply_norm(self.norm2, x, cfg)
+            y2, new = ssm.rwkv_channel_mix_decode(self.mixer, h2, new, cfg)
+            return x + y2, _write_state(cache, new)
+        if self.desc.mixer == "mamba":
+            y, new = ssm.mamba_decode_step(self.mixer, h, cache, cfg)
+            cache = _write_state(cache, new)
+        elif self.desc.mixer == "mla":
             y, cache = attn.mla_decode(self.mixer, h, cache, pos, cfg,
                                        proj=mix)
         else:
@@ -173,8 +216,13 @@ class DecoderLayer(nn.Module):
         return x + apply_ffn(self.ffn, h2, cfg, **ffn_mm), cache
 
     def init_cache(self, batch: int, max_len: int, device) -> dict:
-        """This layer's decode cache (``layer_cache``): ``{k, v}`` for GQA,
-        ``{ckv, kpe}`` for MLA, zeros in the compute dtype."""
+        """This layer's decode cache (``layer_cache``): ``{k, v}`` for GQA
+        and ``{ckv, kpe}`` for MLA, zeros in the compute dtype; the
+        recurrent state for an SSM mixer, float32 zeros (``{tm_x, cm_x,
+        wkv}`` for rwkv, ``{conv, ssm}`` for mamba), as the reference's."""
+        state = layer_init_state(self.cfg, self.desc, batch, device)
+        if state is not None:
+            return state
         if self.desc.mixer == "mla":
             return attn.init_mla_cache(self.cfg, batch, max_len,
                                        device=device)
@@ -190,15 +238,17 @@ class TransformerLM(nn.Module):
 
     Built by ``models.build_model`` on one device from a seeded
     ``torch.Generator``.  On CUDA tensors every attention layer (GQA or
-    MLA) of ``forward`` launches the flash kernel once; run it under
-    ``torch.inference_mode()`` (the kernel has no backward yet).
+    MLA) of ``forward`` launches the flash kernel once (an SSM layer
+    none); run it under ``torch.inference_mode()`` (the kernel has no
+    backward yet).
     """
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         if cfg.encoder_decoder:
             raise attn._later("the encoder-decoder LM (whisper)")
-        _check_ported(cfg, [layer_desc(cfg, i) for i in range(cfg.n_layers)])
+        if cfg.mrope_sections:
+            raise attn._later("M-RoPE (qwen2-vl)")
         self.cfg = cfg
         self.n_pre, self.period, self.descs = layer_pattern(cfg)
         self.n_groups = (cfg.n_layers - self.n_pre) // self.period
@@ -244,8 +294,9 @@ class TransformerLM(nn.Module):
 
     # ---- decode --------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> List[dict]:
-        """One cache dict per layer (``DecoderLayer.init_cache``), zeros
-        in the compute dtype."""
+        """One cache dict per layer (``DecoderLayer.init_cache``): zeros,
+        in the compute dtype for attention and in float32 for an SSM
+        layer's state."""
         dev = self.embedding["table"].device
         return [layer.init_cache(batch, max_len, dev)
                 for layer in self.layers]

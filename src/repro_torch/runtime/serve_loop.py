@@ -30,7 +30,9 @@ Differences from the reference, by design:
 * **The KV cache** is a list of per-layer tensors written in place: a
   bucket's cache is a view of the leading slots (``_slice_cache``), so
   nothing is merged back; compaction after evictions is
-  ``leaf.copy_(leaf[perm])`` and admission zeroes the slot's rows.
+  ``leaf.copy_(leaf[perm])`` and admission zeroes the slot's rows (for
+  an SSM layer its float32 recurrent state, written in place the same
+  way).
 * **Timing.**  The reference runs a pure jitted step twice at a new
   bucket (compile, then timed).  The port's step writes the cache and
   compiles nothing, so each step is timed once between two device
@@ -291,9 +293,13 @@ class ContinuousBatcher:
 
     @staticmethod
     def _zero_slot(cache, i):
-        """Admission reset.  KV reads are position-masked so stale keys
-        are unreachable; the slot starts from zeros all the same, as the
-        reference's does."""
+        """Admission reset: every leaf of slot ``i`` to zeros, as the
+        reference's.  A KV cache's stale keys are unreachable anyway
+        (reads are position-masked), but an SSM layer's recurrent state
+        (rwkv's ``tm_x``/``cm_x``/``wkv``, mamba's ``conv``/``ssm``) is
+        read whole at every step: without the reset a request admitted
+        into a freed slot would start from its previous occupant's
+        state."""
         for layer in cache:
             for leaf in layer.values():
                 leaf[i].zero_()

@@ -27,6 +27,12 @@ against the reference's, its teacher-forced float32 step logits against
 the reference's, its bfloat16 coded step against the port's plain step and
 its encrypted step bit for bit against its plain coded step.
 
+The SSM archs (``rwkv6-1.6b``: no site but the unembed; ``jamba``: its
+attention layer's and dense FFNs' sites, mamba mixers and MoE FFNs
+uncoded) are held the same way, and by exact scheduling; a slot reused
+after an eviction serves its request as a fresh slot does, because
+admission zeroes its recurrent state.
+
 The ``cuda`` cases run on the card and import no JAX.
 """
 
@@ -690,6 +696,190 @@ def test_poisson_workload_matches_reference():
         for g, w in zip(got, want):
             assert (g.rid, g.gen, g.arrival_s) == (w.rid, w.gen, w.arrival_s)
             np.testing.assert_array_equal(g.prompt, w.prompt)
+
+
+# --------------------------------------------------------------------------
+# the SSM archs: rwkv6 (every layer recurrent) and jamba (mamba, attention
+# at one layer in four, MoE at the odd ones)
+# --------------------------------------------------------------------------
+
+SSM_ARCHS = ["rwkv6-1.6b", "jamba-v0.1-52b"]
+# the sites of one tiny layer under "all": rwkv's and a mamba layer's mixer
+# stay uncoded, a mamba layer's dense FFN and jamba's attention do not
+SSM_SITES = {"rwkv6-1.6b": [[], [], [], []],
+             "jamba-v0.1-52b": [["down", "up"], ["o", "qkv"], ["down", "up"],
+                                []]}
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_sites_and_shards_match_reference(arch):
+    """``coded_layers="all"``: which layers have which sites, their metas
+    and shards (mds, exact spec) against the reference's, and the count
+    of site instances a step decodes."""
+    from repro.models.coded import encode_serving_weights as ref_encode
+    from repro.runtime.engine import RoundEngine as RefEngine
+    model, params, _ = _reference("float32", arch)
+    ref_engine = RefEngine(ref_exact_spec("all"))
+    rcode = ref_encode(ref_engine.scheme, model, params, "all")
+    port = _port("float32", arch)
+    engine = RoundEngine(exact_spec("all"), device="cpu")
+    code = encode_serving_weights(engine.scheme, port, "all")
+    assert [sorted(m) for m in code.layer_meta] == SSM_SITES[arch]
+    for i, metas in enumerate(code.layer_meta):
+        g, pos = divmod(i, port.period)
+        for name, meta in metas.items():
+            want = rcode.group_meta[f"pos{pos}"][name]
+            assert dataclasses.astuple(meta) == dataclasses.astuple(want)
+            arr = np.asarray(rcode.arrays["group"][f"pos{pos}"][name])[g]
+            assert _rel(code.layer_shards[i][name], arr) <= SITE_TOL, \
+                (i, name)
+    assert _rel(code.unembed_shards,
+                np.asarray(rcode.arrays["unembed"])) <= SITE_TOL
+    assert code.n_instances == rcode.n_instances == \
+        1 + sum(len(m) for m in SSM_SITES[arch])
+    ref_engine.close()
+    engine.close()
+
+
+@pytest.mark.parametrize("coded_layers", ["unembed", "all"])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_teacher_forced_step_matches_reference(arch, coded_layers):
+    """The reference's coded step and the port's on one teacher-forced
+    stream, float32 compute, the recurrent states carried from step to
+    step: within 1e-4 and with the argmax rule."""
+    want = _ref_stream_logits("float32", coded_layers, arch)
+    got = _port_stream_logits(_port("float32", arch), coded_layers)
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert _rel(g, w) <= LOGIT_TOL["float32"], (t, _rel(g, w))
+        assert not len(_argmax_agrees(g, w, LOGIT_TOL["float32"])), t
+
+
+@pytest.mark.parametrize("coded_layers", ["unembed", "all"])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_coded_step_matches_plain_step_inside_the_port(arch,
+                                                           coded_layers):
+    """bfloat16 compute as served: the coded step against the port's plain
+    step on the same stream, within 2e-2 and with the argmax rule (held
+    inside the port as the MLA case is: the tiny rwkv's bfloat16 logits
+    lie 0.24 of their max from its float32 ones in the reference itself,
+    its group norm rescaling near-cancelling heads)."""
+    model = _port("bfloat16", arch)
+    want = _port_stream_logits(model, "none")
+    got = _port_stream_logits(model, coded_layers)
+    tol = LOGIT_TOL["bfloat16"]
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert _rel(g, w) <= tol, (t, _rel(g, w))
+        assert not len(_argmax_agrees(g, w, tol)), t
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_wired_step_is_bit_identical_to_the_plain_coded_step(arch):
+    model = _port("bfloat16", arch)
+    plain = _port_stream_logits(model, "all")
+    wired = _port_stream_logits(
+        model, "all", spec=exact_spec("all", crypto=CryptoSpec(
+            encrypt="real")), wire=True)
+    for g, w in zip(wired, plain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch,want", [("rwkv6-1.6b", 0.1111),
+                                       ("jamba-v0.1-52b", 0.1492)])
+def test_ssm_coded_fraction_matches_reference(arch, want):
+    """The tiny configs' coded FLOP fraction under ``"all"`` (the served
+    report's), equal to the reference's: the SSM mixers only widen the
+    denominator."""
+    from repro.configs import tiny_config as ref_tiny_config
+    from repro.models.coded import coded_flop_fraction as ref_fraction
+    with Session(ClusterSpec.serve_deadline(coded_layers="all"),
+                 device="cpu") as s:
+        rep = s.serve(arch=arch, tiny=True, batch=2, prompt_len=4, gen=4,
+                      check_agreement=False)
+    got = coded_flop_fraction(tiny_config(arch), "all")
+    assert rep.coded_fraction == got == \
+        ref_fraction(ref_tiny_config(arch), "all")
+    assert round(got, 4) == want
+    assert rep.tokens.shape == (2, 4) and (rep.tokens >= 0).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _ssm_scheduling(arch: str):
+    """The reference's and the port's batcher (``"all"``, float32, 4
+    slots) over the ragged Poisson trace, with the clocks fixed."""
+    from repro.runtime.engine import RoundEngine as RefEngine
+    from repro.runtime.serve_loop import ContinuousBatcher as RefBatcher
+    mp = pytest.MonkeyPatch()
+    _fix_clocks(mp)
+    try:
+        model, params, _ = _reference("float32", arch)
+        ref_engine = RefEngine(ref_exact_spec("all"))
+        ref = RefBatcher(ref_engine, model, params, coded_layers="all",
+                         max_slots=4)
+        engine = RoundEngine(exact_spec("all"), device="cpu")
+        port = ContinuousBatcher(engine, _port("float32", arch),
+                                 coded_layers="all", max_slots=4)
+        reqs = ragged_requests(n=9, seed=11, rate=150.0)
+        out = (ref.run(_ref_requests(reqs)), port.run(reqs))
+        ref_engine.close()
+        engine.close()
+    finally:
+        mp.undo()
+    return out
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_scheduling_matches_reference_exactly(arch):
+    """Admission, eviction (slots refilled with zeroed states), buckets,
+    plans, waits and tokens per request equal the reference's."""
+    ref, port = _ssm_scheduling(arch)
+    assert port.mode == ref.mode == "instep"
+    assert _timeline(port) == _timeline(ref)
+    for a, b in zip(port.requests, ref.requests):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def _reuse_workload():
+    """Five requests at t = 0 over four slots: the first four finish
+    together, and the fifth is admitted into slot 0, which request 0's
+    recurrent state still fills."""
+    rng = np.random.default_rng(7)
+    return [Request(rid=i, prompt=rng.integers(1, 256, 6).astype(np.int32),
+                    gen=6) for i in range(5)]
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_reused_slot_serves_like_a_fresh_one(arch, monkeypatch):
+    """The fifth request's tokens equal those it gets served alone: the
+    admission reset (``ContinuousBatcher._zero_slot``) zeroes every
+    recurrent state leaf of the reused slot.  With the reset skipped, the
+    previous occupant's state leaks into them."""
+    reqs = _reuse_workload()
+    cfg = dataclasses.replace(tiny_config(arch), compute_dtype="float32")
+
+    def fifth(requests):
+        with Session(exact_spec("all"), device="cpu") as s:
+            rep = s.serve(arch=cfg, requests=requests,
+                          check_agreement=False)
+        return next(r for r in rep.requests if r.rid == 4)
+
+    alone = fifth(reqs[4:])
+    shared = fifth(reqs)
+    assert shared.admitted_s > 0            # it waited for a free slot
+    np.testing.assert_array_equal(shared.tokens, alone.tokens)
+    monkeypatch.setattr(ContinuousBatcher, "_zero_slot",
+                        staticmethod(lambda cache, i: cache))
+    leaked = fifth(reqs)
+    assert not np.array_equal(leaked.tokens, alone.tokens)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_launch_serve_serves_the_ssm_archs(arch, capsys):
+    from repro_torch.launch import serve as launch
+    assert launch.main(["--arch", arch, "--tiny", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "4", "--gen", "3",
+                        "--coded-layers", "all"]) == 0
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and "coded[all]" in out
 
 
 # --------------------------------------------------------------------------

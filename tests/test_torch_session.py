@@ -135,14 +135,13 @@ def test_fault_and_adaptive_paths_match_reference(monkeypatch, path):
 
 
 def _unported_serves():
-    return {"ssm_family": (ClusterSpec(), dict(arch="rwkv6-1.6b")),
-            "mrope_family": (ClusterSpec(), dict(arch="qwen2-vl-72b"))}
+    return {"mrope_family": (ClusterSpec(), dict(arch="qwen2-vl-72b"))}
 
 
 @pytest.mark.parametrize("case", sorted(_unported_serves()))
 def test_unported_session_methods_raise(case):
     """``Session.serve`` on what the port lacks: a family of a later slice
-    (SSM, M-RoPE) raises."""
+    (M-RoPE) raises."""
     spec, kw = _unported_serves()[case]
     with Session(spec, device="cpu") as s:
         with pytest.raises(NotImplementedError, match="later slice|ROADMAP"):

@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Eight main paths.  Two are SPACDC coded rounds through
+Eleven main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -72,6 +72,12 @@ through ``berrut_combine`` on the master, the sealed wire
 (``encrypt="real"``) through ``mask_add`` on the master and in every
 worker process, OS-level faults (real SIGKILLs and tampered frames) and
 the serve's round mode over the mesh.
+
+The ninth to the eleventh are the model families of later slices, each
+forward and coded serving at full width: deepseek-v2's MLA and MoE FFN;
+the SSM mixers (rwkv6, jamba); and Qwen2-VL's M-RoPE (qwen2-vl-72b over 8
+and 4 of its 80 layers) with whisper-small's encoder-decoder (forward
+and decode; the serve loop has no encoder-decoder path).
 
 Phases, one JSON line each:
 
@@ -240,6 +246,18 @@ Phases, one JSON line each:
     under ``serve_deadline(coded_layers="all")`` (the encrypted step
     bit-identical, a slot reused after an eviction serving as a fresh
     one).
+
+14. M-RoPE and the encoder-decoder (``mrope_encdec_main_path``): (a) the
+    flash kernel at whisper's head width 64 (encoder full 4096 x 4096,
+    decoder causal 1024 x 1024, cross-attention full 1024 x 4096) and at
+    qwen2-vl's GQA 64/8 (causal 4096); (b) qwen2-vl-72b at full width over
+    8 of its 80 layers, the forward on 1 x 4096 tokens with the three
+    M-RoPE streams of a text-image-text prompt (8 flash launches, float32
+    against the kernels-off forward, against 16 decode steps fed the same
+    streams); (c) its coded serving over 4 of 80 layers; (d) whisper-small
+    at full width and depth, the forward on 4096 frames and 1024 tokens
+    (36 flash launches) and 16 decode steps over the encoder output's
+    4096 cross rows.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -650,6 +668,11 @@ def main() -> int:
     for kname, count in ssm_launches.items():
         launches[kname] += count
 
+    # ---- 14. M-RoPE (qwen2-vl-72b) and the encoder-decoder (whisper-small)
+    p14_launches, p14_flash = mrope_encdec_main_path(torch, dev)
+    for kname, count in p14_launches.items():
+        launches[kname] += count
+
     # --------------------------------------------------------- summary
     n, j, (m, d, n_out) = 30, 27, FULL
     blk = m // 24
@@ -676,9 +699,16 @@ def main() -> int:
                         "bound_by": row["bound_by"],
                         "bound_rate": row["bound_rate"],
                         "library_ms": row["library_ms"]})
-    # the flash kernel at MLA's widths (phase 12 a), beside its main row
-    # and at jamba's GQA shape (phase 13 c)
-    for name, row in (("mla_192_128", mla_row), ("jamba_gqa_128", jamba_row)):
+    # the flash kernel at MLA's widths (phase 12 a), beside its main row,
+    # at jamba's GQA shape (phase 13 c) and at whisper's and qwen2-vl's
+    # (phase 14 a)
+    for name, row in (("mla_192_128", mla_row), ("jamba_gqa_128", jamba_row),
+                      ("whisper_encoder_64",
+                       p14_flash["a_whisper_encoder"]),
+                      ("whisper_decoder_self_64",
+                       p14_flash["a_whisper_decoder_self"]),
+                      ("whisper_cross_64", p14_flash["a_whisper_cross"]),
+                      ("qwen2_vl_gqa_128", p14_flash["a_qwen2_vl"])):
         kernels[-1][name] = {
             key: row[key] for key in ("max_abs_err", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
@@ -1040,14 +1070,18 @@ def model_main_path(torch, dev) -> dict:
     return launches
 
 
-def forward_and_decode(torch, model, tokens, n: int) -> tuple:
+def forward_and_decode(torch, model, tokens, n: int, mrope=None) -> tuple:
     """(the forward's float32 logits on the first n tokens, those of n
-    teacher-forced ``decode_step`` calls)."""
-    full, _ = model(tokens[:, :n])
+    teacher-forced ``decode_step`` calls); ``mrope`` (3, 1, >= n) M-RoPE
+    streams, sliced for the forward and fed (3, 1, 1) to each step."""
+    full, _ = model(tokens[:, :n], mrope_positions=None if mrope is None
+                    else mrope[:, :, :n])
     cache = model.init_cache(1, n)
     steps = []
     for t in range(n):
-        step, cache = model.decode_step(cache, tokens[:, t:t + 1], t)
+        step, cache = model.decode_step(
+            cache, tokens[:, t:t + 1], t, mrope_positions=None
+            if mrope is None else mrope[:, :, t:t + 1])
         steps.append(step[:, 0])
     return full.float(), torch.stack(steps, dim=1).float()
 
@@ -1071,6 +1105,23 @@ FORWARD_CLASSES = (("flash_attention", ("flash_fwd",)),
 # spin kernel, launched around each ``chunked_scan`` of the SSM mixers by
 # ``annotate_scans``) is "scan" whatever its class
 SCAN_MARKER = "spin_kernel"
+# the profile's ends: HEADS marker kernels spinning HEAD_CYCLES (~0.1 ms
+# each at the H100's 1.98 GHz) are launched before the profiled call and
+# one spinning TAIL_CYCLES (~2 ms) after it; the profile reads what lies
+# between the last head seen and the tail.  A trace without the tail lost
+# its end, and one whose scan markers disagree with the host's count of
+# scans lost some of its middle or start: either is taken again, at most
+# PROFILE_TRIES times.  A profiler session drops the first milliseconds of
+# device activity when the tracer has been idle (1-35 ms seen, PERF.md
+# §6), so a throw-away session of HEADS spins runs just before the
+# recorded one, and ``heads_seen`` reports how many of the recorded
+# heads survived (all lost: the call's first activities may be too).
+# The window stays open PROFILE_PAD_S past the tail
+HEADS = 16
+HEAD_CYCLES, TAIL_CYCLES = 200_000, 4_000_000
+HEAD_MIN_NS, TAIL_MIN_NS = 50_000, 1_500_000
+PROFILE_TRIES = 3
+PROFILE_PAD_S = 0.2
 STEP_CLASSES = (("berrut_combine", ("berrut_stream",)),
                 ("coded_matmul", ("encode_split_kernel", "split_b_kernel",
                                   "gemm_3xtf32_kernel")),
@@ -1078,28 +1129,68 @@ STEP_CLASSES = (("berrut_combine", ("berrut_stream",)),
                 ("cublas", ("gemm", "xmma", "cutlass", "nvjet")))
 
 
-def profile_device(torch, fn, classes) -> dict:
+def spins(torch, n: int, cycles: int) -> None:
+    for _ in range(n):
+        torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+
+
+def profile_device(torch, fn, classes, scans=None) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device time by class
     (an activity between an odd and the next ``SCAN_MARKER`` kernel is
     "scan", the rest go by ``classes``' names), the count of device
     activities less the markers (kernels, copies and sets: the launches),
     the top kernels, and the device's idle share of the span from the
-    first activity's start to the last one's end and of the host's wall.
-    It records device activities only and reads the profiler's raw
-    events: an SSM forward launches ~4 x 10^5 kernels, host op events
-    would add ~4 per launch, and the Python event list costs ~66 us an
-    event to build.  Outside the counted main paths."""
+    first activity's start to the last one's end and of the host's wall
+    from the call to the device's end of it.  It records device
+    activities only and reads the profiler's raw events: an SSM forward
+    launches ~4 x 10^5 kernels, host op events would add ~4 per launch,
+    and the Python event list costs ~66 us an event to build.  The call
+    is bracketed by end markers (``HEADS``, ``TAIL_CYCLES``); a trace
+    without the tail, or with scan markers other than twice the host's
+    count of scans during the call (``scans``: that count so far, from
+    ``annotate_scans``), is taken again; ``profile_tries`` says how many
+    calls it took.  Outside the counted main paths."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    device = sorted((e for e in prof.profiler.kineto_results.events()
-                     if e.device_type() == DeviceType.CUDA),
-                    key=lambda e: e.start_ns())
+        with profile(activities=[ProfilerActivity.CUDA]):
+            spins(torch, HEADS, HEAD_CYCLES)      # wakes the tracer
+        n0 = scans() if scans else 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            spins(torch, HEADS, HEAD_CYCLES)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            spins(torch, 1, TAIL_CYCLES)
+            time.sleep(PROFILE_PAD_S)
+        host_scans = scans() - n0 if scans else None
+        device = sorted((e for e in prof.profiler.kineto_results.events()
+                         if e.device_type() == DeviceType.CUDA),
+                        key=lambda e: e.start_ns())
+        ends = [(i, e.duration_ns() >= TAIL_MIN_NS)
+                for i, e in enumerate(device)
+                if SCAN_MARKER in e.name()
+                and e.duration_ns() >= HEAD_MIN_NS]
+        heads = [i for i, tail in ends if not tail]
+        tails = [i for i, tail in ends if tail]
+        whole = len(tails) == 1 and all(i < tails[0] for i in heads)
+        if whole:
+            start = heads[-1] + 1 if heads else 0
+            device = device[start:tails[0]]
+            n_markers = sum(SCAN_MARKER in e.name() for e in device)
+            whole = host_scans is None or n_markers == 2 * host_scans
+        if whole:
+            break
+        emit({"phase": "profile_device", "check": "activities_lost",
+              "try": tries, "activities": len(device),
+              "heads_seen": len(heads), "tails_seen": len(tails),
+              "host_scans": host_scans,
+              "first": [e.name()[:60] for e in device[:3]],
+              "last": [e.name()[:60] for e in device[-3:]]})
+    assert whole, f"the profiler lost activities {PROFILE_TRIES} times"
     by_class = {"scan": 0.0, **{key: 0.0 for key, _ in classes},
                 "other": 0.0}
     launches = dict.fromkeys(by_class, 0)
@@ -1125,6 +1216,8 @@ def profile_device(torch, fn, classes) -> dict:
     span_ms = (last - first) / 1e6 if busy else 0.0
     return {"device_ms_by_class": by_class, "launches_by_class": launches,
             "launches": sum(launches.values()), "scan_calls": markers // 2,
+            "profile_tries": tries, "heads_seen": [len(heads), HEADS],
+            "host_scan_calls": host_scans,
             "device_busy_ms": busy, "device_span_ms": span_ms,
             "profiled_wall_ms": wall_ms,
             "idle_share_of_span": 1.0 - busy / span_ms if busy else None,
@@ -1573,7 +1666,7 @@ def exact_first_step(torch, dev, sizes, data) -> list:
 U32 = 2.0 ** -24
 
 
-def combine_bound_ratio(torch, w, blocks, got, want) -> float:
+def combine_bound_ratio(torch, w, blocks, got, want=None) -> float:
     """Two float32 ``berrut_combine`` results of the same inputs, ``got``
     and ``want``, held elementwise to what float32 rounding can explain:
     the max over the outputs of |got - want| / (2 γ_J (|W| @ |B|)), with
@@ -1584,20 +1677,30 @@ def combine_bound_ratio(torch, w, blocks, got, want) -> float:
     hands it in (float64 numpy or a tensor), cast to float32 as
     ``ops.berrut_combine`` casts it; ``blocks`` the float32 (J, ...)
     payload.  Taken over column chunks of at most 2^26 outputs, so that
-    the float64 temporaries of a large call stay near 0.5 GB each."""
-    assert blocks.dtype == got.dtype == want.dtype == torch.float32
+    the float64 temporaries of a large call stay near 0.5 GB each.
+    ``want`` None: the plain version (``kernels.ref.berrut_combine``, what
+    ``ops.berrut_combine`` runs on the CPU) is run here on each column
+    chunk, so that holding a call costs no second output of its full
+    size."""
+    from repro_torch.kernels import ref
+    assert blocks.dtype == got.dtype == torch.float32
+    assert want is None or want.dtype == torch.float32
     j = blocks.shape[0]
-    w64 = torch.as_tensor(w).to(device=got.device,
-                                dtype=torch.float32).double()
+    w32 = torch.as_tensor(w).to(device=got.device, dtype=torch.float32)
+    w64 = w32.double()
     flat = blocks.reshape(j, -1)
-    got, want = got.reshape(w64.shape[0], -1), want.reshape(w64.shape[0], -1)
+    got = got.reshape(w64.shape[0], -1)
+    if want is not None:
+        want = want.reshape(w64.shape[0], -1)
     gamma2 = 2 * j * U32 / (1 - j * U32)
     step = max(1, (1 << 26) // max(w64.shape[0], 1))
     worst = 0.0
     for c in range(0, flat.shape[1], step):
-        limit = (w64.abs() @ flat[:, c:c + step].double().abs()) * gamma2
-        diff = (got[:, c:c + step].double() -
-                want[:, c:c + step].double()).abs()
+        cols = flat[:, c:c + step]
+        plain = (want[:, c:c + step] if want is not None else
+                 ref.berrut_combine(w32, cols))
+        limit = (w64.abs() @ cols.double().abs()) * gamma2
+        diff = (got[:, c:c + step].double() - plain.double()).abs()
         ratio = torch.where(limit > 0, diff / limit,
                             torch.where(diff > 0, float("inf"), 0.0))
         if ratio.numel():
@@ -2269,10 +2372,10 @@ def exact_spec(coded_layers: str, backend: str = "virtual", fused=None):
 
 def hold_ops_combines(torch, ratios: list):
     """Make every ``ops.berrut_combine`` call in the process also run the
-    plain version on the same inputs and append their
-    ``combine_bound_ratio`` to ``ratios``: the serving weights' encodes
-    (through the scheme) and every coded site's decode (through
-    ``ops.precoded_matmul`` or the wired site), which no scheme's
+    plain version on the same inputs (column chunk by column chunk) and
+    append their ``combine_bound_ratio`` to ``ratios``: the serving
+    weights' encodes (through the scheme) and every coded site's decode
+    (through ``ops.precoded_matmul`` or the wired site), which no scheme's
     ``_combine`` sees.  The plain version launches no kernel, so the
     launch counts stay the serve's.  Returns the function that undoes
     it."""
@@ -2281,8 +2384,7 @@ def hold_ops_combines(torch, ratios: list):
 
     def berrut_combine(weights, blocks, *, force_kernel=None):
         got = run(weights, blocks, force_kernel=force_kernel)
-        want = run(weights, blocks, force_kernel=False)
-        ratios.append(combine_bound_ratio(torch, weights, blocks, got, want))
+        ratios.append(combine_bound_ratio(torch, weights, blocks, got))
         return got
     ops.berrut_combine = berrut_combine
 
@@ -4215,14 +4317,16 @@ def logits_rel(torch, got, want, keep=None, chunk: int = 512) -> dict:
 
 
 def check_model_flash(torch, gen, dev, shape: tuple, phase: str,
-                      check: str) -> dict:
+                      check: str, *, skv: int | None = None,
+                      causal: bool = True) -> dict:
     """The flash kernel at a model's prefill shape (``shape`` = B, S, H,
-    KV, hd (q . k), hd_v; causal) against its plain version: bfloat16 on
-    the TMA route (contiguous) and the plain-load route (views into rows
-    two elements wider), float32 on the CUDA cores; each timed beside the
-    plain version, with its bound and ``scaled_dot_product_attention`` on
-    the same inputs (``enable_gqa`` where KV < H; the backend it picked
-    named by its kernels).  Returns the bfloat16 TMA row."""
+    KV, hd (q . k), hd_v; ``skv`` keys, default S; causal unless told)
+    against its plain version: bfloat16 on the TMA route (contiguous) and
+    the plain-load route (views into rows two elements wider), float32 on
+    the CUDA cores; each timed beside the plain version, with its bound
+    and ``scaled_dot_product_attention`` on the same inputs
+    (``enable_gqa`` where KV < H; the backend it picked named by its
+    kernels).  Returns the bfloat16 TMA row."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4230,29 +4334,31 @@ def check_model_flash(torch, gen, dev, shape: tuple, phase: str,
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      load_width)
     b, s, h, kvh, hd, hd_v = shape
+    skv = s if skv is None else skv
     gqa = {"enable_gqa": True} if kvh < h else {}
     main = None
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split(".")[-1]
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, s, kvh, hd), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, s, kvh, hd_v), generator=gen, device=dev).to(dt)
-        want = ref.mha_reference(q, k, v, causal=True)
+        k = torch.randn((b, skv, kvh, hd), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, skv, kvh, hd_v), generator=gen,
+                        device=dev).to(dt)
+        want = ref.mha_reference(q, k, v, causal=causal)
         routes = [("tma" if dt == torch.bfloat16 else "cuda_cores",
                    (q, k, v))]
         if dt == torch.bfloat16:
             routes.append(("plain_loads", [F.pad(t, (0, 2))[..., :-2]
                                            for t in (q, k, v)]))
         for route, args in routes:
-            got = flash_attention_kernel(*args, causal=True)
+            got = flash_attention_kernel(*args, causal=causal)
             torch.cuda.synchronize()
             assert got.shape == want.shape == (b, s, h, hd_v)
             assert bool(torch.isfinite(got.float()).all())
             err, rel = rel_diff(torch, got, want)
             row = {"phase": phase, "check": check,
                    "kernel": "flash_attention",
-                   "shape": {"B": b, "S": s, "H": h, "KV": kvh, "hd": hd,
-                             "hd_v": hd_v, "causal": True},
+                   "shape": {"B": b, "S": s, "Skv": skv, "H": h, "KV": kvh,
+                             "hd": hd, "hd_v": hd_v, "causal": causal},
                    "dtype": dname, "route": route,
                    "load_width": (load_width(*args)
                                   if dt == torch.bfloat16 else None),
@@ -4260,14 +4366,14 @@ def check_model_flash(torch, gen, dev, shape: tuple, phase: str,
             if route != "plain_loads":
                 row["kernel_ms"] = timed_ms(
                     torch, lambda: flash_attention_kernel(q, k, v,
-                                                          causal=True))
+                                                          causal=causal))
                 row["plain_ms"] = timed_ms(torch, lambda: ref.mha_reference(
-                    q, k, v, causal=True))
+                    q, k, v, causal=causal))
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
                 def sdpa():
                     return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, **gqa)
+                        qt, kt, vt, is_causal=causal, **gqa)
                 try:
                     sdpa()
                 except RuntimeError as exc:   # no backend takes hd_v != hd
@@ -4280,10 +4386,11 @@ def check_model_flash(torch, gen, dev, shape: tuple, phase: str,
                     names = sorted({e.name[:80] for e in prof.events()
                                     if e.device_type == DeviceType.CUDA})
                     row.update(library_ms=timed_ms(torch, sdpa),
-                               library="F.scaled_dot_product_attention, "
-                               "is_causal" + ", enable_gqa" * bool(gqa),
+                               library="F.scaled_dot_product_attention"
+                               + ", is_causal" * causal
+                               + ", enable_gqa" * bool(gqa),
                                library_kernels=names)
-                nbytes, flops = flash_work(b, s, s, h, kvh, hd, True,
+                nbytes, flops = flash_work(b, s, skv, h, kvh, hd, causal,
                                            q.element_size(), hd_v=hd_v)
                 row.update(**bound(nbytes, flops, BF16_TC
                                    if dt == torch.bfloat16 else F32_CUDA),
@@ -4706,11 +4813,13 @@ def annotate_scans(torch):
     kernel (``SCAN_MARKER``, a zero-cycle ``torch.cuda._sleep``) just
     before and just after it, so that a device trace of one stream shows
     where each scan's kernels start and end.  Returns the function that
-    undoes it."""
+    undoes it and the host's count of scan calls so far."""
     from repro_torch.models import ssm
     run = ssm.chunked_scan
+    calls = [0]
 
     def chunked_scan(*args):
+        calls[0] += 1
         torch.cuda._sleep(0)
         try:
             return run(*args)
@@ -4720,7 +4829,7 @@ def annotate_scans(torch):
 
     def undo():
         ssm.chunked_scan = run
-    return undo
+    return undo, lambda: calls[0]
 
 
 def timed_forwards(torch, model, tokens, kernels: dict, total: dict,
@@ -4749,9 +4858,10 @@ def timed_forwards(torch, model, tokens, kernels: dict, total: dict,
         assert logits.dtype == getattr(torch, model.cfg.compute_dtype)
         assert bool(torch.isfinite(logits).all())
         del logits
-        undo = annotate_scans(torch)
+        undo, scans = annotate_scans(torch)
         try:
-            split = profile_device(torch, lambda: model(tokens), SSM_CLASSES)
+            split = profile_device(torch, lambda: model(tokens), SSM_CLASSES,
+                                   scans=scans)
         finally:
             undo()
     fwd = float(np.median(forward_s))
@@ -4765,7 +4875,7 @@ def timed_forwards(torch, model, tokens, kernels: dict, total: dict,
             "peak_memory_gb": peak_gb}
 
 
-def jittered_rel(torch, model, tokens, full) -> float:
+def jittered_rel(torch, model, tokens, full, **kw) -> float:
     """The model's own float32 noise on ``tokens``: max |forward - full|
     over max |full|, the forward run with the embedding table scaled by
     (1 + 2^-23 N), N a seeded standard normal draw (its inputs moved by
@@ -4779,14 +4889,15 @@ def jittered_rel(torch, model, tokens, full) -> float:
             table.shape, generator=g, device=table.device))
         try:
             with torch.inference_mode():
-                jit, _ = model(tokens)
+                jit, _ = model(tokens, **kw)
         finally:
             table.copy_(saved)
     return float((jit.float() - full.float()).abs().max()
                  / full.float().abs().max())
 
 
-def forward_vs_decode_rel(torch, model, tokens, n: int) -> dict:
+def forward_vs_decode_rel(torch, model, tokens, n: int,
+                          mrope=None) -> dict:
     """The forward's logits on the first n tokens against n teacher-forced
     ``decode_step`` calls, over max |forward|, and the float32 rule that
     holds them: 1e-4, or twice the model's own float32 noise
@@ -4797,16 +4908,18 @@ def forward_vs_decode_rel(torch, model, tokens, n: int) -> dict:
     unit variance: where the sum nearly cancels, rounding of r and k is
     rescaled with it."""
     with torch.inference_mode():
-        full, inc = forward_and_decode(torch, model, tokens, n)
+        full, inc = forward_and_decode(torch, model, tokens, n, mrope)
     rel = float((inc - full).abs().max() / full.abs().max())
-    noise = jittered_rel(torch, model, tokens[:, :n], full)
+    noise = jittered_rel(torch, model, tokens[:, :n], full,
+                         mrope_positions=None if mrope is None
+                         else mrope[:, :, :n])
     return {"steps": n, "rel": rel, "own_float32_noise": noise,
             "tol": max(LOGIT_TOL["float32"], 2 * noise),
             "argmax_agreement": float((inc.argmax(-1) == full.argmax(-1))
                                       .float().mean())}
 
 
-def ssm_requests(cfg):
+def slot_requests(cfg):
     """``SSM_REQUESTS`` requests at t = 0 of ``SSM_PROMPT`` prompt tokens
     and ``SSM_GEN`` to generate, prompts from a seeded generator: over
     ``SSM_SLOTS`` slots the first four finish together and the fifth is
@@ -4819,13 +4932,15 @@ def ssm_requests(cfg):
             for i in range(SSM_REQUESTS)]
 
 
-def ssm_serving(torch, dev, cfg, gen, kernels: dict, total: dict,
-                label: str, hold_bf16: bool) -> None:
-    """(b) and (d): ``cfg`` served under ``serve_deadline(coded_layers=
-    "all")`` over ``SSM_SLOTS`` slots (counted: one ``berrut_combine`` per
-    site at the encode and per step, every call held); on the served
-    code, the ``encrypt="real"`` step bit-identical to the plain coded
-    step with every ``mask_add`` call held; the exact spec's
+def model_serving(torch, dev, cfg, gen, kernels: dict, total: dict,
+                  label: str, hold_bf16: bool,
+                  phase: str = "ssm_main_path") -> None:
+    """Phase 13 (b) and (d), phase 14 (c): ``cfg`` served under
+    ``serve_deadline(coded_layers="all")`` over ``SSM_SLOTS`` slots
+    (counted: one ``berrut_combine`` per site at the encode and per step,
+    every call held); on the served code, the ``encrypt="real"`` step
+    bit-identical to the plain coded step with every ``mask_add`` call
+    held; the exact spec's
     teacher-forced coded logits against the plain step's (MoE choices
     replayed), bfloat16 as served (held at 2e-2 when ``hold_bf16``, else
     reported) and in float32 compute (held at 1e-4); the fifth request
@@ -4845,11 +4960,10 @@ def ssm_serving(torch, dev, cfg, gen, kernels: dict, total: dict,
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
-    phase = "ssm_main_path"
     serve = ServeSpec(coded_layers="all", max_slots=SSM_SLOTS)
     spec = dataclasses.replace(ClusterSpec.serve_deadline(coded_layers="all"),
                                serve=serve)
-    reqs = ssm_requests(cfg)
+    reqs = slot_requests(cfg)
     ratios = []
     free()
     before_gb = torch.cuda.memory_allocated() / 1e9
@@ -4938,6 +5052,7 @@ def ssm_serving(torch, dev, cfg, gen, kernels: dict, total: dict,
         assert all(ok for *_, ok in held), row
         s._serve_batchers.clear()
         del plain_step, wired_step, enc, code
+        free()              # the served shards' cached blocks back too
 
         # the exact spec (mds, all 8 waited for): teacher-forced coded
         # logits against the plain decode step's, bfloat16 as served
@@ -5000,11 +5115,12 @@ def ssm_serving(torch, dev, cfg, gen, kernels: dict, total: dict,
     assert tf["flips_outside_near_ties"] == 0, row
 
 
-def attention_in_situ(torch, model, layers_in_out: list) -> dict:
+def attention_in_situ(torch, model, layers_in_out: list,
+                      mrope=None) -> dict:
     """{layer: max |kernel - plain| over max |plain|} of every GQA
     attention layer's mixer, fed that layer's input from a recorded
     forward (``capture_layers``), through the flash kernel and through
-    the plain version."""
+    the plain version; ``mrope`` the forward's M-RoPE streams."""
     from repro_torch.models.attention import attn_forward
     from repro_torch.models.layers import apply_norm
     cfg = model.cfg
@@ -5019,9 +5135,11 @@ def attention_in_situ(torch, model, layers_in_out: list) -> dict:
                 continue
             h = apply_norm(layer.norm1, x_in, cfg)
             y_k = attn_forward(layer.mixer, h, cfg, positions,
-                               use_rope=layer.desc.rope)
+                               use_rope=layer.desc.rope,
+                               mrope_positions=mrope)
             y_p = attn_forward(layer.mixer, h, cfg, positions,
-                               use_rope=layer.desc.rope, force_kernel=False)
+                               use_rope=layer.desc.rope,
+                               mrope_positions=mrope, force_kernel=False)
             out[i] = rel_diff(torch, y_k, y_p)[1]
     return out
 
@@ -5034,7 +5152,7 @@ def ssm_main_path(torch, dev) -> tuple:
     split (the scans' launches told apart by ``annotate_scans``), idle
     share and launches, peak memory; the forward against 16 decode steps
     in float32 compute (held, ``forward_vs_decode_rel``) and bf16 (reported).
-    (b) its coded serving (``ssm_serving``: the unembed its one site).
+    (b) its coded serving (``model_serving``: the unembed its one site).
     (c) jamba-v0.1-52b at full width over one period of its pattern (8 of
     32 layers): the flash kernel at its attention's shape against its
     plain version (``check_model_flash``); the bf16 forward on 1 x 4096
@@ -5118,8 +5236,8 @@ def ssm_main_path(torch, dev) -> tuple:
     assert fvd["rel"] <= fvd["tol"], row
 
     # ---- (b) rwkv6-1.6b: coded serving, the unembed its one site
-    ssm_serving(torch, dev, rwkv, gen, kernels, total, "b_rwkv",
-                hold_bf16=True)
+    model_serving(torch, dev, rwkv, gen, kernels, total, "b_rwkv",
+                  hold_bf16=True)
 
     # ---- (c) jamba: flash at its attention's shape, then the forward
     flash_row = check_model_flash(torch, gen, dev, JAMBA_FLASH, phase,
@@ -5199,13 +5317,377 @@ def ssm_main_path(torch, dev) -> tuple:
     assert fvd["rel"] <= fvd["tol"], row
 
     # ---- (d) jamba: coded serving, 11 sites
-    ssm_serving(torch, dev, jamba, gen, kernels, total, "d_jamba",
-                hold_bf16=False)
+    model_serving(torch, dev, jamba, gen, kernels, total, "d_jamba",
+                  hold_bf16=False)
     emit({"phase": phase, "check": "phase_total", "launches": total,
           "phase_s": time.perf_counter() - phase_t0})
     assert total["flash_attention"] == 2 * n_attn, total
     assert total["berrut_combine"] > 0 and total["mask_add"] > 0, total
     return total, flash_row
+
+
+# --------------------------------------------------------------------------
+# phase 14: M-RoPE (qwen2-vl-72b) and the encoder-decoder (whisper-small)
+# --------------------------------------------------------------------------
+
+def vl_positions(b: int, s: int, text_before, grid: tuple):
+    """(3, b, s) int32 numpy M-RoPE streams (temporal, height, width) of a
+    synthetic vision-language prompt laid out as in Qwen2-VL (arXiv:
+    2409.12191): row i has ``text_before[i]`` text tokens at t = h = w =
+    position, then one image of ``grid`` = (rows, cols) patches at (t0,
+    t0 + row, t0 + col) with t0 the next position, then text again from
+    the largest position so far plus one, to length s."""
+    import numpy as np
+    rows, cols = grid
+    out = np.zeros((3, b, s), np.int32)
+    for i in range(b):
+        n = int(text_before[i])
+        pos = [(p, p, p) for p in range(n)]
+        pos += [(n, n + r, n + c) for r in range(rows) for c in range(cols)]
+        nxt = n + max(rows, cols)
+        while len(pos) < s:
+            pos.append((nxt, nxt, nxt))
+            nxt += 1
+        out[:, i] = np.asarray(pos[:s], np.int32).T
+    return out
+
+
+VL_ARCH = "qwen2-vl-72b"
+WHISPER_ARCH = "whisper-small"
+# qwen2-vl-72b at full width (d 8192, 64 heads over 8 KV heads of 128,
+# d_ff 29568, vocab 152064, qkv bias), cut in depth: its 80 layers hold
+# 72.7 B parameters, 291 GB in float32.  The forward keeps 8 (9.5 B, 38
+# GB); serving keeps 4 (6.0 B, 24 GB), with 38 GB of shards at N/K = 2,
+# and 8 would need ~104 GB
+VL_FORWARD_LAYERS = 8
+VL_SERVE_LAYERS = 4
+# the forward's synthetic vision-language prompt (``vl_positions``): 1024
+# text tokens, one image of 32 x 32 patches, then text to MODEL_TOKENS
+VL_TEXT_BEFORE = 1024
+VL_GRID = (32, 32)
+# the decode check's prompt: 4 text tokens, 3 x 3 patches, 3 text tokens
+VL_FVD = (4, (3, 3))
+FVD_STEPS = 16
+# the room phase 14 asks of the card: qwen2-vl's serving peak, 77.13 GB on
+# the H100 (the parameters, the layers' shards and the unembed's encode:
+# its blocks, their stack with the noise block and its 10 GB of shards),
+# and a margin
+VL_ROOM_GB = 78.0
+# whisper-small at full width and depth on a 4096-frame prefill: the
+# decoder takes 4096 // dec_len_ratio = 1024 tokens (``input_specs``)
+WHISPER_FRAMES = 4096
+# the flash kernel at phase 14's shapes: (check, (B, Sq, H, KV, hd, hd_v),
+# Skv, causal), as the models call it
+PHASE14_FLASH = (
+    ("a_whisper_encoder", (1, 4096, 12, 12, 64, 64), 4096, False),
+    ("a_whisper_decoder_self", (1, 1024, 12, 12, 64, 64), 1024, True),
+    ("a_whisper_cross", (1, 1024, 12, 12, 64, 64), 4096, False),
+    ("a_qwen2_vl", (1, 4096, 64, 8, 128, 128), 4096, True))
+
+
+def hold_flash_calls(torch, rows: list):
+    """Make every ``ops.flash_attention`` call in the process also run the
+    plain version on the same q, k and v and append ``{causal, Sq, Skv,
+    rel}`` (max |kernel - plain| over max |plain|) to ``rows``.  The
+    plain version launches no kernel.  Returns the function that undoes
+    it."""
+    from repro_torch.kernels import ops, ref
+    run = ops.flash_attention
+
+    def flash_attention(q, k, v, *, causal=True, softcap=0.0,
+                        force_kernel=None):
+        got = run(q, k, v, causal=causal, softcap=softcap,
+                  force_kernel=force_kernel)
+        want = ref.mha_reference(q, k, v, causal=causal, softcap=softcap)
+        rows.append({"causal": causal, "Sq": q.shape[1], "Skv": k.shape[1],
+                     "rel": rel_diff(torch, got, want)[1]})
+        return got
+    ops.flash_attention = flash_attention
+
+    def undo():
+        ops.flash_attention = run
+    return undo
+
+
+def timed_counted(torch, kernels: dict, total: dict, fn, want: dict,
+                  runs: int = 3) -> tuple:
+    """``runs`` calls of ``fn`` between device syncs, each counted from
+    zero and launching exactly ``want``: (the last result, wall seconds
+    of each, the peak memory in GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for r in range(runs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, got = counted(kernels, total, fn)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        assert got == want, (r, got, want)
+    return out, walls, torch.cuda.max_memory_allocated() / 1e9
+
+
+def mrope_encdec_main_path(torch, dev) -> tuple:
+    """Phase 14: M-RoPE and the encoder-decoder on the card, weights
+    float32 from seed 0, compute bf16.  (a) the flash kernel at whisper's
+    head width 64 (the encoder's full 4096 x 4096, the decoder's causal
+    1024 x 1024, cross-attention's full 1024 x 4096) and at qwen2-vl's GQA
+    64/8 (causal 4096), each against its plain version
+    (``check_model_flash``).  (b) qwen2-vl-72b at full width over 8 of its
+    80 layers on 1 x 4096 tokens with the M-RoPE streams of a synthetic
+    vision-language prompt (``vl_positions``: text, a 32 x 32 patch grid,
+    text): the forward counted (8 flash launches) and timed, a profiled
+    forward's device split and idle share, the peak memory; measured: the
+    bf16 logits against the kernels-off forward's, and against the same
+    forward on plain RoPE (identical before the image, different after);
+    held: every layer's attention through the kernel against the plain
+    version on its own input (2e-2), the float32-compute forward against
+    the kernels-off one (1e-4), and the float32 forward against 16 decode
+    steps fed the same (3, 1, 1) streams (1e-4, or twice the model's own
+    float32 noise where larger).  (c) its coded serving at full width over
+    4 of 80 layers (``model_serving``: 17 sites, the encrypted step, the
+    teacher-forced logits).  (d) whisper-small at full width and depth on
+    4096 seeded bf16 frames and 1024 tokens: the forward counted (36 flash
+    launches) and timed; held: every flash call of a bf16 forward against
+    the plain version on its inputs (2e-2), the float32 forward against
+    the kernels-off one (1e-4), and 16 decode steps from a cache whose
+    cross rows (``CROSS_LEN`` = 4096) are each layer's ``project_kv`` of
+    the encoder output, against the float32 forward (1e-4).  Returns (the
+    counted launches, {check: the bfloat16 flash row of (a)}).  Phase 14
+    alone: ``build_kernels(torch)`` then ``mrope_encdec_main_path(torch,
+    torch.device("cuda"))``."""
+    import gc
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import project_kv
+    from repro_torch.models.encdec import CROSS_LEN
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel}
+    total = {k: 0 for k in kernels}
+    phase = "mrope_encdec_main_path"
+    phase_t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    free()
+    vl = dataclasses.replace(get_config(VL_ARCH),
+                             n_layers=VL_FORWARD_LAYERS)
+    vl_serve = dataclasses.replace(vl, n_layers=VL_SERVE_LAYERS)
+    whisper = get_config(WHISPER_ARCH)
+    free_b, total_b = torch.cuda.mem_get_info()
+    room = {"phase": phase, "check": "room", "free_gb": free_b / 1e9,
+            "card_gb": total_b / 1e9,
+            "allocated_here_gb": torch.cuda.memory_allocated() / 1e9,
+            "param_count": {VL_ARCH: get_config(VL_ARCH).param_count(),
+                            f"{VL_ARCH}[:{VL_FORWARD_LAYERS}]":
+                                vl.param_count(),
+                            f"{VL_ARCH}[:{VL_SERVE_LAYERS}]":
+                                vl_serve.param_count(),
+                            WHISPER_ARCH: whisper.param_count()},
+            "asked_gb": VL_ROOM_GB}
+    emit(room)
+    assert free_b / 1e9 >= VL_ROOM_GB, \
+        f"phase 14 needs {VL_ROOM_GB} GB free on the card: {room}"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    no_launch = dict.fromkeys(kernels, 0)
+
+    # ---- (a) the flash kernel at the new shapes
+    flash_rows = {}
+    for check, shape, skv, causal in PHASE14_FLASH:
+        flash_rows[check] = check_model_flash(torch, gen, dev, shape, phase,
+                                              check, skv=skv, causal=causal)
+        free()
+
+    # ---- (b) qwen2-vl-72b over 8 layers: the forward, counted from zero
+    tokens = torch.randint(0, vl.vocab_size, (1, MODEL_TOKENS),
+                           generator=gen, device=dev)
+    mrope = torch.from_numpy(vl_positions(
+        1, MODEL_TOKENS, [VL_TEXT_BEFORE], VL_GRID)).to(dev)
+    t0 = time.perf_counter()
+    model = build_model(vl, seed=0)                       # on the card
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.inference_mode():
+        (logits, _), forward_s, peak_gb = timed_counted(
+            torch, kernels, total,
+            lambda: model(tokens, mrope_positions=mrope),
+            dict(no_launch, flash_attention=vl.n_layers))
+        assert tuple(logits.shape) == (1, MODEL_TOKENS, vl.vocab_size)
+        assert logits.dtype == torch.bfloat16
+        assert bool(torch.isfinite(logits).all())
+        breakdown = profile_device(
+            torch, lambda: model(tokens, mrope_positions=mrope),
+            FORWARD_CLASSES)
+        plain, _ = model(tokens, mrope_positions=mrope, force_kernel=False)
+        cmp_b = logits_rel(torch, logits, plain)
+        del plain
+        # M-RoPE against plain RoPE at arange: the same before the image
+        # (three equal streams), not after it
+        rope, _ = model(tokens)
+        diff = (rope[0].float() - logits[0].float()).abs().amax(dim=-1)
+        scale = float(logits.float().abs().max())
+        vs_rope = {"max_abs_before_image": float(diff[:VL_TEXT_BEFORE].max()),
+                   "rel_from_image_on": float(diff[VL_TEXT_BEFORE:].max())
+                   / scale}
+        del rope, diff
+        layers_k, undo_hooks = capture_layers(model)
+        try:
+            model(tokens, mrope_positions=mrope)
+        finally:
+            undo_hooks()
+        in_situ = attention_in_situ(torch, model, layers_k, mrope)
+    del logits, layers_k, model
+    free()
+    model = build_model(dataclasses.replace(vl, compute_dtype="float32"),
+                        seed=0)
+    with torch.inference_mode():
+        logits, _ = model(tokens, mrope_positions=mrope)
+        plain, _ = model(tokens, mrope_positions=mrope, force_kernel=False)
+        cmp_f32 = logits_rel(torch, logits, plain)
+    del logits, plain
+    fvd_mrope = torch.from_numpy(vl_positions(
+        1, FVD_STEPS, [VL_FVD[0]], VL_FVD[1])).to(dev)
+    fvd = forward_vs_decode_rel(torch, model, tokens, FVD_STEPS, fvd_mrope)
+    del model
+    free()
+    row = {"phase": phase, "check": "b_qwen2_vl_forward", "arch": vl.name,
+           "layers": [vl.n_layers, get_config(VL_ARCH).n_layers],
+           "tokens": [1, MODEL_TOKENS], "params": n_params,
+           "d_model": vl.d_model, "heads": [vl.n_heads, vl.n_kv_heads],
+           "head_dim": vl.head_dim_, "d_ff": vl.d_ff,
+           "vocab": vl.vocab_size, "mrope_sections": list(vl.mrope_sections),
+           "prompt": {"text_before": VL_TEXT_BEFORE, "grid": list(VL_GRID),
+                      "max_position": int(mrope.max())},
+           "compute_dtype": vl.compute_dtype, "build_s": build_s,
+           "forward_s": forward_s,
+           "tokens_per_s": MODEL_TOKENS / float(np.median(forward_s)),
+           "launches_per_forward": dict(no_launch,
+                                        flash_attention=vl.n_layers),
+           "breakdown": breakdown, "peak_memory_gb": peak_gb,
+           "b_kernel_vs_plain_bf16": cmp_b,
+           "b_mrope_vs_plain_rope_bf16": vs_rope,
+           "b_attention_in_situ_rel": in_situ, "b_tol": TOL["bfloat16"],
+           "b_float32_kernel_vs_plain": cmp_f32,
+           "b_forward_vs_decode_f32": dict(
+               fvd, streams=fvd_mrope[:, 0].tolist())}
+    emit(row)
+    assert len(in_situ) == vl.n_layers, row
+    assert max(in_situ.values()) <= TOL["bfloat16"], row
+    assert cmp_f32["rel_all"] <= LOGIT_TOL["float32"], row
+    assert vs_rope["rel_from_image_on"] > 0.0, row
+    assert fvd["rel"] <= fvd["tol"], row
+
+    # ---- (c) qwen2-vl-72b over 4 layers: coded serving, 17 sites
+    model_serving(torch, dev, vl_serve, gen, kernels, total, "c_qwen2_vl",
+                  hold_bf16=True, phase=phase)
+    free()
+
+    # ---- (d) whisper-small at full width and depth
+    frames = torch.randn((1, WHISPER_FRAMES, whisper.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    n_dec = max(WHISPER_FRAMES // whisper.dec_len_ratio, 16)
+    wtoks = torch.randint(0, whisper.vocab_size, (1, n_dec), generator=gen,
+                          device=dev)
+    n_flash = whisper.n_encoder_layers + 2 * whisper.n_layers
+    t0 = time.perf_counter()
+    model = build_model(whisper, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    with torch.inference_mode():
+        (logits, _), forward_s, peak_gb = timed_counted(
+            torch, kernels, total, lambda: model(frames, wtoks),
+            dict(no_launch, flash_attention=n_flash))
+        assert tuple(logits.shape) == (1, n_dec, whisper.vocab_size)
+        assert logits.dtype == torch.bfloat16
+        assert bool(torch.isfinite(logits).all())
+        breakdown = profile_device(torch, lambda: model(frames, wtoks),
+                                   FORWARD_CLASSES)
+        plain, _ = model(frames, wtoks, force_kernel=False)
+        cmp_b = logits_rel(torch, logits, plain)
+        del plain
+        calls = []
+        undo = hold_flash_calls(torch, calls)
+        try:
+            model(frames, wtoks)
+        finally:
+            undo()
+    del logits, model
+    free()
+    in_situ = {"encoder": [c["rel"] for c in calls[:whisper.n_encoder_layers]],
+               "self": [c["rel"] for c in calls[whisper.n_encoder_layers::2]],
+               "cross": [c["rel"] for c in
+                         calls[whisper.n_encoder_layers + 1::2]]}
+    shapes = sorted({(c["causal"], c["Sq"], c["Skv"]) for c in calls})
+    model = build_model(dataclasses.replace(whisper, compute_dtype="float32"),
+                        seed=0)
+    with torch.inference_mode():
+        logits, _ = model(frames, wtoks)
+        plain, _ = model(frames, wtoks, force_kernel=False)
+        cmp_f32 = logits_rel(torch, logits, plain)
+        del logits, plain
+        # 16 decode steps over the encoder output's 4096 cross rows
+        full, _ = model(frames, wtoks[:, :FVD_STEPS])
+        enc = model.encode(frames)
+        cache = model.init_cache(1, FVD_STEPS)
+        for layer, lc in zip(model.decoder, cache):
+            k, v = project_kv(layer.cross_attn, enc, model.cfg)
+            lc["cross"]["k"].copy_(k)
+            lc["cross"]["v"].copy_(v)
+        steps = []
+        for t in range(FVD_STEPS):
+            step, cache = model.decode_step(cache, wtoks[:, t:t + 1], t)
+            steps.append(step[:, 0])
+        inc = torch.stack(steps, dim=1).float()
+        full = full.float()
+        fvd = {"steps": FVD_STEPS, "cross_rows": CROSS_LEN,
+               "rel": float((inc - full).abs().max() / full.abs().max()),
+               "tol": LOGIT_TOL["float32"],
+               "argmax_agreement": float((inc.argmax(-1) == full.argmax(-1))
+                                         .float().mean())}
+    del model, cache, enc, full, inc
+    free()
+    row = {"phase": phase, "check": "d_whisper_forward", "arch": whisper.name,
+           "layers": [whisper.n_encoder_layers, whisper.n_layers],
+           "frames": [1, WHISPER_FRAMES], "tokens": [1, n_dec],
+           "params": n_params, "d_model": whisper.d_model,
+           "heads": [whisper.n_heads, whisper.head_dim_],
+           "d_ff": whisper.d_ff, "vocab": whisper.vocab_size,
+           "compute_dtype": whisper.compute_dtype, "build_s": build_s,
+           "forward_s": forward_s,
+           "frames_per_s": WHISPER_FRAMES / float(np.median(forward_s)),
+           "launches_per_forward": dict(no_launch, flash_attention=n_flash),
+           "breakdown": breakdown, "peak_memory_gb": peak_gb,
+           "d_kernel_vs_plain_bf16": cmp_b,
+           "d_flash_calls_in_situ_rel": in_situ,
+           "d_flash_call_shapes": shapes, "d_tol": TOL["bfloat16"],
+           "d_float32_kernel_vs_plain": cmp_f32,
+           "d_decode_vs_forward_f32": fvd}
+    emit(row)
+    assert len(calls) == n_flash, row
+    assert shapes == sorted([(False, WHISPER_FRAMES, WHISPER_FRAMES),
+                             (False, n_dec, WHISPER_FRAMES),
+                             (True, n_dec, n_dec)]), row
+    assert max(max(v) for v in in_situ.values()) <= TOL["bfloat16"], row
+    assert cmp_f32["rel_all"] <= LOGIT_TOL["float32"], row
+    assert fvd["rel"] <= fvd["tol"], row
+    emit({"phase": phase, "check": "phase_total", "launches": total,
+          "phase_s": time.perf_counter() - phase_t0})
+    assert total["flash_attention"] == 3 * vl.n_layers + 3 * n_flash, total
+    assert total["berrut_combine"] > 0 and total["mask_add"] > 0, total
+    return total, flash_rows
 
 
 def run_one(spec, a, b, worker_t=None):

@@ -28,13 +28,16 @@ weights rounded to float32 bit for bit.
 Serving (``ServeReport``, ``Session.serve``) drives the continuous-batching
 loop of ``runtime.serve_loop`` over a model built on the session's device
 (``models.build_model`` from a seeded generator; ``arch`` may also be a
-``ModelConfig``, e.g. one whose depth is cut): the dense GQA families and
-deepseek-v2's MLA with its MoE FFN (MLA's wq|w_dkv and wo sites coded, the
-MoE FFN uncoded, as in the reference), and the SSM families (rwkv6, whose
-only coded site is the unembed, and jamba, whose attention layers and
-dense FFNs are coded and whose mamba mixers and MoE FFNs are not).
-Families the port does not have yet (M-RoPE, the encoder-decoder) raise
-``NotImplementedError``.  As in the
+``ModelConfig``, e.g. one whose depth is cut): the dense GQA families
+(qwen2-vl among them: its decode takes plain RoPE, as the reference's
+serve loop decodes it) and deepseek-v2's MLA with its MoE FFN (MLA's
+wq|w_dkv and wo sites coded, the MoE FFN uncoded, as in the reference),
+and the SSM families (rwkv6, whose only coded site is the unembed, and
+jamba, whose attention layers and dense FFNs are coded and whose mamba
+mixers and MoE FFNs are not).  The encoder-decoder (whisper) is refused
+with ``ValueError`` before anything is built: the reference's serve loop
+has no encoder-decoder path (its ``Session.serve`` fails on it with
+``KeyError: 'prelude'``).  As in the
 reference, the serve loop reads neither ``FaultSpec`` nor
 ``AdaptiveSpec``.
 
@@ -389,12 +392,14 @@ class Session:
         (0 = all at t=0; with a uniform workload ``tokens`` is exactly
         (batch, gen)).  ``admission="gated"`` reproduces the static-batch
         baseline.  ``check_agreement`` replays the workload uncoded and
-        reports the fraction of coded tokens that match.
+        reports the fraction of coded tokens that match.  An
+        encoder-decoder config raises ``ValueError``.
         """
         self._check_open()
         from ..configs import get_config, tiny_config
         from ..models import build_model
-        from ..runtime.serve_loop import ContinuousBatcher, poisson_workload
+        from ..runtime.serve_loop import (ContinuousBatcher, poisson_workload,
+                                          refuse_encoder_decoder)
 
         mkey = (arch, tiny, seed)
         if mkey not in self._serve_models:
@@ -402,6 +407,7 @@ class Session:
                 cfg = tiny_config(arch) if tiny else get_config(arch)
             else:
                 cfg = arch
+            refuse_encoder_decoder(cfg)
             self._serve_models[mkey] = build_model(cfg, device=self.device,
                                                    seed=seed)
         model = self._serve_models[mkey]

@@ -9,8 +9,10 @@ their slots refilled, and each decode step runs as ONE coded round under a
 ``--coded-layers`` selects how much of the step is coded — from just the
 unembed projection up to every attention/FFN projection (``all``, virtual
 transport).  ``--transport threads`` serves the unembed as a real round
-per step.  ``--arch`` takes every decoder-only family the port has (the
-dense GQA ones, deepseek-v2's MLA and MoE, rwkv6 and jamba).
+per step.  ``--arch`` takes every decoder-only family (the dense GQA
+ones, qwen2-vl, deepseek-v2's MLA and MoE, rwkv6 and jamba);
+``--arch whisper-small`` raises ``ValueError`` before anything is built,
+since the reference's serve loop has no encoder-decoder path.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --tiny \\
       --requests 8 --rate 20 --prompt-len 16 --gen 32 --deadline-ms 8 \\
@@ -77,6 +79,10 @@ def main(argv=None):
                     help="torch device (default: the card; 'cpu' runs the "
                     "plain versions of the kernels)")
     args = ap.parse_args(argv)
+    from ..configs import get_config, tiny_config
+    from ..runtime.serve_loop import refuse_encoder_decoder
+    refuse_encoder_decoder(tiny_config(args.arch) if args.tiny
+                           else get_config(args.arch))
 
     n_requests = args.requests if args.requests is not None else \
         (args.batch if args.batch is not None else 8)

@@ -1,13 +1,13 @@
-"""Attention: GQA with qkv bias, qk-norm and RoPE, and DeepSeek-V2's MLA
-(forward and decode).
+"""Attention: GQA with qkv bias, qk-norm, RoPE or M-RoPE, cross-attention,
+and DeepSeek-V2's MLA (forward and decode).
 
 Ports ``repro/models/attention.py``: the GQA module (``init_attention``,
-``_project_qkv``, ``attn_forward``, ``init_kv_cache``, ``_dus_seq``,
-``_decode_positions``, ``attn_decode``) and multi-head latent attention
-(``init_mla``, ``_mla_qc``, ``mla_forward``, ``init_mla_cache``,
-``mla_decode``).  Parameters keep the reference's
-layouts: ``wq`` (d, H, hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d),
-biases (H or KV, hd), qk-norm scales (hd,).  Each einsum of the reference
+``_project_qkv``, ``attn_forward``, ``project_kv``, ``init_kv_cache``,
+``_dus_seq``, ``_decode_positions``, ``attn_decode``) and multi-head latent
+attention (``init_mla``, ``_mla_qc``, ``mla_forward``, ``init_mla_cache``,
+``mla_decode``).  Parameters keep the reference's layouts: ``wq`` (d, H,
+hd), ``wk``/``wv`` (d, KV, hd), ``wo`` (H, hd, d), biases (H or KV, hd),
+qk-norm scales (hd,).  Each einsum of the reference
 runs here as one matmul over the flattened head axes.
 
 The full-sequence forward (train / prefill) goes through
@@ -16,7 +16,19 @@ CUDA tensors, the dense ``ref.mha_reference`` for CPU tensors.  The
 reference passes explicit positions to its blockwise XLA attention, but in
 the forward they are always ``arange(S)`` for both queries and keys
 (``transformer.py:307``, ``attention.py:254``), which is exactly what the
-kernel's implicit positions compute.
+kernel's implicit positions compute.  With ``cfg.mrope_sections`` and
+``mrope_positions`` (3, B, S) given, q and k take Qwen2-VL's M-RoPE
+(``layers.apply_mrope``) in place of RoPE; the attention's own positions
+stay implicit, as in the reference, whose blockwise attention masks by
+``positions`` whatever rotated q and k.
+
+Cross-attention (whisper's decoder, ``attn_forward(kv=(k, v,
+kv_positions))``) projects only q (and its bias) from x and attends,
+unmasked, over k and v precomputed from the encoder output by
+``project_kv``.  The reference's ``kv_positions`` only mask padded keys
+(position -1) in its blockwise attention; the encoder output has none,
+so the kernel's full (non-causal) attention over all Skv keys computes
+the same thing and the positions are not read.
 
 Decode is one-token attention against a KV cache, the reference's plain
 einsum softmax, at a scalar ``pos`` (uniform across the batch) or a
@@ -25,6 +37,8 @@ updated in place (the reference returns a new one), also when the leaf is
 a view of a larger cache (the serve loop's bucket); ``attn_decode``
 returns the same dict.  ``proj`` reroutes the q|k|v and output projections
 (the coded serving path); everything else is shared with the plain path.
+``attn_decode(cross_kv={"k", "v"})`` is the decoder's cross-attention
+step: q from x, every cached encoder row valid, no cache write.
 
 MLA keeps the reference's leaves: ``wq`` (d, H, nope + rope), ``w_dkv``
 (d, lora + rope), ``kv_norm`` (lora,), ``w_uk`` (lora, H, nope), ``w_uv``
@@ -38,8 +52,9 @@ absorbed form: scores in the lora latent space against a cache of ``ckv``
 in place like the GQA cache; ``proj`` reroutes the wq|w_dkv and wo
 projections, while the per-head latent maps ``w_uk``/``w_uv`` stay here.
 
-Not ported yet, and raising ``NotImplementedError``: cross-attention
-(``kv=``, whisper), M-RoPE and the int8 KV cache.
+Not ported yet, and raising ``NotImplementedError``: the int8 KV cache.
+The flash kernel has no backward: on the card it raises on inputs that
+require grad.
 """
 
 from __future__ import annotations
@@ -49,11 +64,12 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import (apply_rope, const_init, dense_init, dtype_of,
-                     rms_normalize)
+from .layers import (apply_mrope, apply_rope, const_init, dense_init,
+                     dtype_of, rms_normalize)
 
-__all__ = ["init_attention", "attn_forward", "init_kv_cache", "attn_decode",
-           "init_mla", "mla_forward", "init_mla_cache", "mla_decode"]
+__all__ = ["init_attention", "attn_forward", "project_kv", "init_kv_cache",
+           "attn_decode", "init_mla", "mla_forward", "init_mla_cache",
+           "mla_decode"]
 
 
 def _later(what: str) -> NotImplementedError:
@@ -90,11 +106,20 @@ def _proj(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
     return (x @ w.to(cd).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
+def _project_q(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The query projection (+ bias) alone: cross-attention's."""
+    cd = dtype_of(cfg, "compute")
+    q = _proj(x.to(cd), p["wq"], cd)
+    return q + p["bq"].to(cd) if cfg.qkv_bias else q
+
+
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, use_rope: bool, matmul=None):
+                 positions: torch.Tensor, use_rope: bool,
+                 mrope_positions=None, matmul=None):
     """``matmul`` (optional) replaces only the three projections: the coded
     serve path runs them as one stacked coded site; bias, qk-norm and RoPE
-    stay here either way."""
+    (M-RoPE where the config has sections and ``mrope_positions`` (3, B,
+    S) is given) stay here either way."""
     cd = dtype_of(cfg, "compute")
     if matmul is not None:
         q, k, v = matmul(x)
@@ -109,8 +134,14 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
         q = rms_normalize(q) * p["q_norm"].to(cd)
         k = rms_normalize(k) * p["k_norm"].to(cd)
     if use_rope and cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope_sections and mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta)
+            k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -122,21 +153,43 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig,
 
     ``positions`` (B, S) must be ``arange(S)`` in every row, as the
     reference's forward passes them: they drive RoPE, and the attention
-    itself takes the same positions implicitly.  ``force_kernel`` is
-    ``kernels.ops.flash_attention``'s (None: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors).
+    itself takes the same positions implicitly.  ``mrope_positions`` (3,
+    B, S) drive M-RoPE instead where the config has sections.  ``kv`` =
+    (k (B, Skv, KV, hd), v, kv_positions) makes it cross-attention: q
+    alone is projected from x, and attends to all Skv keys (pass
+    ``causal=False``, as the reference's encoder-decoder does).
+    ``force_kernel`` is ``kernels.ops.flash_attention``'s (None: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors).
     """
-    if kv is not None:
-        raise _later("cross-attention (kv=, whisper)")
-    if mrope_positions is not None:
-        raise _later("M-RoPE (mrope_positions=)")
     cd = dtype_of(cfg, "compute")
     x = x.to(cd)
-    q, k, v = _project_qkv(p, x, cfg, positions, use_rope)
+    if kv is None:
+        q, k, v = _project_qkv(p, x, cfg, positions, use_rope,
+                               mrope_positions)
+    else:
+        q = _project_q(p, x, cfg)
+        k, v = kv[0], kv[1]
     out = ops.flash_attention(q, k, v, causal=causal,
                               softcap=cfg.attn_logit_softcap,
                               force_kernel=force_kernel)
     return out.flatten(2) @ p["wo"].to(cd).flatten(0, 1)
+
+
+def project_kv(p, x: torch.Tensor, cfg: ModelConfig, positions=None,
+               use_rope: bool = False):
+    """Cross-attention's k and v (B, S, KV, hd) from the encoder output x
+    (B, S, d), computed once per forward (or per decode cache): the k|v
+    projections and their biases, and RoPE on k only where asked (never
+    for whisper, whose ``rope_theta`` is 0)."""
+    cd = dtype_of(cfg, "compute")
+    x = x.to(cd)
+    k, v = _proj(x, p["wk"], cd), _proj(x, p["wv"], cd)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    if use_rope and cfg.rope_theta > 0:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
 
 
 # ---- decode ---------------------------------------------------------------
@@ -177,26 +230,39 @@ def _decode_positions(b: int, pos, device) -> torch.Tensor:
     return torch.full((b, 1), int(pos), dtype=torch.int32, device=device)
 
 
-def attn_decode(p, x: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
-                use_rope: bool = True, proj=None):
+def attn_decode(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *,
+                use_rope: bool = True, mrope_positions=None, cross_kv=None,
+                proj=None):
     """One-token decode.  x (B, 1, d); ``pos`` the scalar current length,
     uniform across the batch, or (B,) per-slot positions (ragged
-    continuous-batching decode).  ``proj`` (optional) = ``{"qkv": fn,
-    "o": fn}`` overrides of the projection matmuls (the coded serve path);
-    bias, qk-norm, RoPE, the cache write and the softmax are shared with
-    the plain path.  Returns (y (B, 1, d), cache), the cache written in
-    place at ``pos``."""
+    continuous-batching decode).  ``mrope_positions`` (3, B, 1) drive
+    M-RoPE where the config has sections (None: RoPE at ``pos``, which is
+    M-RoPE with three equal streams).  ``proj`` (optional) = ``{"qkv":
+    fn, "o": fn}`` overrides of the projection matmuls (the coded serve
+    path); bias, qk-norm, RoPE, the cache write and the softmax are shared
+    with the plain path.  Returns (y (B, 1, d), cache), the cache written
+    in place at ``pos``.
+
+    ``cross_kv`` = ``{"k", "v"}`` (B, L, KV, hd) makes it cross-attention:
+    q (+ bias) from x over all L cached rows, no write; ``cache`` is
+    returned as given (the reference passes None)."""
     cd = dtype_of(cfg, "compute")
     b = x.shape[0]
     proj = proj or {}
     positions = _decode_positions(b, pos, x.device)
-    q, k_new, v_new = _project_qkv(p, x.to(cd), cfg, positions, use_rope,
-                                   matmul=proj.get("qkv"))
-    k = _dus_seq(cache["k"], k_new, pos)
-    v = _dus_seq(cache["v"], v_new, pos)
-    kv_len = k.shape[1]
-    span = torch.arange(kv_len, device=x.device)[None, :]
-    valid = span <= (positions if _per_slot(pos) else int(pos))
+    if cross_kv is not None:
+        q = _project_q(p, x, cfg)
+        k, v = cross_kv["k"], cross_kv["v"]
+        valid = torch.ones((b, k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+    else:
+        q, k_new, v_new = _project_qkv(p, x.to(cd), cfg, positions,
+                                       use_rope, mrope_positions,
+                                       matmul=proj.get("qkv"))
+        k = _dus_seq(cache["k"], k_new, pos)
+        v = _dus_seq(cache["v"], v_new, pos)
+        span = torch.arange(k.shape[1], device=x.device)[None, :]
+        valid = span <= (positions if _per_slot(pos) else int(pos))
 
     kvh, hd = k.shape[2], q.shape[-1]
     g = q.shape[2] // kvh

@@ -1,9 +1,10 @@
 """Carry the JAX package's model parameters into the port.
 
-``load_jax_params(model, tree)`` takes the reference's ``TransformerLM``
-parameter pytree as nested dicts and lists of numpy arrays (a caller with
-JAX makes it with ``jax.tree.map(np.asarray, params)``; the port itself
-never sees JAX) and copies it into a ``models.TransformerLM``.
+``load_jax_params(model, tree)`` takes the reference's ``TransformerLM`` or
+``EncDecLM`` parameter pytree as nested dicts and lists of numpy arrays (a
+caller with JAX makes it with ``jax.tree.map(np.asarray, params)``; the
+port itself never sees JAX) and copies it into the port's model of the
+same kind.
 
 The reference stacks its scanned layers: every leaf under
 ``groups["pos{i}"]`` has a leading axis of G groups, and group g's leaf is
@@ -15,6 +16,13 @@ embeddings have no ``unembed`` leaf on either side.  The SSM families
 need nothing more: an rwkv layer's leaves are ``norm1``, ``norm2`` and its
 ``mixer``'s (no ``ffn``), and jamba's groups are stacked with period 8
 (lcm of its attention period 8 and MoE period 2; 4 at tiny size).
+Qwen2-VL's tree is the dense one (M-RoPE has no parameters).
+
+The encoder-decoder's ``encoder`` leaves are stacked over its
+``n_encoder_layers`` and its ``decoder`` leaves over ``n_layers``:
+``encoder.<g>.<leaf>`` is ``encoder[leaf][g]``, ``decoder.<g>.<leaf>``
+likewise; ``embedding``, ``enc_norm`` and ``final_norm`` keep their
+layout.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from .encdec import EncDecLM
 from .transformer import TransformerLM
 
 __all__ = ["load_jax_params"]
@@ -40,31 +49,43 @@ def _flatten(prefix: str, node, out: Dict[str, np.ndarray]) -> None:
         out[prefix] = np.asarray(node)
 
 
-def _layer_leaves(model: TransformerLM,
-                  tree: Mapping) -> Dict[str, np.ndarray]:
+def _unstack(where: str, node, n: int, name_of,
+             flat: Dict[str, np.ndarray]) -> None:
+    """Every leaf of ``node``, stacked on a leading axis of ``n``, as
+    ``flat[name_of(g, leaf path)] = leaf[g]``."""
+    stacked: Dict[str, np.ndarray] = {}
+    _flatten("", node, stacked)
+    for name, arr in stacked.items():
+        if arr.ndim == 0 or arr.shape[0] != n:
+            raise ValueError(f"{where}.{name}: leading axis {arr.shape[:1]} "
+                             f"is not the model's {n}")
+        for g in range(n):
+            flat[name_of(g, name)] = arr[g]
+
+
+def _layer_leaves(model, tree: Mapping) -> Dict[str, np.ndarray]:
     """The reference's pytree as {port parameter name: array}."""
+    stacks = ({"encoder": len(model.encoder), "decoder": len(model.decoder)}
+              if isinstance(model, EncDecLM) else {})
     flat: Dict[str, np.ndarray] = {}
     for key, node in tree.items():
-        if key not in ("prelude", "groups"):
+        if key in stacks:
+            _unstack(key, node, stacks[key],
+                     lambda g, name, key=key: f"{key}.{g}.{name}", flat)
+        elif key not in ("prelude", "groups"):
             _flatten(key, node, flat)
     for j, layer in enumerate(tree.get("prelude", [])):
         _flatten(f"layers.{j}", layer, flat)
     for pos, group in tree.get("groups", {}).items():
         i = int(str(pos).removeprefix("pos"))
-        stacked: Dict[str, np.ndarray] = {}
-        _flatten("", group, stacked)
-        for name, arr in stacked.items():
-            if arr.ndim == 0 or arr.shape[0] != model.n_groups:
-                raise ValueError(f"groups.{pos}.{name}: leading axis "
-                                 f"{arr.shape[:1]} is not the model's "
-                                 f"{model.n_groups} groups")
-            for g in range(model.n_groups):
-                n = model.n_pre + g * model.period + i
-                flat[f"layers.{n}.{name}"] = arr[g]
+        _unstack(f"groups.{pos}", group, model.n_groups,
+                 lambda g, name: f"layers."
+                 f"{model.n_pre + g * model.period + i}.{name}", flat)
     return flat
 
 
-def load_jax_params(model: TransformerLM, tree: Mapping) -> TransformerLM:
+def load_jax_params(model: TransformerLM | EncDecLM,
+                    tree: Mapping) -> TransformerLM | EncDecLM:
     """Copy the reference's parameter pytree into ``model`` in place and
     return it.  Raises ``ValueError`` on a missing or extra leaf or a
     shape mismatch, before anything is copied."""

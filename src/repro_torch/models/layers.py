@@ -4,9 +4,10 @@ dicts.
 
 Ports ``repro/models/layers.py``: ``dtype_of``, ``dense_init``,
 ``init_norm``/``apply_norm``, ``rms_normalize``, ``init_ffn``/``apply_ffn``,
-``init_embedding``/``embed``/``unembed``, the NeoX RoPE and
-``chunked_scan`` (the SSM mixers' recurrence).  The sharding ``*_specs``,
-``sinusoidal_positions`` and M-RoPE are not ported here.
+``init_embedding``/``embed``/``unembed``, the NeoX RoPE, Qwen2-VL's
+M-RoPE (``apply_mrope``), whisper's ``sinusoidal_positions`` and
+``chunked_scan`` (the SSM mixers' recurrence).  The sharding ``*_specs``
+have no counterpart: the port runs on one device.
 
 Conventions, as in the reference: activations flow in
 ``cfg.compute_dtype`` (bf16 by default); parameters and norm math are
@@ -30,7 +31,8 @@ from ..configs.base import ModelConfig
 
 __all__ = ["dtype_of", "dense_init", "const_init", "init_norm", "apply_norm",
            "rms_normalize", "init_ffn", "apply_ffn", "init_embedding",
-           "embed", "unembed", "apply_rope", "chunked_scan"]
+           "embed", "unembed", "apply_rope", "apply_mrope",
+           "sinusoidal_positions", "chunked_scan"]
 
 
 # --------------------------------------------------------------------------
@@ -164,7 +166,7 @@ def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# positions: RoPE
+# positions: RoPE, M-RoPE, sinusoidal
 # --------------------------------------------------------------------------
 
 def _rope_angles(positions: torch.Tensor, head_dim: int,
@@ -192,6 +194,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x (B, S, H, hd), positions (B, S)."""
     angles = _rope_angles(positions, x.shape[-1], theta)      # (B, S, hd/2)
     return _rotate(x, angles[..., None, :])                   # broadcast heads
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections, theta: float) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE.  x (B, S, H, hd); positions3 (3, B, S), the
+    temporal, height and width streams; ``sections`` sum to hd/2: frequency
+    band i of section j takes its angle from stream j.  Three equal
+    streams give ``apply_rope``'s result bit for bit."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"hd/2 = {half}")
+    streams = _rope_angles(positions3, x.shape[-1], theta)  # (3, B, S, half)
+    pieces, start = [], 0
+    for i, sec in enumerate(sections):
+        pieces.append(streams[i, ..., start:start + sec])
+        start += sec
+    angles = torch.cat(pieces, dim=-1)                      # (B, S, half)
+    return _rotate(x, angles[..., None, :])
+
+
+def sinusoidal_positions(n: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """(n, d) absolute position table: float32 angles pos / 10000^(2i/d),
+    sin over the first d/2 columns and cos over the rest, cast to
+    ``dtype``."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / 10000.0 ** (2.0 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)],
+                     dim=-1).to(dtype)
 
 
 # --------------------------------------------------------------------------

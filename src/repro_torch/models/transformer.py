@@ -27,8 +27,15 @@ one (``layer_init_state``); ``decode`` writes the new state into the
 cache's tensors in place, as the KV cache is written, so that a step on
 views of a larger cache (the serve loop's bucket) lands in it.
 
-M-RoPE and the encoder-decoder raise ``NotImplementedError``: later
-slices of the port (ROADMAP.md).
+Qwen2-VL's M-RoPE rides on the GQA layer: ``forward``, ``loss_fn`` (the
+batch's ``mrope_positions``) and ``decode_step`` hand (3, B, S) position
+streams down to ``attention.attn_forward``/``attn_decode``; without them
+the layer takes plain RoPE, as the reference's does (and as its serve
+loop's decode does).  The encoder-decoder (whisper) is
+``models.encdec.EncDecLM``.  Still raising: the int8 KV cache
+(``init_cache`` of a config with ``kv_cache_dtype="int8"``) and the flash
+kernel's backward (a forward on the card outside ``torch.inference_mode()``
+or ``torch.no_grad()``).
 """
 
 from __future__ import annotations
@@ -145,9 +152,11 @@ class DecoderLayer(nn.Module):
                     else init_ffn(gen, cfg) if desc.ffn == "dense" else None)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                force_kernel: bool | None = None, moe_drops=None):
+                mrope_positions=None, force_kernel: bool | None = None,
+                moe_drops=None):
         """Full-sequence layer (train / prefill), ``apply_layer``.
         Returns (x, (lb_loss, z_loss)), zeros for a dense FFN;
+        ``mrope_positions`` (3, B, S) reach a GQA mixer's M-RoPE;
         ``moe_drops`` is ``moe.moe_ffn``'s ``drops``."""
         cfg = self.cfg
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -167,6 +176,7 @@ class DecoderLayer(nn.Module):
         else:
             y = attn.attn_forward(self.mixer, h, cfg, positions,
                                   use_rope=self.desc.rope,
+                                  mrope_positions=mrope_positions,
                                   force_kernel=force_kernel)
         if cfg.parallel_block:
             return x + y + apply_ffn(self.ffn, h, cfg), (zero, zero)
@@ -177,9 +187,11 @@ class DecoderLayer(nn.Module):
             return x + f, (lb, z)
         return x + apply_ffn(self.ffn, h2, cfg), (zero, zero)
 
-    def decode(self, x: torch.Tensor, cache: dict, pos, *, proj=None):
+    def decode(self, x: torch.Tensor, cache: dict, pos, *,
+               mrope_positions=None, proj=None):
         """One-token layer step, ``decode_layer``.  ``pos`` is a scalar or
-        (B,) per-slot positions; ``proj`` optionally reroutes this layer's
+        (B,) per-slot positions; ``mrope_positions`` (3, B, 1) reach a GQA
+        mixer's M-RoPE; ``proj`` optionally reroutes this layer's
         projections through coded sites: ``{"qkv", "o"}`` feed the GQA or
         MLA mixer, ``{"up", "down"}`` the dense FFN (a MoE FFN and the SSM
         mixers stay uncoded, as in the reference).  Returns (x, cache),
@@ -204,7 +216,9 @@ class DecoderLayer(nn.Module):
                                        proj=mix)
         else:
             y, cache = attn.attn_decode(self.mixer, h, cache, pos, cfg,
-                                        use_rope=self.desc.rope, proj=mix)
+                                        use_rope=self.desc.rope,
+                                        mrope_positions=mrope_positions,
+                                        proj=mix)
         ffn_mm = {"matmul_up": proj.get("up"),
                   "matmul_down": proj.get("down")}
         if cfg.parallel_block:
@@ -245,10 +259,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
-        if cfg.encoder_decoder:
-            raise attn._later("the encoder-decoder LM (whisper)")
-        if cfg.mrope_sections:
-            raise attn._later("M-RoPE (qwen2-vl)")
         self.cfg = cfg
         self.n_pre, self.period, self.descs = layer_pattern(cfg)
         self.n_groups = (cfg.n_layers - self.n_pre) // self.period
@@ -262,12 +272,12 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, *, mrope_positions=None,
                 force_kernel: bool | None = None, moe_drops=None):
         """tokens (B, S) -> (logits (B, S, V), aux dict with the summed
-        ``lb_loss`` and ``z_loss`` of the MoE layers).  ``force_kernel``
-        reaches every layer's ``kernels.ops.flash_attention``;
-        ``moe_drops`` (optional list) gets each MoE layer's count of
-        capacity-dropped (token, choice) pairs, in layer order."""
-        if mrope_positions is not None:
-            raise attn._later("M-RoPE (mrope_positions=)")
+        ``lb_loss`` and ``z_loss`` of the MoE layers).  ``mrope_positions``
+        (3, B, S) are the M-RoPE streams of a config with sections (None:
+        plain RoPE).  ``force_kernel`` reaches every layer's
+        ``kernels.ops.flash_attention``; ``moe_drops`` (optional list) gets
+        each MoE layer's count of capacity-dropped (token, choice) pairs,
+        in layer order."""
         cfg = self.cfg
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32,
@@ -276,7 +286,9 @@ class TransformerLM(nn.Module):
         lb_tot = z_tot = torch.zeros((), dtype=torch.float32,
                                      device=tokens.device)
         for layer in self.layers:
-            x, (lb, z) = layer(x, positions, force_kernel=force_kernel,
+            x, (lb, z) = layer(x, positions,
+                               mrope_positions=mrope_positions,
+                               force_kernel=force_kernel,
                                moe_drops=moe_drops)
             lb_tot, z_tot = lb_tot + lb, z_tot + z
         x = apply_norm(self.final_norm, x, cfg)
@@ -284,7 +296,8 @@ class TransformerLM(nn.Module):
         return logits, {"lb_loss": lb_tot, "z_loss": z_tot}
 
     def loss_fn(self, batch: dict):
-        """batch: tokens (B, S), targets (B, S) -> (loss, metrics)."""
+        """batch: tokens (B, S), targets (B, S), optionally
+        mrope_positions (3, B, S) -> (loss, metrics)."""
         logits, aux = self.forward(batch["tokens"],
                                    mrope_positions=batch.get(
                                        "mrope_positions"))
@@ -302,16 +315,19 @@ class TransformerLM(nn.Module):
                 for layer in self.layers]
 
     def decode_step(self, cache: List[dict], tokens: torch.Tensor, pos, *,
-                    return_hidden: bool = False):
+                    mrope_positions=None, return_hidden: bool = False):
         """tokens (B, 1), ``pos`` a scalar or (B,) per-slot positions ->
         (logits (B, 1, V), cache); the cache is written in place.
+        ``mrope_positions`` (3, B, 1) are the M-RoPE streams of this token
+        (None: plain RoPE at ``pos``, as the serve loop decodes).
         ``return_hidden`` yields the final-norm hidden state (B, 1, d)
         instead of logits (the serve loop's round mode runs the unembed as
         a coded round)."""
         cfg = self.cfg
         x = embed(self.embedding, tokens, cfg)
         for i, layer in enumerate(self.layers):
-            x, cache[i] = layer.decode(x, cache[i], pos)
+            x, cache[i] = layer.decode(x, cache[i], pos,
+                                       mrope_positions=mrope_positions)
         x = apply_norm(self.final_norm, x, cfg)
         if return_hidden:
             return x, cache

@@ -45,6 +45,11 @@ Differences from the reference, by design:
   ``berrut_combine`` per coded-site instance (1 for ``"unembed"``,
   4·L + 1 for ``"all"``) plus four ``mask_add`` per site under
   ``encrypt="real"``; 0 on the CPU and in ``plain`` mode.
+
+``refuse_encoder_decoder`` is the serving entry points' refusal of the
+encoder-decoder (whisper): the reference's loop, which slices a
+``TransformerLM`` cache, fails on it (``KeyError: 'prelude'``), so neither
+package has an encoder-decoder serve path.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ from ..kernels.ops import kernel_launches
 from .engine import RoundStats, _sync
 
 __all__ = ["Request", "ServedRequest", "ServeResult", "poisson_workload",
-           "ContinuousBatcher"]
+           "refuse_encoder_decoder", "ContinuousBatcher"]
 
 
 @dataclasses.dataclass
@@ -186,6 +191,16 @@ def _next_pow2(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def refuse_encoder_decoder(cfg) -> None:
+    """Raise ``ValueError`` for an encoder-decoder config: the serve loop
+    decodes decoder-only caches, and the reference's has no
+    encoder-decoder path either."""
+    if cfg.encoder_decoder:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: the reference's "
+                         "serve loop has no encoder-decoder path, and "
+                         "neither has the port's")
 
 
 class ContinuousBatcher:

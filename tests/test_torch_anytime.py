@@ -439,7 +439,16 @@ def test_real_thread_stray_worker_failure_surfaces_next_round():
 def test_real_thread_distributed_matmul_with_policy():
     """The reference's test, then the round's output against the plain
     decode of its own responder set and against the reference's round on
-    the same responders (the T noise handed in)."""
+    the same responders (the T noise handed in).
+
+    Nothing here rests on wall-clock timing.  Which six workers answer
+    first on real threads depends on the machine's load: the stragglers'
+    50 ms margin, and the reference's worker threads compiling their
+    first product, can reorder arrivals when other processes hold the
+    cores.  So the reference's round is its virtual-clock round with the
+    straggler delays set to put the port's responders first, and the
+    threads are held to the straggler model by what sleeping guarantees:
+    every worker arrived no earlier than its injected delay."""
     from repro.runtime import FirstK as RefFirstK
     from repro.runtime import StragglerModel as RefModel
     from repro.runtime.master_worker import DistributedMatmul as RefDM
@@ -448,22 +457,28 @@ def test_real_thread_distributed_matmul_with_policy():
     dist = DistributedMatmul("spacdc", straggler=st, wait_policy=FirstK(6),
                              device="cpu", **kw)
     dist.pool.real_threads = True
-    ref = RefDM("spacdc", straggler=RefModel(8, 2, delay_s=0.05,
-                                             jitter_scale=1e-4, seed=1),
-                wait_policy=RefFirstK(6), **kw)
-    ref.pool.real_threads = True
+    ref_st = RefModel(8, 2, delay_s=0.05, jitter_scale=1e-4, seed=1)
+    ref = RefDM("spacdc", straggler=ref_st, wait_policy=RefFirstK(6), **kw)
     noise = _ref_noise(ref, *A.shape)
     out, stats = dist.matmul(A, B, round_idx=0, noise=noise)
     assert stats.n_waited == 6
     assert tuple(out.shape) == (256, 32) and bool(torch.isfinite(out).all())
+    delays = st.delays(0)
+    np.testing.assert_array_equal(delays, ref_st.delays(0))
+    assert len(stats.arrivals) >= 6
+    for t_s, w in stats.arrivals:         # each thread slept its delay
+        assert t_s >= delays[w], (w, t_s, delays[w])
     resp = sorted(w for _, w in stats.arrivals[:6])
-    slow = set(np.argsort(st.delays(0))[6:].tolist())
-    assert not slow & set(resp)           # the stragglers never decoded
     enc = dist.scheme.encode(torch.from_numpy(A), noise)
     plain = dist.scheme.decode(
         torch.stack([enc[i] @ torch.from_numpy(B) for i in resp]), resp)
     assert _rel(out, dist.scheme.reconstruct_matmul(plain, 256, 32)) <= 1e-6
+    # the reference's virtual-clock round, its delays putting the port's
+    # responders first
+    forced = np.where(np.isin(np.arange(8), resp), 0.0, 1.0)
+    ref_st.delays = lambda round_idx: forced
     want, wst = ref.matmul(A, B, round_idx=0)
+    assert wst.n_waited == 6
     assert sorted(w for _, w in wst.arrivals[:6]) == resp
     assert _rel(out, want) <= DEC_TOL
     dist.close()

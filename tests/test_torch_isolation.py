@@ -53,6 +53,7 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/models/transformer.py",
                  "src/repro_torch/models/moe.py",
                  "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/models/encdec.py",
                  "src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/configs/base.py",
                  "src/repro_torch/models/coded.py",

@@ -4,7 +4,10 @@ on the CPU.
 For each dense architecture (``qwen2-7b`` with qkv bias and G = 2,
 ``qwen3-14b`` with qk-norm and an explicit head_dim, ``phi3-mini`` with KV
 = H, ``command-r`` with the parallel block, layernorm and tied
-embeddings) and each MoE one (``deepseek-v2-lite-16b``: MLA, a dense
+embeddings) and ``qwen2-vl-72b`` (qkv bias and M-RoPE, fed three
+distinct position streams: text, an image's patch grid, text again; with
+equal streams M-RoPE is plain RoPE and a section-order bug would not
+show) and each MoE one (``deepseek-v2-lite-16b``: MLA, a dense
 prelude layer and MoE layers with shared experts; ``llama4-scout``: GQA,
 top-1 routing and NoPE layers) and each SSM one (``rwkv6-1.6b``:
 every layer an RWKV6 time and channel mix; ``jamba-v0.1-52b``: mamba
@@ -42,6 +45,8 @@ The port's own forward-vs-decode contract is held as the reference's
 
 import dataclasses
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -51,9 +56,10 @@ from repro_torch.configs import tiny_config
 from repro_torch.models import build_model, load_jax_params
 
 DENSE = ["qwen2-7b", "qwen3-14b", "phi3-mini-3.8b", "command-r-35b"]
+VLM = ["qwen2-vl-72b"]
 MOE = ["deepseek-v2-lite-16b", "llama4-scout-17b-a16e"]
 SSM = ["rwkv6-1.6b", "jamba-v0.1-52b"]
-MODELS = DENSE + MOE + SSM
+MODELS = DENSE + VLM + MOE + SSM
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MARGIN = 1e-3
 B, S = 2, 16
@@ -102,6 +108,32 @@ def _tokens(arch: str, seed: int = 0, b: int = B, s: int = S):
         np.int32)
 
 
+def _chip_smoke():
+    """``chip_smoke.py``, whose M-RoPE prompt layout these tests share."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mrope(arch: str, b: int = B, s: int = S):
+    """(3, b, s) int32 M-RoPE streams for an arch with sections, else
+    None: row i has 1 + i text tokens, then a 2 x 3 grid of image patches,
+    then text (``chip_smoke.vl_positions``), so the three streams differ."""
+    if not tiny_config(arch).mrope_sections:
+        return None
+    return _chip_smoke().vl_positions(b, s, [1 + i for i in range(b)],
+                                      (2, 3))
+
+
+def _mrope_kw(arch: str, b: int = B, s: int = S, torch_side: bool = False):
+    m = _mrope(arch, b, s)
+    if m is None:
+        return {}
+    return {"mrope_positions": torch.from_numpy(m) if torch_side else m}
+
+
 def _rel(got, want, keep=None) -> float:
     """max |got - want| over max |want|; with ``keep`` (B, S) only at the
     kept positions (the denominator stays the whole of ``want``)."""
@@ -114,7 +146,7 @@ def _rel(got, want, keep=None) -> float:
     return float(np.max(diff) / np.max(np.abs(want)))
 
 
-def _routed_forward(model, toks: np.ndarray, monkeypatch):
+def _routed_forward(model, toks: np.ndarray, monkeypatch, **kw):
     """The forward with every MoE router call's top-k margins recorded.
     Returns (its result, keep (B, S) bool:
     the positions before their sequence's first margin <= MARGIN in any
@@ -131,7 +163,7 @@ def _routed_forward(model, toks: np.ndarray, monkeypatch):
 
     monkeypatch.setattr(moe, "_router", recording)
     with torch.no_grad():
-        out = model.forward(torch.from_numpy(toks))
+        out = model.forward(torch.from_numpy(toks), **kw)
     monkeypatch.setattr(moe, "_router", router)
     near = torch.zeros(toks.shape, dtype=torch.bool)
     for m in margins:
@@ -176,9 +208,11 @@ def test_forward_matches_reference(arch, dtype, monkeypatch):
     import jax
     ref_model, params, _ = _reference(arch, dtype)
     toks = _tokens(arch)
-    want, want_aux = jax.jit(ref_model.forward)(params, toks)
+    want, want_aux = jax.jit(ref_model.forward)(params, toks,
+                                                **_mrope_kw(arch))
     model = _port(arch, dtype)
-    (got, aux), keep = _routed_forward(model, toks, monkeypatch)
+    (got, aux), keep = _routed_forward(model, toks, monkeypatch,
+                                       **_mrope_kw(arch, torch_side=True))
     assert got.dtype == getattr(torch, dtype)
     tol = 1e-4 if dtype == "float32" else 2e-2
     for name in ("lb_loss", "z_loss"):
@@ -195,7 +229,7 @@ def test_forward_matches_reference(arch, dtype, monkeypatch):
         return
     ref32, params32, _ = _reference(arch, "float32")
     want32 = np.asarray(jax.jit(ref32.forward)(params32, toks)[0],
-                        np.float32)
+                        np.float32)    # (no SSM arch has M-RoPE)
     ref_off = _rel(np.asarray(want, np.float32), want32, keep)
     assert _rel(got, want32, keep) <= 2 * ref_off, \
         (_rel(got, want32, keep), ref_off)
@@ -213,10 +247,11 @@ def test_loss_matches_reference(arch, dtype, monkeypatch):
     targets[0, :3] = -1                       # masked positions
     model = _port(arch, dtype)
     if dtype == "bfloat16":
-        _, keep = _routed_forward(model, toks, monkeypatch)
+        _, keep = _routed_forward(model, toks, monkeypatch,
+                                  **_mrope_kw(arch, torch_side=True))
         assert int((~keep).sum()) == LEFT_OUT["loss"].get(arch, 0)
         targets = np.where(keep, targets, -1).astype(np.int32)
-    batch = {"tokens": toks, "targets": targets}
+    batch = {"tokens": toks, "targets": targets, **_mrope_kw(arch)}
     want, want_m = jax.jit(ref_model.loss_fn)(params, batch)
     with torch.no_grad():
         got, got_m = model.loss_fn({k: torch.from_numpy(v)
@@ -241,6 +276,7 @@ def test_decode_matches_reference(arch):
     import jax
     ref_model, params, _ = _reference(arch, "float32")
     toks = _tokens(arch, seed=3, s=8)
+    mrope = _mrope(arch, s=8)
     step = jax.jit(ref_model.decode_step)
     ref_cache = ref_model.init_cache(B, 16)
     noisy_cache = ref_model.init_cache(B, 16)
@@ -249,8 +285,12 @@ def test_decode_matches_reference(arch):
     with torch.no_grad():
         for t in range(8):
             tok = toks[:, t:t + 1]
-            want, ref_cache = step(params, ref_cache, tok, np.int32(t))
-            got, cache = model.decode_step(cache, torch.from_numpy(tok), t)
+            kw = {} if mrope is None else \
+                {"mrope_positions": mrope[:, :, t:t + 1]}
+            want, ref_cache = step(params, ref_cache, tok, np.int32(t), **kw)
+            got, cache = model.decode_step(
+                cache, torch.from_numpy(tok), t,
+                **{k: torch.from_numpy(v) for k, v in kw.items()})
             assert tuple(got.shape) == (B, 1, tiny_config(arch).vocab_size)
             tol = TOL["float32"]
             if arch in SSM:
@@ -287,6 +327,14 @@ def test_per_slot_decode_matches_reference(arch, dtype, return_hidden):
     b = 3
     toks = _tokens(arch, seed=4, b=b, s=6)
     offsets = np.array([0, 3, 1], np.int32)
+    mrope = _mrope(arch, b=b, s=9)
+
+    def mrope_at(pos):
+        """Each slot's three streams at its own position, (3, b, 1)."""
+        if mrope is None:
+            return {}
+        return {"mrope_positions":
+                mrope[:, np.arange(b), pos][:, :, None].copy()}
     step = jax.jit(functools.partial(ref_model.decode_step,
                                      return_hidden=return_hidden))
     ref_cache = ref_model.init_cache(b, 16)
@@ -303,17 +351,20 @@ def test_per_slot_decode_matches_reference(arch, dtype, return_hidden):
     with torch.no_grad():
         for t in range(6):
             pos = offsets + t
-            want, ref_cache = step(params, ref_cache, toks[:, t:t + 1], pos)
+            kw = mrope_at(pos)
+            want, ref_cache = step(params, ref_cache, toks[:, t:t + 1], pos,
+                                   **kw)
             got, cache = model.decode_step(
                 cache, torch.from_numpy(toks[:, t:t + 1]),
-                torch.from_numpy(pos), return_hidden=return_hidden)
+                torch.from_numpy(pos), return_hidden=return_hidden,
+                **{k: torch.from_numpy(v) for k, v in kw.items()})
             width = model.cfg.d_model if return_hidden else \
                 model.cfg.vocab_size
             assert tuple(got.shape) == (b, 1, width)
             assert _rel(got, want) <= tol, (t, _rel(got, want))
             if bf16:
                 want32, cache32 = step32(params32, cache32,
-                                         toks[:, t:t + 1], pos)
+                                         toks[:, t:t + 1], pos, **kw)
                 port_off = max(port_off, _rel(got, want32))
                 ref_off = max(ref_off, _rel(np.asarray(want, np.float32),
                                             want32))
@@ -350,12 +401,15 @@ def test_decode_matches_forward_causal(arch):
         cfg = dataclasses.replace(cfg, capacity_factor=8.0)
     model = build_model(cfg, device="cpu", seed=3)
     toks = torch.from_numpy(_tokens(arch, seed=3, b=1, s=8))
+    mrope = _mrope_kw(arch, b=1, s=8, torch_side=True).get("mrope_positions")
     with torch.no_grad():
-        full, _ = model.forward(toks)
+        full, _ = model.forward(toks, mrope_positions=mrope)
         cache = model.init_cache(1, 16)
         outs = []
         for t in range(8):
-            logits, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+            logits, cache = model.decode_step(
+                cache, toks[:, t:t + 1], t, mrope_positions=None
+                if mrope is None else mrope[:, :, t:t + 1])
             outs.append(logits[:, 0])
     torch.testing.assert_close(torch.stack(outs, dim=1), full, atol=0.05,
                                rtol=0.05)
@@ -530,10 +584,68 @@ def test_jamba_full_width_layer_pattern(n_layers, groups):
     assert [d.ffn for d in descs] == ["dense", "moe"] * 4
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-small"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tiny_config(arch), device="cpu")
+def test_every_arch_builds():
+    """Every config of ``configs.ARCHS`` builds in the port: whisper as
+    the encoder-decoder, the rest as the decoder-only LM."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import EncDecLM, TransformerLM
+    for arch in sorted(ARCHS):
+        model = build_model(tiny_config(arch), device="cpu")
+        want = EncDecLM if tiny_config(arch).encoder_decoder else \
+            TransformerLM
+        assert type(model) is want, arch
+
+
+def test_int8_kv_cache_still_raises():
+    cfg = dataclasses.replace(tiny_config("qwen2-7b"), kv_cache_dtype="int8")
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="int8 KV cache"):
+        model.init_cache(1, 4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_mrope_matches_reference_and_equal_streams_are_rope(dtype):
+    """The port's ``apply_mrope`` against the reference's on distinct
+    streams (float32 1e-6, bfloat16 to one rounding of the output), and
+    with three equal streams bit-identical to ``apply_rope`` in both
+    packages."""
+    import jax.numpy as jnp
+    from repro.models import layers as ref_layers
+    from repro_torch.models.layers import apply_mrope, apply_rope
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 16, 4, 16)).astype(np.float32)
+    pos3 = _chip_smoke().vl_positions(2, 16, [1, 2], (2, 3))
+    sections, theta = (2, 3, 3), 1e6
+    assert not (pos3[0] == pos3[1]).all() and not (pos3[1] == pos3[2]).all()
+    xj = jnp.asarray(x).astype(dtype)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = ref_layers.apply_mrope(xj, jnp.asarray(pos3), sections, theta)
+    got = apply_mrope(xt, torch.from_numpy(pos3), sections, theta)
+    tol = 1e-6 if dtype == "float32" else 2.0 ** -8
+    assert _rel(got, np.asarray(want, np.float32)) <= tol
+    rope = apply_rope(xt, torch.from_numpy(pos3[0]), theta)
+    assert _rel(got, rope.float().numpy()) > tol
+    same = np.broadcast_to(pos3[:1], pos3.shape).copy()
+    assert torch.equal(apply_mrope(xt, torch.from_numpy(same), sections,
+                                   theta),
+                       apply_rope(xt, torch.from_numpy(pos3[0]), theta))
+    assert (np.asarray(ref_layers.apply_mrope(xj, jnp.asarray(same),
+                                              sections, theta)) ==
+            np.asarray(ref_layers.apply_rope(xj, jnp.asarray(pos3[0]),
+                                             theta))).all()
+    with pytest.raises(ValueError, match="sections"):
+        apply_mrope(xt, torch.from_numpy(pos3), (2, 3, 2), theta)
+
+
+def test_converter_carries_the_qwen2_vl_tree():
+    """qwen2-vl's tree is the dense one (M-RoPE has no parameters): every
+    leaf lands, the qkv biases among them."""
+    model, params = _carried("qwen2-vl-72b")
+    cfg = model.cfg
+    assert (model.n_pre, model.period, model.n_groups) == \
+        (0, 1, cfg.n_layers)
+    assert params["layers.3.mixer.bq"].shape == (cfg.n_heads, cfg.head_dim_)
+    assert cfg.mrope_sections == (2, 3, 3)
 
 
 # --------------------------------------------------------------------------
@@ -547,16 +659,18 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + VLM)
 def test_cuda_forward_launches_the_kernel_per_layer(cuda, arch):
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     model = build_model(_cfg(arch, "float32"), device=cuda)
     toks = torch.from_numpy(_tokens(arch)).to(cuda)
+    kw = {k: v.to(cuda) for k, v in
+          _mrope_kw(arch, torch_side=True).items()}
     with torch.inference_mode():
         n0 = flash_attention_kernel.launches
-        got, _ = model.forward(toks)
+        got, _ = model.forward(toks, **kw)
         assert flash_attention_kernel.launches - n0 == model.cfg.n_layers
-        want, _ = model.forward(toks, force_kernel=False)
+        want, _ = model.forward(toks, force_kernel=False, **kw)
         assert flash_attention_kernel.launches - n0 == model.cfg.n_layers
     torch.cuda.synchronize()
     err = float((got - want).abs().max() / want.abs().max())

@@ -27,6 +27,10 @@ against the reference's, its teacher-forced float32 step logits against
 the reference's, its bfloat16 coded step against the port's plain step and
 its encrypted step bit for bit against its plain coded step.
 
+``qwen2-vl-72b`` is held as qwen2-7b is (teacher-forced coded logits,
+exact scheduling): the serve step decodes it with plain RoPE, as the
+reference's does.
+
 The SSM archs (``rwkv6-1.6b``: no site but the unembed; ``jamba``: its
 attention layer's and dense FFNs' sites, mamba mixers and MoE FFNs
 uncoded) are held the same way, and by exact scheduling; a slot reused
@@ -876,6 +880,55 @@ def test_reused_slot_serves_like_a_fresh_one(arch, monkeypatch):
 def test_launch_serve_serves_the_ssm_archs(arch, capsys):
     from repro_torch.launch import serve as launch
     assert launch.main(["--arch", arch, "--tiny", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "4", "--gen", "3",
+                        "--coded-layers", "all"]) == 0
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and "coded[all]" in out
+
+
+# --------------------------------------------------------------------------
+# qwen2-vl: the dense sites, decoded with plain RoPE as the reference's
+# serve loop decodes it (no M-RoPE streams reach a serve step)
+# --------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-72b"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("coded_layers", ["unembed", "all"])
+def test_vlm_teacher_forced_step_matches_reference(coded_layers, dtype):
+    """qwen2-vl's coded step (qkv, o, up, down and the unembed under
+    ``"all"``) against the reference's on one teacher-forced stream, as
+    for qwen2-7b: within the compute dtype's tolerance and with the
+    argmax rule."""
+    want = _ref_stream_logits(dtype, coded_layers, VLM_ARCH)
+    got = _port_stream_logits(_port(dtype, VLM_ARCH), coded_layers)
+    tol = LOGIT_TOL[dtype]
+    for t, (g, w) in enumerate(zip(got, want)):
+        assert _rel(g, w) <= tol, (t, _rel(g, w))
+        assert not len(_argmax_agrees(g, w, tol)), t
+
+
+def test_vlm_scheduling_matches_reference_exactly():
+    """The batchers of both packages over the ragged Poisson trace, clocks
+    fixed: admission, eviction, buckets, plans, waits and tokens equal,
+    with the dense model's sites (4 per layer and the unembed)."""
+    ref, port = _ssm_scheduling(VLM_ARCH)
+    assert port.mode == ref.mode == "instep"
+    assert _timeline(port) == _timeline(ref)
+    for a, b in zip(port.requests, ref.requests):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+def test_launch_serve_serves_qwen2_vl(capsys):
+    from repro_torch.launch import serve as launch
+    with Session(exact_spec("all"), device="cpu") as s:
+        s.serve(arch=VLM_ARCH, tiny=True, batch=2, prompt_len=4, gen=2,
+                check_agreement=False)
+        code = next(iter(s._serve_batchers.values())).code
+        assert [sorted(m) for m in code.layer_meta] == \
+            [["down", "o", "qkv", "up"]] * tiny_config(VLM_ARCH).n_layers
+    assert launch.main(["--arch", VLM_ARCH, "--tiny", "--device", "cpu",
                         "--batch", "2", "--prompt-len", "4", "--gen", "3",
                         "--coded-layers", "all"]) == 0
     out = capsys.readouterr().out

@@ -134,20 +134,6 @@ def test_fault_and_adaptive_paths_match_reference(monkeypatch, path):
     assert got_rep == want_rep
 
 
-def _unported_serves():
-    return {"mrope_family": (ClusterSpec(), dict(arch="qwen2-vl-72b"))}
-
-
-@pytest.mark.parametrize("case", sorted(_unported_serves()))
-def test_unported_session_methods_raise(case):
-    """``Session.serve`` on what the port lacks: a family of a later slice
-    (M-RoPE) raises."""
-    spec, kw = _unported_serves()[case]
-    with Session(spec, device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="later slice|ROADMAP"):
-            s.serve(tiny=True, batch=1, prompt_len=2, gen=1, **kw)
-
-
 def _anytime_and_thread_specs():
     api = port_api
     base = dict(code=api.CodeSpec(n_workers=8, k_blocks=4))

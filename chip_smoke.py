@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Eleven main paths.  Two are SPACDC coded rounds through
+Twelve main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -79,10 +79,19 @@ the SSM mixers (rwkv6, jamba); and Qwen2-VL's M-RoPE (qwen2-vl-72b over 8
 and 4 of its 80 layers) with whisper-small's encoder-decoder (forward
 and decode; the serve loop has no encoder-decoder path).
 
+The twelfth is LM training, the path of ``python -m
+repro_torch.launch.train``: phi3-mini-3.8b at full width and depth
+through ``launch.steps.build_train_step`` (Berrut-coded gradient
+aggregation over 4 blocks, AdamW, per-layer recomputation), every
+attention layer's forward through ``flash_attention`` and its backward
+through the hand-written ``flash_attention_bwd`` kernel; the entry point
+itself with its checkpoint and resume, and an encrypted checkpoint
+through ``mask_add``.
+
 Phases, one JSON line each:
 
 1. device and build: the card's name and power limit (``nvidia-smi``), TF32
-   off, all four kernels built by ``nvcc`` from
+   off, all five kernel sources built by ``nvcc`` from
    ``src/repro_torch/kernels/csrc``, with ptxas's registers, shared memory
    and spills for every kernel function;
 2. each kernel against its plain PyTorch version on the card (float32 and
@@ -259,6 +268,20 @@ Phases, one JSON line each:
     (36 flash launches) and 16 decode steps over the encoder output's
     4096 cross rows.
 
+15. LM training (``train_main_path``): (a) ``flash_attention_bwd``
+    against its plain version (ragged, G 1 and 7, hd 20 to 192/128,
+    softcap, causal, full and cross, float32 and bfloat16; lse too),
+    timed at the training shape beside SDPA's backward and its bounds,
+    and a 2-layer full-width float32 step's gradients through the
+    kernels against the kernels-off step; (b) 6 coded steps of
+    phi3-mini-3.8b at full width and depth on 8 x 4096 tokens (256
+    backward calls and 512 forward launches a step), losses, step wall,
+    tokens/s, peak memory and a profiled step's split; (c)
+    ``launch.train.main`` over 1 of 32 layers killed after its step-2
+    checkpoint and re-run, bit-identical to an uninterrupted run; (d) an
+    encrypted checkpoint of one layer's attention leaves, every
+    ``mask_add`` call held.
+
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is then non-zero and no result line is printed.  The script imports
@@ -396,8 +419,8 @@ def bound(nbytes: float, flops: float, rate: tuple) -> dict:
 
 
 def build_kernels(torch) -> tuple:
-    """TF32 off, then all four kernels built by ``nvcc`` (one process per
-    source, all started together).  Returns (build seconds, ptxas's
+    """TF32 off, then every kernel source built by ``nvcc`` (one process
+    per source, all started together).  Returns (build seconds, ptxas's
     report by source), the report read from each library's nvcc log
     whether this process compiled it or found it built.  Phase 9 alone:
     ``serving_main_path(torch, torch.device("cuda"),
@@ -673,6 +696,12 @@ def main() -> int:
     for kname, count in p14_launches.items():
         launches[kname] += count
 
+    # ------- 15. LM training: phi3-mini-3.8b, the flash backward kernel
+    p15_launches, bwd_row = train_main_path(torch, dev)
+    launches["flash_attention_bwd"] = 0
+    for kname, count in p15_launches.items():
+        launches[kname] += count
+
     # --------------------------------------------------------- summary
     n, j, (m, d, n_out) = 30, 27, FULL
     blk = m // 24
@@ -699,6 +728,22 @@ def main() -> int:
                         "bound_by": row["bound_by"],
                         "bound_rate": row["bound_rate"],
                         "library_ms": row["library_ms"]})
+    # the backward replaces no TPU kernel: the reference's is XLA
+    kernels.append({"name": "flash_attention_bwd", "route": "cuda",
+                    "source":
+                        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                    "replaces": "none (no TPU kernel; the reference's "
+                    "backward is XLA, src/repro/models/attention.py:107)",
+                    "launches": launches["flash_attention_bwd"],
+                    "max_abs_err": bwd_row["max_abs_err"],
+                    "ms": bwd_row["kernel_ms"],
+                    "plain_ms": bwd_row["plain_ms"],
+                    "bound_ms": bwd_row["bound_ms"],
+                    "bound_by": bwd_row["bound_by"],
+                    "bound_rate": bwd_row["bound_rate"],
+                    "bound_ms_f32_cuda_cores":
+                        bwd_row["bound_ms_f32_cuda_cores"],
+                    "library_ms": bwd_row["library_ms"]})
     # the flash kernel at MLA's widths (phase 12 a), beside its main row,
     # at jamba's GQA shape (phase 13 c) and at whisper's and qwen2-vl's
     # (phase 14 a)
@@ -709,7 +754,7 @@ def main() -> int:
                        p14_flash["a_whisper_decoder_self"]),
                       ("whisper_cross_64", p14_flash["a_whisper_cross"]),
                       ("qwen2_vl_gqa_128", p14_flash["a_qwen2_vl"])):
-        kernels[-1][name] = {
+        kernels[3][name] = {
             key: row[key] for key in ("max_abs_err", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms",
                                       "library")}
@@ -1806,7 +1851,8 @@ def training_main_path(torch, dev) -> dict:
         # every berrut_combine call of a kernel run against the plain
         # version on the same inputs, elementwise
         ratios = []
-        run_training(torch, dev, k_spec, sizes, data, kernels, ratios)
+        held_run = run_training(torch, dev, k_spec, sizes, data, kernels,
+                                ratios)
         w_k, w_p = k_run.pop("w_step1"), p_run.pop("w_step1")
         k_run2.pop("w_step1"), p_run2.pop("w_step1")
         w_err = max(float((a - b).abs().max()) / float(b.abs().max())
@@ -1852,11 +1898,14 @@ def training_main_path(torch, dev) -> dict:
         assert k_run["path"] == ("fused" if scheme in ("conv", "spacdc")
                                  else "loop"), row
         assert row["a_first_loss_rel"] <= 1e-5, row
-        # the held run makes the kernel run's berrut_combine calls and the
-        # profiled step's: (TRAIN_STEPS + 1) steps' worth, and the warm-up
+        # the held run makes the kernel run's berrut_combine calls, the
+        # warm-up's and the profiled step's: TRAIN_STEPS + 1 steps' worth
+        # and one a profile try (a trace that lost activities is taken
+        # again, ``profile_device``)
         per_round = ROUND_LAUNCHES[scheme]["berrut_combine"]
+        tries = held_run["profiled_step"]["profile_tries"]
         assert len(ratios) == per_round * (len(sizes) - 2) * \
-            (TRAIN_STEPS + 2), row
+            (TRAIN_STEPS + 1 + tries), (tries, row)
         assert row["a_combine_bound_ratio_max"] <= 1.0, row
         if k_run["path"] == "fused":
             assert w_err <= 1e-5, row
@@ -5688,6 +5737,477 @@ def mrope_encdec_main_path(torch, dev) -> tuple:
     assert total["flash_attention"] == 3 * vl.n_layers + 3 * n_flash, total
     assert total["berrut_combine"] > 0 and total["mask_add"] > 0, total
     return total, flash_rows
+
+
+# ---------------------------------------------------------------- phase 15
+TRAIN_LM_ARCH = "phi3-mini-3.8b"
+LM_SEQ = 4096
+LM_BATCH = 8                        # global batch: 4 blocks x accum 2 x 1
+LM_ACCUM = 2
+LM_BLOCKS = 4
+LM_STRAGGLERS = 1
+LM_STEPS = 6
+LM_LAYERS = 32                      # full depth (cut to 16 past 76 GB)
+LM_LR = 3e-3                        # launch.train's default
+LM_ROOM_GB = 72.0                   # ~66 GB reckoned, plus a margin
+LM_PEAK_LIMIT_GB = 76.0
+ENTRY_LAYERS = 1                    # (c): full width over 1 of 32 layers
+ENTRY_ARGS = ["--arch", TRAIN_LM_ARCH, "--steps", "3", "--seq-len", "512",
+              "--global-batch", "8", "--accum", "2", "--blocks", "4",
+              "--coded", "--stragglers", "1", "--ckpt-every", "2",
+              "--log-every", "1"]
+# the backward kernel against its plain version: (B, Sq, Skv, H, KV, hd,
+# hd_v, causal, softcap): ragged Sq and Skv, G in {1, 7}, hd 20, 64, 96,
+# 128 and MLA's 192/128, softcap 20, causal, full and cross
+BWD_CHECKS = [(1, 65, 130, 2, 2, 64, 64, False, 0.0),
+              (2, 130, 65, 14, 2, 96, 96, True, 0.0),
+              (1, 200, 200, 7, 1, 128, 128, True, 0.0),
+              (2, 200, 200, 7, 1, 20, 20, True, 0.0),
+              (1, 257, 257, 7, 7, 96, 96, True, 20.0),
+              (1, 70, 140, 2, 2, 192, 128, False, 0.0),
+              (1, 300, 300, 16, 16, 192, 128, True, 0.0),
+              (1, 128, 600, 4, 4, 64, 64, False, 0.0)]
+BWD_MAIN = (1, LM_SEQ, LM_SEQ, 32, 32, 96, 96, True, 0.0)
+LSE_TOL = 1e-5                      # of max |plain lse|
+TRAIN_CLASSES = (("flash_fwd", ("flash_fwd",)),
+                 ("flash_bwd", ("flash_bwd", "bwd_delta")),
+                 ("cublas", ("gemm", "xmma", "cutlass", "nvjet")),
+                 ("casts", ("copy_kernel",)))
+
+
+def flash_bwd_work(b, sq, skv, h, kv, hd, hd_v, causal, elt) -> tuple:
+    """(bytes, FLOP) of one attention backward: q, k, v, out and dout read
+    and lse (float32) read once, dq, dk, dv written once; the five
+    products (s, dq, dk over hd; dp, dv over hd_v) over the (query, key)
+    pairs the mask keeps."""
+    pairs = sum(min(skv, i + 1) for i in range(sq)) if causal else sq * skv
+    nbytes = elt * (2 * b * sq * h * (hd + hd_v) +
+                    2 * b * skv * kv * (hd + hd_v)) + 4 * b * sq * h
+    return nbytes, 2 * b * h * (3 * hd + 2 * hd_v) * pairs
+
+
+def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
+    """Phase 15 (a): ``flash_attention_bwd`` against its plain version
+    (``ref.flash_attention_bwd_reference``) on the forward kernel's own
+    output and lse, over BWD_CHECKS and the training shape BWD_MAIN, in
+    float32 and bfloat16: dq, dk, dv within TOL of max |plain|, the
+    forward's lse within LSE_TOL of the plain forward's.  At BWD_MAIN in
+    bfloat16 the kernel's, the plain version's and the library
+    yardstick's times (``F.scaled_dot_product_attention``'s forward +
+    backward less its forward), the bound at the bf16 tensor-core rate and
+    at the float32 CUDA-core rate, and ptxas's report.  Returns that
+    row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    main = None
+    for case in BWD_CHECKS + [BWD_MAIN]:
+        b, sq, skv, h, kvh, hd, hd_v, causal, softcap = case
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split(".")[-1]
+            q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dt)
+            k = torch.randn((b, skv, kvh, hd), generator=gen,
+                            device=dev).to(dt)
+            v = torch.randn((b, skv, kvh, hd_v), generator=gen,
+                            device=dev).to(dt)
+            do = torch.randn((b, sq, h, hd_v), generator=gen,
+                             device=dev).to(dt)
+            out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                              softcap=softcap,
+                                              return_lse=True)
+            _, lse_p = ref.mha_reference(q, k, v, causal=causal,
+                                         softcap=softcap, return_lse=True)
+            n0 = flash_attention_bwd_kernel.launches
+            got = flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                             causal=causal, softcap=softcap)
+            launched = flash_attention_bwd_kernel.launches - n0
+            want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                     causal, softcap)
+            torch.cuda.synchronize()
+            assert launched == 1, launched
+            errs = {}
+            for name, g, w, t in zip(("dq", "dk", "dv"), got, want,
+                                     (q, k, v)):
+                assert g.shape == t.shape and g.dtype == t.dtype
+                assert bool(torch.isfinite(g.float()).all()), name
+                errs[name] = rel_diff(torch, g, w)
+            lse_err = float((lse - lse_p).abs().max())
+            row = {"phase": "train_main_path", "check": "a_flash_bwd",
+                   "kernel": "flash_attention_bwd",
+                   "shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd",
+                                      "hd_v", "causal", "softcap"), case)),
+                   "dtype": dname,
+                   "max_abs_err": max(e[0] for e in errs.values()),
+                   "rel_err": {n: e[1] for n, e in errs.items()},
+                   "tol": TOL[dname], "lse_max_abs_err": lse_err,
+                   "lse_tol": LSE_TOL * float(lse_p.abs().max()),
+                   "launches": launched}
+            del got, want, lse_p
+            if case is BWD_MAIN and dt == torch.bfloat16:
+                k_ms = timed_ms(torch, lambda: flash_attention_bwd_kernel(
+                    q, k, v, out, lse, do, causal=True), max_iters=20)
+                p_ms = timed_ms(torch, lambda: ref.flash_attention_bwd_reference(
+                    q, k, v, out, lse, do, True), max_iters=5)
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                dot = do.transpose(1, 2)
+
+                def sdpa_fwd():
+                    with torch.no_grad():
+                        return F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True)
+
+                def sdpa_fwd_bwd():
+                    o = F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True)
+                    return torch.autograd.grad(o, (qt, kt, vt), dot)
+                fb_ms = timed_ms(torch, sdpa_fwd_bwd)
+                f_ms = timed_ms(torch, sdpa_fwd)
+                nbytes, flops = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v,
+                                               causal, q.element_size())
+                row.update(kernel_ms=k_ms, plain_ms=p_ms,
+                           library_ms=fb_ms - f_ms,
+                           library="F.scaled_dot_product_attention, "
+                           "is_causal: forward + backward less forward",
+                           library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
+                           **bound(nbytes, flops, BF16_TC),
+                           bound_ms_f32_cuda_cores=bound(
+                               nbytes, flops, F32_CUDA)["bound_ms"],
+                           flop=flops, bytes=nbytes,
+                           tflop_per_s=flops / k_ms / 1e9, ptxas=ptxas)
+                main = row
+                del qt, kt, vt, dot
+            emit(row)
+            for name, (_, rel) in errs.items():
+                assert rel <= TOL[dname], (name, row)
+            assert lse_err <= row["lse_tol"], row
+            del q, k, v, do, out, lse
+            torch.cuda.empty_cache()
+    return main
+
+
+def grads_of_step(torch, model, tokens, targets, force_kernel):
+    """One loss (``softmax_xent`` of the forward's logits) and backward,
+    its gradients by parameter name."""
+    from repro_torch.models.transformer import softmax_xent
+    model.zero_grad(set_to_none=True)
+    logits, _ = model(tokens, force_kernel=force_kernel)
+    loss = softmax_xent(logits, targets)
+    loss.backward()
+    del logits
+    return float(loss.detach()), {k: p.grad.clone()
+                                  for k, p in model.named_parameters()}
+
+
+def train_main_path(torch, dev) -> tuple:
+    """Phase 15: LM training on the card, the path of ``python -m
+    repro_torch.launch.train``.  (a) ``flash_attention_bwd`` against its
+    plain version (``check_flash_bwd``), then a 2-layer full-width
+    phi3-mini in float32 compute: one step's gradients through the
+    kernels against the same step with ``force_kernel=False``, within
+    1e-4 of each leaf's max |g|.  (b) phi3-mini-3.8b at full width and
+    depth (3.82 B float32 parameters, bf16 compute, remat per layer)
+    through ``steps.build_train_step`` with the trainer's AdamW
+    (``warmup_cosine``), ``TokenPipeline`` batches and ``StragglerModel``
+    masks: seq 4096, global batch 8, accum 2, 4 coded blocks (micro-batch
+    1 x 4096), 1 straggler, 6 steps, each counted from zero (256 backward
+    kernel calls and 512 forward launches a step: 32 layers x 8
+    micro-batches, the forward twice under recomputation) and timed, the
+    peak memory; every loss finite and the last below the first; one
+    more step profiled (flash forward, flash backward, cuBLAS, casts, the
+    rest; idle share).  (c) ``launch.train.main`` at full width over 1 of
+    32 layers (``get_config`` mapped to it), killed after its step-2
+    checkpoint and re-run, ends bit-identical (the SHA-256 of every array
+    of its final checkpoint) to an uninterrupted run; the checkpoint's
+    bytes and save and restore seconds.  (d) an encrypted checkpoint of
+    one full-width layer's attention leaves, restored bit-identical, with
+    every ``mask_add`` call held exactly.  Returns (the counted launches,
+    the bfloat16 backward row of (a)).  Phase 15 alone:
+    ``build_kernels(torch)`` then ``train_main_path(torch,
+    torch.device("cuda"))``."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import BerrutGradientCode
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime.straggler import StragglerModel
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel,
+               "flash_attention_bwd": flash_attention_bwd_kernel}
+    total = {k: 0 for k in kernels}
+    no_launch = dict.fromkeys(kernels, 0)
+    phase = "train_main_path"
+    phase_t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    free()
+    cfg = dataclasses.replace(get_config(TRAIN_LM_ARCH), n_layers=LM_LAYERS)
+    free_b, total_b = torch.cuda.mem_get_info()
+    room = {"phase": phase, "check": "room", "free_gb": free_b / 1e9,
+            "card_gb": total_b / 1e9, "asked_gb": LM_ROOM_GB,
+            "params": cfg.param_count(),
+            "state_gb_reckoned": 16 * cfg.param_count() / 1e9}
+    emit(room)
+    assert free_b / 1e9 >= LM_ROOM_GB, \
+        f"phase 15 needs {LM_ROOM_GB} GB free on the card: {room}"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+
+    # ---- (a) the backward kernel, then a 2-layer float32 step
+    bwd_row = check_flash_bwd(torch, gen, dev,
+                              _build_ptxas(torch, "flash_attention_bwd"))
+    free()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    model = build_model(cfg2, seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SEQ), generator=gen,
+                           device=dev)
+    targets = torch.randint(0, cfg.vocab_size, (1, LM_SEQ), generator=gen,
+                            device=dev)
+    (loss_k, g_k), got = counted(kernels, total, lambda: grads_of_step(
+        torch, model, tokens, targets, None))
+    assert got == dict(no_launch, flash_attention=4,
+                       flash_attention_bwd=2), got
+    loss_p, g_p = grads_of_step(torch, model, tokens, targets, False)
+    worst = {k: float((g_k[k] - g_p[k]).abs().max()) /
+             max(float(g_p[k].abs().max()), 1e-30) for k in g_p}
+    row = {"phase": phase, "check": "a_two_layer_f32_grads",
+           "layers": 2, "tokens": [1, LM_SEQ], "launches": got,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "worst_leaf_rel": max(worst.values()),
+           "worst_leaf": max(worst, key=worst.get), "tol": 1e-4}
+    emit(row)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), row
+    assert row["worst_leaf_rel"] <= 1e-4, row
+    del model, g_k, g_p, tokens, targets
+    free()
+
+    # ---- (b) full width and depth: 6 coded steps
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0)                      # on the card
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    opt = adamw(warmup_cosine(LM_LR, 20, LM_STEPS), weight_decay=0.01)
+    state = opt.init(params)
+    step_fn = build_train_step(model, opt, accum=LM_ACCUM,
+                               gcode=BerrutGradientCode(LM_BLOCKS,
+                                                        LM_BLOCKS))
+    pipe = TokenPipeline(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0)
+    straggle = StragglerModel(LM_BLOCKS, LM_STRAGGLERS, seed=0)
+    n_micro = LM_BLOCKS * LM_ACCUM
+    want = dict(no_launch, flash_attention=2 * cfg.n_layers * n_micro,
+                flash_attention_bwd=cfg.n_layers * n_micro)
+    torch.cuda.reset_peak_memory_stats()
+    rows, losses = [], []
+    for i in range(LM_STEPS):
+        mask = straggle.responder_mask(
+            i, LM_BLOCKS - LM_STRAGGLERS).astype(np.float32)
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (params, state, metrics), got = counted(
+            kernels, total, lambda: step_fn(params, state, batch, mask))
+        loss = float(metrics["loss"])           # synchronizes
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        losses.append(loss)
+        rows.append({"phase": phase, "check": "b_step", "step": i + 1,
+                     "loss": loss, "responders": int(mask.sum()),
+                     "wall_s": wall,
+                     "tokens_per_s": LM_BATCH * LM_SEQ / wall,
+                     "launches": got,
+                     "peak_memory_gb": torch.cuda.max_memory_allocated()
+                     / 1e9})
+        emit(rows[-1])
+        assert got == want, (got, want)
+        assert np.isfinite(loss), rows[-1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mask = straggle.responder_mask(
+        LM_STEPS, LM_BLOCKS - LM_STRAGGLERS).astype(np.float32)
+    batch = pipe.batch_at(LM_STEPS)
+    breakdown = profile_device(
+        torch, lambda: step_fn(params, state, batch, mask), TRAIN_CLASSES)
+    walls = [r["wall_s"] for r in rows]
+    row = {"phase": phase, "check": "b_training", "arch": cfg.name,
+           "layers": cfg.n_layers, "params": n_params,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.head_dim_],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "seq": LM_SEQ, "global_batch": LM_BATCH, "accum": LM_ACCUM,
+           "blocks": LM_BLOCKS, "stragglers": LM_STRAGGLERS,
+           "build_s": build_s, "losses": losses, "step_wall_s": walls,
+           "median_step_s": float(np.median(walls)),
+           "median_tokens_per_s": LM_BATCH * LM_SEQ / float(np.median(walls)),
+           "launches_per_step": want, "peak_memory_gb": peak_gb,
+           "peak_limit_gb": LM_PEAK_LIMIT_GB, "breakdown": breakdown}
+    emit(row)
+    assert losses[-1] < losses[0], row
+    assert peak_gb <= LM_PEAK_LIMIT_GB, row
+    del model, params, state, step_fn, opt
+    free()
+
+    # ---- (c) launch.train.main, killed after its step-2 checkpoint
+    class Killed(Exception):
+        pass
+
+    real_config, real_save = train_mod.get_config, train_mod.Checkpointer.save
+    real_restore = train_mod.Checkpointer.restore
+    timing = {"save_s": [], "restore_s": []}
+
+    def timed_save(self, step, tree, extra=None):
+        t = time.perf_counter()
+        out = real_save(self, step, tree, extra)
+        timing["save_s"].append(time.perf_counter() - t)
+        return out
+
+    def timed_restore(self, step, tree_like):
+        t = time.perf_counter()
+        out = real_restore(self, step, tree_like)
+        torch.cuda.synchronize()
+        timing["restore_s"].append(time.perf_counter() - t)
+        return out
+
+    def save_then_die(self, step, tree, extra=None):
+        out = timed_save(self, step, tree, extra)
+        if step == 2:
+            raise Killed
+        return out
+
+    def final_manifest(folder: Path) -> dict:
+        path = folder / "step_00000003"
+        return dict(json.loads((path / "MANIFEST.json").read_text()),
+                    bytes=(path / "arrays.npz").stat().st_size)
+
+    ckpt_root = Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
+    out_log = io.StringIO()
+    train_mod.get_config = lambda name: dataclasses.replace(
+        real_config(name), n_layers=ENTRY_LAYERS)
+    train_mod.Checkpointer.restore = timed_restore
+    try:
+        with contextlib.redirect_stdout(out_log):
+            train_mod.Checkpointer.save = timed_save
+            t = time.perf_counter()
+            rc = train_mod.main(ENTRY_ARGS + ["--ckpt-dir",
+                                              str(ckpt_root / "whole")])
+            whole_s = time.perf_counter() - t
+            assert rc == 0
+            final = {"whole": final_manifest(ckpt_root / "whole")}
+            shutil.rmtree(ckpt_root / "whole")      # ~7 GB of disk back
+            free()
+            train_mod.Checkpointer.save = save_then_die
+            try:
+                train_mod.main(ENTRY_ARGS + ["--ckpt-dir",
+                                             str(ckpt_root / "cut")])
+            except Killed:
+                pass
+            else:
+                raise AssertionError("the run was not interrupted")
+            free()
+            train_mod.Checkpointer.save = timed_save
+            rc = train_mod.main(ENTRY_ARGS + ["--ckpt-dir",
+                                              str(ckpt_root / "cut")])
+            assert rc == 0
+        final["cut"] = final_manifest(ckpt_root / "cut")
+    finally:
+        train_mod.get_config = real_config
+        train_mod.Checkpointer.save = real_save
+        train_mod.Checkpointer.restore = real_restore
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        free()
+    log = out_log.getvalue()
+    row = {"phase": phase, "check": "c_entry_point",
+           "argv": ENTRY_ARGS, "layers": ENTRY_LAYERS,
+           "params": dataclasses.replace(
+               get_config(TRAIN_LM_ARCH), n_layers=ENTRY_LAYERS)
+           .param_count(),
+           "uninterrupted_s": whole_s,
+           "checkpoint_bytes": final["whole"]["bytes"],
+           "arrays": final["whole"]["n_arrays"],
+           "save_s": timing["save_s"], "restore_s": timing["restore_s"],
+           "resumed": "resumed from checkpoint step 2" in log,
+           "bit_identical": final["whole"]["hashes"] ==
+           final["cut"]["hashes"],
+           "log_tail": log.splitlines()[-4:]}
+    emit(row)
+    assert row["resumed"] and row["bit_identical"], row
+    assert len(timing["restore_s"]) == 1, row
+
+    # ---- (d) an encrypted checkpoint of one layer's attention leaves
+    shapes = {"wq": (cfg.d_model, cfg.n_heads, cfg.head_dim_),
+              "wk": (cfg.d_model, cfg.n_kv_heads, cfg.head_dim_),
+              "wv": (cfg.d_model, cfg.n_kv_heads, cfg.head_dim_),
+              "wo": (cfg.n_heads, cfg.head_dim_, cfg.d_model)}
+    leaves = {k: torch.randn(shape, generator=gen, device=dev)
+              / shape[0] ** 0.5 for k, shape in shapes.items()}
+    held = []
+    undo = hold_ops_mask_adds(torch, held)
+    enc_dir = Path(tempfile.mkdtemp(prefix="ckpt_enc_", dir=ROOT / "build"))
+    try:
+        ck = Checkpointer(str(enc_dir), encrypt=True, secret=b"phase-15",
+                          device=dev)
+        t = time.perf_counter()
+        _, got_save = counted(kernels, total, lambda: ck.save(1, leaves))
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back, got_restore = counted(
+            kernels, total, lambda: Checkpointer(
+                str(enc_dir), encrypt=True, secret=b"phase-15",
+                device=dev).restore(1, leaves))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        nbytes = (enc_dir / "step_00000001" / "arrays.npz").stat().st_size
+    finally:
+        undo()
+        shutil.rmtree(enc_dir, ignore_errors=True)
+    same = all(torch.equal(back[k], leaves[k]) and
+               back[k].device == leaves[k].device for k in leaves)
+    row = {"phase": phase, "check": "d_encrypted_checkpoint",
+           "params": sum(t.numel() for t in leaves.values()),
+           "leaves": {k: list(s) for k, s in shapes.items()},
+           "save_s": save_s, "restore_s": restore_s,
+           "file_bytes": nbytes, "launches_save": got_save,
+           "launches_restore": got_restore,
+           "mask_add_calls_held": len(held),
+           "held_exact": all(h[2] for h in held),
+           "bit_identical": same}
+    emit(row)
+    assert same and row["held_exact"], row
+    assert got_save["mask_add"] == got_restore["mask_add"] == len(leaves), row
+    assert len(held) == 2 * len(leaves), row
+    emit({"phase": phase, "check": "phase_total", "launches": total,
+          "phase_s": time.perf_counter() - phase_t0})
+    return total, bwd_row
+
+
+def _build_ptxas(torch, stem: str) -> dict:
+    """ptxas's report of ``csrc/<stem>.cu`` (``build_kernels`` format)."""
+    from repro_torch.kernels import _build
+    cu_filt = str(Path(_build._nvcc()).with_name("cu++filt"))
+    return demangled(ptxas_report(_build.build_log.get(stem, "")), cu_filt)
 
 
 def run_one(spec, a, b, worker_t=None):

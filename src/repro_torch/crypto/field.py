@@ -321,7 +321,12 @@ class BitsCodec:
         ``"float32"``.  Tensor words give a tensor on their device."""
         if torch.is_tensor(words):
             tdtype = getattr(torch, str(dtype).replace("torch.", ""))
-            raw = words.view(torch.int32).contiguous().view(torch.uint8)
+            w = words.view(torch.int32).contiguous()
+            if w.numel() == 1:
+                # a one-element view (a 0-d leaf's word, sliced out of its
+                # limb row) keeps its stride through contiguous()
+                w = w.clone(memory_format=torch.contiguous_format)
+            raw = w.view(torch.uint8)
             nbytes = int(np.prod(shape, initial=1)) * tdtype.itemsize
             return raw[:nbytes].view(tdtype).reshape(tuple(shape)).clone()
         try:

@@ -1,9 +1,11 @@
-"""Datasets for the paper's experiments.
+"""Datasets: the synthetic MNIST of the paper's experiments and the
+deterministic token pipeline of the LM trainer.
 
-Ports ``synthetic_mnist`` of ``repro/data``; the token pipeline
-(``data/pipeline.py``) comes with the training plumbing (see ROADMAP.md).
+Ports ``repro/data``: ``synthetic_mnist``, ``TokenPipeline`` and
+``make_batch``.
 """
 
 from .mnist import synthetic_mnist
+from .pipeline import TokenPipeline, make_batch
 
-__all__ = ["synthetic_mnist"]
+__all__ = ["TokenPipeline", "make_batch", "synthetic_mnist"]

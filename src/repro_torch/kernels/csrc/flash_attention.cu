@@ -11,7 +11,9 @@
 //
 //   key j of query i is masked when j >= Skv or, causal, j > i; both
 //   positions start at 0, also when Sq != Skv
-//   out = acc / max(l, 1e-30) from the running (m, l, acc) in float32
+//   out = acc / max(l, 1e-30) from the running (m, l, acc) in float32;
+//   optionally lse = m + log(max(l, 1e-30)) per row, natural log, for the
+//   backward (the reference's `_flash_fwd_core` residual)
 //
 // Replaces the Pallas TPU kernel `flash_attention_kernel`
 // (src/repro/kernels/flash_attention.py, body `_flash_kernel`).  As there,
@@ -147,7 +149,8 @@ __device__ __forceinline__ void load_tile(float* dst,
 template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int n_heads,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int n_heads,
                  int group, int sq, int skv, int hd, int hd_v, int64_t q_sb,
                  int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                  int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -262,7 +265,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty + 16 * r;
     if (qi >= sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* row = out + ((static_cast<int64_t>(b) * sq + qi) * n_heads + h) * hd_v;
+    const int64_t qrow = (static_cast<int64_t>(b) * sq + qi) * n_heads + h;
+    if (lse != nullptr && tx == 0) lse[qrow] = m[r] + logf(denom);
+    T* row = out + qrow * hd_v;
 #pragma unroll
     for (int c = 0; c < kTD; ++c) {
       const int col = tx + 16 * c;
@@ -273,9 +278,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, int HDV>
 int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 int batch, int sq, int skv, int n_heads, int group, int hd,
-                 int hd_v, const int64_t* strides, float scale,
-                 float softcap, int causal, cudaStream_t stream) {
+                 float* lse, int batch, int sq, int skv, int n_heads,
+                 int group, int hd, int hd_v, const int64_t* strides,
+                 float scale, float softcap, int causal,
+                 cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((kBQ + kBKV) * (HD + 1) + kBQ * kLdP);
   cudaError_t err = cudaFuncSetAttribute(
@@ -285,7 +291,7 @@ int launch_typed(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * n_heads);
   flash_fwd_kernel<T, HD, HDV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n_heads, group, sq,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, n_heads, group, sq,
       skv, hd, hd_v, strides[0], strides[1], strides[2], strides[3], strides[4],
       strides[5], strides[6], strides[7], strides[8], scale, softcap, causal);
   return static_cast<int>(cudaGetLastError());
@@ -377,7 +383,7 @@ __device__ __forceinline__ void pv_step(float (&o)[32 * VC],
     hopper::wgmma_m64n64k16_rs_tb(o, a, db, 1);
 }
 
-template <int QC, int VC>
+template <int QC, int VC, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -385,7 +391,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ out, int n_heads,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int n_heads,
                        int group, int sq, int skv, int hd, int hd_v,
                        int64_t q_sb,
                        int64_t q_ss, int64_t q_sh, int64_t k_sb,
@@ -596,6 +603,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if constexpr (kLse) {
+    // the natural-log row state: m is in base 2 (scores times log2 e)
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (quad == 0 && r0 < sq)
+      lse[(static_cast<int64_t>(b) * sq + r0) * n_heads + h] =
+          (m0 + log2f(fmaxf(l0, 1e-30f))) * kLn2;
+    if (quad == 0 && r0 + 8 < sq)
+      lse[(static_cast<int64_t>(b) * sq + r0 + 8) * n_heads + h] =
+          (m1 + log2f(fmaxf(l1, 1e-30f))) * kLn2;
+  }
   const bool pairs = (hd_v % 2) == 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -637,8 +654,9 @@ inline int make_qkv_map(CUtensorMap* map, const void* ptr, int batch,
 }
 
 template <int QC, int VC>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int sq, int skv, int n_heads, int group, int hd, int hd_v,
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int batch, int sq, int skv, int n_heads, int group,
+           int hd, int hd_v,
            const int64_t* strides, float scale, float softcap, int causal,
            int load_bytes, cudaStream_t stream) {
   CUtensorMap maps[3];
@@ -652,19 +670,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
                                  strides + 6);
     if (err) return err;
   }
+  // the lse epilogue is a template switch: with it the kernel takes ~10%
+  // longer (0.331 -> 0.364 ms at qwen2-7b's prefill shape on the H100),
+  // also behind a run-time branch, so the inference forward is compiled
+  // without it
+  auto* kernel = lse != nullptr ? flash_fwd_wgmma_kernel<QC, VC, true>
+                                : flash_fwd_wgmma_kernel<QC, VC, false>;
   const size_t smem = Layout<QC, VC>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<QC, VC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * n_heads);
-  flash_fwd_wgmma_kernel<QC, VC><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), n_heads, group, sq, skv, hd, hd_v,
-      strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-      strides[6], strides[7], strides[8], scale, softcap, causal,
+      static_cast<__nv_bfloat16*>(out), lse, n_heads, group, sq, skv, hd,
+      hd_v, strides[0], strides[1], strides[2], strides[3], strides[4],
+      strides[5], strides[6], strides[7], strides[8], scale, softcap, causal,
       load_bytes);
   return static_cast<int>(cudaGetLastError());
 }
@@ -675,12 +699,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 // to 16, 32, 64 or 128 (never above hd's)
 template <int HD>
 int launch_f32_hd(const void* q, const void* k, const void* v, void* out,
-                  int batch, int sq, int skv, int n_heads, int group, int hd,
-                  int hd_v, const int64_t* strides, float scale,
-                  float softcap, int causal, cudaStream_t stream) {
+                  float* lse, int batch, int sq, int skv, int n_heads,
+                  int group, int hd, int hd_v, const int64_t* strides,
+                  float scale, float softcap, int causal,
+                  cudaStream_t stream) {
 #define FLASH_F32(HDV)                                                     \
-  return f32::launch_typed<float, HD, HDV>(q, k, v, out, batch, sq, skv,   \
-                                           n_heads, group, hd, hd_v,       \
+  return f32::launch_typed<float, HD, HDV>(q, k, v, out, lse, batch, sq,   \
+                                           skv, n_heads, group, hd, hd_v,  \
                                            strides, scale, softcap,        \
                                            causal, stream)
   if (hd_v <= 16) FLASH_F32(16);
@@ -698,13 +723,13 @@ int launch_f32_hd(const void* q, const void* k, const void* v, void* out,
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int batch, int sq, int skv, int n_heads, int group, int hd,
-               int hd_v, const int64_t* strides, float scale, float softcap,
-               int causal, cudaStream_t stream) {
+               float* lse, int batch, int sq, int skv, int n_heads,
+               int group, int hd, int hd_v, const int64_t* strides,
+               float scale, float softcap, int causal, cudaStream_t stream) {
 #define FLASH_F32_HD(HD)                                                  \
-  return launch_f32_hd<HD>(q, k, v, out, batch, sq, skv, n_heads, group,  \
-                           hd, hd_v, strides, scale, softcap, causal,     \
-                           stream)
+  return launch_f32_hd<HD>(q, k, v, out, lse, batch, sq, skv, n_heads,     \
+                           group, hd, hd_v, strides, scale, softcap,      \
+                           causal, stream)
   if (hd <= 16) FLASH_F32_HD(16);
   if (hd <= 32) FLASH_F32_HD(32);
   if (hd <= 64) FLASH_F32_HD(64);
@@ -716,14 +741,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 // the bfloat16 kernel's 64-wide chunk counts: QC of hd (1 to 3), VC of
 // hd_v (1 or 2, never above QC)
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int batch, int sq, int skv, int n_heads, int group, int hd,
-                int hd_v, const int64_t* strides, float scale, float softcap,
-                int causal, int load_bytes, cudaStream_t stream) {
+                float* lse, int batch, int sq, int skv, int n_heads,
+                int group, int hd, int hd_v, const int64_t* strides,
+                float scale, float softcap, int causal, int load_bytes,
+                cudaStream_t stream) {
   const int qc = (hd + 63) / 64;
   const int vc = (hd_v + 63) / 64;
 #define FLASH_BF16(QC, VC)                                                 \
   if (qc == QC && vc == VC)                                                \
-  return bf16::launch<QC, VC>(q, k, v, out, batch, sq, skv, n_heads,       \
+  return bf16::launch<QC, VC>(q, k, v, out, lse, batch, sq, skv, n_heads,  \
                               group, hd, hd_v, strides, scale, softcap,    \
                               causal, load_bytes, stream)
   FLASH_BF16(1, 1);
@@ -738,14 +764,17 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // strides: the (batch, sequence, head) strides of q, k and v in elements,
-// in that order (9 values).  dtype: 0 = float32, 1 = bfloat16.
+// in that order (9 values).  dtype: 0 = float32, 1 = bfloat16.  lse (may
+// be null): (B, Sq, H) float32, each row's log-sum-exp m + log(l) of the
+// scaled scores in natural-log units, for the backward
+// (csrc/flash_attention_bwd.cu); with Skv = 0 (bfloat16) it is not written.
 // load_bytes (bfloat16 only): 16 loads the tiles by TMA (every base address
 // and stride 16-byte aligned); 8, 4 or 2 loads them with plain loads of
 // that many bytes, which must divide every base address, stride, hd and
 // hd_v.  hd <= 192 and hd_v <= min(hd, 128).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int batch,
-                                      int sq, int skv, int n_heads,
+                                      const void* v, void* out, float* lse,
+                                      int batch, int sq, int skv, int n_heads,
                                       int n_kv_heads, int hd, int hd_v,
                                       const int64_t* strides, float scale,
                                       float softcap, int causal, int dtype,
@@ -759,8 +788,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = n_heads / n_kv_heads;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, batch, sq, skv, n_heads, group, hd, hd_v,
-                      strides, scale, softcap, causal, s);
+    return launch_f32(q, k, v, out, lse, batch, sq, skv, n_heads, group, hd,
+                      hd_v, strides, scale, softcap, causal, s);
   if (dtype != 1 || (load_bytes != 16 && load_bytes != 8 &&
                      load_bytes != 4 && load_bytes != 2))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -769,6 +798,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
         out, 0, static_cast<size_t>(batch) * sq * n_heads * hd_v * 2, s);
     return static_cast<int>(err);
   }
-  return launch_bf16(q, k, v, out, batch, sq, skv, n_heads, group, hd, hd_v,
-                     strides, scale, softcap, causal, load_bytes, s);
+  return launch_bf16(q, k, v, out, lse, batch, sq, skv, n_heads, group, hd,
+                     hd_v, strides, scale, softcap, causal, load_bytes, s);
 }

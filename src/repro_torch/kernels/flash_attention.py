@@ -33,8 +33,11 @@ The kernel is chosen by dtype; neither is a fallback of the other:
 
 ``scale = 1/sqrt(hd)`` (the q . k width), optionally soft-capped; key j
 of query i is masked when ``j > i`` (causal; both positions start at 0).
-There is no backward: an input that requires grad raises, so nothing
-trains through the kernel silently.
+``return_lse=True`` also returns each row's log-sum-exp (B, Sq, H),
+float32, natural log: the residual of the backward kernel
+(``kernels.flash_attention_bwd``).  This wrapper is the forward alone: an
+input that requires grad raises, and ``kernels.ops.flash_attention`` pairs
+it with the backward in a ``torch.autograd.Function`` for training.
 """
 
 from __future__ import annotations
@@ -93,22 +96,25 @@ def load_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool = True,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           *, causal: bool = True, softcap: float = 0.0,
+                           return_lse: bool = False):
     """q (B, Sq, H, hd), k (B, Skv, KV, hd) and v (B, Skv, KV, hd_v), one
     dtype (float32 or bfloat16) on one CUDA device, each with unit stride
-    along its last axis -> (B, Sq, H, hd_v) attention output in q's dtype.
-    hd <= 192 and hd_v <= min(hd, 128), else ``ValueError``.
+    along its last axis -> (B, Sq, H, hd_v) attention output in q's dtype,
+    and with ``return_lse`` also the (B, Sq, H) float32 log-sum-exp.  hd
+    <= 192 and hd_v <= min(hd, 128), else ``ValueError``.
 
     Launches the kernel on the current stream and adds one to
     ``flash_attention_kernel.launches``.  There is no CPU path: a CPU tensor
     raises (``kernels.ops.flash_attention`` picks the plain version for
-    those), and so does an input that requires grad.
+    those), and so does an input that requires grad (the wrapper has no
+    backward of its own: ``ops.flash_attention`` trains through it).
     """
     tensors = (q, k, v)
     if any(t.requires_grad for t in tensors):
         raise RuntimeError("flash_attention_kernel has no backward: call it "
-                           "under torch.no_grad() or torch.inference_mode()")
+                           "under torch.no_grad() or torch.inference_mode(), "
+                           "or train through ops.flash_attention")
     if not all(t.is_cuda for t in tensors):
         raise ValueError("flash_attention_kernel runs on CUDA tensors only "
                          f"(got {[str(t.device) for t in tensors]})")
@@ -141,8 +147,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_kernel takes B * H <= 65535, got "
                          f"{b * h}")
     out = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device)
+    lse = None
+    if return_lse:
+        lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+        if skv == 0:       # no key: the kernels' empty row state
+            lse.fill_(-1e30)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_int64 * 9)(*(s for t in tensors
                                      for s in _strides(t)))
     width = load_width(q, k, v) if q.dtype == torch.bfloat16 else 0
@@ -150,12 +161,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     lse.data_ptr() if return_lse else None,
                      b, sq, skv, h, kvh, hd, hd_v, strides, 1.0 / hd ** 0.5,
                      float(softcap), int(bool(causal)), _DTYPES[q.dtype],
                      width, stream)
     _build.check(err, "flash_attention")
     flash_attention_kernel.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_kernel.launches = 0

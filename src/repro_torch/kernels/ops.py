@@ -2,7 +2,8 @@
 
 Ports ``repro/kernels/ops.py`` (``berrut_combine``, ``prefix_decode``,
 ``coded_matmul``, ``precoded_matmul``, ``mask_add`` with the MEA-ECC
-cipher cores, the encrypted round, and ``flash_attention``).
+cipher cores, the encrypted round, and ``flash_attention``, which on the
+card trains through the forward and backward flash kernels).
 ``force_kernel`` keeps the reference's tri-state, read for the device
 instead of the TPU:
 
@@ -24,6 +25,7 @@ from . import ref
 from .berrut_encode import berrut_encode_kernel
 from .coded_matmul import coded_matmul_kernel
 from .flash_attention import flash_attention_kernel
+from .flash_attention_bwd import flash_attention_bwd_kernel
 from .mask_add import mask_add_kernel
 
 __all__ = ["berrut_combine", "prefix_decode", "coded_matmul",
@@ -48,7 +50,8 @@ def kernel_launch_counts() -> dict:
     return {"berrut_combine": berrut_encode_kernel.launches,
             "coded_matmul": coded_matmul_kernel.launches,
             "mask_add": mask_add_kernel.launches,
-            "flash_attention": flash_attention_kernel.launches}
+            "flash_attention": flash_attention_kernel.launches,
+            "flash_attention_bwd": flash_attention_bwd_kernel.launches}
 
 
 def kernel_launches() -> int:
@@ -273,18 +276,45 @@ def fused_wire(words, material, *, q: int, mode: str,
     return out.view(torch.int32).view(torch.uint32)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The two flash kernels under autograd: the forward kernel with its
+    ``lse``; saved q, k, v, the output and ``lse``; the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap):
+        out, lse = flash_attention_kernel(q.detach(), k.detach(), v.detach(),
+                                          causal=causal, softcap=softcap,
+                                          return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.softcap = causal, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, out, lse, dout, causal=ctx.causal, softcap=ctx.softcap)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
                     force_kernel: bool | None = None):
-    """GQA attention forward with kernel dispatch.
+    """GQA attention with kernel dispatch, differentiable.
 
     q (B, Sq, H, hd), k (B, Skv, KV, hd), v (B, Skv, KV, hd_v) -> (B, Sq,
     H, hd_v) in q's dtype, scaled by 1/sqrt(hd); hd_v < hd is MLA's
     prefill.  Positions are implicit, ``arange`` from 0 for both q and k.  On the
     kernel path the CUDA flash kernel reads q, k and v in place through
-    their strides (unit stride along hd); the plain version is the dense
-    ``ref.mha_reference``.
+    their strides (unit stride along hd); when grad is enabled and an
+    input requires it, the forward kernel runs with its ``lse`` inside a
+    ``torch.autograd.Function`` whose backward is the CUDA backward
+    kernel (``kernels.flash_attention_bwd``).  The plain version is the
+    dense ``ref.mha_reference``, differentiated by autograd.
     """
     if _use_kernel(q, force_kernel):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return _FlashAttention.apply(q, k, v, causal, softcap)
         return flash_attention_kernel(q, k, v, causal=causal,
                                       softcap=softcap)
     return ref.mha_reference(q, k, v, causal=causal, softcap=softcap)

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the correctness ground truth).
 
 Ports ``repro/kernels/ref.py`` (``berrut_combine``, ``coded_matmul``,
-``mask_add``, ``encrypted_coded_matmul`` and ``mha_reference``).  The CPU
+``mask_add``, ``encrypted_coded_matmul`` and ``mha_reference``), and adds
+``flash_attention_bwd_reference``, the plain version of the flash
+backward kernel (the reference's ``_flash_bwd``, XLA there).  The CPU
 tests hold these against the JAX package, and ``chip_smoke.py`` holds each
 hand-written CUDA kernel against them on the card.  The float versions
 accumulate in float32 and return the blocks' dtype.  A float32 product on the card is full IEEE
@@ -14,7 +16,10 @@ from __future__ import annotations
 import torch
 
 __all__ = ["berrut_combine", "coded_matmul", "mask_add",
-           "encrypted_coded_matmul", "mha_reference"]
+           "encrypted_coded_matmul", "mha_reference",
+           "flash_attention_bwd_reference", "ATTN_CHUNK"]
+
+ATTN_CHUNK = 512   # the reference's KV chunk (models/attention.py)
 
 
 def berrut_combine(weights: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
@@ -91,16 +96,21 @@ def encrypted_coded_matmul(weights, blocks, rhs, material_out, material_back,
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool, softcap: float = 0.0) -> torch.Tensor:
+                  causal: bool, softcap: float = 0.0,
+                  return_lse: bool = False):
     """Dense multi-head attention oracle: the plain version of the flash
     attention kernel.  q (B,Sq,H,hd) k (B,Skv,KV,hd) v (B,Skv,KV,hd_v) ->
     (B,Sq,H,hd_v), scaled by 1/sqrt(hd) over the q . k width, as the
-    reference's blockwise attention.
+    reference's blockwise attention.  ``return_lse`` also returns each
+    row's log-sum-exp of the scaled (soft-capped, masked) scores, (B, Sq,
+    H) float32, natural log: the reference's ``_flash_fwd_core`` residual
+    and the backward's input.
 
     GQA by grouping q as (B,Sq,KV,G,hd): query head h reads kv head h // G.
     The (Sq, Skv) scores and probabilities are materialised in float32; the
     output is cast to q's dtype.  Causal masks key j of query i when j > i,
-    both positions counted from 0.
+    both positions counted from 0.  Differentiable by autograd: on the CPU
+    the model trains through it.
     """
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
@@ -114,4 +124,58 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = s.masked_fill(~keep[None, :, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkgc,bckd->bqkgd", p, v.to(torch.float32))
-    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    out = out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(b, sq, h)
+    return out
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
+                                  softcap: float = 0.0,
+                                  chunk: int = ATTN_CHUNK) -> tuple:
+    """The plain version of the flash backward kernel: dq, dk and dv of
+    :func:`mha_reference` from its output ``out``, its ``lse`` (B, Sq, H)
+    and the output's gradient ``dout``, in the inputs' dtypes.
+
+    Follows the reference's ``_flash_bwd`` (``models/attention.py:107``)
+    chunk by chunk over ``chunk`` keys in float32: the probabilities
+    ``exp(s - lse)`` are recomputed per chunk, ``delta = rowsum(dout *
+    out)``, ``ds = p (dp - delta)`` (times ``1 - tanh^2`` under softcap),
+    masked keys give 0; dq and dk carry the 1/sqrt(hd) scale.
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kvh
+    scale = 1.0 / (hd ** 0.5)
+    qg = q.reshape(b, sq, kvh, g, hd).to(torch.float32) * scale
+    do = dout.reshape(b, sq, kvh, g, hd_v).to(torch.float32)
+    delta = (do * out.reshape(b, sq, kvh, g, hd_v).to(torch.float32)).sum(-1)
+    lse_g = lse.reshape(b, sq, kvh, g).to(torch.float32)
+    q_pos = torch.arange(sq, device=q.device)
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for c0 in range(0, skv, chunk):
+        kb = k[:, c0:c0 + chunk].to(torch.float32)
+        vb = v[:, c0:c0 + chunk].to(torch.float32)
+        s_raw = torch.einsum("bqkgd,bckd->bqkgc", qg, kb)
+        s = softcap * torch.tanh(s_raw / softcap) if softcap else s_raw
+        k_pos = torch.arange(c0, c0 + kb.shape[1], device=q.device)
+        valid = torch.ones((sq, kb.shape[1]), dtype=torch.bool,
+                           device=q.device)
+        if causal:
+            valid = k_pos[None, :] <= q_pos[:, None]
+        valid = valid[None, :, None, None, :]
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        p = torch.exp(s - lse_g[..., None])
+        dvs.append(torch.einsum("bqkgc,bqkgd->bckd", p, do))
+        dp = torch.einsum("bqkgd,bckd->bqkgc", do, vb)
+        ds = p * (dp - delta[..., None])
+        if softcap:
+            ds = ds * (1.0 - torch.square(torch.tanh(s_raw / softcap)))
+        ds = torch.where(valid, ds, torch.zeros_like(ds))
+        dq = dq + torch.einsum("bqkgc,bckd->bqkgd", ds, kb)
+        dks.append(torch.einsum("bqkgc,bqkgd->bckd", ds, qg))
+    dq = (dq * scale).reshape(b, sq, h, hd).to(q.dtype)
+    dk = torch.cat(dks, dim=1).to(k.dtype)
+    dv = torch.cat(dvs, dim=1).to(v.dtype)
+    return dq, dk, dv

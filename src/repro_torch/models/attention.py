@@ -53,8 +53,8 @@ in place like the GQA cache; ``proj`` reroutes the wq|w_dkv and wo
 projections, while the per-head latent maps ``w_uk``/``w_uv`` stay here.
 
 Not ported yet, and raising ``NotImplementedError``: the int8 KV cache.
-The flash kernel has no backward: on the card it raises on inputs that
-require grad.
+The full-sequence forward trains on the card through the flash forward and
+backward kernels (``kernels.ops.flash_attention``).
 """
 
 from __future__ import annotations

@@ -16,7 +16,10 @@ twice per decoder layer (causal self, full cross).
 
 The reference stacks each side's layers on a leading axis and scans; the
 port holds them in ``nn.ModuleList``s ``encoder`` and ``decoder``, and
-``models.convert`` unstacks the reference's leaves onto them.
+``models.convert`` unstacks the reference's leaves onto them.  As the
+reference checkpoints its scanned bodies (``jax.checkpoint`` under
+``cfg.remat``), each encoder and decoder layer runs through
+``layers.remat`` when grad is enabled.
 
 Decode: each layer's cache is ``{"self": {k, v}, "cross": {k, v}}``, the
 cross rows (``CROSS_LEN`` of them) filled by the caller with ``project_kv``
@@ -36,7 +39,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import attention as attn
 from .layers import (apply_ffn, apply_norm, dtype_of, embed, init_embedding,
-                     init_ffn, init_norm, sinusoidal_positions, unembed)
+                     init_ffn, init_norm, remat, sinusoidal_positions,
+                     unembed)
 from .transformer import softmax_xent
 
 __all__ = ["EncDecLM", "CROSS_LEN"]
@@ -52,6 +56,13 @@ class EncoderLayer(nn.Module):
         self.norm2 = init_norm(gen, cfg)
         self.ffn = init_ffn(gen, cfg)
 
+    def forward(self, x, pos, cfg: ModelConfig, force_kernel=None):
+        h = apply_norm(self.norm1, x, cfg)
+        x = x + attn.attn_forward(self.attn, h, cfg, pos, causal=False,
+                                  use_rope=False, force_kernel=force_kernel)
+        h2 = apply_norm(self.norm2, x, cfg)
+        return x + apply_ffn(self.ffn, h2, cfg)
+
 
 class CrossDecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
@@ -63,6 +74,21 @@ class CrossDecoderLayer(nn.Module):
         self.norm3 = init_norm(gen, cfg)
         self.ffn = init_ffn(gen, cfg)
 
+    def forward(self, x, enc, enc_pos, dec_pos, cfg: ModelConfig,
+                force_kernel=None):
+        h = apply_norm(self.norm1, x, cfg)
+        x = x + attn.attn_forward(self.self_attn, h, cfg, dec_pos,
+                                  causal=True, use_rope=False,
+                                  force_kernel=force_kernel)
+        h2 = apply_norm(self.norm2, x, cfg)
+        ck, cv = attn.project_kv(self.cross_attn, enc, cfg, enc_pos)
+        x = x + attn.attn_forward(self.cross_attn, h2, cfg, dec_pos,
+                                  causal=False, use_rope=False,
+                                  kv=(ck, cv, enc_pos),
+                                  force_kernel=force_kernel)
+        h3 = apply_norm(self.norm3, x, cfg)
+        return x + apply_ffn(self.ffn, h3, cfg)
+
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
@@ -70,8 +96,8 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 class EncDecLM(nn.Module):
     """Whisper-style encoder-decoder, built by ``models.build_model`` on one
-    device from a seeded ``torch.Generator``.  Run ``forward`` on the card
-    under ``torch.inference_mode()`` (the flash kernel has no backward)."""
+    device from a seeded ``torch.Generator``.  ``forward`` trains through
+    the flash kernels on the card (``kernels.ops.flash_attention``)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
@@ -96,12 +122,7 @@ class EncDecLM(nn.Module):
         x = frames.to(cd) + sinusoidal_positions(s, cfg.d_model, cd,
                                                  frames.device)[None]
         for layer in self.encoder:
-            h = apply_norm(layer.norm1, x, cfg)
-            x = x + attn.attn_forward(layer.attn, h, cfg, pos, causal=False,
-                                      use_rope=False,
-                                      force_kernel=force_kernel)
-            h2 = apply_norm(layer.norm2, x, cfg)
-            x = x + apply_ffn(layer.ffn, h2, cfg)
+            x = remat(cfg, layer, x, pos, cfg, force_kernel)
         return apply_norm(self.enc_norm, x, cfg)
 
     # ---- decoder (teacher-forced) ---------------------------------------
@@ -119,18 +140,8 @@ class EncDecLM(nn.Module):
         x = embed(self.embedding, tokens, cfg) + sinusoidal_positions(
             sd, cfg.d_model, cd, tokens.device)[None]
         for layer in self.decoder:
-            h = apply_norm(layer.norm1, x, cfg)
-            x = x + attn.attn_forward(layer.self_attn, h, cfg, dec_pos,
-                                      causal=True, use_rope=False,
-                                      force_kernel=force_kernel)
-            h2 = apply_norm(layer.norm2, x, cfg)
-            ck, cv = attn.project_kv(layer.cross_attn, enc, cfg, enc_pos)
-            x = x + attn.attn_forward(layer.cross_attn, h2, cfg, dec_pos,
-                                      causal=False, use_rope=False,
-                                      kv=(ck, cv, enc_pos),
-                                      force_kernel=force_kernel)
-            h3 = apply_norm(layer.norm3, x, cfg)
-            x = x + apply_ffn(layer.ffn, h3, cfg)
+            x = remat(cfg, layer, x, enc, enc_pos, dec_pos, cfg,
+                      force_kernel)
         x = apply_norm(self.final_norm, x, cfg)
         return unembed(self.embedding, x, cfg), {}
 

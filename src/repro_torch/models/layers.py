@@ -6,8 +6,9 @@ Ports ``repro/models/layers.py``: ``dtype_of``, ``dense_init``,
 ``init_norm``/``apply_norm``, ``rms_normalize``, ``init_ffn``/``apply_ffn``,
 ``init_embedding``/``embed``/``unembed``, the NeoX RoPE, Qwen2-VL's
 M-RoPE (``apply_mrope``), whisper's ``sinusoidal_positions`` and
-``chunked_scan`` (the SSM mixers' recurrence).  The sharding ``*_specs``
-have no counterpart: the port runs on one device.
+``chunked_scan`` (the SSM mixers' recurrence); ``remat`` stands in for
+the reference's ``jax.checkpoint`` of its scanned layer bodies.  The
+sharding ``*_specs`` have no counterpart: the port runs on one device.
 
 Conventions, as in the reference: activations flow in
 ``cfg.compute_dtype`` (bf16 by default); parameters and norm math are
@@ -32,7 +33,7 @@ from ..configs.base import ModelConfig
 __all__ = ["dtype_of", "dense_init", "const_init", "init_norm", "apply_norm",
            "rms_normalize", "init_ffn", "apply_ffn", "init_embedding",
            "embed", "unembed", "apply_rope", "apply_mrope",
-           "sinusoidal_positions", "chunked_scan"]
+           "sinusoidal_positions", "chunked_scan", "remat"]
 
 
 # --------------------------------------------------------------------------
@@ -252,3 +253,21 @@ def chunked_scan(step_fn, init_state: torch.Tensor, xs: tuple,
         state, y = step_fn(state, tuple(a[t] for a in xs))
         ys.append(y)
     return state, torch.stack(ys)
+
+
+def remat(cfg: ModelConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under per-call recomputation when
+    ``cfg.remat`` is set and grad is enabled: the reference checkpoints its
+    scanned layer bodies (``jax.checkpoint``); here each call runs under
+    ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``, which
+    keeps only the call's inputs and runs ``fn`` once more in the backward.
+    Under ``torch.no_grad()`` or ``torch.inference_mode()`` nothing
+    changes.  Side effects of ``fn`` happen twice under recomputation (the
+    kernels' launch counters count both forwards); ``fn`` must make its
+    other side effects once itself.  No random draw runs in a layer, so
+    the RNG state is not saved."""
+    if cfg.remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)

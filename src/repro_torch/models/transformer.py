@@ -10,8 +10,16 @@ The reference scans over stacked groups of ``period`` layers (one XLA body
 for any depth, ``jax.checkpoint`` on the group for training, and the FSDP
 and sequence-sharding hints ``fsdp_in_scan`` and ``seq_shard_activations``
 inside the scan).  Eager PyTorch has no scan, so the port holds an
-``nn.ModuleList`` of all ``n_layers`` layers and loops over it; ``remat``,
+``nn.ModuleList`` of all ``n_layers`` layers and loops over it;
 ``fsdp_in_scan`` and ``seq_shard_activations`` have no counterpart here.
+``cfg.remat`` recomputes each layer (not each group of ``period``) in the
+backward: ``forward`` calls every ``DecoderLayer`` through
+``layers.remat`` when grad is enabled, so a full-depth step keeps one
+residual stream per layer and one layer's activations at a time.  The
+MoE layers' dropped-choice counts (``moe_drops``) are recorded once per
+forward, not again by the recomputation; the flash kernel's launch
+counter counts both forwards of a layer (two launches per attention layer
+and backward, plus one backward kernel call).
 ``models.convert`` maps the reference's stacked ``groups`` leaves onto the
 list.  Parameter names follow the reference's pytree:
 ``layers.<i>.mixer.wq`` is ``groups["pos0"]["mixer"]["wq"][i]`` for a
@@ -33,9 +41,7 @@ streams down to ``attention.attn_forward``/``attn_decode``; without them
 the layer takes plain RoPE, as the reference's does (and as its serve
 loop's decode does).  The encoder-decoder (whisper) is
 ``models.encdec.EncDecLM``.  Still raising: the int8 KV cache
-(``init_cache`` of a config with ``kv_cache_dtype="int8"``) and the flash
-kernel's backward (a forward on the card outside ``torch.inference_mode()``
-or ``torch.no_grad()``).
+(``init_cache`` of a config with ``kv_cache_dtype="int8"``).
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
 from .layers import (apply_ffn, apply_norm, dtype_of, embed, init_embedding,
-                     init_ffn, init_norm, unembed)
+                     init_ffn, init_norm, remat, unembed)
 
 __all__ = ["LayerDesc", "layer_desc", "layer_pattern", "DecoderLayer",
            "TransformerLM", "softmax_xent"]
@@ -253,8 +259,9 @@ class TransformerLM(nn.Module):
     Built by ``models.build_model`` on one device from a seeded
     ``torch.Generator``.  On CUDA tensors every attention layer (GQA or
     MLA) of ``forward`` launches the flash kernel once (an SSM layer
-    none); run it under ``torch.inference_mode()`` (the kernel has no
-    backward yet).
+    none), and trains through it: a backward runs the flash backward
+    kernel once per attention layer and, with ``cfg.remat``, the forward
+    kernel once more.
     """
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
@@ -286,10 +293,8 @@ class TransformerLM(nn.Module):
         lb_tot = z_tot = torch.zeros((), dtype=torch.float32,
                                      device=tokens.device)
         for layer in self.layers:
-            x, (lb, z) = layer(x, positions,
-                               mrope_positions=mrope_positions,
-                               force_kernel=force_kernel,
-                               moe_drops=moe_drops)
+            x, (lb, z) = _layer_call(layer, x, positions, mrope_positions,
+                                     force_kernel, moe_drops)
             lb_tot, z_tot = lb_tot + lb, z_tot + z
         x = apply_norm(self.final_norm, x, cfg)
         logits = unembed(self.embedding, x, cfg)
@@ -332,6 +337,24 @@ class TransformerLM(nn.Module):
         if return_hidden:
             return x, cache
         return unembed(self.embedding, x, cfg), cache
+
+
+def _layer_call(layer: DecoderLayer, x, positions, mrope_positions,
+                force_kernel, moe_drops):
+    """One layer of ``forward`` through ``layers.remat``: the MoE drop
+    counts of its first run reach ``moe_drops``, the recomputation's do
+    not."""
+    recorded = []
+
+    def run(x):
+        drops = None if moe_drops is None else []
+        out = layer(x, positions, mrope_positions=mrope_positions,
+                    force_kernel=force_kernel, moe_drops=drops)
+        if drops is not None and not recorded:
+            moe_drops.extend(drops)
+            recorded.append(True)
+        return out
+    return remat(layer.cfg, run, x)
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

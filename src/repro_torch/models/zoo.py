@@ -30,7 +30,7 @@ def build_model(cfg: ModelConfig, *, device=None,
     ``device=None`` means the card, and raises without one; the tests pass
     ``"cpu"``.  An ``encoder_decoder`` config builds an ``EncDecLM``.  What
     the port still lacks raises ``NotImplementedError`` when it is reached:
-    the int8 KV cache (``init_cache``) and the flash kernel's backward.
+    the int8 KV cache (``init_cache``).
     """
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)

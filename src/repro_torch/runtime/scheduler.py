@@ -3,7 +3,7 @@ the master decodes at any responder prefix a wait policy picks.
 
 Ports ``plan_round``, ``RoundPlan``, ``virtual_events``, ``AnytimePoint``,
 ``assemble_curve``, ``EncodePipeline``, ``observed_delays``,
-``screen_responders`` and ``retry_backoff`` of
+``screen_responders``, ``retry_backoff`` and ``policy_mask_fn`` of
 ``repro/runtime/scheduler.py``: the same delays give exactly the
 reference's timeline, responders and mask.  ``screen_responders`` reads
 the round's results where they lie (a tensor on the engine's device): the
@@ -25,7 +25,7 @@ from .wait_policy import (ArrivalEvent, RoundContext, WaitPolicy,
 
 __all__ = ["RoundPlan", "AnytimePoint", "EncodePipeline", "virtual_events",
            "plan_round", "assemble_curve", "screen_responders",
-           "retry_backoff", "observed_delays"]
+           "retry_backoff", "observed_delays", "policy_mask_fn"]
 
 
 def observed_delays(arrivals, n_workers: int,
@@ -238,3 +238,43 @@ def retry_backoff(attempt: int, base: float, cap: float,
     if rng is None:
         return ceil
     return float(rng.uniform(0.0, ceil))
+
+
+def policy_mask_fn(scheme, straggler, policy=None, t_compute: float = 0.0,
+                   proxy_fn=None) -> Callable[[int], np.ndarray]:
+    """Per-round responder masks for the coded train step:
+    ``mask_fn(round_idx) -> (N,) float32`` numpy.
+
+    ``scheme`` is any registered scheme (for gradient coding, the
+    ``BerrutGradientCode``'s underlying SPACDC code); ``straggler`` a
+    ``StragglerModel`` over the same N.  For ErrorTarget without an
+    explicit ``proxy_fn`` the proxy is *decode-weight stability*: the L1
+    change of the scheme's masked decode weights between consecutive
+    prefixes (float64 on the host), which needs no worker results: the
+    decoded gradient is ``weights @ results``, so once the weights stop
+    moving the decode has converged.
+    """
+    policy = resolve_policy(policy)
+    n = straggler.n_workers
+
+    def _weight_stability(events):
+        prox = np.full(len(events), np.inf)
+        prev = None
+        mask = np.zeros(n, np.float32)
+        for p, ev in enumerate(events):
+            mask[ev.worker] = 1.0
+            w = scheme.decode_matrix_masked(mask).cpu().numpy().astype(
+                np.float64)
+            if prev is not None:
+                prox[p] = (np.abs(w - prev).sum() /
+                           max(np.abs(w).sum(), 1e-12))
+            prev = w
+        return prox
+
+    def mask_fn(round_idx: int) -> np.ndarray:
+        plan = plan_round(scheme, policy, straggler.delays(round_idx),
+                          t_compute, straggler.n_stragglers,
+                          proxy_fn=proxy_fn or _weight_stability)
+        return plan.mask
+
+    return mask_fn

@@ -316,10 +316,133 @@ def test_the_wrapper_refuses_inputs_that_require_grad():
 
 
 def test_the_build_table_names_the_flash_entry():
+    """The forward's entry takes an ``lse`` pointer (19 arguments); the
+    backward is a source and an entry of its own."""
     name, argtypes = _build._ENTRY["flash_attention"]
-    assert name == "flash_attention_launch" and len(argtypes) == 18
+    assert name == "flash_attention_launch" and len(argtypes) == 19
     assert _build._target("flash_attention").name.startswith(
         "libflash_attention-")
+    name, argtypes = _build._ENTRY["flash_attention_bwd"]
+    assert name == "flash_attention_bwd_launch" and len(argtypes) == 23
+    assert _build._target("flash_attention_bwd").name.startswith(
+        "libflash_attention_bwd-")
+
+
+# --------------------------------------------------------------------------
+# the backward's plain version against the reference's custom VJP
+# --------------------------------------------------------------------------
+
+# (B, Sq, Skv, H, KV, hd, hd_v, causal, softcap): G in {1, 4}, causal and
+# full, Sq != Skv both ways (whisper's cross-attention is 1024 x 4096),
+# softcap 20, hd 16 and MLA's 24/16; Skv 600 spans two of the
+# reference's 512-key chunks
+BWD_CASES = [
+    (2, 40, 40, 4, 4, 16, 16, True, 0.0),
+    (1, 48, 48, 8, 2, 16, 16, True, 0.0),
+    (2, 24, 70, 4, 1, 16, 16, False, 0.0),
+    (1, 70, 24, 4, 4, 16, 16, True, 0.0),
+    (1, 32, 32, 4, 1, 16, 16, True, 20.0),
+    (2, 40, 40, 4, 4, 24, 16, True, 0.0),
+    (1, 20, 600, 4, 4, 16, 16, False, 20.0),
+]
+BWD_IDS = ["b{}-sq{}-skv{}-h{}-kv{}-hd{}-{}-{}-cap{:g}".format(
+    b, sq, skv, h, kv, hd, hdv, "causal" if c else "full", cap)
+    for b, sq, skv, h, kv, hd, hdv, c, cap in BWD_CASES]
+BWD_REL = 1e-5
+
+
+def _bwd_inputs(case, seed):
+    b, sq, skv, h, kv, hd, hd_v = case[:7]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kv, hd)).astype(np.float32),
+            rng.standard_normal((b, skv, kv, hd_v)).astype(np.float32),
+            rng.standard_normal((b, sq, h, hd_v)).astype(np.float32))
+
+
+def _rel_err(got, want) -> float:
+    got = _np(got)
+    want = _np(want) if torch.is_tensor(want) else np.asarray(want,
+                                                              np.float32)
+    assert got.shape == want.shape
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_plain_backward_matches_the_reference_vjp(case):
+    """``ref.flash_attention_bwd_reference`` against ``jax.vjp`` of the
+    reference's ``models.attention.flash_attention`` (its custom VJP,
+    ``_flash_bwd``) and against torch autograd through
+    ``ref.mha_reference``: dq, dk, dv within 1e-5 of max |ref| in
+    float32; the plain forward's lse against ``_flash_fwd_core``'s."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention as jattn
+    causal, softcap = case[7], case[8]
+    q, k, v, do = _bwd_inputs(case, seed=sum(case[:7]))
+    b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+    qpos = jnp.broadcast_to(jnp.arange(sq, dtype=jnp.int32)[None], (b, sq))
+    kpos = jnp.broadcast_to(jnp.arange(skv, dtype=jnp.int32)[None], (b, skv))
+
+    def f(q_, k_, v_):
+        return jattn.flash_attention(q_, k_, v_, q_positions=qpos,
+                                     kv_positions=kpos, causal=causal,
+                                     softcap=softcap)
+    out_j, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = ref.mha_reference(qt, kt, vt, causal=causal, softcap=softcap,
+                                 return_lse=True)
+    assert _rel_err(out, out_j) <= BWD_REL
+    got = ref.flash_attention_bwd_reference(qt, kt, vt, out, lse, dot,
+                                            causal, softcap)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= BWD_REL
+    # torch autograd through the dense plain forward
+    leaves = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    ops.flash_attention(*leaves, causal=causal, softcap=softcap).backward(dot)
+    for g, leaf in zip(got, leaves):
+        assert _rel_err(g, leaf.grad) <= BWD_REL
+    # the lse residual of the reference's forward core
+    qg, kc, vc, pc, _, _ = jattn._prep(*(jnp.asarray(x) for x in (q, k, v)),
+                                       kpos, jattn.ATTN_CHUNK)
+    _, lse_j = jattn._flash_fwd_core(qg, kc, vc, pc, qpos, causal, softcap)
+    lse_j = np.asarray(lse_j).reshape(lse.shape)
+    assert float(np.max(np.abs(lse.numpy() - lse_j))) <= \
+        BWD_REL * float(np.max(np.abs(lse_j)))
+
+
+def test_plain_backward_chunks_do_not_change_the_result():
+    case = (1, 40, 150, 4, 2, 16, 16, True, 0.0)
+    q, k, v, do = (torch.from_numpy(x) for x in _bwd_inputs(case, 3))
+    out, lse = ref.mha_reference(q, k, v, causal=True, return_lse=True)
+    whole = ref.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    for chunk in (16, 64):
+        parts = ref.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                  True, chunk=chunk)
+        for a, b in zip(parts, whole):
+            assert _rel_err(a, b) <= BWD_REL
+
+
+def test_cpu_training_runs_the_plain_version_under_autograd():
+    """On the CPU ``ops.flash_attention`` stays ``ref.mha_reference``
+    under autograd: no kernel launches, gradients flow."""
+    q, k, v = (_torch(x, "float32").requires_grad_()
+               for x in _inputs(CASES[1], seed=5))
+    before = ops.kernel_launches()
+    ops.flash_attention(q, k, v, causal=True).square().sum().backward()
+    assert ops.kernel_launches() == before
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in (q, k, v))
+
+
+def test_the_backward_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    q, k, v = (_torch(x, "float32") for x in _inputs(CASES[1], seed=6))
+    out, lse = ref.mha_reference(q, k, v, causal=True, return_lse=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_kernel(q, k, v, out, lse, out, causal=True)
 
 
 # --------------------------------------------------------------------------
@@ -421,6 +544,75 @@ def test_cuda_kernel_refuses_widths_it_does_not_take(cuda, hd, hd_v):
     with pytest.raises(ValueError, match="hd"):
         ops.flash_attention(q, q, v, causal=True)
     assert flash_attention_kernel.launches == n0
+
+
+# the backward on the card: ragged Sq and Skv, G in {1, 7}, every hd the
+# kernel pads, hd 20, MLA's 192/128, softcap, causal, full and cross
+BWD_CUDA_CASES = BWD_CASES + [
+    (1, 200, 200, 7, 1, 128, 128, True, 0.0),
+    (2, 130, 65, 14, 2, 96, 96, True, 0.0),
+    (1, 65, 130, 7, 7, 64, 64, False, 20.0),
+    (2, 200, 200, 7, 1, 20, 20, True, 0.0),
+    (1, 70, 140, 2, 2, 192, 128, False, 0.0),
+    (1, 130, 130, 3, 3, 192, 128, True, 0.0),
+    (1, 100, 300, 4, 4, 32, 32, False, 0.0),
+]
+BWD_CUDA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", BWD_CUDA_CASES)
+def test_cuda_backward_kernel_matches_plain(cuda, case, dtype):
+    """dq, dk and dv of the CUDA backward kernel against its plain version
+    on the same inputs (the forward kernel's output and lse), within 1e-4
+    (float32) or 2e-2 (bfloat16) of max |plain|; the forward's lse within
+    1e-5 of the plain forward's."""
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    causal, softcap = case[7], case[8]
+    q, k, v, do = (_torch(x, dtype, cuda) for x in _bwd_inputs(case, 8))
+    out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                      softcap=softcap, return_lse=True)
+    _, lse_p = ref.mha_reference(q, k, v, causal=causal, softcap=softcap,
+                                 return_lse=True)
+    n0 = flash_attention_bwd_kernel.launches
+    got = flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=causal,
+                                     softcap=softcap)
+    want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                             softcap)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_kernel.launches == n0 + 1
+    assert float((lse - lse_p).abs().max()) <= 1e-5 * float(
+        lse_p.abs().max())
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape and g.is_cuda
+        assert _rel_err(g, w) <= BWD_CUDA_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_trains_through_both_kernels(cuda, dtype):
+    """Where the path now trains: ``ops.flash_attention`` on inputs that
+    require grad runs the forward kernel (with lse) and, in the backward,
+    the backward kernel once; the gradients agree with autograd through
+    the plain version."""
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    case = (2, 150, 150, 8, 2, 64, 64, True, 0.0)
+    q, k, v, do = (_torch(x, dtype, cuda) for x in _bwd_inputs(case, 9))
+    grads = []
+    for force in (None, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        f0 = flash_attention_kernel.launches
+        b0 = flash_attention_bwd_kernel.launches
+        out = ops.flash_attention(*leaves, causal=True, force_kernel=force)
+        out.backward(do)
+        torch.cuda.synchronize()
+        launched = (flash_attention_kernel.launches - f0,
+                    flash_attention_bwd_kernel.launches - b0)
+        assert launched == ((1, 1) if force is None else (0, 0))
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        assert _rel_err(g, w) <= BWD_CUDA_TOL[dtype]
 
 
 def test_cuda_kernel_refuses_grad_and_mixed_dtypes(cuda):

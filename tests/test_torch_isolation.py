@@ -64,6 +64,14 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/runtime/wire.py",
                  "src/repro_torch/runtime/socket_transport.py",
                  "src/repro_torch/launch/worker.py",
+                 "src/repro_torch/launch/train.py",
+                 "src/repro_torch/launch/steps.py",
+                 "src/repro_torch/optim/optimizers.py",
+                 "src/repro_torch/data/pipeline.py",
+                 "src/repro_torch/checkpoint/checkpointer.py",
+                 "src/repro_torch/dist/compression.py",
+                 "src/repro_torch/kernels/flash_attention_bwd.py",
+                 "src/repro_torch/tree.py",
                  "chip_smoke.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
@@ -86,7 +94,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.runtime.serve_loop, repro_torch.launch.serve, "
             "repro_torch.runtime.faults, repro_torch.runtime.adaptive, "
             "repro_torch.runtime.wire, repro_torch.runtime.socket_transport, "
-            "repro_torch.launch.worker\n"
+            "repro_torch.launch.worker, repro_torch.launch.train, "
+            "repro_torch.launch.steps, repro_torch.optim, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint, "
+            "repro_torch.dist.compression, "
+            "repro_torch.kernels.flash_attention_bwd\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")

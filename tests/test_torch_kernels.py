@@ -282,7 +282,8 @@ def test_build_names_a_library_by_its_source_and_flags():
     assert target != _build._target("berrut_combine")
     assert _build._target("mask_add").name.startswith("libmask_add-")
     assert set(_build._ENTRY) == {"berrut_combine", "coded_matmul",
-                                  "mask_add", "flash_attention"}
+                                  "mask_add", "flash_attention",
+                                  "flash_attention_bwd"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 

@@ -675,5 +675,25 @@ def test_cuda_forward_launches_the_kernel_per_layer(cuda, arch):
     torch.cuda.synchronize()
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= TOL["float32"], err
-    with pytest.raises(RuntimeError, match="no backward"):
-        model.forward(toks)                    # grad mode: refused
+    # grad mode trains through the kernels: per layer the forward kernel
+    # twice (remat recomputes it) and the backward kernel once; the
+    # gradients are those of the kernels-off run
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    grads = []
+    for force in (None, False):
+        model.zero_grad(set_to_none=True)
+        f0 = flash_attention_kernel.launches
+        b0 = flash_attention_bwd_kernel.launches
+        logits, _ = model.forward(toks, force_kernel=force, **kw)
+        logits.float().square().mean().backward()
+        torch.cuda.synchronize()
+        n = model.cfg.n_layers if force is None else 0
+        assert (flash_attention_kernel.launches - f0,
+                flash_attention_bwd_kernel.launches - b0) == (2 * n, n)
+        grads.append({k: p.grad.clone() for k, p in model.named_parameters()
+                      if p.grad is not None})
+    for k, w in grads[1].items():
+        err = float((grads[0][k] - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        assert err <= TOL["float32"], (k, err)

@@ -269,11 +269,15 @@ Phases, one JSON line each:
     4096 cross rows.
 
 15. LM training (``train_main_path``): (a) ``flash_attention_bwd``
-    against its plain version (ragged, G 1 and 7, hd 20 to 192/128,
-    softcap, causal, full and cross, float32 and bfloat16; lse too),
-    timed at the training shape beside SDPA's backward and its bounds,
-    and a 2-layer full-width float32 step's gradients through the
-    kernels against the kernels-off step; (b) 6 coded steps of
+    against its plain version (ragged, the tensor-core tiles' edges at
+    127 to 257, G 1 and 7, hd 20 on both load routes to 192/128,
+    softcap, causal, full and cross, float32 on the CUDA cores and
+    bfloat16 on the route ``backward_route`` picks; lse too), two bfloat16
+    calls bit-identical, ptxas's registers and spills per instantiation,
+    timed at the training shape beside the CUDA-core kernel on the same
+    inputs, SDPA's backward and the bound, and a 2-layer full-width
+    float32 step's gradients through the kernels against the kernels-off
+    step; (b) 6 coded steps of
     phi3-mini-3.8b at full width and depth on 8 x 4096 tokens (256
     backward calls and 512 forward launches a step), losses, step wall,
     tokens/s, peak memory and a profiled step's split; (c)
@@ -728,7 +732,10 @@ def main() -> int:
                         "bound_by": row["bound_by"],
                         "bound_rate": row["bound_rate"],
                         "library_ms": row["library_ms"]})
-    # the backward replaces no TPU kernel: the reference's is XLA
+    # the backward replaces no TPU kernel: the reference's is XLA.  Its
+    # bf16 route at the training shape is the tensor-core kernels; the
+    # CUDA-core kernel (float32, and bf16 at MLA's 192/128) is timed on
+    # the same inputs as "earlier_ms"
     kernels.append({"name": "flash_attention_bwd", "route": "cuda",
                     "source":
                         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -741,9 +748,19 @@ def main() -> int:
                     "bound_ms": bwd_row["bound_ms"],
                     "bound_by": bwd_row["bound_by"],
                     "bound_rate": bwd_row["bound_rate"],
-                    "bound_ms_f32_cuda_cores":
-                        bwd_row["bound_ms_f32_cuda_cores"],
-                    "library_ms": bwd_row["library_ms"]})
+                    "library_ms": bwd_row["library_ms"],
+                    "bf16_route": bwd_row["route"],
+                    "kernel_split_ms": bwd_row["kernel_split_ms"],
+                    "earlier_ms": bwd_row["earlier_ms"],
+                    "tflop_per_s": bwd_row["tflop_per_s"],
+                    "design_bound_ms": bwd_row["design_bound_ms"],
+                    "design": "seven products: the dq pass recomputes s "
+                    "and dp",
+                    "float32_ms": bwd_row["float32"]["kernel_ms"],
+                    "float32_library_ms": bwd_row["float32"]["library_ms"],
+                    "float32_bound_ms": bwd_row["float32"]["bound_ms"],
+                    "cuda_core_route": "float32, and bf16 at hd > 128 "
+                    "(MLA's 192/128)"})
     # the flash kernel at MLA's widths (phase 12 a), beside its main row,
     # at jamba's GQA shape (phase 13 c) and at whisper's and qwen2-vl's
     # (phase 14 a)
@@ -5758,7 +5775,10 @@ ENTRY_ARGS = ["--arch", TRAIN_LM_ARCH, "--steps", "3", "--seq-len", "512",
               "--log-every", "1"]
 # the backward kernel against its plain version: (B, Sq, Skv, H, KV, hd,
 # hd_v, causal, softcap): ragged Sq and Skv, G in {1, 7}, hd 20, 64, 96,
-# 128 and MLA's 192/128, softcap 20, causal, full and cross
+# 128 and MLA's 192/128, softcap 20, causal, full and cross; then the
+# tensor-core kernels' tile edges (128 keys or queries a block, 64 a
+# step): Sq and Skv of 127, 128, 129 and 257, unequal both ways, G 7,
+# hd_v < hd
 BWD_CHECKS = [(1, 65, 130, 2, 2, 64, 64, False, 0.0),
               (2, 130, 65, 14, 2, 96, 96, True, 0.0),
               (1, 200, 200, 7, 1, 128, 128, True, 0.0),
@@ -5766,8 +5786,19 @@ BWD_CHECKS = [(1, 65, 130, 2, 2, 64, 64, False, 0.0),
               (1, 257, 257, 7, 7, 96, 96, True, 20.0),
               (1, 70, 140, 2, 2, 192, 128, False, 0.0),
               (1, 300, 300, 16, 16, 192, 128, True, 0.0),
-              (1, 128, 600, 4, 4, 64, 64, False, 0.0)]
+              (1, 128, 600, 4, 4, 64, 64, False, 0.0),
+              (1, 127, 127, 4, 2, 96, 96, True, 0.0),
+              (1, 128, 128, 7, 1, 96, 96, True, 0.0),
+              (2, 129, 129, 4, 4, 64, 64, True, 20.0),
+              (1, 257, 257, 7, 1, 96, 96, True, 0.0),
+              (1, 129, 257, 4, 2, 128, 128, False, 0.0),
+              (1, 257, 127, 4, 4, 96, 96, True, 0.0),
+              (1, 127, 129, 4, 2, 128, 64, True, 0.0)]
+# hd 20 in bfloat16 again, q, k, v and dout as views into 24-wide rows
+# (48-byte strides, TMA) where the dense case's 40-byte rows load plainly
+BWD_VIEWS = [(2, 200, 200, 7, 1, 20, 20, True, 0.0)]
 BWD_MAIN = (1, LM_SEQ, LM_SEQ, 32, 32, 96, 96, True, 0.0)
+BWD_GQA = (1, 257, 257, 7, 1, 96, 96, True, 0.0)   # determinism, GQA
 LSE_TOL = 1e-5                      # of max |plain lse|
 TRAIN_CLASSES = (("flash_fwd", ("flash_fwd",)),
                  ("flash_bwd", ("flash_bwd", "bwd_delta")),
@@ -5775,116 +5806,226 @@ TRAIN_CLASSES = (("flash_fwd", ("flash_fwd",)),
                  ("casts", ("copy_kernel",)))
 
 
-def flash_bwd_work(b, sq, skv, h, kv, hd, hd_v, causal, elt) -> tuple:
+def flash_bwd_work(b, sq, skv, h, kv, hd, hd_v, causal, elt,
+                   dq_pass: bool = False) -> tuple:
     """(bytes, FLOP) of one attention backward: q, k, v, out and dout read
-    and lse (float32) read once, dq, dk, dv written once; the five
-    products (s, dq, dk over hd; dp, dv over hd_v) over the (query, key)
-    pairs the mask keeps."""
+    and lse (float32) read once, dq, dk, dv written once; the products
+    over the (query, key) pairs the mask keeps.  The function needs five
+    (s and dq, dk over hd; dp and dv over hd_v); with ``dq_pass`` seven,
+    as the tensor-core route's separate dq pass recomputes s and dp."""
     pairs = sum(min(skv, i + 1) for i in range(sq)) if causal else sq * skv
     nbytes = elt * (2 * b * sq * h * (hd + hd_v) +
                     2 * b * skv * kv * (hd + hd_v)) + 4 * b * sq * h
-    return nbytes, 2 * b * h * (3 * hd + 2 * hd_v) * pairs
+    per_pair = 2 * (4 * hd + 3 * hd_v) if dq_pass else 2 * (3 * hd + 2 * hd_v)
+    return nbytes, b * h * per_pair * pairs
+
+
+def spills(report: str) -> int:
+    """Spilled bytes (stores + loads) in one ptxas report line."""
+    return sum(int(n) for n in
+               re.findall(r"(\d+) bytes spill (?:stores|loads)", report))
+
+
+def cuda_core_bwd(torch, q, k, v, out, lse, do, causal: bool):
+    """The one-pass design on the same inputs: the CUDA-core backward kernel
+    (the C entry's load width 0), with its zeroed float32 dq and the cast,
+    as that wrapper ran it.  For the comparison of phase 15 (a) only: the
+    wrapper routes bfloat16 at hd <= 128 to the tensor cores."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import _strides
+    b, sq, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    dq = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, do)
+                                      for s in _strides(t)))
+    err = _build.library("flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd, hd_v, strides,
+        1.0 / hd ** 0.5, 0.0, int(causal),
+        0 if q.dtype == torch.float32 else 1, 0,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_attention_bwd (CUDA cores)")
+    return dq.to(q.dtype), dk, dv
+
+
+def bwd_instantiations(ptxas: dict, hd: int, route: str) -> dict:
+    """ptxas's report of the kernels one backward call launches: the
+    pre-pass and, on the tensor-core route, the dkdv and dq kernels at
+    the template width hd rounds up to, else the CUDA-core kernel at its
+    padded width."""
+    if route == "wgmma":
+        d = next(w for w in (16, 32, 64, 96, 128) if hd <= w)
+        names = ("bwd_delta_t_kernel", f"flash_bwd_dkdv_wgmma_kernel<{d}>",
+                 f"flash_bwd_dq_wgmma_kernel<{d}>")
+    else:
+        d = next(w for w in (16, 32, 64, 96, 128, 192) if hd <= w)
+        names = ("bwd_delta_kernel", f"flash_bwd_kernel<{d}>")
+    found = {n: line for n in names for sym, line in ptxas.items()
+             if sym.replace("(int)", "").endswith(n)}
+    assert len(found) == len(names), (names, list(ptxas))
+    return found
+
+
+def sdpa_bwd_ms(torch, q, k, v, do) -> tuple:
+    """(forward + backward, forward) ms of ``F.scaled_dot_product_attention``
+    with ``is_causal`` on (B, S, H, hd) inputs, the backward fed ``do``:
+    the library yardstick of the flash backward is their difference."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+    return timed_ms(torch, fwd_bwd), timed_ms(torch, fwd)
 
 
 def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
     """Phase 15 (a): ``flash_attention_bwd`` against its plain version
     (``ref.flash_attention_bwd_reference``) on the forward kernel's own
-    output and lse, over BWD_CHECKS and the training shape BWD_MAIN, in
-    float32 and bfloat16: dq, dk, dv within TOL of max |plain|, the
-    forward's lse within LSE_TOL of the plain forward's.  At BWD_MAIN in
-    bfloat16 the kernel's, the plain version's and the library
-    yardstick's times (``F.scaled_dot_product_attention``'s forward +
-    backward less its forward), the bound at the bf16 tensor-core rate and
-    at the float32 CUDA-core rate, and ptxas's report.  Returns that
-    row."""
-    import torch.nn.functional as F
+    output and lse, over BWD_CHECKS and the training shape BWD_MAIN in
+    float32 (the CUDA-core kernel) and bfloat16 (the route
+    ``backward_route`` picks: the tensor-core kernels up to hd 128, the
+    CUDA-core kernel at MLA's 192/128), and BWD_VIEWS in bfloat16 through
+    strided views: dq, dk, dv within TOL of max |plain|, the forward's lse
+    within LSE_TOL of the plain forward's.  Each row names its route and
+    ptxas's report of the kernels it launched; BWD_MAIN's must not spill.
+    At BWD_MAIN and BWD_GQA in bfloat16 a second call must give the same
+    bits.  At BWD_MAIN in bfloat16 the kernel's time, each of its
+    kernels' device time, the CUDA-core kernel's on the same inputs (the
+    one-pass design), the plain version's and the library yardstick's
+    (``F.scaled_dot_product_attention``'s forward + backward less its
+    forward), the bound over the function's work (five products) at the
+    bf16 tensor-core rate and, apart, the work of this design (seven: the
+    dq pass recomputes s and dp).  At BWD_MAIN in float32 the CUDA-core
+    kernel's time, the library yardstick's in float32 and the bound at the
+    f32 CUDA-core rate, kept in the bf16 row under "float32".  Returns
+    that row."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.flash_attention_bwd import \
-        flash_attention_bwd_kernel
-    main = None
-    for case in BWD_CHECKS + [BWD_MAIN]:
+    from repro_torch.kernels.flash_attention_bwd import (
+        backward_route, flash_attention_bwd_kernel)
+    main = f32_main = None
+    runs = [(case, dt, False) for case in BWD_CHECKS + [BWD_MAIN]
+            for dt in (torch.float32, torch.bfloat16)]
+    runs += [(case, torch.bfloat16, True) for case in BWD_VIEWS]
+    for case, dt, view in runs:
         b, sq, skv, h, kvh, hd, hd_v, causal, softcap = case
-        for dt in (torch.float32, torch.bfloat16):
-            dname = str(dt).split(".")[-1]
-            q = torch.randn((b, sq, h, hd), generator=gen, device=dev).to(dt)
-            k = torch.randn((b, skv, kvh, hd), generator=gen,
-                            device=dev).to(dt)
-            v = torch.randn((b, skv, kvh, hd_v), generator=gen,
-                            device=dev).to(dt)
-            do = torch.randn((b, sq, h, hd_v), generator=gen,
-                             device=dev).to(dt)
-            out, lse = flash_attention_kernel(q, k, v, causal=causal,
-                                              softcap=softcap,
-                                              return_lse=True)
-            _, lse_p = ref.mha_reference(q, k, v, causal=causal,
-                                         softcap=softcap, return_lse=True)
-            n0 = flash_attention_bwd_kernel.launches
-            got = flash_attention_bwd_kernel(q, k, v, out, lse, do,
-                                             causal=causal, softcap=softcap)
-            launched = flash_attention_bwd_kernel.launches - n0
-            want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do,
-                                                     causal, softcap)
+        dname = str(dt).split(".")[-1]
+        shapes = ((b, sq, h, hd), (b, skv, kvh, hd), (b, skv, kvh, hd_v),
+                  (b, sq, h, hd_v))
+        pad = 4 if view else 0
+        q, k, v, do = (torch.randn(sh[:3] + (sh[3] + pad,), generator=gen,
+                                   device=dev).to(dt)[..., :sh[3]]
+                       for sh in shapes)
+        out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                          softcap=softcap, return_lse=True)
+        _, lse_p = ref.mha_reference(q, k, v, causal=causal,
+                                     softcap=softcap, return_lse=True)
+        route = backward_route(q, k, v, do)
+        n0 = flash_attention_bwd_kernel.launches
+        got = flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                         causal=causal, softcap=softcap)
+        launched = flash_attention_bwd_kernel.launches - n0
+        want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                 causal, softcap)
+        torch.cuda.synchronize()
+        assert launched == 1, launched
+        errs = {}
+        for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+            assert g.shape == t.shape and g.dtype == t.dtype
+            assert bool(torch.isfinite(g.float()).all()), name
+            errs[name] = rel_diff(torch, g, w)
+        lse_err = float((lse - lse_p).abs().max())
+        kernels = bwd_instantiations(ptxas, hd, route[0])
+        row = {"phase": "train_main_path", "check": "a_flash_bwd",
+               "kernel": "flash_attention_bwd",
+               "shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd",
+                                  "hd_v", "causal", "softcap"), case)),
+               "dtype": dname, "route": route[0], "load_width": route[1],
+               "strided_views": view, "ptxas": kernels,
+               "max_abs_err": max(e[0] for e in errs.values()),
+               "rel_err": {n: e[1] for n, e in errs.items()},
+               "tol": TOL[dname], "lse_max_abs_err": lse_err,
+               "lse_tol": LSE_TOL * float(lse_p.abs().max()),
+               "launches": launched}
+        del want, lse_p
+        if dt == torch.bfloat16 and case in (BWD_MAIN, BWD_GQA) \
+                and not view:
+            again = flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                               causal=causal,
+                                               softcap=softcap)
             torch.cuda.synchronize()
-            assert launched == 1, launched
-            errs = {}
-            for name, g, w, t in zip(("dq", "dk", "dv"), got, want,
-                                     (q, k, v)):
-                assert g.shape == t.shape and g.dtype == t.dtype
-                assert bool(torch.isfinite(g.float()).all()), name
-                errs[name] = rel_diff(torch, g, w)
-            lse_err = float((lse - lse_p).abs().max())
-            row = {"phase": "train_main_path", "check": "a_flash_bwd",
-                   "kernel": "flash_attention_bwd",
-                   "shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd",
-                                      "hd_v", "causal", "softcap"), case)),
-                   "dtype": dname,
-                   "max_abs_err": max(e[0] for e in errs.values()),
-                   "rel_err": {n: e[1] for n, e in errs.items()},
-                   "tol": TOL[dname], "lse_max_abs_err": lse_err,
-                   "lse_tol": LSE_TOL * float(lse_p.abs().max()),
-                   "launches": launched}
-            del got, want, lse_p
-            if case is BWD_MAIN and dt == torch.bfloat16:
-                k_ms = timed_ms(torch, lambda: flash_attention_bwd_kernel(
-                    q, k, v, out, lse, do, causal=True), max_iters=20)
-                p_ms = timed_ms(torch, lambda: ref.flash_attention_bwd_reference(
-                    q, k, v, out, lse, do, True), max_iters=5)
-                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                              for t in (q, k, v))
-                dot = do.transpose(1, 2)
-
-                def sdpa_fwd():
-                    with torch.no_grad():
-                        return F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True)
-
-                def sdpa_fwd_bwd():
-                    o = F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True)
-                    return torch.autograd.grad(o, (qt, kt, vt), dot)
-                fb_ms = timed_ms(torch, sdpa_fwd_bwd)
-                f_ms = timed_ms(torch, sdpa_fwd)
-                nbytes, flops = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v,
-                                               causal, q.element_size())
-                row.update(kernel_ms=k_ms, plain_ms=p_ms,
-                           library_ms=fb_ms - f_ms,
-                           library="F.scaled_dot_product_attention, "
-                           "is_causal: forward + backward less forward",
-                           library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
-                           **bound(nbytes, flops, BF16_TC),
-                           bound_ms_f32_cuda_cores=bound(
-                               nbytes, flops, F32_CUDA)["bound_ms"],
-                           flop=flops, bytes=nbytes,
-                           tflop_per_s=flops / k_ms / 1e9, ptxas=ptxas)
-                main = row
-                del qt, kt, vt, dot
-            emit(row)
-            for name, (_, rel) in errs.items():
-                assert rel <= TOL[dname], (name, row)
-            assert lse_err <= row["lse_tol"], row
-            del q, k, v, do, out, lse
-            torch.cuda.empty_cache()
+            row["bit_identical_second_call"] = all(
+                torch.equal(x, y) for x, y in zip(got, again))
+            del again
+        del got
+        if case is BWD_MAIN:
+            def kernel():
+                return flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                                  causal=True)
+            bf16 = dt == torch.bfloat16
+            k_ms = timed_ms(torch, kernel, max_iters=50 if bf16 else 10)
+            fb_ms, f_ms = sdpa_bwd_ms(torch, q, k, v, do)
+            nbytes, flops = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v,
+                                           causal, q.element_size())
+            timing = dict(kernel_ms=k_ms, library_ms=fb_ms - f_ms,
+                          library="F.scaled_dot_product_attention, "
+                          "is_causal: forward + backward less forward",
+                          library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
+                          **bound(nbytes, flops, BF16_TC if bf16
+                                  else F32_CUDA),
+                          flop=flops, bytes=nbytes,
+                          tflop_per_s=flops / k_ms / 1e9)
+            row.update(timing)
+            if not bf16:
+                f32_main = timing
+        if case is BWD_MAIN and dt == torch.bfloat16:
+            # a profile now and then records none of a kernel's events
+            # (one chip run lost two of these three names): ask again
+            split = {}
+            for name in ("bwd_delta_t", "flash_bwd_dkdv", "flash_bwd_dq"):
+                for _ in range(PROFILE_TRIES):
+                    split[name] = device_ms(torch, kernel, name, calls=10)
+                    if split[name] is not None:
+                        break
+            c_ms = timed_ms(torch, lambda: cuda_core_bwd(
+                torch, q, k, v, out, lse, do, True), max_iters=10)
+            p_ms = timed_ms(torch, lambda: ref.flash_attention_bwd_reference(
+                q, k, v, out, lse, do, True), max_iters=5)
+            _, flops7 = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal,
+                                       q.element_size(), dq_pass=True)
+            row.update(kernel_split_ms=split, earlier_ms=c_ms,
+                       earlier="the CUDA-core kernel (the one-pass design) on "
+                       "the same inputs, with its zeroed float32 dq and "
+                       "cast", plain_ms=p_ms,
+                       design_flop=flops7,
+                       design_bound_ms=bound(row["bytes"], flops7,
+                                             BF16_TC)["bound_ms"],
+                       float32=f32_main, ptxas_all=ptxas)
+            main = row
+        emit(row)
+        for name, (_, rel) in errs.items():
+            assert rel <= TOL[dname], (name, row)
+        assert lse_err <= row["lse_tol"], row
+        assert row.get("bit_identical_second_call", True), row
+        if case is BWD_MAIN:
+            assert all(spills(line) == 0 for line in kernels.values()), row
+        want_route = "wgmma" if dt == torch.bfloat16 and hd <= 128 \
+            else "cuda_cores"
+        assert route[0] == want_route, row
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
     return main
 
 

@@ -62,7 +62,7 @@ _ENTRY = {
                             [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _VP, _I, _I, _I, _I, _I, _I, _I,
                              ctypes.POINTER(ctypes.c_int64), _F, _F, _I, _I,
-                             _VP]),
+                             _I, _VP]),
 }
 # further C functions of a source: name -> (source stem, argtypes)
 _HELPERS = {

@@ -74,8 +74,10 @@ def _strides(t: torch.Tensor) -> tuple:
     return sb, ss, sh
 
 
-def load_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """How the bfloat16 kernel loads the tiles of q, k and v: 16 by TMA,
+def load_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               *more: torch.Tensor) -> int:
+    """How the bfloat16 kernels load the tiles of q, k and v (and of
+    ``more`` (B, S, heads, hd_v) tensors, the backward's dout): 16 by TMA,
     when every base address and (batch, sequence, head) stride is 16-byte
     aligned and the strides nest (head inside sequence inside batch, as in
     a contiguous or fused-projection layout); else the widest plain load,
@@ -83,7 +85,7 @@ def load_width(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     hd_v rows."""
     elt = q.element_size()
     parts, nested = [], True
-    for t in (q, k, v):
+    for t in (q, k, v) + more:
         sb, ss, sh = _strides(t)
         parts += [t.data_ptr(), sb * elt, ss * elt, sh * elt]
         nested = nested and sh * t.shape[2] <= ss and \

@@ -29,6 +29,7 @@ Tolerances:
   kernel's P adds one more bfloat16 rounding of weights that sum to 1.
 """
 
+import ctypes
 import functools
 
 import numpy as np
@@ -317,13 +318,15 @@ def test_the_wrapper_refuses_inputs_that_require_grad():
 
 def test_the_build_table_names_the_flash_entry():
     """The forward's entry takes an ``lse`` pointer (19 arguments); the
-    backward is a source and an entry of its own."""
+    backward is a source and an entry of its own, whose load width (0 for
+    the CUDA-core route) picks the route (24 arguments)."""
     name, argtypes = _build._ENTRY["flash_attention"]
     assert name == "flash_attention_launch" and len(argtypes) == 19
     assert _build._target("flash_attention").name.startswith(
         "libflash_attention-")
     name, argtypes = _build._ENTRY["flash_attention_bwd"]
-    assert name == "flash_attention_bwd_launch" and len(argtypes) == 23
+    assert name == "flash_attention_bwd_launch" and len(argtypes) == 24
+    assert argtypes[-2] is ctypes.c_int and argtypes[-1] is ctypes.c_void_p
     assert _build._target("flash_attention_bwd").name.startswith(
         "libflash_attention_bwd-")
 
@@ -410,6 +413,115 @@ def test_plain_backward_matches_the_reference_vjp(case):
     lse_j = np.asarray(lse_j).reshape(lse.shape)
     assert float(np.max(np.abs(lse.numpy() - lse_j))) <= \
         BWD_REL * float(np.max(np.abs(lse_j)))
+
+
+def _emulate_bf16_bwd(q, k, v, out, lse, dout, *, causal: bool,
+                      softcap: float, bk: int = 64) -> tuple:
+    """The bfloat16 tensor-core backward's arithmetic in plain PyTorch:
+    bfloat16 inputs, s = scale * (q . k) with q . k a float32 sum (then
+    the softcap), as the bf16 forward forms it; p = exp(s - lse), delta =
+    rowsum(dout * out), ds = p (dp - delta) [(1 - t^2)] in float32, masked
+    pairs 0; P and dS rounded to bfloat16 for dv = P^T dout, dk = scale
+    dS^T q and dq = scale dS k, every sum float32, dq summed over tiles of
+    ``bk`` keys in key order (the dq pass's fixed order); the results
+    rounded to bfloat16.  q (B, Sq, H, hd), k (B, Skv, KV, hd), v (B, Skv,
+    KV, hd_v), out and dout (B, Sq, H, hd_v), lse (B, Sq, H)."""
+    b, sq, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kvh
+    bf = torch.bfloat16
+    qf, kf, vf, of, dof = (t.to(bf).float() for t in (q, k, v, out, dout))
+    kf, vf = (t.repeat_interleave(g, dim=2) for t in (kf, vf))
+    scale = 1.0 / hd ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    valid = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        valid = torch.arange(skv)[None, :] <= torch.arange(sq)[:, None]
+    p = torch.where(valid, torch.exp(s - lse.permute(0, 2, 1)[..., None]),
+                    torch.zeros(()))
+    delta = (dof * of).sum(-1).permute(0, 2, 1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    if softcap:
+        ds = ds * (1.0 - t * t)
+    ds = torch.where(valid, ds, torch.zeros(()))
+    pb, dsb = p.to(bf).float(), ds.to(bf).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", pb, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, qf) * scale
+    dq = torch.zeros((b, sq, h, hd))
+    for j0 in range(0, skv, bk):
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", dsb[..., j0:j0 + bk],
+                               kf[:, j0:j0 + bk])
+    dk = dk.reshape(b, skv, kvh, g, hd).sum(3)
+    dv = dv.reshape(b, skv, kvh, g, hd_v).sum(3)
+    return (dq * scale).to(bf), dk.to(bf), dv.to(bf)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+def test_bf16_backward_numerics_match_the_reference_vjp(case):
+    """The tensor-core backward's rounding points (``_emulate_bf16_bwd``,
+    fed the plain forward's bfloat16 output and lse, as the card feeds the
+    forward kernel's) stay within bfloat16's 2e-2 of max |ref| of
+    ``jax.vjp`` of the reference's ``models.attention.flash_attention``
+    (its custom VJP, ``_flash_bwd``) in bfloat16."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention as jattn
+    causal, softcap = case[7], case[8]
+    q, k, v, do = _bwd_inputs(case, seed=sum(case[:7]))
+    b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+    qpos = jnp.broadcast_to(jnp.arange(sq, dtype=jnp.int32)[None], (b, sq))
+    kpos = jnp.broadcast_to(jnp.arange(skv, dtype=jnp.int32)[None], (b, skv))
+
+    def f(q_, k_, v_):
+        return jattn.flash_attention(q_, k_, v_, q_positions=qpos,
+                                     kv_positions=kpos, causal=causal,
+                                     softcap=softcap)
+    _, vjp = jax.vjp(f, *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do, jnp.bfloat16))
+    qt, kt, vt, dot = (_torch(x, "bfloat16") for x in (q, k, v, do))
+    out, lse = ref.mha_reference(qt, kt, vt, causal=causal, softcap=softcap,
+                                 return_lse=True)
+    got = _emulate_bf16_bwd(qt, kt, vt, out, lse, dot, causal=causal,
+                            softcap=softcap)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        assert _rel_err(g, w) <= BF16_REL, name
+
+
+def test_backward_route_picks_the_kernel_by_dtype_width_and_strides():
+    """bfloat16 at hd <= 128 takes the tensor-core kernels, loading by TMA
+    where q, k, v and dout are 16-byte aligned and by the widest plain load
+    otherwise; float32, and bfloat16 at MLA's 192/128, take the CUDA-core
+    kernel.  Shapes and strides only: nothing is launched."""
+    from repro_torch.kernels.flash_attention_bwd import backward_route
+    bf = torch.bfloat16
+
+    def tensors(hd, hd_v=None, dtype=bf, h=4, kv=2, s=8, b=2):
+        hd_v = hd_v or hd
+        return (torch.zeros(b, s, h, hd, dtype=dtype),
+                torch.zeros(b, s, kv, hd, dtype=dtype),
+                torch.zeros(b, s, kv, hd_v, dtype=dtype),
+                torch.zeros(b, s, h, hd_v, dtype=dtype))
+
+    for hd in (16, 32, 64, 96, 128):
+        assert backward_route(*tensors(hd)) == ("wgmma", 16)
+    assert backward_route(*tensors(24, 16)) == ("wgmma", 16)   # MLA tiny
+    assert backward_route(*tensors(20)) == ("wgmma", 8)        # 40-byte rows
+    assert backward_route(*tensors(18)) == ("wgmma", 4)
+    assert backward_route(*tensors(21)) == ("wgmma", 2)
+    # q, k, v as views into 24-wide rows: TMA, unless dout's rows are not
+    q, k, v, do = (t[..., :20] for t in tensors(24))
+    assert backward_route(q, k, v, do) == ("wgmma", 16)
+    assert backward_route(q, k, v, do.contiguous()) == ("wgmma", 8)
+    for hd, hd_v in ((129, 128), (192, 128)):
+        assert backward_route(*tensors(hd, hd_v)) == ("cuda_cores", 0)
+    for hd in (16, 20, 96, 128):
+        assert backward_route(*tensors(hd, dtype=torch.float32)) == \
+            ("cuda_cores", 0)
 
 
 def test_plain_backward_chunks_do_not_change_the_result():
@@ -556,6 +668,16 @@ BWD_CUDA_CASES = BWD_CASES + [
     (1, 70, 140, 2, 2, 192, 128, False, 0.0),
     (1, 130, 130, 3, 3, 192, 128, True, 0.0),
     (1, 100, 300, 4, 4, 32, 32, False, 0.0),
+    # the tensor-core kernels' tile edges (128 keys or queries a block, 64
+    # a step): Sq and Skv of 127, 128, 129, 257, unequal both ways, G 7,
+    # phi3's hd 96, hd_v < hd on one tile size
+    (1, 127, 127, 4, 2, 96, 96, True, 0.0),
+    (1, 128, 128, 7, 1, 96, 96, True, 0.0),
+    (2, 129, 129, 4, 4, 64, 64, True, 20.0),
+    (1, 257, 257, 7, 1, 96, 96, True, 0.0),
+    (1, 129, 257, 4, 2, 128, 128, False, 0.0),
+    (1, 257, 127, 4, 4, 96, 96, True, 0.0),
+    (1, 127, 129, 4, 2, 128, 64, True, 0.0),
 ]
 BWD_CUDA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -589,15 +711,74 @@ def test_cuda_backward_kernel_matches_plain(cuda, case, dtype):
         assert _rel_err(g, w) <= BWD_CUDA_TOL[dtype]
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_backward_hd20_on_both_load_routes(cuda, causal):
+    """hd 20 in bfloat16 on the tensor-core route: contiguous, its 40-byte
+    rows load by plain loads; as views into 24-wide rows (48-byte strides,
+    dout too), by TMA with zero fill past hd.  Both within 2e-2 of the
+    plain version, and both give the same bits."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        backward_route, flash_attention_bwd_kernel)
+    rng = np.random.default_rng(14)
+    b, s, h, kv = 2, 200, 7, 1
+    padded = [_torch(rng.standard_normal((b, s, n, 24)), "bfloat16", cuda)
+              for n in (h, kv, kv, h)]
+    views = [t[..., :20] for t in padded]
+    dense = [t.contiguous() for t in views]
+    q, k, v, do = dense
+    out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                      return_lse=True)
+    want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    out_v = torch.nn.functional.pad(out, (0, 4))[..., :20]
+    do_v = views[3]
+    assert backward_route(*dense) == ("wgmma", 8)
+    assert backward_route(*views[:3], do_v) == ("wgmma", 16)
+    got = [flash_attention_bwd_kernel(*dense[:3], out, lse, do,
+                                      causal=causal),
+           flash_attention_bwd_kernel(*views[:3], out_v, lse, do_v,
+                                      causal=causal)]
+    torch.cuda.synchronize()
+    for grads in got:
+        for g, w in zip(grads, want):
+            assert _rel_err(g, w) <= BWD_CUDA_TOL["bfloat16"]
+    for a, c in zip(*got):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", [(1, 512, 512, 32, 32, 96, 96, True, 0.0),
+                                  (2, 257, 257, 14, 2, 128, 128, True, 0.0),
+                                  (1, 129, 300, 8, 8, 64, 64, False, 20.0)])
+def test_cuda_backward_is_deterministic(cuda, case):
+    """The bfloat16 backward sums dq in a pass of its own, in a fixed key
+    order, and dk, dv in one block each: two calls on the same inputs give
+    bit-identical dq, dk and dv (phi3's heads, GQA, Sq != Skv)."""
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    causal, softcap = case[7], case[8]
+    q, k, v, do = (_torch(x, "bfloat16", cuda)
+                   for x in _bwd_inputs(case, 10))
+    out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                      softcap=softcap, return_lse=True)
+    first = flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=causal,
+                                       softcap=softcap)
+    second = flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                        causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", [(2, 150, 150, 8, 2, 64, 64, True, 0.0),
+                                  (1, 300, 300, 4, 4, 96, 96, True, 0.0)],
+                         ids=["hd64-gqa", "hd96"])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_flash_trains_through_both_kernels(cuda, dtype):
+def test_cuda_flash_trains_through_both_kernels(cuda, dtype, case):
     """Where the path now trains: ``ops.flash_attention`` on inputs that
     require grad runs the forward kernel (with lse) and, in the backward,
     the backward kernel once; the gradients agree with autograd through
-    the plain version."""
+    the plain version.  hd 96 is phi3-mini's, the training path's width."""
     from repro_torch.kernels.flash_attention_bwd import \
         flash_attention_bwd_kernel
-    case = (2, 150, 150, 8, 2, 64, 64, True, 0.0)
     q, k, v, do = (_torch(x, dtype, cuda) for x in _bwd_inputs(case, 9))
     grads = []
     for force in (None, False):

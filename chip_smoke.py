@@ -114,9 +114,11 @@ Phases, one JSON line each:
    events) and ptxas line;
    ``flash_attention`` at ragged and unequal Sq, Skv, every head dim it
    pads, hd 20 (whose bf16 rows TMA cannot load), G in {1, 7}, softcap 20,
-   causal and full; at the qwen2-7b prefill shape in float32, the CUDA-core
-   kernel of phase 6 c, and bfloat16), with its time, the plain version's
-   time and one
+   causal and full, Skv = 0, MLA's 192/128; float32 on the 3xTF32 route
+   with its lse, a second call's bits and its pre-pass's planes; at the
+   qwen2-7b prefill shape in float32, the kernel of phase 6 c, and
+   bfloat16), no 3xTF32 instantiation spilling, with its time, the plain
+   version's time and one
    PyTorch call's time where one computes the same function
    (``library_ms``, a yardstick the port never calls:
    ``scaled_dot_product_attention`` for ``flash_attention``); the two
@@ -272,10 +274,11 @@ Phases, one JSON line each:
     against its plain version (ragged, the tensor-core tiles' edges at
     127 to 257, G 1 and 7, hd 20 on both load routes to 192/128,
     softcap, causal, full and cross, float32 on the CUDA cores and
-    bfloat16 on the route ``backward_route`` picks; lse too), two bfloat16
-    calls bit-identical, ptxas's registers and spills per instantiation,
-    timed at the training shape beside the CUDA-core kernel on the same
-    inputs, SDPA's backward and the bound, and a 2-layer full-width
+    bfloat16 on the route ``backward_route`` picks; lse too), two calls
+    bit-identical on either route, ptxas's registers and spills per
+    instantiation, timed at the training shape beside the CUDA-core route
+    on the same inputs, SDPA's backward and the bound, bfloat16 at MLA's
+    192/128 timed beside SDPA's backward, and a 2-layer full-width
     float32 step's gradients through the kernels against the kernels-off
     step; (b) 6 coded steps of
     phi3-mini-3.8b at full width and depth on 8 x 4096 tokens (256
@@ -365,19 +368,24 @@ def device_ms(torch, fn, kernel: str, calls: int = 20):
     """Mean device time in ms of the kernels whose name holds ``kernel``
     over ``calls`` calls of ``fn``, from ``torch.profiler``, after one
     warm-up call: unlike ``timed_ms`` it leaves out the host's time per
-    call, which sets ``timed_ms`` for small shapes.  None when the
-    profiler records no such kernel."""
+    call, which sets ``timed_ms`` for small shapes.  A profile now and
+    then records none of a kernel's events (one chip run lost two of three
+    names), so it asks up to PROFILE_TRIES times; None when none of them
+    recorded such a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
 
 
 def rel_diff(torch, got, want) -> tuple:
@@ -734,8 +742,8 @@ def main() -> int:
                         "library_ms": row["library_ms"]})
     # the backward replaces no TPU kernel: the reference's is XLA.  Its
     # bf16 route at the training shape is the tensor-core kernels; the
-    # CUDA-core kernel (float32, and bf16 at MLA's 192/128) is timed on
-    # the same inputs as "earlier_ms"
+    # CUDA-core route (float32, and bf16 at MLA's 192/128) is timed on the
+    # same inputs as "earlier_ms"
     kernels.append({"name": "flash_attention_bwd", "route": "cuda",
                     "source":
                         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -755,26 +763,84 @@ def main() -> int:
                     "tflop_per_s": bwd_row["tflop_per_s"],
                     "design_bound_ms": bwd_row["design_bound_ms"],
                     "design": "seven products: the dq pass recomputes s "
-                    "and dp",
-                    "float32_ms": bwd_row["float32"]["kernel_ms"],
-                    "float32_library_ms": bwd_row["float32"]["library_ms"],
-                    "float32_bound_ms": bwd_row["float32"]["bound_ms"],
-                    "cuda_core_route": "float32, and bf16 at hd > 128 "
-                    "(MLA's 192/128)"})
+                    "and dp"})
     # the flash kernel at MLA's widths (phase 12 a), beside its main row,
     # at jamba's GQA shape (phase 13 c) and at whisper's and qwen2-vl's
     # (phase 14 a)
-    for name, row in (("mla_192_128", mla_row), ("jamba_gqa_128", jamba_row),
-                      ("whisper_encoder_64",
-                       p14_flash["a_whisper_encoder"]),
-                      ("whisper_decoder_self_64",
-                       p14_flash["a_whisper_decoder_self"]),
-                      ("whisper_cross_64", p14_flash["a_whisper_cross"]),
-                      ("qwen2_vl_gqa_128", p14_flash["a_qwen2_vl"])):
-        kernels[3][name] = {
-            key: row[key] for key in ("max_abs_err", "kernel_ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms",
-                                      "library")}
+    shapes = (("mla_192_128", mla_row), ("jamba_gqa_128", jamba_row),
+              ("whisper_encoder_64", p14_flash["a_whisper_encoder"]),
+              ("whisper_decoder_self_64",
+               p14_flash["a_whisper_decoder_self"]),
+              ("whisper_cross_64", p14_flash["a_whisper_cross"]),
+              ("qwen2_vl_gqa_128", p14_flash["a_qwen2_vl"]))
+    keys = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library")
+    for name, row in shapes:
+        kernels[3][name] = {key: row[key] for key in keys}
+    # the float32 forward, the 3xTF32 kernel: its main row at MLA's
+    # 192/128 (phase 12 a), the other shapes beside it, the CUDA-core
+    # bound beside the 3xTF32 one; launches counted by dtype over the
+    # float32 model paths (F32_FLASH_LAUNCHES)
+    f32 = mla_row["float32"]
+    f32_launches = sum(F32_FLASH_LAUNCHES.values())
+    entry = {"name": "flash_attention_f32", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:84",
+             "launches": f32_launches,
+             "launches_by_path": dict(F32_FLASH_LAUNCHES),
+             "max_abs_err": f32["max_abs_err"], "ms": f32["kernel_ms"],
+             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+             "bound_by": f32["bound_by"], "bound_rate": f32["bound_rate"],
+             "library_ms": f32["library_ms"],
+             "bound_cuda_cores_ms": f32["bound_cuda_cores_ms"],
+             "kernel_split_ms": f32["kernel_split_ms"],
+             "tflop_per_s": f32["tflop_per_s"],
+             "design": "pre-pass (TF32 hi/lo planes of q scale, k, v^T) + "
+             "3xTF32 wgmma kernel"}
+    for name, row in (("qwen2_7b_128", flash_row),) + shapes[1:]:
+        entry[name] = {key: row["float32"][key] for key in
+                       keys + ("bound_cuda_cores_ms", "kernel_split_ms")}
+    kernels.append(entry)
+    split = f32["split"]
+    kernels.append({"name": "flash_attention_f32_split", "route": "cuda",
+                    "source":
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:84 "
+                    "(the float32 forward's pre-pass, one a launch)",
+                    "launches": f32_launches,
+                    "max_abs_err": split["max_abs_err"],
+                    "ms": split["ms"], "plain_ms": split["plain_ms"],
+                    "bound_ms": split["bound_ms"],
+                    "bound_by": split["bound_by"],
+                    "bound_rate": split["bound_rate"], "library_ms": None})
+    # the backward's CUDA-core route (float32 at every width, bf16 at MLA's
+    # 192/128): float32 at phi3's shape, phase 15 (a)
+    b32 = bwd_row["float32"]
+    kernels.append({"name": "flash_attention_bwd_cuda_cores",
+                    "route": "cuda",
+                    "source":
+                        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                    "replaces": "none (no TPU kernel; the reference's "
+                    "backward is XLA, src/repro/models/attention.py:107)",
+                    "launches": b32["launches"],
+                    "max_abs_err": b32["max_abs_err"],
+                    "ms": b32["kernel_ms"], "plain_ms": b32["plain_ms"],
+                    "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
+                    "bound_rate": b32["bound_rate"],
+                    "library_ms": b32["library_ms"],
+                    "design_bound_ms": b32["design_bound_ms"],
+                    "design": "dk/dv kernel + a deterministic dq pass: "
+                    "seven products",
+                    "kernel_split_ms": b32["kernel_split_ms"],
+                    "bit_identical_second_call":
+                        b32["bit_identical_second_call"],
+                    "bf16_mla_192_128": {
+                        key: b32["bf16_mla_192_128"][key]
+                        for key in ("max_abs_err", "kernel_ms",
+                                    "kernel_split_ms", "plain_ms",
+                                    "library_ms", "bound_ms",
+                                    "design_bound_ms",
+                                    "design_bound_cuda_cores_ms")}})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -887,21 +953,37 @@ def loop_round_combines(torch, randn) -> list:
     return calls
 
 
-# flash_attention cases, (B, Sq, Skv, H, KV, hd, causal, softcap): ragged
-# and unequal Sq, Skv, every head dim the kernel pads, G in {1, 7}, softcap
+# flash_attention cases, (B, Sq, Skv, H, KV, hd, causal, softcap[, hd_v]):
+# ragged and unequal Sq, Skv, every head dim the kernels pad, G in {1, 7},
+# softcap, Skv = 0, MLA's 192/128 under GQA
 FLASH_CASES = [(1, 65, 130, 2, 2, 48, False, 0.0),
                (1, 65, 130, 2, 2, 48, True, 0.0),
                (2, 130, 65, 14, 2, 96, True, 0.0),
                (1, 256, 256, 4, 4, 128, False, 0.0),
-               (1, 300, 300, 8, 2, 64, True, 20.0)] + \
+               (1, 300, 300, 8, 2, 64, True, 20.0),
+               (1, 100, 0, 4, 2, 64, True, 0.0),
+               (1, 150, 90, 8, 2, 192, True, 20.0, 128),
+               (2, 90, 170, 6, 3, 96, False, 20.0)] + \
     [(2, 200, 200, 7, 1, hd, True, 0.0)
      for hd in (16, 20, 32, 48, 64, 96, 128)]
+# float32 q, k and v as views into rows 4 elements wider: the pre-pass
+# reads them through their strides
+FLASH_F32_VIEWS = [(2, 200, 200, 7, 1, 20, True, 0.0),
+                   (1, 130, 130, 3, 3, 192, True, 0.0, 128)]
 # qwen2-7b prefill: B = 1, S = 4096, H = 28, KV = 4, hd = 128, causal
 FLASH_MAIN = (1, 4096, 4096, 28, 4, 128, True, 0.0)
 MODEL_TOKENS = 4096
 # forward logits, kernel against plain: bfloat16 compute (28 layers of
 # bfloat16 activations) and float32 compute (2 layers), of max |plain|
 LOGIT_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# the float32 flash forward's launches by model path (phases 6 c, 12 b, 13
+# c, 14 b and d, 15 a), from ``flash_attention_kernel.launches_by_dtype``
+F32_FLASH_LAUNCHES: dict = {}
+
+
+def f32_flash_launches() -> int:
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    return flash_attention_kernel.launches_by_dtype["float32"]
 
 
 def flash_work(b, sq, skv, h, kv, hd, causal, elt, hd_v=None) -> tuple:
@@ -916,71 +998,87 @@ def flash_work(b, sq, skv, h, kv, hd, causal, elt, hd_v=None) -> tuple:
 
 def check_flash(torch, gen, dev, ptxas: dict) -> dict:
     """flash_attention kernel vs ``ref.mha_reference`` over FLASH_CASES in
-    float32 and bfloat16, then at the qwen2-7b prefill shape in float32
-    (the CUDA-core kernel of phase 6's 2-layer float32 check) and bfloat16,
-    each timed beside the plain version and ``scaled_dot_product_attention``.
-    Returns the bfloat16 main row, which carries the kernel's ptxas report."""
-    import torch.nn.functional as F
+    float32 (``check_f32_flash``: the 3xTF32 route, its lse and a second
+    call's bits, its pre-pass's planes; FLASH_F32_VIEWS too) and bfloat16,
+    then at the qwen2-7b prefill shape in float32 (the kernel of phase 6's
+    2-layer float32 check) and bfloat16, each timed beside the plain
+    version and ``scaled_dot_product_attention``; no instantiation of the
+    3xTF32 kernel may spill.  Returns the bfloat16 main row, which carries
+    the kernel's ptxas report, the float32 main row under its "float32"."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      load_width)
 
-    def inputs(case, dt):
+    def inputs(case, dt, pad=0):
         b, sq, skv, h, kv, hd = case[:6]
-        return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
+        hd_v = case[8] if len(case) > 8 else hd
+        return tuple(torch.randn(shape[:3] + (shape[3] + pad,),
+                                 generator=gen, device=dev).to(dt)
+                     [..., :shape[3]]
                      for shape in ((b, sq, h, hd), (b, skv, kv, hd),
-                                   (b, skv, kv, hd)))
+                                   (b, skv, kv, hd_v)))
 
+    def shape_of(case):
+        return dict(zip(("B", "Sq", "Skv", "H", "KV", "hd", "causal",
+                         "softcap", "hd_v"), case))
+
+    f32_kernels = {sym: line for sym, line in ptxas.items()
+                   if "flash_fwd_3xtf32_kernel" in sym}
+    assert len(f32_kernels) == 5, list(ptxas)
+    assert all(spills(line) == 0 for line in f32_kernels.values()), \
+        f32_kernels
     worst = {}
-    for case in FLASH_CASES + [FLASH_MAIN]:
-        for dt in (torch.float32, torch.bfloat16):
-            dname = str(dt).split(".")[-1]
-            causal, softcap = case[6], case[7]
-            q, k, v = inputs(case, dt)
-            n0 = flash_attention_kernel.launches
-            got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
-            launched = flash_attention_kernel.launches - n0
-            want = ref.mha_reference(q, k, v, causal=causal, softcap=softcap)
-            torch.cuda.synchronize()
-            assert launched == 1, launched
-            assert got.shape == want.shape and got.dtype == want.dtype
-            assert bool(torch.isfinite(got.float()).all())
-            err, rel = rel_diff(torch, got, want)
-            row = {"phase": "kernel_vs_plain", "kernel": "flash_attention",
-                   "shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd",
-                                      "causal", "softcap"), case)),
-                   "dtype": dname, "max_abs_err": err, "rel_err": rel,
-                   "tol": TOL[dname], "launches": launched}
-            if dt == torch.bfloat16:
-                width = load_width(q, k, v)
-                row["loads"] = ("tma" if width == 16 else
-                                f"plain {width}-byte")
-            worst[dname] = max(worst.get(dname, 0.0), rel)
-            if case is not FLASH_MAIN:
-                assert rel <= TOL[dname], row
-                continue
-            # the main shape: the bf16 row is the forward's (phase 6 a),
-            # the float32 row the 2-layer float32 check's (phase 6 c)
-            k_ms = timed_ms(torch, lambda: flash_attention_kernel(
-                q, k, v, causal=causal))
-            p_ms = timed_ms(torch, lambda: ref.mha_reference(
-                q, k, v, causal=causal))
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-            nbytes, flops = flash_work(*case[:7], q.element_size())
-            row.update(kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                       **bound(nbytes, flops, BF16_TC
-                               if dt == torch.bfloat16 else F32_CUDA),
-                       flop=flops, bytes=nbytes,
-                       tflop_per_s=flops / k_ms / 1e9,
-                       worst_rel_err_by_dtype=worst, ptxas=ptxas)
+    f32_main = None
+    runs = [(case, torch.float32, True) for case in FLASH_F32_VIEWS]
+    runs += [(case, dt, False) for case in FLASH_CASES + [FLASH_MAIN]
+             for dt in (torch.float32, torch.bfloat16)]
+    for case, dt, view in runs:
+        dname = str(dt).split(".")[-1]
+        causal, softcap = case[6], case[7]
+        q, k, v = inputs(case, dt, pad=4 if view else 0)
+        if dt == torch.float32:
+            row = check_f32_flash(
+                torch, q, k, v, causal,
+                {"phase": "kernel_vs_plain", "kernel": "flash_attention",
+                 "shape": shape_of(case), "dtype": dname,
+                 "strided_views": view},
+                softcap=softcap, timed=case is FLASH_MAIN)
+            worst[dname] = max(worst.get(dname, 0.0), row["rel_err"])
+            if case is FLASH_MAIN:
+                f32_main = row
+            del q, k, v
+            continue
+        n0 = flash_attention_kernel.launches
+        got = ops.flash_attention(q, k, v, causal=causal, softcap=softcap)
+        launched = flash_attention_kernel.launches - n0
+        want = ref.mha_reference(q, k, v, causal=causal, softcap=softcap)
+        torch.cuda.synchronize()
+        assert launched == 1, launched
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert bool(torch.isfinite(got.float()).all())
+        err, rel = rel_diff(torch, got, want)
+        width = load_width(q, k, v)
+        row = {"phase": "kernel_vs_plain", "kernel": "flash_attention",
+               "shape": shape_of(case), "dtype": dname, "max_abs_err": err,
+               "rel_err": rel, "tol": TOL[dname], "launches": launched,
+               "loads": "tma" if width == 16 else f"plain {width}-byte"}
+        worst[dname] = max(worst.get(dname, 0.0), rel)
+        if case is not FLASH_MAIN:
             emit(row)
             assert rel <= TOL[dname], row
-            del q, k, v, got, want, qt, kt, vt
-            torch.cuda.empty_cache()
-            if dt == torch.bfloat16:
-                return row
+            continue
+        # the main shape: the forward's (phase 6 a)
+        row.update(flash_timing(torch, q, k, v, causal))
+        nbytes, flops = flash_work(*case[:7], q.element_size())
+        row.update(**bound(nbytes, flops, BF16_TC), flop=flops,
+                   bytes=nbytes, tflop_per_s=flops / row["kernel_ms"] / 1e9,
+                   worst_rel_err_by_dtype=worst, ptxas=ptxas,
+                   float32=f32_main)
+        emit(row)
+        assert rel <= TOL[dname], row
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+        return row
 
 
 def model_main_path(torch, dev) -> dict:
@@ -1096,8 +1194,11 @@ def model_main_path(torch, dev) -> dict:
     model2 = build_model(cfg2, seed=0)
     with torch.inference_mode():
         c0 = counts()
+        f0 = f32_flash_launches()
         got2, _ = model2(tokens)
+        F32_FLASH_LAUNCHES["6c_qwen2_7b"] = f32_flash_launches() - f0
         assert counts()["flash_attention"] - c0["flash_attention"] == 2
+        assert F32_FLASH_LAUNCHES["6c_qwen2_7b"] == 2
         want2, _ = model2(tokens, force_kernel=False)
         torch.cuda.synchronize()
     err_c, rel_c = rel_diff(torch, got2, want2)
@@ -4389,88 +4490,183 @@ def check_model_flash(torch, gen, dev, shape: tuple, phase: str,
     KV, hd (q . k), hd_v; ``skv`` keys, default S; causal unless told)
     against its plain version: bfloat16 on the TMA route (contiguous) and
     the plain-load route (views into rows two elements wider), float32 on
-    the CUDA cores; each timed beside the plain version, with its bound
-    and ``scaled_dot_product_attention`` on the same inputs
-    (``enable_gqa`` where KV < H; the backend it picked named by its
-    kernels).  Returns the bfloat16 TMA row."""
+    the 3xTF32 route (``check_f32_flash``); each timed beside the plain
+    version, with its bound and ``scaled_dot_product_attention`` on the
+    same inputs (``enable_gqa`` where KV < H; the backend it picked named
+    by its kernels).  Returns the bfloat16 TMA row, the float32 row under
+    its "float32"."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      load_width)
     b, s, h, kvh, hd, hd_v = shape
     skv = s if skv is None else skv
-    gqa = {"enable_gqa": True} if kvh < h else {}
-    main = None
-    for dt in (torch.bfloat16, torch.float32):
-        dname = str(dt).split(".")[-1]
-        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dt)
-        k = torch.randn((b, skv, kvh, hd), generator=gen, device=dev).to(dt)
-        v = torch.randn((b, skv, kvh, hd_v), generator=gen,
-                        device=dev).to(dt)
-        want = ref.mha_reference(q, k, v, causal=causal)
-        routes = [("tma" if dt == torch.bfloat16 else "cuda_cores",
-                   (q, k, v))]
-        if dt == torch.bfloat16:
-            routes.append(("plain_loads", [F.pad(t, (0, 2))[..., :-2]
-                                           for t in (q, k, v)]))
-        for route, args in routes:
-            got = flash_attention_kernel(*args, causal=causal)
-            torch.cuda.synchronize()
-            assert got.shape == want.shape == (b, s, h, hd_v)
-            assert bool(torch.isfinite(got.float()).all())
-            err, rel = rel_diff(torch, got, want)
-            row = {"phase": phase, "check": check,
-                   "kernel": "flash_attention",
-                   "shape": {"B": b, "S": s, "Skv": skv, "H": h, "KV": kvh,
-                             "hd": hd, "hd_v": hd_v, "causal": causal},
-                   "dtype": dname, "route": route,
-                   "load_width": (load_width(*args)
-                                  if dt == torch.bfloat16 else None),
-                   "max_abs_err": err, "rel_err": rel, "tol": TOL[dname]}
-            if route != "plain_loads":
-                row["kernel_ms"] = timed_ms(
-                    torch, lambda: flash_attention_kernel(q, k, v,
-                                                          causal=causal))
-                row["plain_ms"] = timed_ms(torch, lambda: ref.mha_reference(
-                    q, k, v, causal=causal))
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    head = {"phase": phase, "check": check, "kernel": "flash_attention",
+            "shape": {"B": b, "S": s, "Skv": skv, "H": h, "KV": kvh,
+                      "hd": hd, "hd_v": hd_v, "causal": causal}}
 
-                def sdpa():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal, **gqa)
-                try:
-                    sdpa()
-                except RuntimeError as exc:   # no backend takes hd_v != hd
-                    row.update(library_ms=None, library="none",
-                               library_error=repr(exc)[:300])
-                else:
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        sdpa()
-                        torch.cuda.synchronize()
-                    names = sorted({e.name[:80] for e in prof.events()
-                                    if e.device_type == DeviceType.CUDA})
-                    row.update(library_ms=timed_ms(torch, sdpa),
-                               library="F.scaled_dot_product_attention"
-                               + ", is_causal" * causal
-                               + ", enable_gqa" * bool(gqa),
-                               library_kernels=names)
-                nbytes, flops = flash_work(b, s, skv, h, kvh, hd, causal,
-                                           q.element_size(), hd_v=hd_v)
-                row.update(**bound(nbytes, flops, BF16_TC
-                                   if dt == torch.bfloat16 else F32_CUDA),
-                           flop=flops, bytes=nbytes,
-                           tflop_per_s=flops / row["kernel_ms"] / 1e9)
-            emit(row)
-            assert rel <= TOL[dname], row
-            assert route != "plain_loads" or row["load_width"] < 16, row
-            if route == "tma":
-                main = row
-            del got
-        del q, k, v, want
-        torch.cuda.empty_cache()
+    def inputs(dt):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dt)
+                     for shape in ((b, s, h, hd), (b, skv, kvh, hd),
+                                   (b, skv, kvh, hd_v)))
+    q, k, v = inputs(torch.bfloat16)
+    want = ref.mha_reference(q, k, v, causal=causal)
+    for route, args in (("tma", (q, k, v)),
+                        ("plain_loads", [F.pad(t, (0, 2))[..., :-2]
+                                         for t in (q, k, v)])):
+        got = flash_attention_kernel(*args, causal=causal)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (b, s, h, hd_v)
+        assert bool(torch.isfinite(got.float()).all())
+        err, rel = rel_diff(torch, got, want)
+        row = dict(head, dtype="bfloat16", route=route,
+                   load_width=load_width(*args), max_abs_err=err,
+                   rel_err=rel, tol=TOL["bfloat16"])
+        if route == "tma":
+            row.update(flash_timing(torch, q, k, v, causal))
+            nbytes, flops = flash_work(b, s, skv, h, kvh, hd, causal,
+                                       q.element_size(), hd_v=hd_v)
+            row.update(**bound(nbytes, flops, BF16_TC), flop=flops,
+                       bytes=nbytes,
+                       tflop_per_s=flops / row["kernel_ms"] / 1e9)
+            main = row
+        emit(row)
+        assert rel <= TOL["bfloat16"], row
+        assert route != "plain_loads" or row["load_width"] < 16, row
+        del got
+    del q, k, v, want
+    torch.cuda.empty_cache()
+    q, k, v = inputs(torch.float32)
+    main["float32"] = check_f32_flash(torch, q, k, v, causal,
+                                      dict(head, dtype="float32"))
+    del q, k, v
+    torch.cuda.empty_cache()
     return main
+
+
+def flash_timing(torch, q, k, v, causal: bool) -> dict:
+    """The flash kernel's time on (q, k, v), the plain version's and
+    ``scaled_dot_product_attention``'s on the same inputs (``enable_gqa``
+    where KV < H; the backend it picked named by its kernels, or none where
+    no backend takes the shape)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    gqa = {"enable_gqa": True} if k.shape[2] < q.shape[2] else {}
+    row = {"kernel_ms": timed_ms(torch, lambda: flash_attention_kernel(
+               q, k, v, causal=causal)),
+           "plain_ms": timed_ms(torch, lambda: ref.mha_reference(
+               q, k, v, causal=causal))}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              **gqa)
+    try:
+        sdpa()
+    except RuntimeError as exc:   # no backend takes hd_v != hd
+        row.update(library_ms=None, library="none",
+                   library_error=repr(exc)[:300])
+    else:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sdpa()
+            torch.cuda.synchronize()
+        names = sorted({e.name[:80] for e in prof.events()
+                        if e.device_type == DeviceType.CUDA})
+        row.update(library_ms=timed_ms(torch, sdpa),
+                   library="F.scaled_dot_product_attention"
+                   + ", is_causal" * causal + ", enable_gqa" * bool(gqa),
+                   library_kernels=names)
+    return row
+
+
+def plane_bytes(torch, q, k, v) -> int:
+    """Bytes the float32 pre-pass must move: q, k and v read once, their
+    hi and lo planes (padded as the kernel pads them) written once."""
+    from repro_torch.kernels.flash_attention import _plane_sizes
+    return 4 * (q.numel() + k.numel() + v.numel() +
+                sum(_plane_sizes(q, k, v)))
+
+
+def check_f32_flash(torch, q, k, v, causal: bool, head: dict,
+                    softcap: float = 0.0, timed: bool = True) -> dict:
+    """The float32 flash forward (pre-pass + 3xTF32 kernel) on float32 q,
+    k, v: the output within TOL of max |plain| and the lse within LSE_TOL
+    of max |plain lse|; a second call bit-identical; the pre-pass's planes
+    (``f32_planes``) equal to their plain version (``ref.flash_f32_planes``).
+    ``timed``: the kernel timed (``flash_timing``), with the pre-pass's and
+    the kernel's device time apart, its bound over the 3xTF32 rate and the
+    CUDA-core bound beside it, and the pre-pass timed alone beside its
+    plain version and its bytes bound.  Emits and returns the row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (f32_planes,
+                                                     flash_attention_kernel)
+    b, s, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    n0 = flash_attention_kernel.launches
+    got, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                      softcap=softcap, return_lse=True)
+    launched = flash_attention_kernel.launches - n0
+    again = flash_attention_kernel(q, k, v, causal=causal, softcap=softcap,
+                                   return_lse=True)
+    want, lse_p = ref.mha_reference(q, k, v, causal=causal, softcap=softcap,
+                                    return_lse=True)
+    torch.cuda.synchronize()
+    assert launched == 1, launched
+    assert got.shape == want.shape == (b, s, h, hd_v)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    err, rel = rel_diff(torch, got, want)
+    lse_tol = LSE_TOL * max(float(lse_p.abs().max()), 1.0) if skv else 0.0
+    row = dict(head, route="3xtf32", max_abs_err=err, rel_err=rel,
+               tol=TOL["float32"], lse_tol=lse_tol,
+               lse_max_abs_err=float((lse - lse_p).abs().max()) if skv else
+               float((lse + 1e30).abs().max()),
+               bit_identical_second_call=(torch.equal(got, again[0]) and
+                                          torch.equal(lse, again[1])),
+               launches=launched)
+    del got, lse, again, want, lse_p
+    if skv:
+        planes = f32_planes(q, k, v)
+        pads = (planes[0].shape[2], planes[1].shape[2], planes[0].shape[3],
+                planes[2].shape[2])
+        plain = ref.flash_f32_planes(q, k, v, pads)
+        torch.cuda.synchronize()
+        row["split_max_abs_err"] = max(float((x - y).abs().max())
+                                       for x, y in zip(planes, plain))
+        row["split_equal"] = all(torch.equal(x, y)
+                                 for x, y in zip(planes, plain))
+        del planes, plain
+    if timed:
+        row.update(flash_timing(torch, q, k, v, causal))
+
+        def kernel():
+            return flash_attention_kernel(q, k, v, causal=causal)
+        split = {name: device_ms(torch, kernel, name, calls=10)
+                 for name in ("split_rows", "split_vt", "flash_fwd_3xtf32")}
+        if split["split_rows"] is not None:   # two launches a call: q, k
+            split["split_rows"] *= 2
+        row["kernel_split_ms"] = split
+        nbytes, flops = flash_work(b, s, skv, h, kvh, hd, causal, 4,
+                                   hd_v=hd_v)
+        row.update(**bound(nbytes, flops, SPLIT_3XTF32), flop=flops,
+                   bytes=nbytes, tflop_per_s=flops / row["kernel_ms"] / 1e9,
+                   bound_cuda_cores_ms=bound(nbytes, flops,
+                                             F32_CUDA)["bound_ms"])
+        split_bytes = plane_bytes(torch, q, k, v)
+        row["split"] = {
+            "ms": timed_ms(torch, lambda: f32_planes(q, k, v)),
+            "plain_ms": timed_ms(torch, lambda: ref.flash_f32_planes(
+                q, k, v, pads)),
+            "max_abs_err": row["split_max_abs_err"],
+            "bytes": split_bytes, **bound(split_bytes, 0, HBM)}
+    emit(row)
+    assert rel <= TOL["float32"], row
+    assert row["lse_max_abs_err"] <= row["lse_tol"], row
+    assert row["bit_identical_second_call"], row
+    assert row.get("split_equal", True), row
+    return row
 
 
 def exact_teacher_forced(torch, model, tokens, tol: float) -> dict:
@@ -4655,10 +4851,12 @@ def deepseek_main_path(torch, dev) -> dict:
                         seed=0)
     with torch.inference_mode():
         routes_k, undo = record_routes()
+        f0 = f32_flash_launches()
         try:
             logits, _ = model(tokens)
         finally:
             undo()
+        F32_FLASH_LAUNCHES["12b_deepseek_mla"] = f32_flash_launches() - f0
         undo = replay_routes(torch, routes_k)
         try:
             plain, _ = model(tokens, force_kernel=False)
@@ -4667,6 +4865,7 @@ def deepseek_main_path(torch, dev) -> dict:
         cmp_f32 = logits_rel(torch, logits, plain)
     del logits, plain, routes_k, model
     free()
+    assert F32_FLASH_LAUNCHES["12b_deepseek_mla"] == cfg.n_layers
     fwd = float(np.median(forward_s))
     row = {"phase": "deepseek_main_path", "check": "b_forward",
            "arch": cfg.name, "tokens": [1, MODEL_TOKENS], "params": n_params,
@@ -5334,10 +5533,12 @@ def ssm_main_path(torch, dev) -> tuple:
                         seed=0)
     with torch.inference_mode():
         routes_k, undo = record_routes()
+        f0 = f32_flash_launches()
         try:
             logits, _ = model(tokens)
         finally:
             undo()
+        F32_FLASH_LAUNCHES["13c_jamba"] = f32_flash_launches() - f0
         undo = replay_routes(torch, routes_k)
         try:
             plain, _ = model(tokens, force_kernel=False)
@@ -5619,7 +5820,9 @@ def mrope_encdec_main_path(torch, dev) -> tuple:
     model = build_model(dataclasses.replace(vl, compute_dtype="float32"),
                         seed=0)
     with torch.inference_mode():
+        f0 = f32_flash_launches()
         logits, _ = model(tokens, mrope_positions=mrope)
+        F32_FLASH_LAUNCHES["14b_qwen2_vl"] = f32_flash_launches() - f0
         plain, _ = model(tokens, mrope_positions=mrope, force_kernel=False)
         cmp_f32 = logits_rel(torch, logits, plain)
     del logits, plain
@@ -5700,7 +5903,9 @@ def mrope_encdec_main_path(torch, dev) -> tuple:
     model = build_model(dataclasses.replace(whisper, compute_dtype="float32"),
                         seed=0)
     with torch.inference_mode():
+        f0 = f32_flash_launches()
         logits, _ = model(frames, wtoks)
+        F32_FLASH_LAUNCHES["14d_whisper"] = f32_flash_launches() - f0
         plain, _ = model(frames, wtoks, force_kernel=False)
         cmp_f32 = logits_rel(torch, logits, plain)
         del logits, plain
@@ -5798,6 +6003,9 @@ BWD_CHECKS = [(1, 65, 130, 2, 2, 64, 64, False, 0.0),
 # (48-byte strides, TMA) where the dense case's 40-byte rows load plainly
 BWD_VIEWS = [(2, 200, 200, 7, 1, 20, 20, True, 0.0)]
 BWD_MAIN = (1, LM_SEQ, LM_SEQ, 32, 32, 96, 96, True, 0.0)
+# MLA's 192/128 prefill (deepseek-v2-lite's 16 heads) in bfloat16: the
+# CUDA-core route's bf16 width, timed beside SDPA's backward
+BWD_MLA = (1, 4096, 4096, 16, 16, 192, 128, True, 0.0)
 BWD_GQA = (1, 257, 257, 7, 1, 96, 96, True, 0.0)   # determinism, GQA
 LSE_TOL = 1e-5                      # of max |plain lse|
 TRAIN_CLASSES = (("flash_fwd", ("flash_fwd",)),
@@ -5827,16 +6035,15 @@ def spills(report: str) -> int:
 
 
 def cuda_core_bwd(torch, q, k, v, out, lse, do, causal: bool):
-    """The one-pass design on the same inputs: the CUDA-core backward kernel
-    (the C entry's load width 0), with its zeroed float32 dq and the cast,
-    as that wrapper ran it.  For the comparison of phase 15 (a) only: the
-    wrapper routes bfloat16 at hd <= 128 to the tensor cores."""
+    """The CUDA-core route on the same inputs (the C entry's load width 0:
+    the dk/dv kernel and the dq pass).  For the comparison of phase 15 (a)
+    only: the wrapper routes bfloat16 at hd <= 128 to the tensor cores."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import _strides
     b, sq, h, hd = q.shape
     skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
-    dq = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
     delta = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -5850,25 +6057,99 @@ def cuda_core_bwd(torch, q, k, v, out, lse, do, causal: bool):
         0 if q.dtype == torch.float32 else 1, 0,
         torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention_bwd (CUDA cores)")
-    return dq.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 def bwd_instantiations(ptxas: dict, hd: int, route: str) -> dict:
     """ptxas's report of the kernels one backward call launches: the
     pre-pass and, on the tensor-core route, the dkdv and dq kernels at
-    the template width hd rounds up to, else the CUDA-core kernel at its
-    padded width."""
+    the template width hd rounds up to, else the CUDA-core dk/dv kernel
+    and dq pass at their padded width."""
     if route == "wgmma":
         d = next(w for w in (16, 32, 64, 96, 128) if hd <= w)
         names = ("bwd_delta_t_kernel", f"flash_bwd_dkdv_wgmma_kernel<{d}>",
                  f"flash_bwd_dq_wgmma_kernel<{d}>")
     else:
         d = next(w for w in (16, 32, 64, 96, 128, 192) if hd <= w)
-        names = ("bwd_delta_kernel", f"flash_bwd_kernel<{d}>")
+        names = ("bwd_delta_kernel", f"flash_bwd_kernel<{d}>",
+                 f"flash_bwd_dq_kernel<{d}>")
     found = {n: line for n in names for sym, line in ptxas.items()
              if sym.replace("(int)", "").endswith(n)}
     assert len(found) == len(names), (names, list(ptxas))
     return found
+
+
+def time_bwd_mla(torch, gen, dev) -> dict:
+    """The backward at BWD_MLA in bfloat16 (the CUDA-core route): dq, dk,
+    dv within TOL of the plain version's, a second call bit-identical, the
+    kernel's time and its kernels' device time, the plain version's, SDPA's
+    backward (forward + backward less forward) where a backend takes hd_v
+    != hd, the five-product bound at the bf16 tensor-core rate (the least
+    the card could take for bf16 inputs), the seven products of the dq
+    pass's design at that rate and at the CUDA-core rate the route runs at.
+    Emits and returns the row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import (
+        backward_route, flash_attention_bwd_kernel)
+    b, sq, skv, h, kvh, hd, hd_v, causal, _ = BWD_MLA
+    q, k, v, do = (torch.randn(sh, generator=gen, device=dev).bfloat16()
+                   for sh in ((b, sq, h, hd), (b, skv, kvh, hd),
+                              (b, skv, kvh, hd_v), (b, sq, h, hd_v)))
+    out, lse = flash_attention_kernel(q, k, v, causal=causal,
+                                      return_lse=True)
+
+    def kernel():
+        return flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                          causal=causal)
+    got, again = kernel(), kernel()
+    want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    errs = {name: rel_diff(torch, g, w)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+    nbytes, flops = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal, 2)
+    _, flops7 = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal, 2,
+                               dq_pass=True)
+    k_ms = timed_ms(torch, kernel, max_iters=10)
+    try:
+        fb_ms, f_ms = sdpa_bwd_ms(torch, q, k, v, do)
+        library = {"library_ms": fb_ms - f_ms, "library_fwd_bwd_ms": fb_ms,
+                   "library_fwd_ms": f_ms,
+                   "library": "F.scaled_dot_product_attention, is_causal: "
+                   "forward + backward less forward"}
+    except RuntimeError as exc:       # no backend takes hd_v != hd
+        library = {"library_ms": None, "library": "none",
+                   "library_error": repr(exc)[:300]}
+    row = {"phase": "train_main_path", "check": "a_flash_bwd_mla",
+           "kernel": "flash_attention_bwd",
+           "shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd", "hd_v",
+                              "causal", "softcap"), BWD_MLA)),
+           "dtype": "bfloat16", "route": backward_route(q, k, v, do)[0],
+           "max_abs_err": max(e[0] for e in errs.values()),
+           "rel_err": {n: e[1] for n, e in errs.items()},
+           "tol": TOL["bfloat16"],
+           "bit_identical_second_call": all(
+               torch.equal(x, y) for x, y in zip(got, again)),
+           "kernel_ms": k_ms,
+           "kernel_split_ms": {name: device_ms(torch, kernel, name, calls=5)
+                               for name in ("bwd_delta_kernel",
+                                            "flash_bwd_kernel",
+                                            "flash_bwd_dq_kernel")},
+           "plain_ms": timed_ms(
+               torch, lambda: ref.flash_attention_bwd_reference(
+                   q, k, v, out, lse, do, causal), max_iters=3),
+           **library, **bound(nbytes, flops, BF16_TC), "flop": flops,
+           "bytes": nbytes, "design_flop": flops7,
+           "design_bound_ms": bound(nbytes, flops7, BF16_TC)["bound_ms"],
+           "design_bound_cuda_cores_ms": bound(nbytes, flops7,
+                                               F32_CUDA)["bound_ms"],
+           "tflop_per_s": flops / k_ms / 1e9}
+    emit(row)
+    assert row["route"] == "cuda_cores", row
+    for name, (_, rel) in errs.items():
+        assert rel <= TOL["bfloat16"], (name, row)
+    assert row["bit_identical_second_call"], row
+    return row
 
 
 def sdpa_bwd_ms(torch, q, k, v, do) -> tuple:
@@ -5894,23 +6175,25 @@ def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
     """Phase 15 (a): ``flash_attention_bwd`` against its plain version
     (``ref.flash_attention_bwd_reference``) on the forward kernel's own
     output and lse, over BWD_CHECKS and the training shape BWD_MAIN in
-    float32 (the CUDA-core kernel) and bfloat16 (the route
+    float32 (the CUDA-core route) and bfloat16 (the route
     ``backward_route`` picks: the tensor-core kernels up to hd 128, the
-    CUDA-core kernel at MLA's 192/128), and BWD_VIEWS in bfloat16 through
+    CUDA-core route at MLA's 192/128), and BWD_VIEWS in bfloat16 through
     strided views: dq, dk, dv within TOL of max |plain|, the forward's lse
     within LSE_TOL of the plain forward's.  Each row names its route and
     ptxas's report of the kernels it launched; BWD_MAIN's must not spill.
-    At BWD_MAIN and BWD_GQA in bfloat16 a second call must give the same
-    bits.  At BWD_MAIN in bfloat16 the kernel's time, each of its
-    kernels' device time, the CUDA-core kernel's on the same inputs (the
-    one-pass design), the plain version's and the library yardstick's
-    (``F.scaled_dot_product_attention``'s forward + backward less its
-    forward), the bound over the function's work (five products) at the
-    bf16 tensor-core rate and, apart, the work of this design (seven: the
-    dq pass recomputes s and dp).  At BWD_MAIN in float32 the CUDA-core
-    kernel's time, the library yardstick's in float32 and the bound at the
-    f32 CUDA-core rate, kept in the bf16 row under "float32".  Returns
-    that row."""
+    At BWD_MAIN and BWD_GQA in both dtypes, and at MLA's 192/128 (the
+    CUDA-core route in both), a second call must give the same bits.  At
+    BWD_MAIN in bfloat16 the kernel's time, each of its kernels' device
+    time, the CUDA-core route's on the same inputs, the plain version's and
+    the library yardstick's (``F.scaled_dot_product_attention``'s forward +
+    backward less its forward), the bound over the function's work (five
+    products) at the bf16 tensor-core rate and, apart, the work of this
+    design (seven: the dq pass recomputes s and dp).  At BWD_MAIN in
+    float32 the CUDA-core route's time and its kernels' device time, the
+    library yardstick's in float32, the five-product bound and the seven of
+    its dq pass at the f32 CUDA-core rate, kept in the bf16 row under
+    "float32", and there under "bf16_mla_192_128" the CUDA-core route in
+    bfloat16 at MLA's widths (``time_bwd_mla``).  Returns that row."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.flash_attention_bwd import (
@@ -5960,8 +6243,7 @@ def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
                "lse_tol": LSE_TOL * float(lse_p.abs().max()),
                "launches": launched}
         del want, lse_p
-        if dt == torch.bfloat16 and case in (BWD_MAIN, BWD_GQA) \
-                and not view:
+        if (case in (BWD_MAIN, BWD_GQA) or hd > 128) and not view:
             again = flash_attention_bwd_kernel(q, k, v, out, lse, do,
                                                causal=causal,
                                                softcap=softcap)
@@ -5975,44 +6257,44 @@ def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
                 return flash_attention_bwd_kernel(q, k, v, out, lse, do,
                                                   causal=True)
             bf16 = dt == torch.bfloat16
+            rate = BF16_TC if bf16 else F32_CUDA
             k_ms = timed_ms(torch, kernel, max_iters=50 if bf16 else 10)
             fb_ms, f_ms = sdpa_bwd_ms(torch, q, k, v, do)
             nbytes, flops = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v,
                                            causal, q.element_size())
+            _, flops7 = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal,
+                                       q.element_size(), dq_pass=True)
+            split = {name: device_ms(torch, kernel, name, calls=10)
+                     for name in (("bwd_delta_t", "flash_bwd_dkdv",
+                                   "flash_bwd_dq") if bf16 else
+                                  ("bwd_delta_kernel", "flash_bwd_kernel",
+                                   "flash_bwd_dq_kernel"))}
             timing = dict(kernel_ms=k_ms, library_ms=fb_ms - f_ms,
                           library="F.scaled_dot_product_attention, "
                           "is_causal: forward + backward less forward",
                           library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
-                          **bound(nbytes, flops, BF16_TC if bf16
-                                  else F32_CUDA),
+                          **bound(nbytes, flops, rate),
                           flop=flops, bytes=nbytes,
-                          tflop_per_s=flops / k_ms / 1e9)
+                          tflop_per_s=flops / k_ms / 1e9,
+                          kernel_split_ms=split, design_flop=flops7,
+                          design_bound_ms=bound(nbytes, flops7,
+                                                rate)["bound_ms"])
+            timing["plain_ms"] = timed_ms(
+                torch, lambda: ref.flash_attention_bwd_reference(
+                    q, k, v, out, lse, do, True), max_iters=5)
             row.update(timing)
             if not bf16:
-                f32_main = timing
+                f32_main = dict(timing, max_abs_err=row["max_abs_err"],
+                                bit_identical_second_call=row[
+                                    "bit_identical_second_call"])
         if case is BWD_MAIN and dt == torch.bfloat16:
-            # a profile now and then records none of a kernel's events
-            # (one chip run lost two of these three names): ask again
-            split = {}
-            for name in ("bwd_delta_t", "flash_bwd_dkdv", "flash_bwd_dq"):
-                for _ in range(PROFILE_TRIES):
-                    split[name] = device_ms(torch, kernel, name, calls=10)
-                    if split[name] is not None:
-                        break
             c_ms = timed_ms(torch, lambda: cuda_core_bwd(
                 torch, q, k, v, out, lse, do, True), max_iters=10)
-            p_ms = timed_ms(torch, lambda: ref.flash_attention_bwd_reference(
-                q, k, v, out, lse, do, True), max_iters=5)
-            _, flops7 = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal,
-                                       q.element_size(), dq_pass=True)
-            row.update(kernel_split_ms=split, earlier_ms=c_ms,
-                       earlier="the CUDA-core kernel (the one-pass design) on "
-                       "the same inputs, with its zeroed float32 dq and "
-                       "cast", plain_ms=p_ms,
-                       design_flop=flops7,
-                       design_bound_ms=bound(row["bytes"], flops7,
-                                             BF16_TC)["bound_ms"],
+            row.update(earlier_ms=c_ms,
+                       earlier="the CUDA-core route (the dk/dv kernel and "
+                       "the dq pass) on the same inputs",
                        float32=f32_main, ptxas_all=ptxas)
+            f32_main["bf16_mla_192_128"] = time_bwd_mla(torch, gen, dev)
             main = row
         emit(row)
         for name, (_, rel) in errs.items():
@@ -6127,10 +6409,18 @@ def train_main_path(torch, dev) -> tuple:
                            device=dev)
     targets = torch.randint(0, cfg.vocab_size, (1, LM_SEQ), generator=gen,
                             device=dev)
+    f0 = f32_flash_launches()
+    b0 = flash_attention_bwd_kernel.launches_by_route["cuda_cores"]
     (loss_k, g_k), got = counted(kernels, total, lambda: grads_of_step(
         torch, model, tokens, targets, None))
+    F32_FLASH_LAUNCHES["15a_phi3_step"] = f32_flash_launches() - f0
+    cuda_core_bwd_launches = \
+        flash_attention_bwd_kernel.launches_by_route["cuda_cores"] - b0
     assert got == dict(no_launch, flash_attention=4,
                        flash_attention_bwd=2), got
+    assert F32_FLASH_LAUNCHES["15a_phi3_step"] == 4
+    assert cuda_core_bwd_launches == 2
+    bwd_row["float32"]["launches"] = cuda_core_bwd_launches
     loss_p, g_p = grads_of_step(torch, model, tokens, targets, False)
     worst = {k: float((g_k[k] - g_p[k]).abs().max()) /
              max(float(g_p[k].abs().max()), 1e-30) for k in g_p}

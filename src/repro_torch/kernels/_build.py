@@ -55,9 +55,9 @@ _ENTRY = {
                  [_VP, _VP, _VP, _I64, _I, _I64,
                   ctypes.POINTER(ctypes.c_uint32), _I, _I, _VP]),
     "flash_attention": ("flash_attention_launch",
-                        [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
-                         ctypes.POINTER(ctypes.c_int64), _F, _F, _I, _I, _I,
-                         _VP]),
+                        [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                         _I, _I, ctypes.POINTER(ctypes.c_int64), _F, _F, _I,
+                         _I, _I, _VP]),
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                              _VP, _I, _I, _I, _I, _I, _I, _I,
@@ -69,6 +69,12 @@ _HELPERS = {
     "coded_matmul_scratch": ("coded_matmul",
                              [_I, _I, _I, _I, ctypes.POINTER(_I64)]),
     "berrut_combine_load_path": ("berrut_combine", [_VP, _I64, _I]),
+    "flash_attention_scratch": ("flash_attention",
+                                [_I, _I, _I, _I, _I, _I, _I,
+                                 ctypes.POINTER(_I64)]),
+    "flash_attention_split": ("flash_attention",
+                              [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                               _I, ctypes.POINTER(_I64), _F, _VP]),
 }
 
 build_count = 0

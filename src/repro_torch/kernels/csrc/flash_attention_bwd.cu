@@ -99,25 +99,34 @@
 //   bf16 for their products, every sum float32.
 //
 // float32 (any width), and bfloat16 at hd > 128 (MLA's 192/128) -> CUDA
-//   cores: `bwd_delta_kernel`, then `flash_bwd_kernel<HD>`.  float32 is
-//   where float32 arithmetic is the point; MLA's 192/128 would not fit
-//   the register budget of two warpgroups holding dK and dV (96 + 64
-//   floats a thread), and no training path on one card reaches it.
-//   Bound: operations, 2 (3 hd + 2 hd_v) per unmasked pair (257.7 GFLOP at
-//   phi3's shape, 3.85 ms at the float32 CUDA-core rate of 67 TFLOP/s).
-//   One block per (k tile of 64 keys, b * kv head) holds its K and V tiles
-//   in shared memory and its dk and dv in registers (a 16 x 16 thread
-//   grid, each thread 4 keys x hd / 16 columns), and walks the group's G
-//   query heads and their query tiles of 64 rows (causal: only the tiles
-//   at or after the k tile).  Per query tile it loads q (times scale),
-//   dout, lse and delta, recomputes the 64 x 64 scores and dp as 4 x 4
-//   register micro-tiles, writes p and ds to shared memory, and adds p^T
-//   dout to dv, ds^T q to dk and ds k to dq, the last by float32
-//   atomicAdd into a zeroed float32 dq (several k tiles add to one query
-//   row): its dq is not bit-reproducible from run to run.  hd and hd_v are
-//   padded with zeros in shared memory to a template width HD in {16, 32,
-//   64, 96, 128, 192} and min(HD, 128).  At HD 192 a block takes 198,656
-//   bytes of shared memory, at HD 96 133,120: one block per SM.
+//   cores: `bwd_delta_kernel`, then `flash_bwd_kernel<HD>` (dk, dv), then
+//   `flash_bwd_dq_kernel<HD>` (dq).  float32 is where float32 arithmetic
+//   is the point; MLA's 192/128 would not fit the register budget of two
+//   warpgroups holding dK and dV (96 + 64 floats a thread), and no
+//   training path on one card reaches it.
+//   Bound: operations, 2 (3 hd + 2 hd_v) per unmasked pair for the five
+//   products the function needs (257.7 GFLOP at phi3's shape, 3.85 ms at
+//   the float32 CUDA-core rate of 67 TFLOP/s); the dq pass recomputes s
+//   and dp, so the route runs seven, 2 (4 hd + 3 hd_v) per pair (5.39 ms).
+//   Both kernels compute a 64 x 64 tile the same way (`tile_p_ds`): the
+//   scores (q * scale) k^T and dp = dout v^T as 4 x 4 register
+//   micro-tiles of a 16 x 16 thread grid, then p = exp(s - lse) and ds = p
+//   (dp - delta) into shared memory.  `flash_bwd_kernel`: one block per
+//   (k tile of 64 keys, b * kv head) holds its K and V tiles in shared
+//   memory and its dk and dv in registers (each thread 4 keys x hd / 16
+//   columns), walks the group's G query heads and their query tiles of 64
+//   rows (causal: only the tiles at or after the k tile), loading q (times
+//   scale), dout, lse and delta per tile, and adds p^T dout to dv and ds^T
+//   q to dk.  `flash_bwd_dq_kernel`: one block per (64 query rows, b *
+//   head) loads q (times scale), dout, lse and delta once, walks the key
+//   tiles in ascending order (causal: up to the diagonal tile), loading K
+//   and V per tile, and adds ds k into a dq held in float32 registers,
+//   written once in q's dtype.  Nothing is atomic: every sum runs in a
+//   fixed order, and two calls give the same bits.
+//   hd and hd_v are padded with zeros in shared memory to a template width
+//   HD in {16, 32, 64, 96, 128, 192} and min(HD, 128).  At HD 192 the dk,
+//   dv block takes 198,656 bytes of shared memory and the dq block
+//   182,016, at HD 96 133,120 and 116,480: one block per SM.
 //
 // Plain C interface (bound with ctypes): the launch returns
 // cudaGetLastError() (or the tensor-map error) so the Python wrapper
@@ -198,13 +207,101 @@ __global__ void bwd_delta_kernel(const void* __restrict__ out,
   if (lane == 0) delta[row] = acc;
 }
 
+// q (times scale), dout, lse and delta of query rows [q0, q0 + 64) of head
+// h: q through its strides, dout, lse and delta dense (B, Sq, H, ...)
+template <int HD>
+__device__ __forceinline__ void load_query_side(
+    float* q_s, float* do_s, float* lse_s, float* dl_s, const void* q,
+    const void* dout, const float* lse, const float* delta, int b, int h,
+    int q0, int n_heads, int sq, int hd, int hd_v, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, float scale, int dtype) {
+  constexpr int HDV = HD < 128 ? HD : 128;
+  load_tile<HD>(q_s, q, b * q_sb + h * q_sh, q_ss, q0, sq, hd, scale, dtype);
+  load_tile<HDV>(do_s, dout,
+                 (static_cast<int64_t>(b) * sq * n_heads + h) * hd_v,
+                 static_cast<int64_t>(n_heads) * hd_v, q0, sq, hd_v, 1.f,
+                 dtype);
+  if (threadIdx.x < kBQ) {
+    const int qi = q0 + threadIdx.x;
+    const int64_t row = (static_cast<int64_t>(b) * sq + qi) * n_heads + h;
+    lse_s[threadIdx.x] = qi < sq ? lse[row] : 0.f;
+    dl_s[threadIdx.x] = qi < sq ? delta[row] : 0.f;
+  }
+}
+
+// one 64 x 64 tile of (query rows q0 + [0, 64), keys j0 + [0, 64)) from
+// the tiles in shared memory: S = (q * scale) k^T and dP = dout v^T on 4 x
+// 4 register micro-tiles (rows ty + 16 r, keys tx + 16 c), then p = exp(s
+// - lse) into p_s (when given) and ds = p (dp - delta) [(1 - t^2)] into
+// ds_s, both 0 where the pair is masked
+template <int HD>
+__device__ __forceinline__ void tile_p_ds(
+    const float* q_s, const float* do_s, const float* k_s, const float* v_s,
+    const float* lse_s, const float* dl_s, float* p_s, float* ds_s, int q0,
+    int j0, int sq, int skv, float softcap, int causal, int tx, int ty) {
+  constexpr int HDV = HD < 128 ? HD : 128;
+  constexpr int kLd = HD + 1;
+  constexpr int kLdV = HDV + 1;
+  float s[kTM][kTN], dp[kTM][kTN];
+#pragma unroll
+  for (int r = 0; r < kTM; ++r)
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    float a[kTM], bk[kTN];
+#pragma unroll
+    for (int r = 0; r < kTM; ++r) a[r] = q_s[(ty + 16 * r) * kLd + d];
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) bk[c] = k_s[(tx + 16 * c) * kLd + d];
+#pragma unroll
+    for (int r = 0; r < kTM; ++r)
+#pragma unroll
+      for (int c = 0; c < kTN; ++c) s[r][c] = fmaf(a[r], bk[c], s[r][c]);
+  }
+#pragma unroll 8
+  for (int d = 0; d < HDV; ++d) {
+    float a[kTM], bv[kTN];
+#pragma unroll
+    for (int r = 0; r < kTM; ++r) a[r] = do_s[(ty + 16 * r) * kLdV + d];
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) bv[c] = v_s[(tx + 16 * c) * kLdV + d];
+#pragma unroll
+    for (int r = 0; r < kTM; ++r)
+#pragma unroll
+      for (int c = 0; c < kTN; ++c) dp[r][c] = fmaf(a[r], bv[c], dp[r][c]);
+  }
+#pragma unroll
+  for (int r = 0; r < kTM; ++r) {
+    const int lr = ty + 16 * r;
+    const int qi = q0 + lr;
+#pragma unroll
+    for (int c = 0; c < kTN; ++c) {
+      const int kj = j0 + tx + 16 * c;
+      const bool valid = qi < sq && kj < skv && (!causal || kj <= qi);
+      float x = s[r][c];
+      float t = 0.f;
+      if (softcap > 0.f) {
+        t = tanhf(x / softcap);
+        x = softcap * t;
+      }
+      const float p = valid ? expf(x - lse_s[lr]) : 0.f;
+      float ds = p * (dp[r][c] - dl_s[lr]);
+      if (softcap > 0.f) ds *= 1.f - t * t;
+      if (p_s != nullptr) p_s[lr * kLdP + tx + 16 * c] = p;
+      ds_s[lr * kLdP + tx + 16 * c] = valid ? ds : 0.f;
+    }
+  }
+}
+
+// dk and dv: one block per (64 keys, b * kv head)
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
                  const void* __restrict__ v, const void* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq,
-                 void* __restrict__ dk, void* __restrict__ dv, int n_heads,
+                 const float* __restrict__ delta, void* __restrict__ dk,
+                 void* __restrict__ dv, int n_heads,
                  int group, int sq, int skv, int hd, int hd_v, int64_t q_sb,
                  int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
                  int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -212,7 +309,7 @@ flash_bwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   constexpr int HDV = HD < 128 ? HD : 128;
   constexpr int kLd = HD + 1;
   constexpr int kLdV = HDV + 1;
-  constexpr int kTD = HD / 16;    // dk / dq columns per thread
+  constexpr int kTD = HD / 16;    // dk columns per thread
   constexpr int kTDV = HDV / 16;  // dv columns per thread
   extern __shared__ float smem[];
   float* k_s = smem;                  // [kBKV][kLd]
@@ -229,7 +326,7 @@ flash_bwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   const int b = blockIdx.y / n_kv;
   const int kvh = blockIdx.y % n_kv;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // key lane of S, column lane of dk / dv / dq
+  const int tx = tid % 16;  // key lane of S, column lane of dk / dv
   const int ty = tid / 16;  // row lane of S, key lane of dk / dv
 
   load_tile<HD>(k_s, k, b * k_sb + kvh * k_sh, k_ss, j0, skv, hd, 1.f,
@@ -253,75 +350,12 @@ flash_bwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();  // K, V loaded / the previous tile's readers done
-      load_tile<HD>(q_s, q, b * q_sb + h * q_sh, q_ss, q0, sq, hd, scale,
-                    dtype);
-      load_tile<HDV>(do_s, dout,
-                     (static_cast<int64_t>(b) * sq * n_heads + h) * hd_v,
-                     static_cast<int64_t>(n_heads) * hd_v, q0, sq, hd_v, 1.f,
-                     dtype);
-      if (tid < kBQ) {
-        const int qi = q0 + tid;
-        const int64_t row = (static_cast<int64_t>(b) * sq + qi) * n_heads + h;
-        lse_s[tid] = qi < sq ? lse[row] : 0.f;
-        dl_s[tid] = qi < sq ? delta[row] : 0.f;
-      }
+      load_query_side<HD>(q_s, do_s, lse_s, dl_s, q, dout, lse, delta, b, h,
+                          q0, n_heads, sq, hd, hd_v, q_sb, q_ss, q_sh, scale,
+                          dtype);
       __syncthreads();
-
-      // S = (q * scale) k^T and dP = dout v^T on 4 x 4 micro-tiles: rows
-      // ty + 16 r, keys tx + 16 c
-      float s[kTM][kTN], dp[kTM][kTN];
-#pragma unroll
-      for (int r = 0; r < kTM; ++r)
-#pragma unroll
-        for (int c = 0; c < kTN; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        float a[kTM], bk[kTN];
-#pragma unroll
-        for (int r = 0; r < kTM; ++r) a[r] = q_s[(ty + 16 * r) * kLd + d];
-#pragma unroll
-        for (int c = 0; c < kTN; ++c) bk[c] = k_s[(tx + 16 * c) * kLd + d];
-#pragma unroll
-        for (int r = 0; r < kTM; ++r)
-#pragma unroll
-          for (int c = 0; c < kTN; ++c) s[r][c] = fmaf(a[r], bk[c], s[r][c]);
-      }
-#pragma unroll 8
-      for (int d = 0; d < HDV; ++d) {
-        float a[kTM], bv[kTN];
-#pragma unroll
-        for (int r = 0; r < kTM; ++r) a[r] = do_s[(ty + 16 * r) * kLdV + d];
-#pragma unroll
-        for (int c = 0; c < kTN; ++c) bv[c] = v_s[(tx + 16 * c) * kLdV + d];
-#pragma unroll
-        for (int r = 0; r < kTM; ++r)
-#pragma unroll
-          for (int c = 0; c < kTN; ++c)
-            dp[r][c] = fmaf(a[r], bv[c], dp[r][c]);
-      }
-
-      // p = exp(s - lse) and ds = p (dp - delta), masked to 0
-#pragma unroll
-      for (int r = 0; r < kTM; ++r) {
-        const int lr = ty + 16 * r;
-        const int qi = q0 + lr;
-#pragma unroll
-        for (int c = 0; c < kTN; ++c) {
-          const int kj = j0 + tx + 16 * c;
-          const bool valid = qi < sq && kj < skv && (!causal || kj <= qi);
-          float x = s[r][c];
-          float t = 0.f;
-          if (softcap > 0.f) {
-            t = tanhf(x / softcap);
-            x = softcap * t;
-          }
-          const float p = valid ? expf(x - lse_s[lr]) : 0.f;
-          float ds = p * (dp[r][c] - dl_s[lr]);
-          if (softcap > 0.f) ds *= 1.f - t * t;
-          p_s[lr * kLdP + tx + 16 * c] = p;
-          ds_s[lr * kLdP + tx + 16 * c] = valid ? ds : 0.f;
-        }
-      }
+      tile_p_ds<HD>(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, j0, sq,
+                    skv, softcap, causal, tx, ty);
       __syncthreads();
 
       // dv += p^T dout and dk += ds^T (q * scale): keys ty + 16 r,
@@ -349,38 +383,6 @@ flash_bwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
             dk_acc[r][c] = fmaf(dsr[r], qv, dk_acc[r][c]);
         }
       }
-
-      // dq += scale * ds k: rows ty + 16 r, columns tx + 16 c, by atomics
-      float dq_acc[kTM][kTD];
-#pragma unroll
-      for (int r = 0; r < kTM; ++r)
-#pragma unroll
-        for (int c = 0; c < kTD; ++c) dq_acc[r][c] = 0.f;
-#pragma unroll 4
-      for (int j = 0; j < kBKV; ++j) {
-        float dsr[kTM];
-#pragma unroll
-        for (int r = 0; r < kTM; ++r) dsr[r] = ds_s[(ty + 16 * r) * kLdP + j];
-#pragma unroll
-        for (int c = 0; c < kTD; ++c) {
-          const float kv = k_s[j * kLd + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < kTM; ++r)
-            dq_acc[r][c] = fmaf(dsr[r], kv, dq_acc[r][c]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kTM; ++r) {
-        const int qi = q0 + ty + 16 * r;
-        if (qi >= sq) continue;
-        float* row = dq + ((static_cast<int64_t>(b) * sq + qi) * n_heads + h) *
-                              hd;
-#pragma unroll
-        for (int c = 0; c < kTD; ++c) {
-          const int col = tx + 16 * c;
-          if (col < hd) atomicAdd(row + col, dq_acc[r][c] * scale);
-        }
-      }
     }
   }
 
@@ -403,31 +405,127 @@ flash_bwd_kernel(const void* __restrict__ q, const void* __restrict__ k,
   }
 }
 
+// dq: one block per (64 query rows, b * head), its key tiles in ascending
+// order (causal: up to the diagonal tile), dq in float32 registers, written
+// once
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const void* __restrict__ q, const void* __restrict__ k,
+                    const void* __restrict__ v, const void* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, void* __restrict__ dq,
+                    int n_heads, int group, int sq, int skv, int hd,
+                    int hd_v, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
+                    int64_t v_ss, int64_t v_sh, float scale, float softcap,
+                    int causal, int dtype) {
+  constexpr int HDV = HD < 128 ? HD : 128;
+  constexpr int kLd = HD + 1;
+  constexpr int kLdV = HDV + 1;
+  constexpr int kTD = HD / 16;    // dq columns per thread
+  extern __shared__ float smem[];
+  float* q_s = smem;                  // [kBQ][kLd], q * scale
+  float* do_s = q_s + kBQ * kLd;      // [kBQ][kLdV]
+  float* k_s = do_s + kBQ * kLdV;     // [kBKV][kLd]
+  float* v_s = k_s + kBKV * kLd;      // [kBKV][kLdV]
+  float* ds_s = v_s + kBKV * kLdV;    // [kBQ][kLdP]
+  float* lse_s = ds_s + kBQ * kLdP;   // [kBQ]
+  float* dl_s = lse_s + kBQ;          // [kBQ], delta
+
+  const int b = blockIdx.x / n_heads;
+  const int h = blockIdx.x % n_heads;
+  const int kvh = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // last tiles first
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;  // key lane of S, column lane of dq
+  const int ty = tid / 16;  // row lane of S and of dq
+
+  load_query_side<HD>(q_s, do_s, lse_s, dl_s, q, dout, lse, delta, b, h, q0,
+                      n_heads, sq, hd, hd_v, q_sb, q_ss, q_sh, scale, dtype);
+  float dq_acc[kTM][kTD];
+#pragma unroll
+  for (int r = 0; r < kTM; ++r)
+#pragma unroll
+    for (int c = 0; c < kTD; ++c) dq_acc[r][c] = 0.f;
+
+  const int kv_end = causal ? min(skv, q0 + kBQ) : skv;
+  for (int j0 = 0; j0 < kv_end; j0 += kBKV) {
+    __syncthreads();  // q loaded / the previous tile's readers done
+    load_tile<HD>(k_s, k, b * k_sb + kvh * k_sh, k_ss, j0, skv, hd, 1.f,
+                  dtype);
+    load_tile<HDV>(v_s, v, b * v_sb + kvh * v_sh, v_ss, j0, skv, hd_v, 1.f,
+                   dtype);
+    __syncthreads();
+    tile_p_ds<HD>(q_s, do_s, k_s, v_s, lse_s, dl_s, nullptr, ds_s, q0, j0,
+                  sq, skv, softcap, causal, tx, ty);
+    __syncthreads();
+
+    // dq += ds k: rows ty + 16 r, columns tx + 16 c
+#pragma unroll 4
+    for (int j = 0; j < kBKV; ++j) {
+      float dsr[kTM];
+#pragma unroll
+      for (int r = 0; r < kTM; ++r) dsr[r] = ds_s[(ty + 16 * r) * kLdP + j];
+#pragma unroll
+      for (int c = 0; c < kTD; ++c) {
+        const float kv = k_s[j * kLd + tx + 16 * c];
+#pragma unroll
+        for (int r = 0; r < kTM; ++r)
+          dq_acc[r][c] = fmaf(dsr[r], kv, dq_acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kTM; ++r) {
+    const int qi = q0 + ty + 16 * r;
+    if (qi >= sq) continue;
+    const int64_t row = (static_cast<int64_t>(b) * sq + qi) * n_heads + h;
+#pragma unroll
+    for (int c = 0; c < kTD; ++c) {
+      const int col = tx + 16 * c;
+      if (col < hd) store_elt(dq, row * hd + col, dq_acc[r][c] * scale, dtype);
+    }
+  }
+}
+
 template <int HD>
 int launch_main(const void* q, const void* k, const void* v, const void* dout,
-                const float* lse, const float* delta, float* dq, void* dk,
+                const float* lse, const float* delta, void* dq, void* dk,
                 void* dv, int batch, int sq, int skv, int n_heads, int group,
                 int hd, int hd_v, const int64_t* st, float scale,
                 float softcap, int causal, int dtype, cudaStream_t stream) {
   constexpr int HDV = HD < 128 ? HD : 128;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(kBKV + kBQ) * (HD + 1 + HDV + 1) +
-       2 * kBQ * kLdP + 2 * kBQ);
+  const size_t tiles = sizeof(float) *
+      (static_cast<size_t>(kBKV + kBQ) * (HD + 1 + HDV + 1) + 2 * kBQ);
+  const size_t smem_kv = tiles + sizeof(float) * 2 * kBQ * kLdP;
+  const size_t smem_q = tiles + sizeof(float) * kBQ * kLdP;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(smem_kv));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_q));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((skv + kBKV - 1) / kBKV, batch * (n_heads / group));
-  flash_bwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, dk, dv, n_heads, group, sq, skv, hd,
-      hd_v, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      scale, softcap, causal, dtype);
+  const dim3 grid_kv((skv + kBKV - 1) / kBKV, batch * (n_heads / group));
+  flash_bwd_kernel<HD><<<grid_kv, kThreads, smem_kv, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, n_heads, group, sq, skv, hd, hd_v,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
+      softcap, causal, dtype);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q(batch * n_heads, (sq + kBQ - 1) / kBQ);
+  flash_bwd_dq_kernel<HD><<<grid_q, kThreads, smem_q, stream>>>(
+      q, k, v, dout, lse, delta, dq, n_heads, group, sq, skv, hd, hd_v,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
+      softcap, causal, dtype);
   return static_cast<int>(cudaGetLastError());
 }
 
-// `delta` (B, Sq, H) float32; `dq` (B, Sq, H, hd) float32, zeroed
+// `delta` (B, Sq, H) float32; `dq` (B, Sq, H, hd) in q's dtype
 int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const float* lse, float* delta, float* dq,
+           const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int batch, int sq, int skv, int n_heads,
            int group, int hd, int hd_v, const int64_t* strides, float scale,
            float softcap, int causal, int dtype, cudaStream_t s) {
@@ -1221,7 +1319,7 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 // load_bytes picks the route (the wrapper's `backward_route`):
 //   0            the CUDA-core route (float32, or bfloat16 at hd > 128):
 //                `scratch` is (B, Sq, H) float32 and `dq` (B, Sq, H, hd)
-//                float32, zeroed (summed by atomics);
+//                in q's dtype;
 //   16, 8, 4, 2  the tensor-core route (bfloat16, hd <= 128): the tiles load
 //                by TMA (16: every base address and stride 16-byte aligned)
 //                or by plain loads of that many bytes (which must divide
@@ -1242,11 +1340,13 @@ extern "C" int flash_attention_bwd_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = n_heads / n_kv_heads;
-  if (load_bytes == 0)
-    return cc::launch(q, k, v, out, dout, lse, scratch,
-                      static_cast<float*>(dq), dk, dv, batch, sq, skv,
-                      n_heads, group, hd, hd_v, strides, scale, softcap,
-                      causal, dtype, s);
+  if (load_bytes == 0) {
+    if ((sq + cc::kBQ - 1) / cc::kBQ > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return cc::launch(q, k, v, out, dout, lse, scratch, dq, dk, dv, batch,
+                      sq, skv, n_heads, group, hd, hd_v, strides, scale,
+                      softcap, causal, dtype, s);
+  }
   if (dtype != 1 || hd > 128 ||
       (load_bytes != 16 && load_bytes != 8 && load_bytes != 4 &&
        load_bytes != 2) ||

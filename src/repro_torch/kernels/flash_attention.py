@@ -27,9 +27,14 @@ The kernel is chosen by dtype; neither is a fallback of the other:
   in bfloat16 is a 40-byte row), TMA cannot load the tiles, and the same
   kernel loads them with the widest plain loads they allow
   (:func:`load_width`).
-* float32 runs on the CUDA cores in float32 arithmetic: scores are
-  ``(q * scale) . k`` (the model path's rounding: the Pallas wrapper
-  rounded ``q * scale`` back to q's dtype first).
+* float32 runs on the tensor cores too, as an error-compensated 3xTF32
+  product: a pre-pass writes ``q * scale`` (scaled in float32, the model
+  path's rounding: the Pallas wrapper rounded ``q * scale`` back to q's
+  dtype first), k and v transposed as TF32 hi and lo planes into scratch
+  this wrapper allocates (:func:`f32_planes` runs it alone), and each
+  product is ``hi . hi + hi . lo + lo . hi`` (``lo . lo`` dropped) with
+  float32 sums; the softmax and its row sums stay float32.  The plain
+  emulation of that arithmetic is ``kernels.ref.mha_3xtf32``.
 
 ``scale = 1/sqrt(hd)`` (the q . k width), optionally soft-capped; key j
 of query i is masked when ``j > i`` (causal; both positions start at 0).
@@ -49,8 +54,8 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_kernel", "load_width", "MAX_HEAD_DIM",
-           "MAX_V_HEAD_DIM"]
+__all__ = ["flash_attention_kernel", "f32_planes", "load_width",
+           "MAX_HEAD_DIM", "MAX_V_HEAD_DIM"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 192      # hd is padded in shared memory (64, 128, 192 in bf16)
@@ -107,7 +112,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     <= 192 and hd_v <= min(hd, 128), else ``ValueError``.
 
     Launches the kernel on the current stream and adds one to
-    ``flash_attention_kernel.launches``.  There is no CPU path: a CPU tensor
+    ``flash_attention_kernel.launches`` and to its dtype's entry of
+    ``flash_attention_kernel.launches_by_dtype``.  There is no CPU path: a
+    CPU tensor
     raises (``kernels.ops.flash_attention`` picks the plain version for
     those), and so does an input that requires grad (the wrapper has no
     backward of its own: ``ops.flash_attention`` trains through it).
@@ -143,7 +150,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_kernel takes 1 <= hd_v <= "
                          f"min(hd, {MAX_V_HEAD_DIM}), got hd {hd}, hd_v "
                          f"{hd_v}")
-    if any(t.stride(3) != 1 for t in tensors):
+    if any(t.stride(3) != 1 and t.numel() for t in tensors):
         raise ValueError("flash_attention_kernel needs unit stride along hd")
     if b * h > 65535:
         raise ValueError(f"flash_attention_kernel takes B * H <= 65535, got "
@@ -158,18 +165,72 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (out, lse) if return_lse else out
     strides = (ctypes.c_int64 * 9)(*(s for t in tensors
                                      for s in _strides(t)))
-    width = load_width(q, k, v) if q.dtype == torch.bfloat16 else 0
+    f32 = q.dtype == torch.float32
+    width = 0 if f32 else load_width(q, k, v)
+    scratch = None
+    if f32 and skv:
+        scratch = torch.empty(sum(_plane_sizes(q, k, v)),
+                              dtype=torch.float32, device=q.device)
     launch = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      lse.data_ptr() if return_lse else None,
+                     None if scratch is None else scratch.data_ptr(),
                      b, sq, skv, h, kvh, hd, hd_v, strides, 1.0 / hd ** 0.5,
                      float(softcap), int(bool(causal)), _DTYPES[q.dtype],
                      width, stream)
     _build.check(err, "flash_attention")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_by_dtype[str(q.dtype)[6:]] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+
+
+def _plane_extents(q, k, v) -> tuple:
+    """(sq_pad, skv_pad, hd_pad, hdv_pad) of the float32 pre-pass's
+    planes, as the C side pads them (``flash_attention_scratch``)."""
+    b, sq, h, hd = q.shape
+    ext = (ctypes.c_int64 * 4)()
+    err = _build.function("flash_attention_scratch")(
+        b, sq, k.shape[1], h, k.shape[2], hd, v.shape[3], ext)
+    _build.check(err, "flash_attention_scratch")
+    return tuple(ext)
+
+
+def _plane_sizes(q, k, v) -> tuple:
+    """Elements of the Q, K and V^T planes (hi and lo each)."""
+    sq_pad, skv_pad, hdp, nv = _plane_extents(q, k, v)
+    b, h, kvh = q.shape[0], q.shape[2], k.shape[2]
+    return (2 * b * h * sq_pad * hdp, 2 * b * kvh * skv_pad * hdp,
+            2 * b * kvh * nv * skv_pad)
+
+
+def f32_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The float32 forward's pre-pass alone, on float32 CUDA tensors with
+    Skv >= 1: ``(q * scale, k, v^T)`` as TF32 hi and lo planes, shaped (B *
+    H, 2, Sq_pad, hd_pad), (B * KV, 2, Skv_pad, hd_pad) and (B * KV, 2,
+    hdv_pad, Skv_pad), the last with keys in the kernel's order (within
+    every 8: 0, 2, 4, 6, 1, 3, 5, 7).  Its plain version is
+    ``kernels.ref.flash_f32_planes``; it counts no launch of the wrapper."""
+    if q.dtype != torch.float32 or not q.is_cuda or k.shape[1] == 0:
+        raise ValueError("f32_planes takes float32 CUDA tensors with Skv >= 1")
+    b, sq, h, hd = q.shape
+    sq_pad, skv_pad, hdp, nv = _plane_extents(q, k, v)
+    sizes = _plane_sizes(q, k, v)
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 9)(*(s for t in (q, k, v)
+                                     for s in _strides(t)))
+    with torch.cuda.device(q.device):
+        err = _build.function("flash_attention_split")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), scratch.data_ptr(), b,
+            sq, k.shape[1], h, k.shape[2], hd, v.shape[3], strides,
+            1.0 / hd ** 0.5, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_attention_split")
+    qp, kp, vp = scratch.split(sizes)
+    kvh = k.shape[2]
+    return (qp.view(b * h, 2, sq_pad, hdp), kp.view(b * kvh, 2, skv_pad, hdp),
+            vp.view(b * kvh, 2, nv, skv_pad))

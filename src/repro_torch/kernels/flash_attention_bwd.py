@@ -37,9 +37,10 @@ serves its inputs; neither is a fallback of the other):
   dout)``, the forward's rule.
 * ``"cuda_cores"``: float32 at any width, and bfloat16 at hd > 128
   (MLA's 192/128, which no one-card training path reaches), run on the
-  CUDA cores in float32: one kernel per 64 keys keeps dk and dv on chip
-  and adds dq into a float32 buffer by atomics (not bit-reproducible),
-  which is then cast to q's dtype.
+  CUDA cores in float32: one kernel per 64 keys keeps dk and dv on chip,
+  and a dq pass per 64 query rows walks the key tiles in ascending order,
+  recomputing s and dp, and writes dq once in q's dtype.  Nothing is
+  atomic: two calls on the same inputs give the same bits, on both routes.
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
 
     Launches the route's kernels (:func:`backward_route`) on the current
     stream and adds one to ``flash_attention_bwd_kernel.launches`` (one
-    call, two or three kernels).  There is no CPU path: a CPU tensor
+    call, three kernels on either route) and to its route's entry of
+    ``flash_attention_bwd_kernel.launches_by_route``.  There is no CPU path: a CPU tensor
     raises.
     """
     tensors = (q, k, v, out, dout)
@@ -141,7 +143,7 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
         scratch = torch.empty((2, b * h, sq_pad), dtype=torch.float32,
                               device=dev)
     else:
-        dq = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=dev)
+        dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev)
         scratch = torch.empty((b, sq, h), dtype=torch.float32, device=dev)
     dk = torch.empty((b, skv, kvh, hd), dtype=q.dtype, device=dev)
     dv = torch.empty((b, skv, kvh, hd_v), dtype=q.dtype, device=dev)
@@ -158,9 +160,9 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                      _DTYPES[q.dtype], width, stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd_kernel.launches += 1
-    if dq.dtype != q.dtype:
-        dq = dq.to(q.dtype)
+    flash_attention_bwd_kernel.launches_by_route[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}

@@ -3,7 +3,11 @@
 Ports ``repro/kernels/ref.py`` (``berrut_combine``, ``coded_matmul``,
 ``mask_add``, ``encrypted_coded_matmul`` and ``mha_reference``), and adds
 ``flash_attention_bwd_reference``, the plain version of the flash
-backward kernel (the reference's ``_flash_bwd``, XLA there).  The CPU
+backward kernel (the reference's ``_flash_bwd``, XLA there), and the
+float32 flash forward's 3xTF32 arithmetic: ``tf32_split``,
+``flash_f32_planes`` (the plain version of its pre-pass) and
+``mha_3xtf32`` (a plain emulation of the kernel, which the tests hold
+against the JAX references; nothing on the main path calls it).  The CPU
 tests hold these against the JAX package, and ``chip_smoke.py`` holds each
 hand-written CUDA kernel against them on the card.  The float versions
 accumulate in float32 and return the blocks' dtype.  A float32 product on the card is full IEEE
@@ -17,7 +21,8 @@ import torch
 
 __all__ = ["berrut_combine", "coded_matmul", "mask_add",
            "encrypted_coded_matmul", "mha_reference",
-           "flash_attention_bwd_reference", "ATTN_CHUNK"]
+           "flash_attention_bwd_reference", "tf32_split", "flash_f32_planes",
+           "mha_3xtf32", "ATTN_CHUNK"]
 
 ATTN_CHUNK = 512   # the reference's KV chunk (models/attention.py)
 
@@ -179,3 +184,115 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
     dk = torch.cat(dks, dim=1).to(k.dtype)
     dv = torch.cat(dvs, dim=1).to(v.dtype)
     return dq, dk, dv
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> float32 rounded to TF32's 10 mantissa bits, to nearest
+    with ties away from zero, as ``tf32_round`` in ``csrc/coded_matmul.cu``
+    and ``csrc/flash_attention.cu``: the low 13 bits of the word become 0
+    (infinities and NaNs pass unchanged)."""
+    u = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    u = u & 0xFFFFFFFF
+    special = (u & 0x7F800000) == 0x7F800000
+    r = torch.where(special, u, (u + 0x1000) & 0xFFFFE000)
+    r = torch.where(r >= 2 ** 31, r - 2 ** 32, r)
+    return r.to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """(hi, lo) with hi = tf32(x) and lo = tf32(x - hi), float32: the
+    error-compensated split of the 3xTF32 products.  hi + lo is x to within
+    2^-22 of |x| (|lo|'s own rounding)."""
+    x = x.to(torch.float32)
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _f32_scale(hd: int) -> torch.Tensor:
+    # the kernels' scale: 1/sqrt(hd) rounded to float32, applied in float32
+    return torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
+
+
+def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo) +
+            torch.einsum(eq, a_hi, b_hi))
+
+
+# V^T's keys, within every group of 8, in the kernel's order: position i
+# holds key _KEY_ORDER[i]
+_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def flash_f32_planes(q, k, v, extents) -> tuple:
+    """The plain version of the float32 flash forward's pre-pass
+    (``kernels.flash_attention.f32_planes``): ``q * scale`` and k as (B *
+    heads, 2, S_pad, hd_pad) TF32 hi and lo planes, v^T as (B * KV, 2,
+    hdv_pad, Skv_pad) with keys in the kernel's order, zero-padded to
+    ``extents`` = (Sq_pad, Skv_pad, hd_pad, hdv_pad)."""
+    sq_pad, skv_pad, hdp, nv = extents
+    b, sq, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+
+    def rows(x, s_pad, width, scale=None):
+        x = x.to(torch.float32)
+        if scale is not None:
+            x = x * scale.to(x.device)
+        pad = torch.zeros((x.shape[0], s_pad, x.shape[2], width),
+                          dtype=torch.float32, device=x.device)
+        pad[:, :x.shape[1], :, :x.shape[3]] = x
+        pad = pad.permute(0, 2, 1, 3).reshape(-1, s_pad, width)
+        return torch.stack(tf32_split(pad), dim=1)
+
+    vt = torch.zeros((b, skv_pad, kvh, nv), dtype=torch.float32,
+                     device=v.device)
+    vt[:, :skv, :, :hd_v] = v.to(torch.float32)
+    order = torch.tensor([8 * (i // 8) + _KEY_ORDER[i % 8]
+                          for i in range(skv_pad)], device=v.device)
+    vt = vt[:, order].permute(0, 2, 3, 1).reshape(b * kvh, nv, skv_pad)
+    return (rows(q, sq_pad, hdp, _f32_scale(hd)), rows(k, skv_pad, hdp),
+            torch.stack(tf32_split(vt), dim=1))
+
+
+def mha_3xtf32(q, k, v, *, causal: bool, softcap: float = 0.0,
+               return_lse: bool = False, bkv: int = 32):
+    """The float32 flash kernel's arithmetic in plain PyTorch (float32
+    inputs): s = (q * scale) . k with q scaled in float32, each product
+    ``lo . hi + hi . lo + hi . hi`` over :func:`tf32_split` (``lo . lo``
+    dropped) with float32 sums; the softcap; the online softmax over tiles
+    of ``bkv`` keys, its row state and row sums in float32; P split again
+    for each tile's ``P . V``, added into the rescaled output; out = acc /
+    max(l, 1e-30).  Shapes and masking as :func:`mha_reference`; with
+    ``return_lse`` also each row's m + log(l).  For the tests: nothing on
+    the main path calls it."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qs = q.to(torch.float32) * _f32_scale(hd).to(q.device)
+    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
+    m = torch.full((b, h, sq), -1e30, device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, h, sq, v.shape[3]), device=q.device)
+    qi = torch.arange(sq, device=q.device)[:, None]
+    for j0 in range(0, skv, bkv):
+        j1 = min(j0 + bkv, skv)
+        s = _product_3xtf32("bqhd,bkhd->bhqk", qs, kf[:, j0:j1])
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        if causal:
+            s = s.masked_fill(torch.arange(j0, j1, device=q.device)[None, :]
+                              > qi, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _product_3xtf32(
+            "bhqk,bkhd->bhqd", p, vf[:, j0:j1])
+        m = m_new
+    out = (acc / l.clamp_min(1e-30)[..., None]).permute(0, 2, 1, 3)
+    if return_lse:
+        lse = (m + torch.log(l.clamp_min(1e-30))).permute(0, 2, 1)
+        return out.contiguous(), lse.contiguous()
+    return out.contiguous()

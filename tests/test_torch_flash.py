@@ -258,7 +258,8 @@ def test_gqa_head_h_reads_kv_head_h_over_g():
 # against 128 at a short sequence
 MLA_CASES = [(2, 40, 40, 4, 4, 24, 16, True),
              (1, 130, 130, 3, 3, 192, 128, True),
-             (1, 70, 140, 2, 2, 192, 128, False)]
+             (1, 70, 140, 2, 2, 192, 128, False),
+             (1, 150, 90, 8, 2, 192, 128, True)]
 
 
 def _mla_inputs(case, seed):
@@ -285,6 +286,124 @@ def test_plain_mla_widths_match_the_blockwise_reference(case, dtype):
     jq, jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v))
     _check(got, _jax_reference("model", jq, jk, jv, causal=causal,
                                softcap=0.0), dtype)
+
+
+# --------------------------------------------------------------------------
+# the float32 kernel's 3xTF32 arithmetic
+# --------------------------------------------------------------------------
+
+# (B, Sq, Skv, H, KV, hd, hd_v, causal, softcap): MLA's 192/128 causal and
+# full (Sq != Skv), hd 64, hd 20 and GQA, causal and full, with softcap
+E3_CASES = [
+    (1, 130, 130, 3, 3, 192, 128, True, 0.0),
+    (1, 70, 140, 2, 2, 192, 128, False, 20.0),
+    (1, 128, 128, 4, 4, 64, 64, True, 0.0),
+    (2, 64, 192, 4, 1, 64, 64, False, 20.0),
+    (2, 100, 100, 7, 1, 20, 20, True, 0.0),
+    (1, 96, 96, 8, 2, 128, 128, True, 20.0),
+]
+E3_IDS = ["b{}-sq{}-skv{}-h{}-kv{}-hd{}-{}-{}-cap{:g}".format(
+    b, sq, skv, h, kv, hd, hdv, "causal" if c else "full", cap)
+    for b, sq, skv, h, kv, hd, hdv, c, cap in E3_CASES]
+E3_REL = 1e-4          # the kernel's tolerance: of max |reference|
+E3_RUNS = [(case, ref_name) for case in E3_CASES
+           for ref_name in (("pallas", "oracle", "model")
+                            if case[5] == case[6] else ("model",))]
+
+
+def test_tf32_split_reconstructs_x_within_2_to_the_minus_22():
+    """hi and lo carry 10 mantissa bits each (the low 13 bits zero, as the
+    tensor cores read a tf32 operand), hi rounds to nearest with ties away
+    from zero as ``tf32_round`` in ``csrc/coded_matmul.cu``, and hi + lo is
+    x to within 2^-22 of |x|; infinities pass unchanged."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy((rng.standard_normal(20000) *
+                          10.0 ** rng.integers(-30, 30, 20000))
+                         .astype(np.float32))
+    hi, lo = ref.tf32_split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    rel = ((hi.double() + lo.double() - x.double()).abs() /
+           x.double().abs()).max()
+    assert float(rel) <= 2.0 ** -22
+    # ties: 1 + 2^-11 lies halfway between two tf32 values and rounds away
+    # from zero; just below it rounds down
+    tie = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11),
+                        np.nextafter(np.float32(1 + 2 ** -11), 0)],
+                       dtype=torch.float32)
+    assert ref.tf32_split(tie)[0].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10),
+                                               1.0]
+    inf = torch.tensor([float("inf"), -float("inf")])
+    assert torch.equal(ref.tf32_split(inf)[0], inf)
+
+
+@pytest.mark.parametrize("case,reference", E3_RUNS,
+                         ids=[f"{i}-{r}" for (c, r), i in
+                              zip(E3_RUNS, [E3_IDS[E3_CASES.index(c)]
+                                            for c, _ in E3_RUNS])])
+def test_3xtf32_emulation_matches_the_jax_references(case, reference):
+    """``ref.mha_3xtf32``, the float32 kernel's arithmetic (q scaled in
+    float32, each product lo.hi + hi.lo + hi.hi over TF32 splits, the
+    online softmax over the kernel's key tiles: 64 keys up to hd 64, else
+    32), within 1e-4 of max |reference| of the JAX package's flash
+    functions in float32, as the file runs them: the Pallas kernel in
+    interpret mode, the dense oracle and the model's blockwise flash (the
+    only one of them that takes MLA's narrower v)."""
+    import jax.numpy as jnp
+    causal, softcap = case[7], case[8]
+    q, k, v = _mla_inputs(case, seed=sum(case[:7]))
+    got = ref.mha_3xtf32(*(torch.from_numpy(x) for x in (q, k, v)),
+                         causal=causal, softcap=softcap,
+                         bkv=64 if case[5] <= 64 else 32)
+    want = _np(_jax_reference(reference, *(jnp.asarray(x) for x in (q, k, v)),
+                              causal=causal, softcap=softcap))
+    assert tuple(got.shape) == want.shape
+    assert _rel_err(got, want) <= E3_REL
+
+
+def test_3xtf32_lse_matches_the_plain_forward():
+    """The emulation's lse (m + log l over its tiles) within 1e-5 of the
+    plain forward's, the backward's bar for the kernel's lse."""
+    case = E3_CASES[1]
+    q, k, v = (torch.from_numpy(x) for x in _mla_inputs(case, seed=4))
+    _, lse = ref.mha_3xtf32(q, k, v, causal=False, softcap=20.0,
+                            return_lse=True)
+    _, want = ref.mha_reference(q, k, v, causal=False, softcap=20.0,
+                                return_lse=True)
+    assert float((lse - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_plain_planes_hold_scaled_q_k_and_v_transposed_in_key_order():
+    """``ref.flash_f32_planes``, the plain version of the pre-pass: q *
+    scale and k as hi and lo planes per (batch, head), zero past Sq, Skv and
+    hd; v transposed, keys contiguous, and in every group of 8 in the order
+    (0, 2, 4, 6, 1, 3, 5, 7); hi + lo gives each value back."""
+    rng = np.random.default_rng(22)
+    b, sq, skv, h, kv, hd, hd_v = 2, 50, 45, 4, 2, 20, 12
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, skv, kv, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, skv, kv, hd_v)).astype(np.float32))
+    qp, kp, vp = ref.flash_f32_planes(q, k, v, (128, 64, 32, 32))
+    assert tuple(qp.shape) == (b * h, 2, 128, 32)
+    assert tuple(kp.shape) == (b * kv, 2, 64, 32)
+    assert tuple(vp.shape) == (b * kv, 2, 32, 64)
+    scale = torch.tensor(1 / hd ** 0.5, dtype=torch.float32)
+    qs = (q * scale).permute(0, 2, 1, 3).reshape(b * h, sq, hd)
+    torch.testing.assert_close(qp.sum(1)[:, :sq, :hd], qs, rtol=2 ** -22,
+                               atol=0)
+    assert float(qp[:, :, sq:].abs().max()) == float(qp[..., hd:].abs().max()) == 0
+    torch.testing.assert_close(
+        kp.sum(1)[:, :skv, :hd], k.permute(0, 2, 1, 3).reshape(b * kv, skv, hd),
+        rtol=2 ** -22, atol=0)
+    vt = vp.sum(1)                                  # (B * KV, 32, 64)
+    order = [8 * (i // 8) + (0, 2, 4, 6, 1, 3, 5, 7)[i % 8] for i in range(64)]
+    back = torch.zeros(b * kv, 32, 64)
+    back[:, :, order] = vt
+    torch.testing.assert_close(
+        back[:, :hd_v, :skv],
+        v.permute(0, 2, 3, 1).reshape(b * kv, hd_v, skv), rtol=2 ** -22,
+        atol=0)
+    assert float(back[:, hd_v:].abs().max()) == float(back[..., skv:].abs().max()) == 0
 
 
 # --------------------------------------------------------------------------
@@ -317,11 +436,15 @@ def test_the_wrapper_refuses_inputs_that_require_grad():
 
 
 def test_the_build_table_names_the_flash_entry():
-    """The forward's entry takes an ``lse`` pointer (19 arguments); the
-    backward is a source and an entry of its own, whose load width (0 for
-    the CUDA-core route) picks the route (24 arguments)."""
+    """The forward's entry takes an ``lse`` pointer and the float32
+    pre-pass's scratch (20 arguments), and the source has two helpers: the
+    scratch's extents and the pre-pass alone; the backward is a source and
+    an entry of its own, whose load width (0 for the CUDA-core route) picks
+    the route (24 arguments)."""
     name, argtypes = _build._ENTRY["flash_attention"]
-    assert name == "flash_attention_launch" and len(argtypes) == 19
+    assert name == "flash_attention_launch" and len(argtypes) == 20
+    assert _build._HELPERS["flash_attention_scratch"][0] == "flash_attention"
+    assert _build._HELPERS["flash_attention_split"][0] == "flash_attention"
     assert _build._target("flash_attention").name.startswith(
         "libflash_attention-")
     name, argtypes = _build._ENTRY["flash_attention_bwd"]
@@ -561,8 +684,9 @@ def test_the_backward_wrapper_refuses_cpu_tensors():
 # on the card: the CUDA kernel against its plain version
 # --------------------------------------------------------------------------
 
-# every hd the kernel pads (16, 32, 48, 64, 96, 128), G in {1, 7}, ragged,
-# and hd 20, whose 40-byte bf16 rows TMA cannot load
+# every hd the kernels pad (16, 32, 48, 64, 96, 128), G in {1, 7}, ragged,
+# hd 20, whose 40-byte bf16 rows TMA cannot load; Sq != Skv both ways with
+# softcap at hd 20, 48 and 96, and Skv = 0
 CUDA_CASES = CASES + [
     (1, 200, 200, 7, 1, 128, True, 0.0),
     (2, 130, 65, 14, 2, 96, True, 0.0),
@@ -570,6 +694,10 @@ CUDA_CASES = CASES + [
     (1, 65, 130, 7, 7, 16, False, 0.0),
     (1, 33, 33, 4, 4, 8, True, 0.0),
     (2, 200, 200, 7, 1, 20, True, 0.0),
+    (1, 150, 90, 8, 2, 20, True, 20.0),
+    (1, 70, 150, 4, 4, 96, False, 20.0),
+    (2, 90, 170, 6, 3, 48, True, 20.0),
+    (1, 100, 0, 4, 2, 64, True, 0.0),
 ]
 
 
@@ -644,6 +772,57 @@ def test_cuda_mla_widths_match_plain(cuda, case, dtype):
         assert flash_attention_kernel.launches == n0 + 1
         assert tuple(got.shape) == tuple(q.shape[:3]) + (case[6],)
         _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("hd,hd_v", [(20, 20), (192, 128)])
+def test_cuda_f32_kernel_reads_strided_heads_in_place(cuda, hd, hd_v):
+    """float32 q, k and v as views into one fused (B, S, H + 2 KV, width)
+    projection: the pre-pass reads them through their strides (80-byte
+    rows at hd 20, GQA 8/2), and the kernel matches its plain version
+    within 1e-4 of max |plain|."""
+    rng = np.random.default_rng(12)
+    b, s, h, kv = 2, 150, 8, 2
+    qkv = _torch(rng.standard_normal((b, s, h + 2 * kv, hd)), "float32",
+                 cuda)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], \
+        qkv[:, :, h + kv:, :hd_v]
+    assert not q.is_contiguous()
+    got = flash_attention_kernel(q, k, v, causal=True, softcap=20.0)
+    want = ref.mha_reference(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=True, softcap=20.0)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-4
+
+
+def test_cuda_f32_forward_is_deterministic(cuda):
+    """Two float32 forward calls on the same inputs (MLA's 192/128, GQA,
+    Sq != Skv, with lse) give the same bits: nothing in the 3xTF32 kernel
+    depends on the order blocks run in."""
+    case = (1, 150, 200, 8, 2, 192, 128, False)
+    q, k, v = (_torch(x, "float32", cuda) for x in _mla_inputs(case, 15))
+    first = flash_attention_kernel(q, k, v, causal=False, return_lse=True)
+    second = flash_attention_kernel(q, k, v, causal=False, return_lse=True)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", [(2, 100, 77, 4, 2, 20, 20),
+                                  (1, 130, 130, 3, 3, 192, 128),
+                                  (1, 64, 300, 8, 1, 96, 64)])
+def test_cuda_f32_planes_match_plain(cuda, case):
+    """The float32 pre-pass (``f32_planes``) writes exactly the planes of
+    its plain version (``ref.flash_f32_planes``): q * scale, k and v^T in
+    the kernel's key order, TF32 hi and lo, zero-padded."""
+    from repro_torch.kernels.flash_attention import f32_planes
+    q, k, v = (_torch(x, "float32", cuda) for x in _mla_inputs(case, 16))
+    got = f32_planes(q, k, v)
+    extents = (got[0].shape[2], got[1].shape[2], got[0].shape[3],
+               got[2].shape[2])
+    want = ref.flash_f32_planes(q, k, v, extents)
+    torch.cuda.synchronize()
+    for a, c in zip(got, want):
+        assert a.shape == c.shape and torch.equal(a, c)
 
 
 @pytest.mark.parametrize("hd,hd_v", [(256, 128), (64, 96), (192, 160)])
@@ -745,18 +924,23 @@ def test_cuda_backward_hd20_on_both_load_routes(cuda, causal):
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("case", [(1, 512, 512, 32, 32, 96, 96, True, 0.0),
-                                  (2, 257, 257, 14, 2, 128, 128, True, 0.0),
-                                  (1, 129, 300, 8, 8, 64, 64, False, 20.0)])
-def test_cuda_backward_is_deterministic(cuda, case):
-    """The bfloat16 backward sums dq in a pass of its own, in a fixed key
-    order, and dk, dv in one block each: two calls on the same inputs give
-    bit-identical dq, dk and dv (phi3's heads, GQA, Sq != Skv)."""
+@pytest.mark.parametrize("case,dtype", [
+    ((1, 512, 512, 32, 32, 96, 96, True, 0.0), "bfloat16"),
+    ((2, 257, 257, 14, 2, 128, 128, True, 0.0), "bfloat16"),
+    ((1, 129, 300, 8, 8, 64, 64, False, 20.0), "bfloat16"),
+    ((1, 200, 200, 4, 4, 192, 128, True, 0.0), "bfloat16"),
+    ((1, 300, 300, 8, 2, 96, 96, True, 0.0), "float32"),
+    ((1, 200, 260, 4, 4, 192, 128, False, 20.0), "float32")])
+def test_cuda_backward_is_deterministic(cuda, case, dtype):
+    """Both routes sum dq in a pass of its own, in a fixed key order, and
+    dk, dv in one block each: two calls on the same inputs give
+    bit-identical dq, dk and dv (the tensor-core route: phi3's heads, GQA,
+    Sq != Skv; the CUDA-core route: bfloat16 at MLA's 192/128, float32 at
+    hd 96 and at 192/128)."""
     from repro_torch.kernels.flash_attention_bwd import \
         flash_attention_bwd_kernel
     causal, softcap = case[7], case[8]
-    q, k, v, do = (_torch(x, "bfloat16", cuda)
-                   for x in _bwd_inputs(case, 10))
+    q, k, v, do = (_torch(x, dtype, cuda) for x in _bwd_inputs(case, 10))
     out, lse = flash_attention_kernel(q, k, v, causal=causal,
                                       softcap=softcap, return_lse=True)
     first = flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=causal,

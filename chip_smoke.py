@@ -271,16 +271,17 @@ Phases, one JSON line each:
     4096 cross rows.
 
 15. LM training (``train_main_path``): (a) ``flash_attention_bwd``
-    against its plain version (ragged, the tensor-core tiles' edges at
-    127 to 257, G 1 and 7, hd 20 on both load routes to 192/128,
-    softcap, causal, full and cross, float32 on the CUDA cores and
-    bfloat16 on the route ``backward_route`` picks; lse too), two calls
+    against its plain version (ragged, both routes' tile edges at 33 to
+    257, G 1 and 7, hd 20 on both load routes to 192/128, softcap,
+    causal, full and cross, float32 on the 3xTF32 route and bfloat16 on
+    the bf16 ``wgmma`` route, the route asserted; lse too), two calls
     bit-identical on either route, ptxas's registers and spills per
-    instantiation, timed at the training shape beside the CUDA-core route
-    on the same inputs, SDPA's backward and the bound, bfloat16 at MLA's
-    192/128 timed beside SDPA's backward, and a 2-layer full-width
-    float32 step's gradients through the kernels against the kernels-off
-    step; (b) 6 coded steps of
+    instantiation, timed at the training shape and at MLA's 192/128 in
+    both dtypes beside SDPA's backward and the bounds (in float32 the rms
+    error against float64 beside the plain float32 version's), and a
+    2-layer full-width float32 step's gradients through the kernels (2
+    launches on the 3xTF32 route) against the kernels-off step; (b) 6
+    coded steps of
     phi3-mini-3.8b at full width and depth on 8 x 4096 tokens (256
     backward calls and 512 forward launches a step), losses, step wall,
     tokens/s, peak memory and a profiled step's split; (c)
@@ -528,7 +529,7 @@ def main() -> int:
                "library_ms": lib_ms,
                **bound(nbytes, flops, SPLIT_3XTF32
                        if dt == torch.float32 else BF16_TC),
-               "bound_ms_f32_cuda_cores": bound(nbytes, flops,
+               "bound_ms_f32_fma": bound(nbytes, flops,
                                                 F32_CUDA)["bound_ms"],
                "tflop_per_s": flops / k_ms / 1e9,
                "launches": launched}
@@ -740,30 +741,36 @@ def main() -> int:
                         "bound_by": row["bound_by"],
                         "bound_rate": row["bound_rate"],
                         "library_ms": row["library_ms"]})
-    # the backward replaces no TPU kernel: the reference's is XLA.  Its
-    # bf16 route at the training shape is the tensor-core kernels; the
-    # CUDA-core route (float32, and bf16 at MLA's 192/128) is timed on the
-    # same inputs as "earlier_ms"
-    kernels.append({"name": "flash_attention_bwd", "route": "cuda",
-                    "source":
-                        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                    "replaces": "none (no TPU kernel; the reference's "
-                    "backward is XLA, src/repro/models/attention.py:107)",
-                    "launches": launches["flash_attention_bwd"],
-                    "max_abs_err": bwd_row["max_abs_err"],
-                    "ms": bwd_row["kernel_ms"],
-                    "plain_ms": bwd_row["plain_ms"],
-                    "bound_ms": bwd_row["bound_ms"],
-                    "bound_by": bwd_row["bound_by"],
-                    "bound_rate": bwd_row["bound_rate"],
-                    "library_ms": bwd_row["library_ms"],
-                    "bf16_route": bwd_row["route"],
-                    "kernel_split_ms": bwd_row["kernel_split_ms"],
-                    "earlier_ms": bwd_row["earlier_ms"],
-                    "tflop_per_s": bwd_row["tflop_per_s"],
-                    "design_bound_ms": bwd_row["design_bound_ms"],
-                    "design": "seven products: the dq pass recomputes s "
-                    "and dp"})
+    # the backward replaces no TPU kernel: the reference's is XLA.  One
+    # entry a route, each at phi3's training shape with MLA's 192/128
+    # beside it: the bf16 wgmma route (the phi3 steps of phase 15 b) and
+    # the float32 3xTF32 route (the 2-layer float32 step of phase 15 a)
+    bwd_keys = ("max_abs_err", "kernel_ms", "kernel_split_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "design_products",
+                "design_bound_ms", "tflop_per_s", "bit_identical_second_call")
+    for dname, name in (("bfloat16", "flash_attention_bwd"),
+                        ("float32", "flash_attention_bwd_3xtf32")):
+        main_row = bwd_row[dname]["main"]
+        mla = bwd_row[dname]["mla_192_128"]
+        n = bwd_row["float32"]["launches"]
+        entry = {"name": name, "route": "cuda",
+                 "source":
+                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 "replaces": "none (no TPU kernel; the reference's "
+                 "backward is XLA, src/repro/models/attention.py:107)",
+                 "launches": (launches["flash_attention_bwd"] - n
+                              if dname == "bfloat16" else n),
+                 "backward_route": main_row["route"],
+                 **{key: main_row[key] for key in bwd_keys},
+                 "ms": main_row["kernel_ms"],
+                 "bound_rate": main_row["bound_rate"],
+                 "mla_192_128": {key: mla[key] for key in bwd_keys}}
+        if dname == "float32":
+            for key in ("rms_err_vs_float64", "plain_rms_err_vs_float64",
+                        "rms_ratio"):
+                entry[key] = main_row[key]
+                entry["mla_192_128"][key] = mla[key]
+        kernels.append(entry)
     # the flash kernel at MLA's widths (phase 12 a), beside its main row,
     # at jamba's GQA shape (phase 13 c) and at whisper's and qwen2-vl's
     # (phase 14 a)
@@ -792,14 +799,14 @@ def main() -> int:
              "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
              "bound_by": f32["bound_by"], "bound_rate": f32["bound_rate"],
              "library_ms": f32["library_ms"],
-             "bound_cuda_cores_ms": f32["bound_cuda_cores_ms"],
+             "bound_f32_fma_ms": f32["bound_f32_fma_ms"],
              "kernel_split_ms": f32["kernel_split_ms"],
              "tflop_per_s": f32["tflop_per_s"],
              "design": "pre-pass (TF32 hi/lo planes of q scale, k, v^T) + "
              "3xTF32 wgmma kernel"}
     for name, row in (("qwen2_7b_128", flash_row),) + shapes[1:]:
         entry[name] = {key: row["float32"][key] for key in
-                       keys + ("bound_cuda_cores_ms", "kernel_split_ms")}
+                       keys + ("bound_f32_fma_ms", "kernel_split_ms")}
     kernels.append(entry)
     split = f32["split"]
     kernels.append({"name": "flash_attention_f32_split", "route": "cuda",
@@ -813,34 +820,6 @@ def main() -> int:
                     "bound_ms": split["bound_ms"],
                     "bound_by": split["bound_by"],
                     "bound_rate": split["bound_rate"], "library_ms": None})
-    # the backward's CUDA-core route (float32 at every width, bf16 at MLA's
-    # 192/128): float32 at phi3's shape, phase 15 (a)
-    b32 = bwd_row["float32"]
-    kernels.append({"name": "flash_attention_bwd_cuda_cores",
-                    "route": "cuda",
-                    "source":
-                        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                    "replaces": "none (no TPU kernel; the reference's "
-                    "backward is XLA, src/repro/models/attention.py:107)",
-                    "launches": b32["launches"],
-                    "max_abs_err": b32["max_abs_err"],
-                    "ms": b32["kernel_ms"], "plain_ms": b32["plain_ms"],
-                    "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
-                    "bound_rate": b32["bound_rate"],
-                    "library_ms": b32["library_ms"],
-                    "design_bound_ms": b32["design_bound_ms"],
-                    "design": "dk/dv kernel + a deterministic dq pass: "
-                    "seven products",
-                    "kernel_split_ms": b32["kernel_split_ms"],
-                    "bit_identical_second_call":
-                        b32["bit_identical_second_call"],
-                    "bf16_mla_192_128": {
-                        key: b32["bf16_mla_192_128"][key]
-                        for key in ("max_abs_err", "kernel_ms",
-                                    "kernel_split_ms", "plain_ms",
-                                    "library_ms", "bound_ms",
-                                    "design_bound_ms",
-                                    "design_bound_cuda_cores_ms")}})
     print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -4652,7 +4631,7 @@ def check_f32_flash(torch, q, k, v, causal: bool, head: dict,
                                    hd_v=hd_v)
         row.update(**bound(nbytes, flops, SPLIT_3XTF32), flop=flops,
                    bytes=nbytes, tflop_per_s=flops / row["kernel_ms"] / 1e9,
-                   bound_cuda_cores_ms=bound(nbytes, flops,
+                   bound_f32_fma_ms=bound(nbytes, flops,
                                              F32_CUDA)["bound_ms"])
         split_bytes = plane_bytes(torch, q, k, v)
         row["split"] = {
@@ -5981,9 +5960,11 @@ ENTRY_ARGS = ["--arch", TRAIN_LM_ARCH, "--steps", "3", "--seq-len", "512",
 # the backward kernel against its plain version: (B, Sq, Skv, H, KV, hd,
 # hd_v, causal, softcap): ragged Sq and Skv, G in {1, 7}, hd 20, 64, 96,
 # 128 and MLA's 192/128, softcap 20, causal, full and cross; then the
-# tensor-core kernels' tile edges (128 keys or queries a block, 64 a
-# step): Sq and Skv of 127, 128, 129 and 257, unequal both ways, G 7,
-# hd_v < hd
+# routes' tile edges (bf16: 128 keys or queries a block, 64 a step, 32
+# queries a dkdv step at 192/128; float32: 64 keys or queries a block, 32
+# a step, 16 for dk and dq at 192/128): Sq and Skv of 63 to 257, unequal
+# both ways, G 7, hd_v < hd, hd 160 padded to 192, softcap and GQA at
+# 192/128
 BWD_CHECKS = [(1, 65, 130, 2, 2, 64, 64, False, 0.0),
               (2, 130, 65, 14, 2, 96, 96, True, 0.0),
               (1, 200, 200, 7, 1, 128, 128, True, 0.0),
@@ -5998,33 +5979,45 @@ BWD_CHECKS = [(1, 65, 130, 2, 2, 64, 64, False, 0.0),
               (1, 257, 257, 7, 1, 96, 96, True, 0.0),
               (1, 129, 257, 4, 2, 128, 128, False, 0.0),
               (1, 257, 127, 4, 4, 96, 96, True, 0.0),
-              (1, 127, 129, 4, 2, 128, 64, True, 0.0)]
+              (1, 127, 129, 4, 2, 128, 64, True, 0.0),
+              (1, 63, 65, 4, 2, 96, 96, True, 0.0),
+              (2, 97, 97, 6, 2, 192, 128, True, 20.0),
+              (1, 33, 81, 4, 1, 192, 128, False, 0.0),
+              (1, 150, 150, 8, 8, 160, 128, True, 0.0),
+              (1, 100, 100, 4, 2, 72, 40, True, 0.0)]
 # hd 20 in bfloat16 again, q, k, v and dout as views into 24-wide rows
 # (48-byte strides, TMA) where the dense case's 40-byte rows load plainly
 BWD_VIEWS = [(2, 200, 200, 7, 1, 20, 20, True, 0.0)]
 BWD_MAIN = (1, LM_SEQ, LM_SEQ, 32, 32, 96, 96, True, 0.0)
-# MLA's 192/128 prefill (deepseek-v2-lite's 16 heads) in bfloat16: the
-# CUDA-core route's bf16 width, timed beside SDPA's backward
+# MLA's 192/128 prefill (deepseek-v2-lite's 16 heads): both routes at
+# their widest, timed beside SDPA's backward
 BWD_MLA = (1, 4096, 4096, 16, 16, 192, 128, True, 0.0)
 BWD_GQA = (1, 257, 257, 7, 1, 96, 96, True, 0.0)   # determinism, GQA
+BWD_TIMED = (BWD_MAIN, BWD_MLA)
+BWD_RATE = {"bfloat16": BF16_TC, "float32": SPLIT_3XTF32}
+# the float32 route's rms error against float64, at most this many times
+# the plain float32 version's
+RMS_RATIO = 2.0
 LSE_TOL = 1e-5                      # of max |plain lse|
 TRAIN_CLASSES = (("flash_fwd", ("flash_fwd",)),
-                 ("flash_bwd", ("flash_bwd", "bwd_delta")),
+                 ("flash_bwd", ("flash_bwd", "bwd_delta", "split_")),
                  ("cublas", ("gemm", "xmma", "cutlass", "nvjet")),
                  ("casts", ("copy_kernel",)))
 
 
 def flash_bwd_work(b, sq, skv, h, kv, hd, hd_v, causal, elt,
-                   dq_pass: bool = False) -> tuple:
+                   products: int = 5) -> tuple:
     """(bytes, FLOP) of one attention backward: q, k, v, out and dout read
     and lse (float32) read once, dq, dk, dv written once; the products
     over the (query, key) pairs the mask keeps.  The function needs five
-    (s and dq, dk over hd; dp and dv over hd_v); with ``dq_pass`` seven,
-    as the tensor-core route's separate dq pass recomputes s and dp."""
+    (s and dq, dk over hd; dp and dv over hd_v); both routes' separate dq
+    pass recomputes s and dp (seven), and above hd 96 the float32 route's
+    separate dv pass s once more (eight)."""
     pairs = sum(min(skv, i + 1) for i in range(sq)) if causal else sq * skv
     nbytes = elt * (2 * b * sq * h * (hd + hd_v) +
                     2 * b * skv * kv * (hd + hd_v)) + 4 * b * sq * h
-    per_pair = 2 * (4 * hd + 3 * hd_v) if dq_pass else 2 * (3 * hd + 2 * hd_v)
+    per_pair = {5: 2 * (3 * hd + 2 * hd_v), 7: 2 * (4 * hd + 3 * hd_v),
+                8: 2 * (5 * hd + 3 * hd_v)}[products]
     return nbytes, b * h * per_pair * pairs
 
 
@@ -6034,122 +6027,57 @@ def spills(report: str) -> int:
                re.findall(r"(\d+) bytes spill (?:stores|loads)", report))
 
 
-def cuda_core_bwd(torch, q, k, v, out, lse, do, causal: bool):
-    """The CUDA-core route on the same inputs (the C entry's load width 0:
-    the dk/dv kernel and the dq pass).  For the comparison of phase 15 (a)
-    only: the wrapper routes bfloat16 at hd <= 128 to the tensor cores."""
-    import ctypes
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import _strides
-    b, sq, h, hd = q.shape
-    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
-    dq = torch.empty_like(q)
-    delta = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, do)
-                                      for s in _strides(t)))
-    err = _build.library("flash_attention_bwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kvh, hd, hd_v, strides,
-        1.0 / hd ** 0.5, 0.0, int(causal),
-        0 if q.dtype == torch.float32 else 1, 0,
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_attention_bwd (CUDA cores)")
-    return dq, dk, dv
-
-
 def bwd_instantiations(ptxas: dict, hd: int, route: str) -> dict:
-    """ptxas's report of the kernels one backward call launches: the
-    pre-pass and, on the tensor-core route, the dkdv and dq kernels at
-    the template width hd rounds up to, else the CUDA-core dk/dv kernel
-    and dq pass at their padded width."""
+    """ptxas's report of the kernels one backward call launches: on the
+    bf16 route the pre-pass and the dkdv and dq kernels at the template
+    width hd rounds up to; on the 3xTF32 route the pre-pass's kernels and
+    the passes at their padded width (dv and dk in one up to 96)."""
     if route == "wgmma":
-        d = next(w for w in (16, 32, 64, 96, 128) if hd <= w)
-        names = ("bwd_delta_t_kernel", f"flash_bwd_dkdv_wgmma_kernel<{d}>",
-                 f"flash_bwd_dq_wgmma_kernel<{d}>")
-    else:
         d = next(w for w in (16, 32, 64, 96, 128, 192) if hd <= w)
-        names = ("bwd_delta_kernel", f"flash_bwd_kernel<{d}>",
-                 f"flash_bwd_dq_kernel<{d}>")
+        names = ("bwd_delta_t_kernel<__nv_bfloat16>",
+                 f"flash_bwd_dkdv_wgmma_kernel<{d}>",
+                 f"flash_bwd_dq_wgmma_kernel<{d}>")
+    else:   # kinds: 0 dv, 1 dk, 2 dq, 3 dv and dk in one pass (d <= 96)
+        d = next(w for w in (32, 64, 96, 128, 192) if hd <= w)
+        names = ("bwd_delta_t_kernel<float>", "split_rows_kernel",
+                 "split_t_kernel") + tuple(
+                     f"flash_bwd_3xtf32_kernel<{d}, {kind}>"
+                     for kind in ((3, 2) if d <= 96 else (0, 1, 2)))
+
+    def norm(name):
+        return name.replace("(int)", "").replace(" ", "")
     found = {n: line for n in names for sym, line in ptxas.items()
-             if sym.replace("(int)", "").endswith(n)}
+             if norm(sym).endswith(norm(n))}
     assert len(found) == len(names), (names, list(ptxas))
     return found
 
 
-def time_bwd_mla(torch, gen, dev) -> dict:
-    """The backward at BWD_MLA in bfloat16 (the CUDA-core route): dq, dk,
-    dv within TOL of the plain version's, a second call bit-identical, the
-    kernel's time and its kernels' device time, the plain version's, SDPA's
-    backward (forward + backward less forward) where a backend takes hd_v
-    != hd, the five-product bound at the bf16 tensor-core rate (the least
-    the card could take for bf16 inputs), the seven products of the dq
-    pass's design at that rate and at the CUDA-core rate the route runs at.
-    Emits and returns the row."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.flash_attention_bwd import (
-        backward_route, flash_attention_bwd_kernel)
-    b, sq, skv, h, kvh, hd, hd_v, causal, _ = BWD_MLA
-    q, k, v, do = (torch.randn(sh, generator=gen, device=dev).bfloat16()
-                   for sh in ((b, sq, h, hd), (b, skv, kvh, hd),
-                              (b, skv, kvh, hd_v), (b, sq, h, hd_v)))
-    out, lse = flash_attention_kernel(q, k, v, causal=causal,
-                                      return_lse=True)
-
-    def kernel():
-        return flash_attention_bwd_kernel(q, k, v, out, lse, do,
-                                          causal=causal)
-    got, again = kernel(), kernel()
-    want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+def device_ms_by_kernel(torch, fn, want=(), calls: int = 5) -> dict:
+    """{kernel name: device ms per call of ``fn``} over ``calls`` calls,
+    from ``torch.profiler`` after one warm-up call: every kernel the call
+    launches, its launches' times summed (the float32 pre-pass launches
+    four row splits and three transposed ones a call).  A profile that
+    recorded no event of a kernel named in ``want`` is taken again, up to
+    PROFILE_TRIES times (``device_ms``'s note)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    errs = {name: rel_diff(torch, g, w)
-            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
-    nbytes, flops = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal, 2)
-    _, flops7 = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal, 2,
-                               dq_pass=True)
-    k_ms = timed_ms(torch, kernel, max_iters=10)
-    try:
-        fb_ms, f_ms = sdpa_bwd_ms(torch, q, k, v, do)
-        library = {"library_ms": fb_ms - f_ms, "library_fwd_bwd_ms": fb_ms,
-                   "library_fwd_ms": f_ms,
-                   "library": "F.scaled_dot_product_attention, is_causal: "
-                   "forward + backward less forward"}
-    except RuntimeError as exc:       # no backend takes hd_v != hd
-        library = {"library_ms": None, "library": "none",
-                   "library_error": repr(exc)[:300]}
-    row = {"phase": "train_main_path", "check": "a_flash_bwd_mla",
-           "kernel": "flash_attention_bwd",
-           "shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd", "hd_v",
-                              "causal", "softcap"), BWD_MLA)),
-           "dtype": "bfloat16", "route": backward_route(q, k, v, do)[0],
-           "max_abs_err": max(e[0] for e in errs.values()),
-           "rel_err": {n: e[1] for n, e in errs.items()},
-           "tol": TOL["bfloat16"],
-           "bit_identical_second_call": all(
-               torch.equal(x, y) for x, y in zip(got, again)),
-           "kernel_ms": k_ms,
-           "kernel_split_ms": {name: device_ms(torch, kernel, name, calls=5)
-                               for name in ("bwd_delta_kernel",
-                                            "flash_bwd_kernel",
-                                            "flash_bwd_dq_kernel")},
-           "plain_ms": timed_ms(
-               torch, lambda: ref.flash_attention_bwd_reference(
-                   q, k, v, out, lse, do, causal), max_iters=3),
-           **library, **bound(nbytes, flops, BF16_TC), "flop": flops,
-           "bytes": nbytes, "design_flop": flops7,
-           "design_bound_ms": bound(nbytes, flops7, BF16_TC)["bound_ms"],
-           "design_bound_cuda_cores_ms": bound(nbytes, flops7,
-                                               F32_CUDA)["bound_ms"],
-           "tflop_per_s": flops / k_ms / 1e9}
-    emit(row)
-    assert row["route"] == "cuda_cores", row
-    for name, (_, rel) in errs.items():
-        assert rel <= TOL["bfloat16"], (name, row)
-    assert row["bit_identical_second_call"], row
-    return row
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                              e.name)
+                split[name] = split.get(name, 0.0) + \
+                    e.time_range.elapsed_us() / calls / 1e3
+        if all(any(w in name for name in split) for w in want):
+            break
+    return split
 
 
 def sdpa_bwd_ms(torch, q, k, v, do) -> tuple:
@@ -6171,35 +6099,92 @@ def sdpa_bwd_ms(torch, q, k, v, do) -> tuple:
     return timed_ms(torch, fwd_bwd), timed_ms(torch, fwd)
 
 
+def rms_vs_float64(torch, got, want64) -> float:
+    """Root-mean-square of got - want64 over all three gradients, relative
+    to the rms of want64 (float64)."""
+    num = sum(float(((g.double() - w) ** 2).sum()) for g, w in
+              zip(got, want64))
+    den = sum(float((w ** 2).sum()) for w in want64)
+    return (num / den) ** 0.5
+
+
+def time_bwd(torch, q, k, v, out, lse, do, case, dname: str,
+             kernels=()) -> dict:
+    """The backward at a timed shape (BWD_TIMED): the kernel's time and
+    each of its kernels' device time, the plain version's, SDPA's backward
+    (forward + backward less forward; None where no backend takes the
+    shape), the bound over the function's five products at the dtype's
+    tensor-core rate and, apart, over the route's own products (seven; in
+    float32 above hd 96 eight); in float32 also the rms error against the
+    float64 plain version, the kernel's and the plain float32 version's.
+    ``kernels``: the names of the kernels the call launches."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    b, sq, skv, h, kvh, hd, hd_v, causal, _ = case
+
+    def kernel():
+        return flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                          causal=causal)
+    rate = BWD_RATE[dname]
+    nbytes, flops = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal,
+                                   q.element_size())
+    design = 7 if dname == "bfloat16" or hd <= 96 else 8
+    _, flops_d = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal,
+                                q.element_size(), products=design)
+    k_ms = timed_ms(torch, kernel, max_iters=20)
+    try:
+        fb_ms, f_ms = sdpa_bwd_ms(torch, q, k, v, do)
+        library = {"library_ms": fb_ms - f_ms, "library_fwd_bwd_ms": fb_ms,
+                   "library_fwd_ms": f_ms,
+                   "library": "F.scaled_dot_product_attention, is_causal: "
+                   "forward + backward less forward"}
+    except RuntimeError as exc:       # no backend takes the shape
+        library = {"library_ms": None, "library": "none",
+                   "library_error": repr(exc)[:300]}
+    row = dict(kernel_ms=k_ms, **library, **bound(nbytes, flops, rate),
+               flop=flops, bytes=nbytes, tflop_per_s=flops / k_ms / 1e9,
+               kernel_split_ms=device_ms_by_kernel(torch, kernel, kernels),
+               design_products=design, design_flop=flops_d,
+               design_bound_ms=bound(nbytes, flops_d, rate)["bound_ms"],
+               bound_5_products_ms=bound(nbytes, flops, rate)["bound_ms"],
+               plain_ms=timed_ms(
+                   torch, lambda: ref.flash_attention_bwd_reference(
+                       q, k, v, out, lse, do, causal), max_iters=3))
+    if dname == "float32":
+        want64 = ref.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal, acc=torch.float64)
+        plain = ref.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                  causal)
+        row["rms_err_vs_float64"] = rms_vs_float64(torch, kernel(), want64)
+        row["plain_rms_err_vs_float64"] = rms_vs_float64(torch, plain,
+                                                         want64)
+        row["rms_ratio"] = row["rms_err_vs_float64"] / max(
+            row["plain_rms_err_vs_float64"], 1e-300)
+        del want64, plain
+    return row
+
+
 def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
     """Phase 15 (a): ``flash_attention_bwd`` against its plain version
     (``ref.flash_attention_bwd_reference``) on the forward kernel's own
-    output and lse, over BWD_CHECKS and the training shape BWD_MAIN in
-    float32 (the CUDA-core route) and bfloat16 (the route
-    ``backward_route`` picks: the tensor-core kernels up to hd 128, the
-    CUDA-core route at MLA's 192/128), and BWD_VIEWS in bfloat16 through
-    strided views: dq, dk, dv within TOL of max |plain|, the forward's lse
-    within LSE_TOL of the plain forward's.  Each row names its route and
-    ptxas's report of the kernels it launched; BWD_MAIN's must not spill.
-    At BWD_MAIN and BWD_GQA in both dtypes, and at MLA's 192/128 (the
-    CUDA-core route in both), a second call must give the same bits.  At
-    BWD_MAIN in bfloat16 the kernel's time, each of its kernels' device
-    time, the CUDA-core route's on the same inputs, the plain version's and
-    the library yardstick's (``F.scaled_dot_product_attention``'s forward +
-    backward less its forward), the bound over the function's work (five
-    products) at the bf16 tensor-core rate and, apart, the work of this
-    design (seven: the dq pass recomputes s and dp).  At BWD_MAIN in
-    float32 the CUDA-core route's time and its kernels' device time, the
-    library yardstick's in float32, the five-product bound and the seven of
-    its dq pass at the f32 CUDA-core rate, kept in the bf16 row under
-    "float32", and there under "bf16_mla_192_128" the CUDA-core route in
-    bfloat16 at MLA's widths (``time_bwd_mla``).  Returns that row."""
+    output and lse, over BWD_CHECKS, the training shape BWD_MAIN and MLA's
+    BWD_MLA in float32 (the 3xTF32 route) and bfloat16 (the bf16 route),
+    the route asserted, and BWD_VIEWS in bfloat16 through strided views:
+    dq, dk, dv within TOL of max |plain|, the forward's lse within LSE_TOL
+    of the plain forward's.  Each row names its route and ptxas's report
+    of the kernels it launched; BWD_MAIN's and BWD_MLA's must not spill.
+    At BWD_MAIN, BWD_GQA and every 192/128 case, in both dtypes, a second
+    call must give the same bits.  At BWD_MAIN and BWD_MLA in both dtypes
+    ``time_bwd``'s row (in float32 the rms error against float64 at most
+    RMS_RATIO times the plain float32 version's).  Returns {"bfloat16":
+    {"main": row, "mla_192_128": row}, "float32": {...}}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.flash_attention_bwd import (
         backward_route, flash_attention_bwd_kernel)
-    main = f32_main = None
-    runs = [(case, dt, False) for case in BWD_CHECKS + [BWD_MAIN]
+    timed = {"bfloat16": {}, "float32": {}}
+    runs = [(case, dt, False) for case in BWD_CHECKS + list(BWD_TIMED)
             for dt in (torch.float32, torch.bfloat16)]
     runs += [(case, torch.bfloat16, True) for case in BWD_VIEWS]
     for case, dt, view in runs:
@@ -6217,13 +6202,16 @@ def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
                                      softcap=softcap, return_lse=True)
         route = backward_route(q, k, v, do)
         n0 = flash_attention_bwd_kernel.launches
+        r0 = flash_attention_bwd_kernel.launches_by_route[route[0]]
         got = flash_attention_bwd_kernel(q, k, v, out, lse, do,
                                          causal=causal, softcap=softcap)
-        launched = flash_attention_bwd_kernel.launches - n0
+        launched = (flash_attention_bwd_kernel.launches - n0,
+                    flash_attention_bwd_kernel.launches_by_route[route[0]] -
+                    r0)
         want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                                  causal, softcap)
         torch.cuda.synchronize()
-        assert launched == 1, launched
+        assert launched == (1, 1), launched
         errs = {}
         for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
             assert g.shape == t.shape and g.dtype == t.dtype
@@ -6241,7 +6229,7 @@ def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
                "rel_err": {n: e[1] for n, e in errs.items()},
                "tol": TOL[dname], "lse_max_abs_err": lse_err,
                "lse_tol": LSE_TOL * float(lse_p.abs().max()),
-               "launches": launched}
+               "launches": launched[0]}
         del want, lse_p
         if (case in (BWD_MAIN, BWD_GQA) or hd > 128) and not view:
             again = flash_attention_bwd_kernel(q, k, v, out, lse, do,
@@ -6252,63 +6240,24 @@ def check_flash_bwd(torch, gen, dev, ptxas: dict) -> dict:
                 torch.equal(x, y) for x, y in zip(got, again))
             del again
         del got
-        if case is BWD_MAIN:
-            def kernel():
-                return flash_attention_bwd_kernel(q, k, v, out, lse, do,
-                                                  causal=True)
-            bf16 = dt == torch.bfloat16
-            rate = BF16_TC if bf16 else F32_CUDA
-            k_ms = timed_ms(torch, kernel, max_iters=50 if bf16 else 10)
-            fb_ms, f_ms = sdpa_bwd_ms(torch, q, k, v, do)
-            nbytes, flops = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v,
-                                           causal, q.element_size())
-            _, flops7 = flash_bwd_work(b, sq, skv, h, kvh, hd, hd_v, causal,
-                                       q.element_size(), dq_pass=True)
-            split = {name: device_ms(torch, kernel, name, calls=10)
-                     for name in (("bwd_delta_t", "flash_bwd_dkdv",
-                                   "flash_bwd_dq") if bf16 else
-                                  ("bwd_delta_kernel", "flash_bwd_kernel",
-                                   "flash_bwd_dq_kernel"))}
-            timing = dict(kernel_ms=k_ms, library_ms=fb_ms - f_ms,
-                          library="F.scaled_dot_product_attention, "
-                          "is_causal: forward + backward less forward",
-                          library_fwd_bwd_ms=fb_ms, library_fwd_ms=f_ms,
-                          **bound(nbytes, flops, rate),
-                          flop=flops, bytes=nbytes,
-                          tflop_per_s=flops / k_ms / 1e9,
-                          kernel_split_ms=split, design_flop=flops7,
-                          design_bound_ms=bound(nbytes, flops7,
-                                                rate)["bound_ms"])
-            timing["plain_ms"] = timed_ms(
-                torch, lambda: ref.flash_attention_bwd_reference(
-                    q, k, v, out, lse, do, True), max_iters=5)
-            row.update(timing)
-            if not bf16:
-                f32_main = dict(timing, max_abs_err=row["max_abs_err"],
-                                bit_identical_second_call=row[
-                                    "bit_identical_second_call"])
-        if case is BWD_MAIN and dt == torch.bfloat16:
-            c_ms = timed_ms(torch, lambda: cuda_core_bwd(
-                torch, q, k, v, out, lse, do, True), max_iters=10)
-            row.update(earlier_ms=c_ms,
-                       earlier="the CUDA-core route (the dk/dv kernel and "
-                       "the dq pass) on the same inputs",
-                       float32=f32_main, ptxas_all=ptxas)
-            f32_main["bf16_mla_192_128"] = time_bwd_mla(torch, gen, dev)
-            main = row
+        if case in BWD_TIMED and not view:
+            row.update(time_bwd(torch, q, k, v, out, lse, do, case, dname,
+                                tuple(kernels)))
+            timed[dname]["main" if case is BWD_MAIN else "mla_192_128"] = row
         emit(row)
         for name, (_, rel) in errs.items():
             assert rel <= TOL[dname], (name, row)
         assert lse_err <= row["lse_tol"], row
         assert row.get("bit_identical_second_call", True), row
-        if case is BWD_MAIN:
+        if case in BWD_TIMED:
             assert all(spills(line) == 0 for line in kernels.values()), row
-        want_route = "wgmma" if dt == torch.bfloat16 and hd <= 128 \
-            else "cuda_cores"
-        assert route[0] == want_route, row
+        if "rms_ratio" in row:
+            assert row["rms_ratio"] <= RMS_RATIO, row
+        assert route[0] == ("wgmma" if dt == torch.bfloat16 else "3xtf32"), \
+            row
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
-    return main
+    return timed
 
 
 def grads_of_step(torch, model, tokens, targets, force_kernel):
@@ -6329,8 +6278,9 @@ def train_main_path(torch, dev) -> tuple:
     repro_torch.launch.train``.  (a) ``flash_attention_bwd`` against its
     plain version (``check_flash_bwd``), then a 2-layer full-width
     phi3-mini in float32 compute: one step's gradients through the
-    kernels against the same step with ``force_kernel=False``, within
-    1e-4 of each leaf's max |g|.  (b) phi3-mini-3.8b at full width and
+    kernels (its 2 backward calls on the 3xTF32 route) against the same
+    step with ``force_kernel=False``, within 1e-4 of each leaf's max |g|.
+    (b) phi3-mini-3.8b at full width and
     depth (3.82 B float32 parameters, bf16 compute, remat per layer)
     through ``steps.build_train_step`` with the trainer's AdamW
     (``warmup_cosine``), ``TokenPipeline`` batches and ``StragglerModel``
@@ -6347,7 +6297,8 @@ def train_main_path(torch, dev) -> tuple:
     bytes and save and restore seconds.  (d) an encrypted checkpoint of
     one full-width layer's attention leaves, restored bit-identical, with
     every ``mask_add`` call held exactly.  Returns (the counted launches,
-    the bfloat16 backward row of (a)).  Phase 15 alone:
+    the timed backward rows of (a) by dtype, the float32 step's backward
+    launches under "float32", "launches").  Phase 15 alone:
     ``build_kernels(torch)`` then ``train_main_path(torch,
     torch.device("cuda"))``."""
     import contextlib
@@ -6399,7 +6350,8 @@ def train_main_path(torch, dev) -> tuple:
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
 
-    # ---- (a) the backward kernel, then a 2-layer float32 step
+    # ---- (a) the backward kernel, then a 2-layer float32 step (on the
+    # 3xTF32 route)
     bwd_row = check_flash_bwd(torch, gen, dev,
                               _build_ptxas(torch, "flash_attention_bwd"))
     free()
@@ -6410,17 +6362,17 @@ def train_main_path(torch, dev) -> tuple:
     targets = torch.randint(0, cfg.vocab_size, (1, LM_SEQ), generator=gen,
                             device=dev)
     f0 = f32_flash_launches()
-    b0 = flash_attention_bwd_kernel.launches_by_route["cuda_cores"]
+    b0 = flash_attention_bwd_kernel.launches_by_route["3xtf32"]
     (loss_k, g_k), got = counted(kernels, total, lambda: grads_of_step(
         torch, model, tokens, targets, None))
     F32_FLASH_LAUNCHES["15a_phi3_step"] = f32_flash_launches() - f0
-    cuda_core_bwd_launches = \
-        flash_attention_bwd_kernel.launches_by_route["cuda_cores"] - b0
+    f32_bwd_launches = \
+        flash_attention_bwd_kernel.launches_by_route["3xtf32"] - b0
     assert got == dict(no_launch, flash_attention=4,
                        flash_attention_bwd=2), got
     assert F32_FLASH_LAUNCHES["15a_phi3_step"] == 4
-    assert cuda_core_bwd_launches == 2
-    bwd_row["float32"]["launches"] = cuda_core_bwd_launches
+    assert f32_bwd_launches == 2
+    bwd_row["float32"]["launches"] = f32_bwd_launches
     loss_p, g_p = grads_of_step(torch, model, tokens, targets, False)
     worst = {k: float((g_k[k] - g_p[k]).abs().max()) /
              max(float(g_p[k].abs().max()), 1e-30) for k in g_p}

@@ -75,6 +75,13 @@ _HELPERS = {
     "flash_attention_split": ("flash_attention",
                               [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                _I, ctypes.POINTER(_I64), _F, _VP]),
+    "flash_attention_bwd_scratch": ("flash_attention_bwd",
+                                    [_I, _I, _I, _I, _I, _I, _I, _I,
+                                     ctypes.POINTER(_I64)]),
+    "flash_attention_bwd_split": ("flash_attention_bwd",
+                                  [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                                   _I, _I, _I, _I, _I,
+                                   ctypes.POINTER(_I64), _F, _VP]),
 }
 
 build_count = 0

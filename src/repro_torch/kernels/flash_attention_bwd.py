@@ -14,38 +14,46 @@ flash_attention`` pairs the two kernels in a ``torch.autograd.Function``.
   lse               (B, Sq, H) float32, the forward's ``return_lse``
   -> dq, dk, dv     q's, k's and v's shapes, contiguous, in q's dtype
 
-Two routes, chosen by :func:`backward_route` from dtype and width (each
-serves its inputs; neither is a fallback of the other):
+Two routes, both on Hopper's tensor cores, chosen by
+:func:`backward_route` from the dtype (each serves its dtype; neither is a
+fallback of the other).  Both sum dq in a pass of its own that walks the
+key tiles in a fixed order, so that nothing is atomic and two calls on the
+same inputs give the same bits; that pass recomputes s and dp.
 
-* ``"wgmma"``: bfloat16 at hd <= 128 (phi3-mini's 96 on the training
-  path) runs on Hopper's tensor cores.  A pre-pass sums ``delta =
-  rowsum(dout * out)`` (and lays it and ``lse`` out per head), a
-  ``dkdv`` kernel walks the query tiles (64 a stage) for each tile of 128
-  keys and writes dk and dv, a ``dq`` kernel walks the key tiles (64 a
-  stage) for each tile of 128 queries and writes dq; a warpgroup takes 64
-  of a block's keys or rows.  S and dP are computed in both: dq is a pass
-  of its own so that it needs no atomics, whose order changes from run
-  to run, and two calls on the same inputs give the same bits.  That
-  makes seven products, 2 (4 hd + 3 hd_v) operations per unmasked pair:
-  at phi3's training shape 360.8 GFLOP, 0.365 ms at the bf16 tensor-core
-  rate, which bounds it (operations).  At hd 96 a block holds ~130 KB of
-  shared memory and a consumer thread dK and dV (96 floats) beside S and
-  dP (64), within the 232 registers a ``setmaxnreg`` gives it.  P and dS
-  are rounded to bfloat16 for their products; every sum is float32.  The
-  tiles load by TMA or, where a base address or stride is not 16-byte
-  aligned (hd 20 in bfloat16), by plain loads: ``load_width(q, k, v,
-  dout)``, the forward's rule.
-* ``"cuda_cores"``: float32 at any width, and bfloat16 at hd > 128
-  (MLA's 192/128, which no one-card training path reaches), run on the
-  CUDA cores in float32: one kernel per 64 keys keeps dk and dv on chip,
-  and a dq pass per 64 query rows walks the key tiles in ascending order,
-  recomputing s and dp, and writes dq once in q's dtype.  Nothing is
-  atomic: two calls on the same inputs give the same bits, on both routes.
+* ``"wgmma"``: bfloat16 at every width (hd <= 192, hd_v <= 128) runs as
+  bf16 wgmma.  A pre-pass sums ``delta = rowsum(dout * out)`` (and lays it
+  and ``lse`` out per head), a ``dkdv`` kernel walks the query tiles (64 a
+  stage; 32 at hd > 128) for each tile of 128 keys and writes dk and dv, a
+  ``dq`` kernel walks the key tiles (64 a stage) for each tile of 128
+  queries and writes dq; a warpgroup takes 64 of a block's keys or rows.
+  Seven products, 2 (4 hd + 3 hd_v) operations per unmasked pair: at
+  phi3's training shape 360.8 GFLOP, 0.365 ms at the bf16 tensor-core
+  rate, which bounds it (operations).  The q . k width and the v width
+  are template parameters apart, so MLA's hd_v 128 is not padded to 192.
+  P and dS are rounded to bfloat16 for their products; every sum is
+  float32.  The tiles load by TMA or, where a base address or stride is
+  not 16-byte aligned (hd 20 in bfloat16), by plain loads: ``load_width(q,
+  k, v, dout)``, the forward's rule.
+* ``"3xtf32"``: float32 at every width runs as error-compensated 3xTF32
+  wgmma, the float32 forward's arithmetic (``x = hi + lo``, each product
+  ``lo . hi + hi . lo + hi . hi``, float32 sums; q scaled in float32
+  before the split).  TF32 wgmma has no transpose bit, so a pre-pass
+  writes q * scale, dout, k and v and the transposes of q * scale, dout and
+  k as TF32 hi and lo planes into scratch this wrapper allocates
+  (:func:`bwd_f32_planes` runs it alone).  Up to hd 96 one pass computes
+  dv and dk (two warpgroups: one computes p and dv and hands p to the
+  other, which computes ds and dk) and one dq (two warpgroups on
+  alternate key tiles): seven products.  Above hd 96 a dv, a dk and a dq
+  pass run one warpgroup each, the dv pass recomputing s (eight).  No
+  wgmma accumulator sums over more than one tile: each tile's output
+  product is added into float32 registers.  Its plain emulation is
+  ``kernels.ref.flash_attention_bwd_3xtf32``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -53,23 +61,25 @@ from . import _build
 from .flash_attention import (_DTYPES, MAX_HEAD_DIM, MAX_V_HEAD_DIM,
                               _strides, load_width)
 
-__all__ = ["flash_attention_bwd_kernel", "backward_route"]
+__all__ = ["flash_attention_bwd_kernel", "backward_route", "bwd_f32_planes",
+           "ROUTES"]
 
-WGMMA_MAX_HD = 128     # the tensor-core route's widest q . k
-PAD_ROWS = 128         # the tensor-core route lays lse and delta out per
-                       # head over Sq rounded up to this
+ROUTES = ("wgmma", "3xtf32")
 
 
 def backward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    dout: torch.Tensor) -> tuple:
     """(route, load width) of a backward call: ``("wgmma", w)`` for
-    bfloat16 at hd <= 128, where ``w`` is ``load_width(q, k, v, dout)``
-    (16: TMA; 8, 4, 2: plain loads of that many bytes); ``("cuda_cores",
-    0)`` for float32 and for bfloat16 at a wider hd.  Reads shapes,
-    strides and addresses only: nothing is launched."""
-    if q.dtype == torch.bfloat16 and q.shape[3] <= WGMMA_MAX_HD:
+    bfloat16, where ``w`` is ``load_width(q, k, v, dout)`` (16: TMA; 8, 4,
+    2: plain loads of that many bytes); ``("3xtf32", 0)`` for float32 (the
+    pre-pass reads the tensors through their strides).  Any other dtype
+    raises ``TypeError``.  Reads dtypes, shapes, strides and addresses
+    only: nothing is launched."""
+    if q.dtype == torch.bfloat16:
         return "wgmma", load_width(q, k, v, dout)
-    return "cuda_cores", 0
+    if q.dtype == torch.float32:
+        return "3xtf32", 0
+    raise TypeError(f"no backward route takes {q.dtype}")
 
 
 def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -85,9 +95,10 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
 
     Launches the route's kernels (:func:`backward_route`) on the current
     stream and adds one to ``flash_attention_bwd_kernel.launches`` (one
-    call, three kernels on either route) and to its route's entry of
-    ``flash_attention_bwd_kernel.launches_by_route``.  There is no CPU path: a CPU tensor
-    raises.
+    call: three kernels in bfloat16, the pre-pass and two or three passes
+    in float32) and to its route's entry of
+    ``flash_attention_bwd_kernel.launches_by_route``.  There is no CPU
+    path: a CPU tensor raises, and so does what no route takes.
     """
     tensors = (q, k, v, out, dout)
     if not all(t.is_cuda for t in tensors + (lse,)):
@@ -127,24 +138,17 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention_bwd_kernel needs unit stride "
                          "along hd")
-    if b * kvh > 65535:
-        raise ValueError(f"flash_attention_bwd_kernel takes B * KV <= "
-                         f"65535, got {b * kvh}")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention_bwd_kernel takes B * H <= "
+                         f"65535, got {b * h}")
     out, lse = out.contiguous(), lse.contiguous()
     if dout.stride(3) != 1:
         dout = dout.contiguous()
     route, width = backward_route(q, k, v, dout)
-    if route == "cuda_cores":       # it reads dout as laid out densely
-        dout = dout.contiguous()
     dev = q.device
-    if route == "wgmma":
-        sq_pad = -(-sq // PAD_ROWS) * PAD_ROWS
-        dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev)
-        scratch = torch.empty((2, b * h, sq_pad), dtype=torch.float32,
-                              device=dev)
-    else:
-        dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev)
-        scratch = torch.empty((b, sq, h), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_scratch_extents(q, k, v)[0], dtype=torch.float32,
+                          device=dev)
+    dq = torch.empty((b, sq, h, hd), dtype=q.dtype, device=dev)
     dk = torch.empty((b, skv, kvh, hd), dtype=q.dtype, device=dev)
     dv = torch.empty((b, skv, kvh, hd_v), dtype=q.dtype, device=dev)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, dout)
@@ -165,4 +169,55 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_bwd_kernel.launches = 0
-flash_attention_bwd_kernel.launches_by_route = {"wgmma": 0, "cuda_cores": 0}
+flash_attention_bwd_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def _scratch_extents(q, k, v) -> tuple:
+    """(floats of scratch, Sq_pad, Skv_pad, hd_pad, hdv_pad) of a backward
+    call, as the C side lays the scratch out
+    (``flash_attention_bwd_scratch``; the last three are 0 in bfloat16)."""
+    b, sq, h, hd = q.shape
+    ext = (ctypes.c_int64 * 5)()
+    err = _build.function("flash_attention_bwd_scratch")(
+        b, sq, k.shape[1], h, k.shape[2], hd, v.shape[3], _DTYPES[q.dtype],
+        ext)
+    _build.check(err, "flash_attention_bwd_scratch")
+    return tuple(ext)
+
+
+def bwd_f32_planes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   out: torch.Tensor, lse: torch.Tensor,
+                   dout: torch.Tensor) -> tuple:
+    """The float32 backward's pre-pass alone, on float32 CUDA tensors with
+    Skv >= 1: ``(lse2, delta, q * scale, dout, k, v, (q * scale)^T,
+    dout^T, k^T)``.  ``lse2 = lse * log2(e)`` and ``delta = rowsum(dout *
+    out)`` are (B * H, Sq_pad); the rest are TF32 hi and lo planes, rows
+    (B * heads, 2, S_pad, width_pad) and transposed (B * heads, 2,
+    width_pad, S_pad) with the sequence of every 8 in the kernels' order
+    (0, 2, 4, 6, 1, 3, 5, 7), zero-padded.  Its plain version is
+    ``kernels.ref.flash_bwd_f32_planes``; it counts no launch."""
+    if q.dtype != torch.float32 or not q.is_cuda or k.shape[1] == 0:
+        raise ValueError("bwd_f32_planes takes float32 CUDA tensors with "
+                         "Skv >= 1")
+    b, sq, h, hd = q.shape
+    kvh, hd_v = k.shape[2], v.shape[3]
+    total, sq_pad, skv_pad, hdp, nv = _scratch_extents(q, k, v)
+    scratch = torch.empty(total, dtype=torch.float32, device=q.device)
+    out, lse = out.contiguous(), lse.contiguous()
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q, k, v, dout)
+                                      for s in _strides(t)))
+    with torch.cuda.device(q.device):
+        err = _build.function("flash_attention_bwd_split")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(), b, sq,
+            k.shape[1], h, kvh, hd, hd_v, strides, 1.0 / hd ** 0.5,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_attention_bwd_split")
+    shapes = ((b * h, sq_pad), (b * h, sq_pad),
+              (b * h, 2, sq_pad, hdp), (b * h, 2, sq_pad, nv),
+              (b * kvh, 2, skv_pad, hdp), (b * kvh, 2, skv_pad, nv),
+              (b * h, 2, hdp, sq_pad), (b * h, 2, nv, sq_pad),
+              (b * kvh, 2, hdp, skv_pad))
+    sizes = [math.prod(sh) for sh in shapes]
+    assert sum(sizes) == total, (sizes, total)
+    return tuple(p.view(sh) for p, sh in zip(scratch.split(sizes), shapes))

@@ -4,10 +4,12 @@ Ports ``repro/kernels/ref.py`` (``berrut_combine``, ``coded_matmul``,
 ``mask_add``, ``encrypted_coded_matmul`` and ``mha_reference``), and adds
 ``flash_attention_bwd_reference``, the plain version of the flash
 backward kernel (the reference's ``_flash_bwd``, XLA there), and the
-float32 flash forward's 3xTF32 arithmetic: ``tf32_split``,
-``flash_f32_planes`` (the plain version of its pre-pass) and
-``mha_3xtf32`` (a plain emulation of the kernel, which the tests hold
-against the JAX references; nothing on the main path calls it).  The CPU
+float32 flash kernels' 3xTF32 arithmetic: ``tf32_split``,
+``flash_f32_planes`` and ``flash_bwd_f32_planes`` (the plain versions of
+the forward's and the backward's pre-passes), ``mha_3xtf32`` and
+``flash_attention_bwd_3xtf32`` (plain emulations of the kernels, which
+the tests hold against the JAX references; nothing on the main path calls
+them).  The CPU
 tests hold these against the JAX package, and ``chip_smoke.py`` holds each
 hand-written CUDA kernel against them on the card.  The float versions
 accumulate in float32 and return the blocks' dtype.  A float32 product on the card is full IEEE
@@ -22,7 +24,8 @@ import torch
 __all__ = ["berrut_combine", "coded_matmul", "mask_add",
            "encrypted_coded_matmul", "mha_reference",
            "flash_attention_bwd_reference", "tf32_split", "flash_f32_planes",
-           "mha_3xtf32", "ATTN_CHUNK"]
+           "mha_3xtf32", "flash_bwd_f32_planes", "flash_attention_bwd_3xtf32",
+           "ATTN_CHUNK"]
 
 ATTN_CHUNK = 512   # the reference's KV chunk (models/attention.py)
 
@@ -137,31 +140,34 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
                                   softcap: float = 0.0,
-                                  chunk: int = ATTN_CHUNK) -> tuple:
+                                  chunk: int = ATTN_CHUNK,
+                                  acc=torch.float32) -> tuple:
     """The plain version of the flash backward kernel: dq, dk and dv of
     :func:`mha_reference` from its output ``out``, its ``lse`` (B, Sq, H)
-    and the output's gradient ``dout``, in the inputs' dtypes.
+    and the output's gradient ``dout``, in the inputs' dtypes (float64
+    where ``acc`` is).
 
     Follows the reference's ``_flash_bwd`` (``models/attention.py:107``)
-    chunk by chunk over ``chunk`` keys in float32: the probabilities
-    ``exp(s - lse)`` are recomputed per chunk, ``delta = rowsum(dout *
-    out)``, ``ds = p (dp - delta)`` (times ``1 - tanh^2`` under softcap),
-    masked keys give 0; dq and dk carry the 1/sqrt(hd) scale.
+    chunk by chunk over ``chunk`` keys in ``acc`` (float32; float64 gives
+    the tools' error yardstick): the probabilities ``exp(s - lse)`` are
+    recomputed per chunk, ``delta = rowsum(dout * out)``, ``ds = p (dp -
+    delta)`` (times ``1 - tanh^2`` under softcap), masked keys give 0; dq
+    and dk carry the 1/sqrt(hd) scale.
     """
     b, sq, h, hd = q.shape
     skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kvh
     scale = 1.0 / (hd ** 0.5)
-    qg = q.reshape(b, sq, kvh, g, hd).to(torch.float32) * scale
-    do = dout.reshape(b, sq, kvh, g, hd_v).to(torch.float32)
-    delta = (do * out.reshape(b, sq, kvh, g, hd_v).to(torch.float32)).sum(-1)
-    lse_g = lse.reshape(b, sq, kvh, g).to(torch.float32)
+    qg = q.reshape(b, sq, kvh, g, hd).to(acc) * scale
+    do = dout.reshape(b, sq, kvh, g, hd_v).to(acc)
+    delta = (do * out.reshape(b, sq, kvh, g, hd_v).to(acc)).sum(-1)
+    lse_g = lse.reshape(b, sq, kvh, g).to(acc)
     q_pos = torch.arange(sq, device=q.device)
-    dq = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+    dq = torch.zeros(qg.shape, dtype=acc, device=q.device)
     dks, dvs = [], []
     for c0 in range(0, skv, chunk):
-        kb = k[:, c0:c0 + chunk].to(torch.float32)
-        vb = v[:, c0:c0 + chunk].to(torch.float32)
+        kb = k[:, c0:c0 + chunk].to(acc)
+        vb = v[:, c0:c0 + chunk].to(acc)
         s_raw = torch.einsum("bqkgd,bckd->bqkgc", qg, kb)
         s = softcap * torch.tanh(s_raw / softcap) if softcap else s_raw
         k_pos = torch.arange(c0, c0 + kb.shape[1], device=q.device)
@@ -180,9 +186,10 @@ def flash_attention_bwd_reference(q, k, v, out, lse, dout, causal: bool,
         ds = torch.where(valid, ds, torch.zeros_like(ds))
         dq = dq + torch.einsum("bqkgc,bckd->bqkgd", ds, kb)
         dks.append(torch.einsum("bqkgc,bqkgd->bckd", ds, qg))
-    dq = (dq * scale).reshape(b, sq, h, hd).to(q.dtype)
-    dk = torch.cat(dks, dim=1).to(k.dtype)
-    dv = torch.cat(dvs, dim=1).to(v.dtype)
+    wide = acc == torch.float64
+    dq = (dq * scale).reshape(b, sq, h, hd).to(acc if wide else q.dtype)
+    dk = torch.cat(dks, dim=1).to(acc if wide else k.dtype)
+    dv = torch.cat(dvs, dim=1).to(acc if wide else v.dtype)
     return dq, dk, dv
 
 
@@ -225,6 +232,34 @@ def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 _KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
+def _key_order(n: int, device) -> torch.Tensor:
+    """Positions 0..n-1 (n a multiple of 8) -> the index each holds in the
+    kernels' order: within every 8, (0, 2, 4, 6, 1, 3, 5, 7)."""
+    return torch.tensor([8 * (i // 8) + _KEY_ORDER[i % 8] for i in range(n)],
+                        device=device)
+
+
+def _rows_planes(x, s_pad, width, scale=None):
+    """(B, S, heads, w) -> (B * heads, 2, s_pad, width): TF32 hi and lo of
+    x (times ``scale``, in float32), zero-padded."""
+    x = x.to(torch.float32)
+    if scale is not None:
+        x = x * scale.to(x.device)
+    pad = torch.zeros((x.shape[0], s_pad, x.shape[2], width),
+                      dtype=torch.float32, device=x.device)
+    pad[:, :x.shape[1], :, :x.shape[3]] = x
+    pad = pad.permute(0, 2, 1, 3).reshape(-1, s_pad, width)
+    return torch.stack(tf32_split(pad), dim=1)
+
+
+def _t_planes(x, s_pad, width, scale=None):
+    """(B, S, heads, w) -> (B * heads, 2, width, s_pad): TF32 hi and lo of
+    x (times ``scale``) transposed, the sequence of every 8 in the kernels'
+    order, zero-padded."""
+    rows = _rows_planes(x, s_pad, width, scale)
+    return rows[:, :, _key_order(s_pad, x.device)].transpose(2, 3)
+
+
 def flash_f32_planes(q, k, v, extents) -> tuple:
     """The plain version of the float32 flash forward's pre-pass
     (``kernels.flash_attention.f32_planes``): ``q * scale`` and k as (B *
@@ -232,27 +267,35 @@ def flash_f32_planes(q, k, v, extents) -> tuple:
     hdv_pad, Skv_pad) with keys in the kernel's order, zero-padded to
     ``extents`` = (Sq_pad, Skv_pad, hd_pad, hdv_pad)."""
     sq_pad, skv_pad, hdp, nv = extents
+    hd = q.shape[3]
+    return (_rows_planes(q, sq_pad, hdp, _f32_scale(hd)),
+            _rows_planes(k, skv_pad, hdp), _t_planes(v, skv_pad, nv))
+
+
+def flash_bwd_f32_planes(q, k, v, out, lse, dout, extents) -> tuple:
+    """The plain version of the float32 flash backward's pre-pass
+    (``kernels.flash_attention_bwd.bwd_f32_planes``), ``extents`` =
+    (Sq_pad, Skv_pad, hd_pad, hdv_pad): ``lse2 = lse * log2(e)`` and
+    ``delta = rowsum(dout * out)``, (B * H, Sq_pad) float32, zero past Sq;
+    TF32 hi and lo rows planes of q * scale and dout (B * H, 2, Sq_pad,
+    width) and of k and v (B * KV, 2, Skv_pad, width); transposed planes
+    of q * scale and dout (B * H, 2, width, Sq_pad) and of k (B * KV, 2,
+    hd_pad, Skv_pad), the sequence of every 8 in the kernels' order (0,
+    2, 4, 6, 1, 3, 5, 7); every plane zero-padded."""
+    sq_pad, skv_pad, hdp, nv = extents
     b, sq, h, hd = q.shape
-    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
-
-    def rows(x, s_pad, width, scale=None):
-        x = x.to(torch.float32)
-        if scale is not None:
-            x = x * scale.to(x.device)
-        pad = torch.zeros((x.shape[0], s_pad, x.shape[2], width),
-                          dtype=torch.float32, device=x.device)
-        pad[:, :x.shape[1], :, :x.shape[3]] = x
-        pad = pad.permute(0, 2, 1, 3).reshape(-1, s_pad, width)
-        return torch.stack(tf32_split(pad), dim=1)
-
-    vt = torch.zeros((b, skv_pad, kvh, nv), dtype=torch.float32,
-                     device=v.device)
-    vt[:, :skv, :, :hd_v] = v.to(torch.float32)
-    order = torch.tensor([8 * (i // 8) + _KEY_ORDER[i % 8]
-                          for i in range(skv_pad)], device=v.device)
-    vt = vt[:, order].permute(0, 2, 3, 1).reshape(b * kvh, nv, skv_pad)
-    return (rows(q, sq_pad, hdp, _f32_scale(hd)), rows(k, skv_pad, hdp),
-            torch.stack(tf32_split(vt), dim=1))
+    scale = _f32_scale(hd)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    lse2 = torch.zeros((b * h, sq_pad), dtype=torch.float32, device=q.device)
+    delta = torch.zeros_like(lse2)
+    lse2[:, :sq] = (lse.to(torch.float32) * log2e.to(q.device)).permute(
+        0, 2, 1).reshape(b * h, sq)
+    delta[:, :sq] = (dout.to(torch.float32) * out.to(torch.float32)).sum(
+        -1).permute(0, 2, 1).reshape(b * h, sq)
+    return (lse2, delta, _rows_planes(q, sq_pad, hdp, scale),
+            _rows_planes(dout, sq_pad, nv), _rows_planes(k, skv_pad, hdp),
+            _rows_planes(v, skv_pad, nv), _t_planes(q, sq_pad, hdp, scale),
+            _t_planes(dout, sq_pad, nv), _t_planes(k, skv_pad, hdp))
 
 
 def mha_3xtf32(q, k, v, *, causal: bool, softcap: float = 0.0,
@@ -296,3 +339,69 @@ def mha_3xtf32(q, k, v, *, causal: bool, softcap: float = 0.0,
         lse = (m + torch.log(l.clamp_min(1e-30))).permute(0, 2, 1)
         return out.contiguous(), lse.contiguous()
     return out.contiguous()
+
+
+def flash_attention_bwd_3xtf32(q, k, v, out, lse, dout, causal: bool,
+                               softcap: float = 0.0, bq: int = 32,
+                               bk: int = 32) -> tuple:
+    """The float32 flash backward kernels' arithmetic in plain PyTorch
+    (float32 inputs): s = (q * scale) . k with q scaled in float32 and dp =
+    dout . v, each product ``lo . hi + hi . lo + hi . hi`` over
+    :func:`tf32_split` (``lo . lo`` dropped) with float32 sums; the softcap;
+    p = exp(s - lse) and ds = p (dp - delta) [(1 - tanh^2)] in float32 (at
+    hd <= 96, where one warpgroup hands the other g = p [(1 - tanh^2)], ds
+    = g (dp - delta)), masked pairs 0; dv = p^T dout and dk = ds^T (q *
+    scale) summed over the G query heads and, within each, over tiles of
+    ``bq`` queries, and dq = scale ds k over tiles of ``bk`` keys (at hd <=
+    96 the even and the odd tiles apart, then added), each tile's 3xTF32
+    product added in float32 in the kernels' order.  Shapes and masking as
+    :func:`flash_attention_bwd_reference`, whose inputs it takes.  For the
+    tests: nothing on the main path calls it."""
+    b, sq, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    g = h // kvh
+    dev = q.device
+    scale = _f32_scale(hd).to(dev)
+    qs = q.to(torch.float32) * scale
+    kf = k.to(torch.float32).repeat_interleave(g, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
+    do = dout.to(torch.float32)
+    delta = (do * out.to(torch.float32)).sum(-1).permute(0, 2, 1)
+    s = _product_3xtf32("bqhd,bkhd->bhqk", qs, kf)
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        valid = (torch.arange(skv, device=dev)[None, :] <=
+                 torch.arange(sq, device=dev)[:, None])
+    zero = torch.zeros((), device=dev)
+    p = torch.where(valid, torch.exp(s - lse.to(torch.float32).permute(
+        0, 2, 1)[..., None]), zero)
+    dp = _product_3xtf32("bqhd,bkhd->bhqk", do, vf)
+    paired = hd <= 96           # the kernels' two-warpgroup passes
+    if paired:
+        gp = p * (1.0 - t * t) if softcap else p
+        ds = gp * (dp - delta[..., None])
+    else:
+        ds = p * (dp - delta[..., None])
+        if softcap:
+            ds = ds * (1.0 - t * t)
+    ds = torch.where(valid, ds, zero)
+    dk = torch.zeros((b, skv, kvh, hd), device=dev)
+    dv = torch.zeros((b, skv, kvh, hd_v), device=dev)
+    for gi in range(g):
+        heads = [kv * g + gi for kv in range(kvh)]   # head gi of each group
+        for q0 in range(0, sq, bq):
+            rows = slice(q0, q0 + bq)
+            dv = dv + _product_3xtf32("bhqk,bqhd->bkhd", p[:, heads, rows],
+                                      do[:, rows][:, :, heads])
+            dk = dk + _product_3xtf32("bhqk,bqhd->bkhd", ds[:, heads, rows],
+                                      qs[:, rows][:, :, heads])
+    halves = [torch.zeros((b, sq, h, hd), device=dev) for _ in range(2)]
+    for n, j0 in enumerate(range(0, skv, bk)):
+        cols = slice(j0, j0 + bk)
+        i = n % 2 if paired else 0
+        halves[i] = halves[i] + _product_3xtf32(
+            "bhqk,bkhd->bqhd", ds[..., cols], kf[:, cols])
+    return (halves[0] + halves[1]) * scale, dk, dv

@@ -439,8 +439,9 @@ def test_the_build_table_names_the_flash_entry():
     """The forward's entry takes an ``lse`` pointer and the float32
     pre-pass's scratch (20 arguments), and the source has two helpers: the
     scratch's extents and the pre-pass alone; the backward is a source and
-    an entry of its own, whose load width (0 for the CUDA-core route) picks
-    the route (24 arguments)."""
+    an entry of its own (24 arguments: the dtype picks the route, the load
+    width is the bfloat16 route's and 0 in float32), with the same two
+    helpers of its own."""
     name, argtypes = _build._ENTRY["flash_attention"]
     assert name == "flash_attention_launch" and len(argtypes) == 20
     assert _build._HELPERS["flash_attention_scratch"][0] == "flash_attention"
@@ -452,6 +453,8 @@ def test_the_build_table_names_the_flash_entry():
     assert argtypes[-2] is ctypes.c_int and argtypes[-1] is ctypes.c_void_p
     assert _build._target("flash_attention_bwd").name.startswith(
         "libflash_attention_bwd-")
+    for helper in ("flash_attention_bwd_scratch", "flash_attention_bwd_split"):
+        assert _build._HELPERS[helper][0] == "flash_attention_bwd"
 
 
 # --------------------------------------------------------------------------
@@ -471,9 +474,23 @@ BWD_CASES = [
     (2, 40, 40, 4, 4, 24, 16, True, 0.0),
     (1, 20, 600, 4, 4, 16, 16, False, 20.0),
 ]
-BWD_IDS = ["b{}-sq{}-skv{}-h{}-kv{}-hd{}-{}-{}-cap{:g}".format(
-    b, sq, skv, h, kv, hd, hdv, "causal" if c else "full", cap)
-    for b, sq, skv, h, kv, hd, hdv, c, cap in BWD_CASES]
+# the widths the card's routes run at a small sequence: phi3-mini's hd 96
+# under GQA with softcap, and MLA's 192/128, causal and full (Sq != Skv)
+BWD_WIDE = [
+    (1, 40, 40, 4, 2, 96, 96, True, 20.0),
+    (1, 36, 36, 2, 2, 192, 128, True, 0.0),
+    (1, 20, 44, 2, 1, 192, 128, False, 0.0),
+]
+
+
+def _bwd_ids(cases):
+    return ["b{}-sq{}-skv{}-h{}-kv{}-hd{}-{}-{}-cap{:g}".format(
+        b, sq, skv, h, kv, hd, hdv, "causal" if c else "full", cap)
+        for b, sq, skv, h, kv, hd, hdv, c, cap in cases]
+
+
+BWD_IDS = _bwd_ids(BWD_CASES)
+BWD_WIDE_IDS = _bwd_ids(BWD_WIDE)
 BWD_REL = 1e-5
 
 
@@ -494,7 +511,8 @@ def _rel_err(got, want) -> float:
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
 
 
-@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+@pytest.mark.parametrize("case", BWD_CASES + BWD_WIDE,
+                         ids=BWD_IDS + BWD_WIDE_IDS)
 def test_plain_backward_matches_the_reference_vjp(case):
     """``ref.flash_attention_bwd_reference`` against ``jax.vjp`` of the
     reference's ``models.attention.flash_attention`` (its custom VJP,
@@ -583,13 +601,15 @@ def _emulate_bf16_bwd(q, k, v, out, lse, dout, *, causal: bool,
     return (dq * scale).to(bf), dk.to(bf), dv.to(bf)
 
 
-@pytest.mark.parametrize("case", BWD_CASES, ids=BWD_IDS)
+@pytest.mark.parametrize("case", BWD_CASES + BWD_WIDE,
+                         ids=BWD_IDS + BWD_WIDE_IDS)
 def test_bf16_backward_numerics_match_the_reference_vjp(case):
-    """The tensor-core backward's rounding points (``_emulate_bf16_bwd``,
+    """The bfloat16 backward's rounding points (``_emulate_bf16_bwd``,
     fed the plain forward's bfloat16 output and lse, as the card feeds the
     forward kernel's) stay within bfloat16's 2e-2 of max |ref| of
     ``jax.vjp`` of the reference's ``models.attention.flash_attention``
-    (its custom VJP, ``_flash_bwd``) in bfloat16."""
+    (its custom VJP, ``_flash_bwd``) in bfloat16, MLA's 192/128 among
+    them."""
     import jax
     import jax.numpy as jnp
     from repro.models import attention as jattn
@@ -615,11 +635,98 @@ def test_bf16_backward_numerics_match_the_reference_vjp(case):
         assert _rel_err(g, w) <= BF16_REL, name
 
 
+@pytest.mark.parametrize("case", BWD_CASES + BWD_WIDE,
+                         ids=BWD_IDS + BWD_WIDE_IDS)
+def test_3xtf32_backward_emulation_matches_the_reference_vjp(case):
+    """``ref.flash_attention_bwd_3xtf32``, the float32 backward kernels'
+    arithmetic (q scaled in float32, each product lo.hi + hi.lo + hi.hi
+    over TF32 splits, p and ds in float32, each tile's product added in
+    float32: 32 queries a tile for dk and dv, 32 keys for dq), fed the
+    3xTF32 forward's output and lse (``ref.mha_3xtf32``, as the card feeds
+    the float32 forward kernel's), within 1e-4 of max |ref| of ``jax.vjp``
+    of the reference's ``models.attention.flash_attention`` (its custom
+    VJP, ``_flash_bwd``) in float32."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention as jattn
+    causal, softcap = case[7], case[8]
+    q, k, v, do = _bwd_inputs(case, seed=sum(case[:7]) + 1)
+    b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+    qpos = jnp.broadcast_to(jnp.arange(sq, dtype=jnp.int32)[None], (b, sq))
+    kpos = jnp.broadcast_to(jnp.arange(skv, dtype=jnp.int32)[None], (b, skv))
+
+    def f(q_, k_, v_):
+        return jattn.flash_attention(q_, k_, v_, q_positions=qpos,
+                                     kv_positions=kpos, causal=causal,
+                                     softcap=softcap)
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = ref.mha_3xtf32(qt, kt, vt, causal=causal, softcap=softcap,
+                              return_lse=True, bkv=64 if case[5] <= 64
+                              else 32)
+    got = ref.flash_attention_bwd_3xtf32(qt, kt, vt, out, lse, dot, causal,
+                                         softcap)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        assert _rel_err(g, w) <= E3_REL, name
+
+
+def test_plain_bwd_planes_hold_scaled_q_dout_k_v_and_their_transposes():
+    """``ref.flash_bwd_f32_planes``, the plain version of the float32
+    backward's pre-pass: lse * log2(e) and delta = rowsum(dout * out) per
+    (batch, head), zero past Sq; q * scale, dout, k and v as hi and lo
+    rows planes, zero past S and the width; (q * scale)^T, dout^T and k^T
+    transposed, the sequence contiguous and in every group of 8 in the
+    order (0, 2, 4, 6, 1, 3, 5, 7); hi + lo gives each value back."""
+    rng = np.random.default_rng(23)
+    b, sq, skv, h, kv, hd, hd_v = 2, 50, 45, 4, 2, 20, 12
+    q, k, v, do = (torch.from_numpy(x) for x in _bwd_inputs(
+        (b, sq, skv, h, kv, hd, hd_v), seed=23))
+    out = torch.from_numpy(rng.standard_normal((b, sq, h, hd_v))
+                           .astype(np.float32))
+    lse = torch.from_numpy(rng.standard_normal((b, sq, h)).astype(np.float32))
+    planes = ref.flash_bwd_f32_planes(q, k, v, out, lse, do, (64, 64, 32, 32))
+    lse2, delta, qr, dr, kr, vr, qt, dt, kt = planes
+    assert tuple(lse2.shape) == tuple(delta.shape) == (b * h, 64)
+    assert [tuple(p.shape) for p in planes[2:]] == [
+        (b * h, 2, 64, 32), (b * h, 2, 64, 32), (b * kv, 2, 64, 32),
+        (b * kv, 2, 64, 32), (b * h, 2, 32, 64), (b * h, 2, 32, 64),
+        (b * kv, 2, 32, 64)]
+    per_head = (lambda x: x.permute(0, 2, 1).reshape(b * h, sq))
+    torch.testing.assert_close(lse2[:, :sq], per_head(lse) * 1.4426950408889634,
+                               rtol=1e-7, atol=0)
+    torch.testing.assert_close(delta[:, :sq], per_head((do * out).sum(-1)),
+                               rtol=1e-6, atol=1e-6)
+    assert float(lse2[:, sq:].abs().max()) == float(delta[:, sq:].abs().max()) == 0
+    scale = torch.tensor(1 / hd ** 0.5, dtype=torch.float32)
+    order = [8 * (i // 8) + (0, 2, 4, 6, 1, 3, 5, 7)[i % 8] for i in range(64)]
+    for rows, tr, x, s, n, w in ((qr, qt, q * scale, sq, h, hd),
+                                 (dr, dt, do, sq, h, hd_v),
+                                 (kr, kt, k, skv, kv, hd)):
+        want = x.permute(0, 2, 1, 3).reshape(-1, s, w)
+        torch.testing.assert_close(rows.sum(1)[:, :s, :w], want,
+                                   rtol=2 ** -22, atol=0)
+        assert float(rows[:, :, s:].abs().max()) == 0
+        assert float(rows[..., w:].abs().max()) == 0
+        back = torch.zeros(b * n, 32, 64)
+        back[:, :, order] = tr.sum(1)
+        torch.testing.assert_close(back[:, :w, :s], want.transpose(1, 2),
+                                   rtol=2 ** -22, atol=0)
+        assert float(back[:, w:].abs().max()) == float(back[..., s:].abs().max()) == 0
+        for part in (rows, tr):        # tf32: the low 13 bits are zero
+            assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    torch.testing.assert_close(vr.sum(1)[:, :skv, :hd_v],
+                               v.permute(0, 2, 1, 3).reshape(-1, skv, hd_v),
+                               rtol=2 ** -22, atol=0)
+
+
 def test_backward_route_picks_the_kernel_by_dtype_width_and_strides():
-    """bfloat16 at hd <= 128 takes the tensor-core kernels, loading by TMA
-    where q, k, v and dout are 16-byte aligned and by the widest plain load
-    otherwise; float32, and bfloat16 at MLA's 192/128, take the CUDA-core
-    kernel.  Shapes and strides only: nothing is launched."""
+    """bfloat16 at every width (MLA's 192/128 too) takes the bf16 wgmma
+    kernels, loading by TMA where q, k, v and dout are 16-byte aligned and
+    by the widest plain load otherwise; float32 at every width takes the
+    3xTF32 kernels (its pre-pass reads any strides); float16 has no
+    route.  Shapes and strides only: nothing is launched."""
     from repro_torch.kernels.flash_attention_bwd import backward_route
     bf = torch.bfloat16
 
@@ -640,11 +747,16 @@ def test_backward_route_picks_the_kernel_by_dtype_width_and_strides():
     q, k, v, do = (t[..., :20] for t in tensors(24))
     assert backward_route(q, k, v, do) == ("wgmma", 16)
     assert backward_route(q, k, v, do.contiguous()) == ("wgmma", 8)
-    for hd, hd_v in ((129, 128), (192, 128)):
-        assert backward_route(*tensors(hd, hd_v)) == ("cuda_cores", 0)
-    for hd in (16, 20, 96, 128):
-        assert backward_route(*tensors(hd, dtype=torch.float32)) == \
-            ("cuda_cores", 0)
+    for hd, hd_v in ((192, 128), (160, 64), (144, 96)):
+        assert backward_route(*tensors(hd, hd_v)) == ("wgmma", 16)
+    assert backward_route(*tensors(129, 128)) == ("wgmma", 2)  # 258-byte rows
+    assert backward_route(*(t[..., :-2] for t in tensors(194, 130))) == \
+        ("wgmma", 4)                                          # MLA views
+    for hd, hd_v in ((16, 16), (20, 20), (96, 96), (128, 128), (192, 128)):
+        assert backward_route(*tensors(hd, hd_v, dtype=torch.float32)) == \
+            ("3xtf32", 0)
+    with pytest.raises(TypeError):
+        backward_route(*tensors(64, dtype=torch.float16))
 
 
 def test_plain_backward_chunks_do_not_change_the_result():
@@ -857,6 +969,15 @@ BWD_CUDA_CASES = BWD_CASES + [
     (1, 129, 257, 4, 2, 128, 128, False, 0.0),
     (1, 257, 127, 4, 4, 96, 96, True, 0.0),
     (1, 127, 129, 4, 2, 128, 64, True, 0.0),
+    # the 3xTF32 route's tiles (64 keys or queries a block, 32 a step; 16
+    # for dk and dq at 192/128) and the bf16 route's 32-query dkdv steps
+    # at 192/128: Sq and Skv of 33 to 97, softcap and GQA at 192/128, hd
+    # 160 padded to 192, hd_v < hd at hd 72
+    (1, 63, 65, 4, 2, 96, 96, True, 0.0),
+    (2, 97, 97, 6, 2, 192, 128, True, 20.0),
+    (1, 33, 81, 4, 1, 192, 128, False, 0.0),
+    (1, 150, 150, 8, 8, 160, 128, True, 0.0),
+    (1, 100, 100, 4, 2, 72, 40, True, 0.0),
 ]
 BWD_CUDA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
@@ -866,8 +987,9 @@ BWD_CUDA_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 def test_cuda_backward_kernel_matches_plain(cuda, case, dtype):
     """dq, dk and dv of the CUDA backward kernel against its plain version
     on the same inputs (the forward kernel's output and lse), within 1e-4
-    (float32) or 2e-2 (bfloat16) of max |plain|; the forward's lse within
-    1e-5 of the plain forward's."""
+    (float32) or 2e-2 (bfloat16) of max |plain|, on the dtype's route
+    (bfloat16: bf16 wgmma, float32: 3xTF32); the forward's lse within 1e-5
+    of the plain forward's."""
     from repro_torch.kernels.flash_attention_bwd import \
         flash_attention_bwd_kernel
     causal, softcap = case[7], case[8]
@@ -876,13 +998,16 @@ def test_cuda_backward_kernel_matches_plain(cuda, case, dtype):
                                       softcap=softcap, return_lse=True)
     _, lse_p = ref.mha_reference(q, k, v, causal=causal, softcap=softcap,
                                  return_lse=True)
+    route = "wgmma" if dtype == "bfloat16" else "3xtf32"
     n0 = flash_attention_bwd_kernel.launches
+    r0 = flash_attention_bwd_kernel.launches_by_route[route]
     got = flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=causal,
                                      softcap=softcap)
     want = ref.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
                                              softcap)
     torch.cuda.synchronize()
     assert flash_attention_bwd_kernel.launches == n0 + 1
+    assert flash_attention_bwd_kernel.launches_by_route[route] == r0 + 1
     assert float((lse - lse_p).abs().max()) <= 1e-5 * float(
         lse_p.abs().max())
     for g, w, t in zip(got, want, (q, k, v)):
@@ -934,9 +1059,8 @@ def test_cuda_backward_hd20_on_both_load_routes(cuda, causal):
 def test_cuda_backward_is_deterministic(cuda, case, dtype):
     """Both routes sum dq in a pass of its own, in a fixed key order, and
     dk, dv in one block each: two calls on the same inputs give
-    bit-identical dq, dk and dv (the tensor-core route: phi3's heads, GQA,
-    Sq != Skv; the CUDA-core route: bfloat16 at MLA's 192/128, float32 at
-    hd 96 and at 192/128)."""
+    bit-identical dq, dk and dv (bfloat16: phi3's heads, GQA, Sq != Skv,
+    MLA's 192/128; float32: hd 96 under GQA and 192/128 with softcap)."""
     from repro_torch.kernels.flash_attention_bwd import \
         flash_attention_bwd_kernel
     causal, softcap = case[7], case[8]
@@ -950,6 +1074,33 @@ def test_cuda_backward_is_deterministic(cuda, case, dtype):
     torch.cuda.synchronize()
     for a, c in zip(first, second):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("case", [(2, 100, 77, 4, 2, 20, 20),
+                                  (1, 130, 130, 3, 3, 192, 128),
+                                  (1, 64, 300, 8, 1, 96, 64)])
+def test_cuda_bwd_f32_planes_match_plain(cuda, case):
+    """The float32 backward's pre-pass (``bwd_f32_planes``) writes exactly
+    the planes of its plain version (``ref.flash_bwd_f32_planes``): lse *
+    log2(e), q * scale, dout, k, v and the transposes of q * scale, dout
+    and k in the kernels' order, TF32 hi and lo, zero-padded; delta, a sum
+    in another order, within 1e-6 of max |delta|."""
+    from repro_torch.kernels.flash_attention_bwd import bwd_f32_planes
+    b, sq, skv, h, kv, hd, hd_v = case
+    q, k, v, do = (_torch(x, "float32", cuda)
+                   for x in _bwd_inputs(case, 17))
+    out, lse = flash_attention_kernel(q, k, v, causal=True, return_lse=True)
+    got = bwd_f32_planes(q, k, v, out, lse, do)
+    extents = (got[2].shape[2], got[4].shape[2], got[2].shape[3],
+               got[3].shape[3])
+    want = ref.flash_bwd_f32_planes(q, k, v, out, lse, do, extents)
+    torch.cuda.synchronize()
+    for i, (a, c) in enumerate(zip(got, want)):
+        assert a.shape == c.shape
+        if i == 1:
+            assert float((a - c).abs().max()) <= 1e-6 * float(c.abs().max())
+        else:
+            assert torch.equal(a, c), i
 
 
 @pytest.mark.parametrize("case", [(2, 150, 150, 8, 2, 64, 64, True, 0.0),

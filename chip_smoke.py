@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Twelve main paths.  Two are SPACDC coded rounds through
+Thirteen main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -87,6 +87,14 @@ attention layer's forward through ``flash_attention`` and its backward
 through the hand-written ``flash_attention_bwd`` kernel; the entry point
 itself with its checkpoint and resume, and an encrypted checkpoint
 through ``mask_add``.
+
+The thirteenth is the sharded path: a 2 x 4 (data, model) mesh of 8
+gloo ranks over the one card (``launch.mesh.run_ranks``), the models'
+parameters DTensors placed by ``param_specs``, the coded train step over
+the mesh (each rank's attention through the flash forward and backward
+kernels on its local heads, the gradient decoded over ``data`` by
+``coded_psum``), the sequence-sharded decode, and the int8 KV cache in a
+coded serve through ``berrut_combine``.
 
 Phases, one JSON line each:
 
@@ -290,6 +298,18 @@ Phases, one JSON line each:
     encrypted checkpoint of one layer's attention leaves, every
     ``mask_add`` call held.
 
+16. The sharded path (``sharded_main_path``): which gloo collectives
+    serve CUDA tensors; (a) phi3-mini-3.8b at full width over 4 of 32
+    layers, tensor parallel on ``model``, a coded shard a data rank: a
+    float32 step's gradients and loss against the one-process step's,
+    then 3 bf16 coded steps (one dropping a shard) with step wall,
+    tokens/s, model FLOP/s, collective seconds and bytes, peak memory a
+    rank; (b) qwen2-7b over 4 of 28 layers, 16 float32 decode steps with
+    the cache's sequence over ``model``, against the one-process decode;
+    (c) phase 9 (c)'s coded serve with the bf16 and the int8 KV cache.
+    Phases 6, 15 and 16 also print the model FLOP/s of their timed work
+    (``launch.roofline_math``) and its share of the bf16 dense peak.
+
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is then non-zero and no result line is printed.  The script imports
@@ -300,6 +320,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -714,6 +735,15 @@ def main() -> int:
     launches["flash_attention_bwd"] = 0
     for kname, count in p15_launches.items():
         launches[kname] += count
+
+    # --- 16. the sharded path: a 2 x 4 mesh of gloo ranks on the card
+    p16_launches, p16_f32 = sharded_main_path(torch, dev)
+    for kname, count in p16_launches.items():
+        launches[kname] += count
+    F32_FLASH_LAUNCHES["16a_sharded_f32_step"] = p16_f32["flash_f32"]
+    bwd_row["float32"]["launches"] += p16_f32["bwd_3xtf32"]
+    launches["flash_attention"] += p16_f32["flash_f32"]
+    launches["flash_attention_bwd"] += p16_f32["bwd_3xtf32"]
 
     # --------------------------------------------------------- summary
     n, j, (m, d, n_out) = 30, 27, FULL
@@ -1206,6 +1236,8 @@ def model_main_path(torch, dev) -> dict:
                               "with_plain_forward": plain_peak_gb},
            "phase_s": time.perf_counter() - phase_t0}
     emit(row)
+    model_flops_row("model_main_path", cfg, MODEL_TOKENS, 1, "prefill",
+                    sorted(forward_s)[len(forward_s) // 2])
     assert rel_b <= LOGIT_TOL["bfloat16"], row
     assert rel_c <= LOGIT_TOL["float32"], row
     assert excess_d <= 0.0, row
@@ -6448,6 +6480,8 @@ def train_main_path(torch, dev) -> tuple:
            "launches_per_step": want, "peak_memory_gb": peak_gb,
            "peak_limit_gb": LM_PEAK_LIMIT_GB, "breakdown": breakdown}
     emit(row)
+    model_flops_row(phase, cfg, LM_SEQ, LM_BATCH, "train",
+                    float(np.median(walls)))
     assert losses[-1] < losses[0], row
     assert peak_gb <= LM_PEAK_LIMIT_GB, row
     del model, params, state, step_fn, opt
@@ -6584,6 +6618,631 @@ def train_main_path(torch, dev) -> tuple:
     emit({"phase": phase, "check": "phase_total", "launches": total,
           "phase_s": time.perf_counter() - phase_t0})
     return total, bwd_row
+
+
+# --------------------------------------------------------------------------
+# phase 16: the sharded path on a 2 x 4 (data, model) mesh of gloo ranks
+# --------------------------------------------------------------------------
+
+P16_SEED = 16
+P16_ARCH = "phi3-mini-3.8b"
+P16_LAYERS = 4                      # of 32: 650 M parameters, full width
+P16_MESH = (2, 4)                   # (data, model): 8 ranks on the card
+P16_SEQ = 4096
+P16_BLOCKS = 2                      # coded shards: one a data rank
+P16_ACCUM = 2                       # 2 blocks x accum 2 x 1 x 4096 a step
+P16_STEPS = 3                       # bf16 steps after the float32 one
+# the float32 step drops the second data shard (coded_psum renormalizes
+# the decode), then the bf16 steps (the second drops it), then one more
+# bf16 step with every collective timed between device syncs
+P16_MASKS = ((1.0, 0.0), (1.0, 1.0), (1.0, 0.0), (1.0, 1.0), (1.0, 1.0))
+P16_LR = 3e-3
+P16_GRAD_TOL = 1e-4                 # of each leaf's max |g|
+P16_LOSS_RTOL = 1e-5
+P16_DECODE_ARCH = "qwen2-7b"
+P16_DECODE_LAYERS = 4               # of 28, float32, full width
+P16_DECODE_BATCH = 4                # 2 a data rank
+P16_DECODE_LEN = 4096               # the cache: 1024 positions a model rank
+P16_DECODE_STEPS = 16               # at the cache's last 16 positions
+P16_LOGIT_TOL = 1e-4                # of max |logits|
+P16_SERVE = dict(batch=4, prompt_len=8, gen=16, seed=0,
+                 check_agreement=False)
+P16_LONG_CONTEXT = (16, 8192, 8)    # (c): batch, cache positions, steps
+P16_ROOM_GB = 70.0
+P16_TIMEOUT_S = 400.0
+BF16_DENSE = 989e12                 # H100 SXM bf16 dense tensor-core peak
+
+
+def model_flops_row(phase: str, cfg, seq: int, batch: int, kind: str,
+                    seconds: float) -> dict:
+    """``launch.roofline_math.model_flops`` of (cfg, a seq x batch shape
+    of ``kind``) over ``seconds``: model FLOP/s and its share of the
+    card's bf16 dense peak.  A printed line, not a gated metric."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.roofline_math import model_flops
+    mf = model_flops(cfg, ShapeSpec(phase, seq, batch, kind))
+    rate = mf["model_flops_global"] / seconds
+    row = {"phase": phase, "check": "model_flops", "arch": cfg.name,
+           "layers": cfg.n_layers, "kind": kind, "seq": seq,
+           "batch": batch, "seconds": seconds, **mf,
+           "model_tflop_per_s": rate / 1e12,
+           "share_of_bf16_dense_989": rate / BF16_DENSE}
+    emit(row)
+    return row
+
+
+def _set_cfg(model, **changes) -> None:
+    """Every module's ``cfg`` with ``changes`` (the same weights): another
+    compute dtype or KV cache dtype for a built model."""
+    for m in model.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = dataclasses.replace(m.cfg, **changes)
+
+
+def _flat(torch, tensors: dict) -> tuple:
+    """(one float32 buffer holding every tensor of ``tensors``, each one's
+    (name, offset, shape)): what phase 16 hands its ranks by CUDA IPC,
+    one memory handle a tree instead of one a tensor."""
+    total = sum(t.numel() for t in tensors.values())
+    first = next(iter(tensors.values()))
+    buf = torch.empty(total, dtype=torch.float32, device=first.device)
+    index, off = [], 0
+    with torch.no_grad():
+        for name, t in tensors.items():
+            buf[off:off + t.numel()].copy_(t.reshape(-1))
+            index.append((name, off, tuple(t.shape)))
+            off += t.numel()
+    return buf, index
+
+
+def _unflat(buf, index) -> dict:
+    """``_flat``'s tensors back, as views of the buffer."""
+    return {name: buf[off:off + math.prod(shape)].view(shape)
+            for name, off, shape in index}
+
+
+def _cache_tree(flat: dict) -> list:
+    """``_flat``'s "<layer>.<leaf>" tensors of a cache back as the model's
+    list of per-layer dicts."""
+    out = []
+    for name, t in flat.items():
+        i, leaf = name.split(".")
+        if int(i) == len(out):
+            out.append({})
+        out[int(i)][leaf] = t
+    return out
+
+
+def _filled_cache(torch, model, batch: int, max_len: int, upto: int, gen):
+    """``model.init_cache(batch, max_len)`` with every k and v row before
+    ``upto`` drawn from N(0, 1) by ``gen``: a long context to decode
+    after, at the cost of no prefill."""
+    cache = model.init_cache(batch, max_len)
+    for layer in cache:
+        for t in layer.values():
+            t[:, :upto] = torch.randn(t[:, :upto].shape, generator=gen,
+                                      device=t.device).to(t.dtype)
+    return cache
+
+
+def _with_params(model, buf, index):
+    """A model whose parameters were moved to the meta device, given its
+    parameters back as views of ``_flat``'s buffer."""
+    from torch import nn
+    for name, t in _unflat(buf, index).items():
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner)[leaf] = nn.Parameter(t)
+    return model
+
+
+def _phase16_rank(rank, world, model, ref_grads, ref_loss, batches, masks,
+                  decode_cfg, decode_cache, decode_tokens):
+    """One rank of phase 16 (a) and (b), in its own process on the card:
+    the kernels loaded (the parent built them), the collectives probed,
+    the (data, model) mesh, then (a) the float32 coded step held against
+    the one-process step's gradients and loss and the bf16 steps timed,
+    and (b) the sequence-sharded decode from the parent's filled cache.
+    ``model`` comes from the parent by CUDA IPC, a (meta-device model,
+    ``_flat`` buffer, index) triple, as ``ref_grads`` and
+    ``decode_cache`` (buffer, index) pairs; each rank keeps only its
+    shards.  The decode model (8 GB in float32) does not cross: after
+    (a) the ranks build it from ``decode_cfg`` and the parent's seed one
+    at a time, each keeping its shards, so the parent holds no copy while
+    (a)'s ranks run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import BerrutGradientCode
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import (P, NamedSharding, distribute,
+                                           distribute_params)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    entered = time.time()
+    sync = torch.cuda.synchronize
+    _build.load_prebuilt()
+    out = {"rank": rank, "probe": collectives.probe_cuda(dist.group.WORLD,
+                                                         dev)}
+    mesh = make_test_mesh(P16_MESH, ("data", "model"), device_type="cuda")
+    out["coordinate"] = list(mesh.get_coordinate())
+    model = distribute_params(_with_params(*model), mesh["model"])
+    ref_grads = _unflat(*ref_grads)
+    params = dict(model.named_parameters())
+    opt = adamw(warmup_cosine(P16_LR, 20, 100), weight_decay=0.01)
+    state = opt.init(params)
+    step = build_train_step(model, opt, accum=P16_ACCUM,
+                            gcode=BerrutGradientCode(P16_BLOCKS, P16_BLOCKS),
+                            dp_axes="data")
+
+    def launches():
+        return {**ops.kernel_launch_counts(),
+                "flash_f32": flash_attention_kernel.launches_by_dtype[
+                    "float32"],
+                "bwd_3xtf32": flash_attention_bwd_kernel.launches_by_route[
+                    "3xtf32"]}
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    # ---- (a) the float32 step against the one-process step
+    l0 = launches()
+    collectives.reset()
+    with use_mesh(mesh):
+        t = time.perf_counter()
+        params, state, metrics = step(params, state, batches[0], masks[0])
+        loss = float(metrics["loss"])
+        sync()
+        out["f32_step_s"] = time.perf_counter() - t
+    out["f32_launches"] = delta(l0, launches())
+    out["f32_collectives"] = collectives.stats()
+    worst = {}
+    with torch.no_grad():
+        for name, p in params.items():
+            ref = ref_grads[name]
+            mine = NamedSharding(p.device_mesh, None,
+                                 p.placements).distribute(ref).to_local()
+            worst[name] = float((p.grad.to_local() - mine).abs().max()) / \
+                max(float(ref.abs().max()), 1e-30)
+            del mine
+    worst_leaf = max(worst, key=worst.get)
+    out["f32"] = {"loss": loss, "ref_loss": ref_loss,
+                  "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+                  "worst_leaf_rel": worst[worst_leaf],
+                  "worst_leaf": worst_leaf,
+                  "placements": {k: str(p.placements)
+                                 for k, p in list(params.items())[:6]}}
+
+    # ---- (a) the bf16 steps: the last one with its collectives timed
+    _set_cfg(model, compute_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"] = []
+    for i in range(1, len(batches)):
+        timed = i == len(batches) - 1
+        l0 = launches()
+        collectives.reset()
+        with use_mesh(mesh, timed=timed):
+            sync()
+            t = time.perf_counter()
+            params, state, metrics = step(params, state, batches[i],
+                                          masks[i])
+            loss = float(metrics["loss"])
+            sync()
+            wall = time.perf_counter() - t
+        st = collectives.stats()
+        out["steps"].append({"loss": loss, "wall_s": wall, "timed": timed,
+                             "mask": [float(m) for m in masks[i]],
+                             "launches": delta(l0, launches()),
+                             "collective_s": st["total"]["seconds"],
+                             "collective_count": st["total"]["count"],
+                             "collective_bytes": st["total"]["bytes"],
+                             "collectives": st})
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, step, opt, model, metrics
+    torch.cuda.empty_cache()
+
+    # ---- (b) the sequence-sharded decode
+    for r in range(world):
+        if r == rank:
+            decode_model = distribute_params(
+                build_model(decode_cfg, device=dev, seed=P16_SEED), mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    cache = distribute(_cache_tree(_unflat(*decode_cache)),
+                       decode_model.cache_specs(), mesh)
+    out["cache_placements"] = str(cache[0]["k"].placements)
+    out["cache_local_shape"] = list(cache[0]["k"].to_local().shape)
+    toks = torch.as_tensor(decode_tokens, device=dev)
+    start = P16_DECODE_LEN - decode_tokens.shape[1]
+    logits, walls = [], []
+    l0 = launches()
+    collectives.reset()
+    with torch.no_grad(), use_mesh(mesh):
+        for t in range(decode_tokens.shape[1]):
+            sync()
+            t0 = time.perf_counter()
+            tok = distribute(toks[:, t:t + 1], P("data", None), mesh)
+            lg, cache = decode_model.decode_step(cache, tok, start + t)
+            lg = lg.full_tensor()
+            sync()
+            walls.append(time.perf_counter() - t0)
+            if rank == 0:
+                logits.append(lg[:, 0].float().cpu().numpy())
+    out["decode_launches"] = delta(l0, launches())
+    out["decode_collectives"] = collectives.stats()
+    out["decode_step_s"] = walls
+    out["decode_logits"] = np.stack(logits) if rank == 0 else None
+    out["rank_s"] = time.perf_counter() - t_start
+    out["entered"], out["left"] = entered, time.time()
+    return out
+
+
+def sharded_main_path(torch, dev) -> tuple:
+    """Phase 16: the sharded path on a 2 x 4 (data, model) mesh of 8 gloo
+    ranks over the one card (``launch.mesh.run_ranks``; NCCL takes one
+    rank a device).  Every rank first probes which gloo collectives serve
+    CUDA tensors (``dist.collectives.probe_cuda``).  (a) phi3-mini-3.8b
+    at full width over 4 of 32 layers: the parameters DTensors on
+    ``mesh["model"]`` placed by ``param_specs`` (tensor parallel over
+    heads, FFN width and vocabulary), one coded shard a data rank
+    (``build_train_step(..., dp_axes="data")``), the gradients decoded
+    over ``data`` by ``coded_psum``; each rank's attention runs the flash
+    forward and backward kernels on its local heads (``local_map``).
+    First one float32 step (the 3xTF32 kernels), its gradients within
+    1e-4 of each leaf's max |g| and its loss within 1e-5 relative of the
+    one-process step's (``steps.build_train_step`` on the same weights
+    and batch, in this process); then 3 bf16 steps of 2 blocks x accum 2
+    x 1 x 4096 tokens, the second's mask dropping a data shard: step
+    wall, tokens/s, model FLOP/s (``roofline_math``), the collectives'
+    seconds and bytes, the peak memory a rank.  (b) qwen2-7b at full
+    width over 4 of 28 layers in float32: 16 decode steps with the batch
+    over ``data`` and the cache's sequence over ``model`` (flash
+    decoding), logits within 1e-4 of max |logits| of the one-process
+    decode.  (c) phase 9 (c)'s coded serve (qwen2-7b, 8 of 28 layers,
+    ``coded_layers="all"``) with the bf16 and the int8 KV cache: cache
+    bytes, step p50/p99 and tok/s of each, ``berrut_combine`` launches,
+    the int8 decode's logits against the bf16 cache's (reported).
+    Returns (the counted launches, the float32 flash forward and
+    backward launches of (a))."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    from repro_torch.api import ClusterSpec, Session
+    from repro_torch.configs import get_config
+    from repro_torch.core import BerrutGradientCode
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import attention, build_model
+    from repro_torch.optim import adamw, warmup_cosine
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel,
+               "flash_attention_bwd": flash_attention_bwd_kernel}
+    total = {k: 0 for k in kernels}
+    phase = "sharded_main_path"
+    phase_t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    free()
+    free_b, total_b = torch.cuda.mem_get_info()
+    room = {"phase": phase, "check": "room", "free_gb": free_b / 1e9,
+            "card_gb": total_b / 1e9, "asked_gb": P16_ROOM_GB,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    emit(room)
+    assert free_b / 1e9 >= P16_ROOM_GB, \
+        f"phase 16 needs {P16_ROOM_GB} GB free on the card: {room}"
+
+    # ---- (a) the one-process float32 step, its gradients kept
+    cfg = dataclasses.replace(get_config(P16_ARCH), n_layers=P16_LAYERS,
+                              compute_dtype="float32")
+    model = build_model(cfg, seed=P16_SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    pipe = TokenPipeline(cfg.vocab_size, P16_SEQ, P16_BLOCKS * P16_ACCUM,
+                         seed=P16_SEED)
+    batches = [{k: v.numpy() for k, v in pipe.batch_at(i).items()}
+               for i in range(len(P16_MASKS))]
+    masks = [np.asarray(m, np.float32) for m in P16_MASKS]
+    params = dict(model.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items()}
+    opt = adamw(warmup_cosine(P16_LR, 20, 100), weight_decay=0.01)
+    state = opt.init(params)
+    one_step = build_train_step(model, opt, accum=P16_ACCUM,
+                                gcode=BerrutGradientCode(P16_BLOCKS,
+                                                         P16_BLOCKS))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    # the reference for (a)'s float32 step: its launches are reported,
+    # not counted with the main path's
+    (params, state, metrics), got = counted(
+        kernels, dict.fromkeys(kernels, 0),
+        lambda: one_step(params, state, batches[0], masks[0]))
+    ref_loss = float(metrics["loss"])
+    one_s = time.perf_counter() - t
+    ref_grads = {k: p.grad.detach() for k, p in params.items()}
+    with torch.no_grad():
+        for k, p in params.items():
+            p.grad = None
+            p.copy_(start[k])
+    del start, state, opt, one_step, metrics, params
+    free()
+
+    # ---- (b) the one-process decode
+    dcfg = dataclasses.replace(get_config(P16_DECODE_ARCH),
+                               n_layers=P16_DECODE_LAYERS,
+                               compute_dtype="float32")
+    dmodel = build_model(dcfg, seed=P16_SEED)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(P16_SEED)
+    dtoks = torch.randint(0, dcfg.vocab_size,
+                          (P16_DECODE_BATCH, P16_DECODE_STEPS),
+                          generator=gen, device=dev)
+    start_pos = P16_DECODE_LEN - P16_DECODE_STEPS
+    cache = _filled_cache(torch, dmodel, P16_DECODE_BATCH, P16_DECODE_LEN,
+                          start_pos, gen)
+    shared = {"cache": _flat(torch, {f"{i}.{k}": t
+                                     for i, layer in enumerate(cache)
+                                     for k, t in layer.items()})}
+    ref_logits = []
+    with torch.inference_mode():
+        for t in range(P16_DECODE_STEPS):
+            lg, cache = dmodel.decode_step(cache, dtoks[:, t:t + 1],
+                                           start_pos + t)
+            ref_logits.append(lg[:, 0].float().cpu().numpy())
+    del cache
+    free()
+
+    # ---- the ranks: phi3 as one buffer (its parameters to meta); the
+    # decode model is rebuilt in the ranks from its seed
+    buf, index = _flat(torch, dict(model.named_parameters()))
+    shared["model"] = (model.to("meta"), buf, index)   # new meta params
+    shared["grads"] = _flat(torch, ref_grads)
+    del ref_grads, model, dmodel
+    free()
+    before_s = time.perf_counter() - phase_t0
+    rdv = tempfile.mkdtemp(prefix="rdv_", dir=ROOT / "build")
+    t = time.perf_counter()
+    spawned = time.time()
+    try:
+        outs = run_ranks(_phase16_rank, P16_MESH[0] * P16_MESH[1],
+                         (shared["model"], shared["grads"], ref_loss,
+                          batches, masks, dcfg, shared["cache"],
+                          dtoks.cpu().numpy()),
+                         rdv_dir=rdv, device="cuda", timeout_s=P16_TIMEOUT_S)
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+    ranks_s = time.perf_counter() - t
+    # process start to the rank program, and its end to the join
+    start_s = min(o["entered"] for o in outs) - spawned
+    end_s = ranks_s - (max(o["left"] for o in outs) - spawned)
+    del shared
+    free()
+    probe = outs[0]["probe"]
+    emit({"phase": phase, "check": "gloo_cuda_collectives",
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "served": probe, "same_on_every_rank":
+          all(o["probe"] == probe for o in outs)})
+    assert all(v == "ok" for o in outs for v in o["probe"].values()), probe
+
+    # (a) float32 step
+    f32 = [o["f32"] for o in outs]
+    f32_fwd = sum(o["f32_launches"]["flash_f32"] for o in outs)
+    f32_bwd = sum(o["f32_launches"]["bwd_3xtf32"] for o in outs)
+    per_rank = P16_LAYERS * P16_ACCUM       # backward calls; forwards 2x
+    row = {"phase": phase, "check": "a_f32_step_vs_one_process",
+           "arch": cfg.name, "layers": P16_LAYERS, "params": n_params,
+           "mesh": list(P16_MESH), "tokens_per_step":
+           P16_BLOCKS * P16_ACCUM * P16_SEQ,
+           "loss_mesh": f32[0]["loss"], "loss_one_process": ref_loss,
+           "loss_rel": max(r["loss_rel"] for r in f32),
+           "worst_leaf_rel": max(r["worst_leaf_rel"] for r in f32),
+           "worst_leaf": max(f32, key=lambda r: r["worst_leaf_rel"])[
+               "worst_leaf"],
+           "grad_tol": P16_GRAD_TOL, "loss_rtol": P16_LOSS_RTOL,
+           "placements_rank0": f32[0]["placements"],
+           "one_process_step_s": one_s, "one_process_launches": got,
+           "mesh_step_s": max(o["f32_step_s"] for o in outs),
+           "flash_f32_launches": f32_fwd, "bwd_3xtf32_launches": f32_bwd,
+           "collectives_rank0": outs[0]["f32_collectives"]}
+    emit(row)
+    assert row["loss_rel"] <= P16_LOSS_RTOL, row
+    assert row["worst_leaf_rel"] <= P16_GRAD_TOL, row
+    # a layer's forward twice (remat), its backward once, a micro-batch
+    assert all(o["f32_launches"]["flash_f32"] == 2 * per_rank and
+               o["f32_launches"]["bwd_3xtf32"] == per_rank
+               for o in outs), row
+
+    # (a) the bf16 steps
+    launched = {k: 0 for k in kernels}
+    for o in outs:
+        for s_ in o["steps"]:
+            for k in kernels:
+                launched[k] += s_["launches"][k]
+    for k, v in launched.items():
+        total[k] += v
+    tokens = P16_BLOCKS * P16_ACCUM * P16_SEQ
+    n_steps = len(P16_MASKS) - 1
+    walls = [max(o["steps"][i]["wall_s"] for o in outs)
+             for i in range(n_steps)]
+    steps = []
+    for i in range(n_steps):
+        coll = [o["steps"][i] for o in outs]
+        steps.append({"step": i + 1, "loss": coll[0]["loss"],
+                      "mask": coll[0]["mask"], "wall_s": walls[i],
+                      "tokens_per_s": tokens / walls[i],
+                      "collectives_timed": coll[0]["timed"],
+                      "collective_count_rank0": coll[0]["collective_count"],
+                      "collective_bytes_rank0": coll[0]["collective_bytes"],
+                      "collectives_rank0": coll[0]["collectives"]})
+    # the last step: every collective between two device syncs (slower
+    # than the untimed steps; its seconds are the collectives' own)
+    timed = [o["steps"][-1] for o in outs]
+    steps[-1].update({
+        "collective_s_max_rank": max(c["collective_s"] for c in timed),
+        "collective_s_mean_rank": float(np.mean(
+            [c["collective_s"] for c in timed])),
+        "collective_share_of_wall_mean_rank": float(np.mean(
+            [c["collective_s"] / c["wall_s"] for c in timed]))})
+    walls = walls[:P16_STEPS]           # the untimed steps
+    bcfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    med = float(np.median(walls))
+    flops = model_flops_row(phase, bcfg, P16_SEQ,
+                            P16_BLOCKS * P16_ACCUM, "train", med)
+    want = {"flash_attention": 2 * per_rank * n_steps * len(outs),
+            "flash_attention_bwd": per_rank * n_steps * len(outs)}
+    row = {"phase": phase, "check": "a_bf16_coded_steps",
+           "arch": cfg.name, "layers": P16_LAYERS, "params": n_params,
+           "mesh": list(P16_MESH), "blocks": P16_BLOCKS,
+           "accum": P16_ACCUM, "seq": P16_SEQ, "steps": steps,
+           "median_step_s_untimed": med,
+           "median_tokens_per_s_untimed": tokens / med,
+           "timed_step_s": steps[-1]["wall_s"],
+           "model_tflop_per_s": flops["model_tflop_per_s"],
+           "share_of_bf16_dense_989": flops["share_of_bf16_dense_989"],
+           "launches": launched, "expected_launches": want,
+           "peak_memory_gb_per_rank": [o["peak_memory_gb"] for o in outs],
+           "rank_s": [o["rank_s"] for o in outs], "ranks_call_s": ranks_s,
+           "ranks_start_s": start_s, "ranks_end_s": end_s,
+           "before_ranks_s": before_s}
+    emit(row)
+    assert all(np.isfinite(s_["loss"]) for s_ in steps), row
+    assert all(launched[k] == v for k, v in want.items()), row
+    assert launched["berrut_combine"] == launched["coded_matmul"] == 0, row
+
+    # (b) the sequence-sharded decode
+    got_logits = outs[0]["decode_logits"]
+    rel = [float(np.abs(got_logits[t] - ref_logits[t]).max())
+           / float(np.abs(ref_logits[t]).max())
+           for t in range(P16_DECODE_STEPS)]
+    dwalls = outs[0]["decode_step_s"]
+    row = {"phase": phase, "check": "b_sequence_sharded_decode",
+           "arch": dcfg.name, "layers": P16_DECODE_LAYERS,
+           "compute_dtype": "float32", "batch": P16_DECODE_BATCH,
+           "cache_len": P16_DECODE_LEN, "steps": P16_DECODE_STEPS,
+           "first_pos": P16_DECODE_LEN - P16_DECODE_STEPS,
+           "cache_placements": outs[0]["cache_placements"],
+           "cache_local_shape_rank0": outs[0]["cache_local_shape"],
+           "max_rel_logits": max(rel), "tol": P16_LOGIT_TOL,
+           "step_ms_p50": float(np.percentile(dwalls, 50)) * 1e3,
+           "step_ms_p99": float(np.percentile(dwalls, 99)) * 1e3,
+           "tok_s": P16_DECODE_BATCH / float(np.median(dwalls)),
+           "launches_rank0": outs[0]["decode_launches"],
+           "collectives_rank0": outs[0]["decode_collectives"]}
+    emit(row)
+    assert max(rel) <= P16_LOGIT_TOL, row
+    assert outs[0]["cache_placements"] == "(Shard(dim=0), Shard(dim=1))"
+
+    # ---- (c) the int8 KV cache in phase 9 (c)'s coded serve
+    base = dataclasses.replace(get_config(SERVE_ARCH),
+                               n_layers=SERVE_ALL_LAYERS)
+    spec_all = ClusterSpec.serve_deadline(coded_layers="all")
+    sites = 4 * SERVE_ALL_LAYERS + 1
+    serve_rows = {}
+    slots = spec_all.serve.max_slots
+    max_len = P16_SERVE["prompt_len"] + P16_SERVE["gen"]
+    for name, cache_dtype in (("bf16", ""), ("int8", "int8")):
+        cfg_c = dataclasses.replace(base, kv_cache_dtype=cache_dtype)
+        cache_bytes = sum(
+            t.numel() * t.element_size()
+            for t in attention.init_kv_cache(cfg_c, slots, max_len,
+                                             device="meta").values()) \
+            * cfg_c.n_layers
+        with Session(spec_all, device=dev) as s:
+            rep, launched = counted(kernels, total, lambda: s.serve(
+                arch=cfg_c, **P16_SERVE))
+            if name == "int8":
+                smodel = next(iter(s._serve_models.values()))
+        n_steps = len(rep.step_stats)
+        serve_rows[name] = {"kv_cache_dtype": cache_dtype or "bfloat16",
+                            "cache_bytes": cache_bytes,
+                            "cache_shape": [slots, max_len],
+                            **serve_summary(rep), "launches": launched}
+        assert launched["berrut_combine"] == sites * (1 + n_steps), \
+            (name, launched)
+        del s, rep
+        free()
+    # the int8 decode's logits against the bf16 cache's, same weights:
+    # reported, not held (a different quantization)
+    toks = torch.randint(0, base.vocab_size, (2, 8), generator=gen,
+                         device=dev)
+    out = {}
+    with torch.inference_mode():
+        for name, cache_dtype in (("int8", "int8"), ("bf16", "")):
+            _set_cfg(smodel, kv_cache_dtype=cache_dtype)
+            cache = smodel.init_cache(2, 8)
+            rows = []
+            for t in range(8):
+                lg, cache = smodel.decode_step(cache, toks[:, t:t + 1], t)
+                rows.append(lg[:, 0].float())
+            out[name] = torch.stack(rows)
+    err = float((out["int8"] - out["bf16"]).abs().max())
+    scale = float(out["bf16"].abs().max())
+    agree = float((out["int8"].argmax(-1) == out["bf16"].argmax(-1))
+                  .float().mean())
+    del out, cache
+    free()
+    # the two caches at a long context, the same weights: one decode
+    # step's ms (CUDA events), bf16, int8, int8, bf16.  Both decodes read
+    # the whole cache into a float32 copy (as the reference's do), the
+    # int8 one through its scales.
+    lb, ll, _ = P16_LONG_CONTEXT
+    long_ms = {"bf16": [], "int8": []}
+    long_bytes = {}
+    tok = toks[:1, :1].expand(lb, 1).contiguous()
+    with torch.inference_mode():
+        for name in ("bf16", "int8", "int8", "bf16"):
+            _set_cfg(smodel, kv_cache_dtype="int8" if name == "int8" else "")
+            cache = smodel.init_cache(lb, ll)
+            long_bytes[name] = sum(t.numel() * t.element_size()
+                                   for layer in cache for t in layer.values())
+            long_ms[name].append(timed_ms(
+                torch, lambda: smodel.decode_step(cache, tok, ll - 1),
+                max_iters=P16_LONG_CONTEXT[2]))
+            del cache
+            free()
+    kv = base.n_kv_heads_padded * base.head_dim_
+    long_row = {"batch": lb, "positions": ll,
+                "cache_bytes": long_bytes,
+                "float32_copy_bytes_per_step": 2 * lb * ll * kv * 4
+                * SERVE_ALL_LAYERS,
+                "step_ms": long_ms,
+                "int8_over_bf16_ms": float(np.mean(long_ms["int8"])
+                                           / np.mean(long_ms["bf16"]))}
+    del smodel
+    free()
+    row = {"phase": phase, "check": "c_int8_kv_cache_serve",
+           "arch": base.name, "layers": SERVE_ALL_LAYERS,
+           "coded_layers": "all", "sites_per_step": sites,
+           "workload": P16_SERVE, **{k: v for k, v in serve_rows.items()},
+           "cache_bytes_ratio": serve_rows["int8"]["cache_bytes"]
+           / serve_rows["bf16"]["cache_bytes"],
+           "int8_vs_bf16_logits_max_abs": err,
+           "int8_vs_bf16_logits_rel": err / scale,
+           "int8_vs_bf16_argmax_agreement": agree,
+           "long_context": long_row}
+    emit(row)
+    emit({"phase": phase, "check": "phase_total", "launches": total,
+          "phase_s": time.perf_counter() - phase_t0})
+    return total, {"flash_f32": f32_fwd, "bwd_3xtf32": f32_bwd}
 
 
 def _build_ptxas(torch, stem: str) -> dict:

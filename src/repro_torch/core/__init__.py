@@ -5,8 +5,7 @@ Ports ``repro/core``.  Importing this package registers every scheme the
 reference registers (``bacc``, ``berrut_grad``, ``conv``, ``glcc``,
 ``lcc``, ``matdot``, ``mds``, ``polynomial``, ``secpoly``, ``spacdc``), so
 ``repro_torch.core.registry.build(name, **cfg)`` is ready immediately.
-``coded_psum`` needs a device mesh and raises until that slice (see
-ROADMAP.md).
+``coded_psum`` all-reduces over a mesh axis (``launch.mesh.use_mesh``).
 """
 
 from .berrut import (berrut_weight_matrix, berrut_weights, chebyshev_points,

@@ -15,8 +15,10 @@ Ports ``repro/core/coded_training.py``:
    gradient decodes from any survivor set.  The coding matrices are host
    numpy, the decode weights and the per-shard combination tensors.
 
-``coded_psum``, the reference's decode as a mesh ``psum``, needs
-``torch.distributed`` and raises until that slice (see ROADMAP.md).
+3. ``coded_psum``: the coded all-reduce over a mesh axis.  The reference's
+   is a ``psum`` inside ``shard_map``; the port's scales this rank's
+   gradient by its decode weight and all-reduces it over the named mesh
+   dim's gloo group (``launch.mesh``, ``dist.collectives``).
 """
 
 from __future__ import annotations
@@ -139,12 +141,44 @@ class BerrutGradientCode:
 
 
 def coded_psum(encoded_grad, mask, gcode: BerrutGradientCode, axis_name):
-    """The coded all-reduce over a mesh axis: the reference's is a
-    ``jax.lax.psum`` inside ``shard_map``; the port's needs
-    ``torch.distributed`` and comes in a later slice (see ROADMAP.md)."""
-    raise NotImplementedError(
-        "coded_psum runs over a device mesh (torch.distributed), which "
-        "comes in a later slice of the port; see ROADMAP.md")
+    """Coded all-reduce: Berrut-decode the mean gradient over survivors.
+
+    ``encoded_grad``: a tree (dicts, lists) of this rank's encoded gradient
+    contribution, tensors or DTensors; ``mask``: the (n_shards,) responder
+    mask, a runtime value.  This rank's index ``idx`` is its coordinate on
+    the mesh dim ``axis_name`` of the mesh ``launch.mesh.use_mesh``
+    installed; each leaf becomes ``g * decoder_weights(mask)[idx] *
+    mask[idx]`` in float32, summed over that dim (an all-reduce over its
+    group).  A DTensor leaf is reduced through its local shard and keeps
+    its placements.  Returns the tree of reduced leaves."""
+    from torch.distributed.tensor import DTensor
+    from ..dist import collectives
+    from ..dist.sharding import ambient_mesh
+    from ..tree import tree_map
+    mesh = ambient_mesh()
+    if mesh is None:
+        raise ValueError("coded_psum runs on a mesh: install one with "
+                         "launch.mesh.use_mesh")
+    axis = axis_name[0] if isinstance(axis_name, (tuple, list)) and \
+        len(axis_name) == 1 else axis_name
+    if not isinstance(axis, str):
+        raise ValueError(f"coded_psum reduces over one mesh axis, got "
+                         f"{axis_name!r}")
+    idx = mesh.get_local_rank(axis)
+    group = mesh.get_group(axis)
+    mask_t = torch.as_tensor(mask).to(torch.float32)
+    coef = float(gcode.decoder_weights(mask_t)[idx]) * float(mask_t[idx])
+
+    def one(g):
+        local = g.to_local() if isinstance(g, DTensor) else g
+        out = local.to(torch.float32) * coef
+        collectives.all_reduce(out, "sum", group)
+        if isinstance(g, DTensor):
+            return DTensor.from_local(out, g.device_mesh, g.placements,
+                                      run_check=False)
+        return out
+
+    return tree_map(one, encoded_grad)
 
 
 # Gradient codes live in the same registry as the data/pair codes so launch

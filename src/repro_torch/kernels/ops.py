@@ -310,7 +310,13 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     ``torch.autograd.Function`` whose backward is the CUDA backward
     kernel (``kernels.flash_attention_bwd``).  The plain version is the
     dense ``ref.mha_reference``, differentiated by autograd.
+
+    On DTensors (a device mesh, ``dist.sharding``) it runs on each rank's
+    local heads through ``local_map`` (``_flash_on_mesh``), so the kernel
+    sees plain CUDA tensors.
     """
+    if type(q).__name__ == "DTensor":
+        return _flash_on_mesh(q, k, v, causal, softcap, force_kernel)
     if _use_kernel(q, force_kernel):
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
@@ -318,3 +324,51 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0,
         return flash_attention_kernel(q, k, v, causal=causal,
                                       softcap=softcap)
     return ref.mha_reference(q, k, v, causal=causal, softcap=softcap)
+
+
+def _flash_on_mesh(q, k, v, causal: bool, softcap: float, force_kernel):
+    """``flash_attention`` of DTensors q (B, S, H, hd), k, v: each rank
+    attends with its local query heads (and batch rows) through
+    ``local_map``.  Where q's heads are split over a mesh dim and k's are
+    replicated there (``attention_specs`` shards k/v heads only when the
+    dim divides them), each rank takes the kv heads its query heads read,
+    and their gradients come back as partial sums over that dim."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    q_pl, k_pl = tuple(q.placements), tuple(k.placements)
+    if tuple(v.placements) != k_pl:
+        raise ValueError(f"k and v placed apart: {k_pl}, {v.placements}")
+    split = [m for m, pl in enumerate(q_pl) if pl == Shard(2)]
+    rep = [m for m in split if k_pl[m] == Replicate()]
+    for m, (a, b) in enumerate(zip(q_pl, k_pl)):
+        if a != b and m not in rep:
+            raise ValueError(f"q and k placed apart on mesh dim {m}: "
+                             f"{q_pl}, {k_pl}")
+    sel = None
+    if rep:
+        h, kvh = q.shape[2], k.shape[2]
+        n, r = 1, 0
+        coord = mesh.get_coordinate()
+        for m in split:
+            n, r = n * mesh.size(m), r * mesh.size(m) + coord[m]
+        hl, g = h // n, h // kvh
+        # whole groups, or a whole number of ranks within one group
+        if hl % g if hl >= g else g % hl:
+            raise ValueError(f"{hl} local query heads of {h} do not map "
+                             f"onto whole kv heads (group {g})")
+        sel = (r * hl // g, ((r + 1) * hl - 1) // g + 1)
+    k_grad = tuple(Partial() if m in rep else pl for m, pl in enumerate(k_pl))
+
+    def local(ql, kl, vl):
+        if sel is not None:
+            kl, vl = kl[:, :, sel[0]:sel[1]], vl[:, :, sel[0]:sel[1]]
+        return flash_attention(ql, kl, vl, causal=causal, softcap=softcap,
+                               force_kernel=force_kernel)
+
+    # placements as lists: local_map reads a tuple as one per output
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(list(q_pl), list(k_pl), list(k_pl)),
+                     in_grad_placements=(list(q_pl), list(k_grad),
+                                         list(k_grad)),
+                     device_mesh=mesh)(q, k, v)

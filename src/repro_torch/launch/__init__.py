@@ -1,5 +1,4 @@
-"""Command-line entry points and the step functions.  Ports
-``repro/launch``'s ``serve``, ``worker``, ``train`` and ``steps``; the
-mesh (``launch/mesh.py``) and the TPU dry-run tools (``dryrun.py``,
-``hlo_analysis.py``, ``roofline_math.py``) come in later slices (see
-ROADMAP.md)."""
+"""Command-line entry points, the step functions and the mesh.  Ports
+``repro/launch``'s ``serve``, ``worker``, ``train``, ``steps``, ``mesh``
+and ``roofline_math``; the TPU dry-run tools (``dryrun.py``,
+``hlo_analysis.py``) come in a later slice (see ROADMAP.md)."""

@@ -22,9 +22,20 @@ erow[i, j]`` where ``asn[i, j] = n``) and runs one backward per block.
 Every block's backward runs, a masked one (w = 0) too, as every block's
 gradient is computed in the reference's ``vmap``.
 
-The reference's ``dp_axes`` (the ``vmap``'s ``spmd_axis_name``) and its
-``shard_hint`` on the duplicated blocks place work on a device mesh; one
-device has no counterpart, so they are dropped.
+On a device mesh (``dp_axes`` names the data axis of the mesh that
+``launch.mesh.use_mesh`` installed) each data rank is one coded shard, as
+the reference's ``vmap`` with ``spmd_axis_name=dp_axes`` places one block
+per data device: rank ``idx`` runs the backward of its own blocks (with
+``redundancy > 1`` its ``assignment()`` row, each weighted by its
+``encode_local`` encoder row), its gradient's local shards are settled on
+``model`` (a partial sum all-reduced, then split locally) and decoded
+over ``data`` by ``core.coded_psum``: Σ_idx w_idx mask_idx g_idx, the
+same weighted sum the single-device step takes by the weighted-loss
+identity, here as a real collective.  The parameters are DTensors on the
+``model`` submesh (``dist.sharding.distribute_params`` by
+``param_specs``).  The reference's ``shard_hint`` on the duplicated blocks
+has no counterpart: each rank reads its own blocks from the batch every
+rank holds.
 """
 
 from __future__ import annotations
@@ -105,7 +116,7 @@ def _stacked_leaves(model) -> dict:
 
 def build_train_step(model, optimizer: Optimizer, *, accum: int = 1,
                      gcode: Optional[BerrutGradientCode] = None,
-                     compress: bool = False):
+                     compress: bool = False, dp_axes=None):
     """Returns train_step(params, opt_state, batch, mask) -> (params,
     opt_state, metrics).
 
@@ -127,6 +138,15 @@ def build_train_step(model, optimizer: Optimizer, *, accum: int = 1,
                   port shares one scale over the layers of one reference
                   leaf (``dist.int8_compress_shared``), so its numbers are
                   the reference's.
+    dp_axes    -> the mesh's data axis (``"data"``).  While a mesh with
+                  that axis is installed (``launch.mesh.use_mesh``) the
+                  step runs sharded: ``gcode`` is required, its
+                  ``n_shards`` must equal the axis size, and ``params``
+                  are the model's DTensors on ``mesh["model"]``.  Every
+                  rank passes the same global ``batch`` and ``mask``; the
+                  loss is the mean over ranks.  ``compress`` is not taken
+                  there.  Without a mesh the step is the single-device
+                  one.
     """
     if isinstance(gcode, dict):
         spec = dict(gcode)
@@ -168,7 +188,70 @@ def build_train_step(model, optimizer: Optimizer, *, accum: int = 1,
                             ].mean(dim=1)
         return losses.mean()
 
+    def mesh_axis():
+        """The data axis when a mesh that has it is installed, else
+        None."""
+        from ..dist.sharding import ambient_mesh
+        mesh = ambient_mesh()
+        axis = dp_axes[0] if isinstance(dp_axes, (tuple, list)) and \
+            len(dp_axes) == 1 else dp_axes
+        if mesh is None or axis is None:
+            return None, None
+        if not isinstance(axis, str) or axis not in mesh.mesh_dim_names:
+            raise ValueError(f"dp_axes {dp_axes!r} is not one axis of the "
+                             f"mesh {mesh.mesh_dim_names}")
+        return mesh, axis
+
+    def sharded_step(mesh, axis, params, opt_state, batch, mask):
+        from ..core import coded_psum
+        from ..dist import collectives
+        if gcode is None or compress:
+            raise ValueError("the sharded step is the coded one: pass gcode "
+                             "and no compress")
+        n_data = mesh.size(mesh.mesh_dim_names.index(axis))
+        if gcode.n_shards != n_data:
+            raise ValueError(f"gcode.n_shards {gcode.n_shards} != the "
+                             f"{axis} axis size {n_data}")
+        idx = mesh.get_local_rank(axis)
+        if gcode.redundancy > 1:
+            rows, ew = asn[idx], erow[idx]
+        else:
+            rows, ew = [idx], [1.0]
+        dev = next(iter(params.values())).device
+        blocks = reshape_for_blocks(
+            {k: torch.as_tensor(v).to(dev) for k, v in batch.items()},
+            gcode.n_shards, accum)
+        for p in params.values():
+            p.grad = None
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        for a in range(accum):
+            micro = _micro(blocks, a)
+            losses = []
+            for j, n in enumerate(rows):
+                loss, _ = model.loss_fn(_block(micro, int(n)))
+                (float(ew[j]) * loss).backward()
+                losses.append(loss.detach().to_local().to(torch.float32))
+            total = total + torch.stack(losses).mean()
+        with torch.no_grad():
+            local = {}
+            for name, p in params.items():
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                local[name] = (g / accum).redistribute(p.device_mesh,
+                                                       p.placements)
+            grads = coded_psum(local, mask, gcode, axis)
+            for name, p in params.items():
+                p.grad = grads[name].to(p.dtype)
+            mean = (total / accum).reshape(1)
+            collectives.all_reduce(mean, "sum", mesh.get_group(axis))
+        opt_state = optimizer.update_in_place(
+            {name: p.grad for name, p in params.items()}, opt_state, params)
+        return params, opt_state, {"loss": mean[0] / n_data,
+                                   "step": opt_state.step}
+
     def train_step(params, opt_state, batch, mask):
+        mesh, axis = mesh_axis()
+        if mesh is not None:
+            return sharded_step(mesh, axis, params, opt_state, batch, mask)
         if params.keys() != model_params.keys() or any(
                 params[k] is not model_params[k] for k in params):
             raise ValueError("params must be dict(model.named_parameters()): "

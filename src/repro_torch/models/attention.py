@@ -52,9 +52,22 @@ absorbed form: scores in the lora latent space against a cache of ``ckv``
 in place like the GQA cache; ``proj`` reroutes the wq|w_dkv and wo
 projections, while the per-head latent maps ``w_uk``/``w_uv`` stay here.
 
-Not ported yet, and raising ``NotImplementedError``: the int8 KV cache.
+With ``cfg.kv_cache_dtype == "int8"`` the GQA cache is the reference's
+quantized one: int8 ``k``/``v`` payloads and float16 ``k_scale``/
+``v_scale`` per (token, kv head).  The decode quantizes the new row
+(``_quantize_kv``: amax / 127, round half to even as ``jnp.round``,
+clipped to +-127), writes payload and scale in place, and attends over the
+dequantized cache in float32.
+
 The full-sequence forward trains on the card through the flash forward and
-backward kernels (``kernels.ops.flash_attention``).
+backward kernels (``kernels.ops.flash_attention``).  On a device mesh
+(``dist.sharding``) the specs below place the parameters and caches:
+heads over ``model`` (k/v heads only when ``model`` divides them), the
+cache's batch over ``data`` and its sequence over ``model``.  A decode
+against a sequence-sharded cache is flash decoding
+(``_seq_sharded_attention``): each rank attends over its slice of the
+cache, and the partial softmaxes combine by an all-reduce of their maxima
+and one of their sums.
 """
 
 from __future__ import annotations
@@ -63,18 +76,16 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..dist import collectives
+from ..dist.sharding import P, is_distributed
 from ..kernels import ops
 from .layers import (apply_mrope, apply_rope, const_init, dense_init,
                      dtype_of, rms_normalize)
 
-__all__ = ["init_attention", "attn_forward", "project_kv", "init_kv_cache",
-           "attn_decode", "init_mla", "mla_forward", "init_mla_cache",
+__all__ = ["init_attention", "attention_specs", "attn_forward", "project_kv",
+           "init_kv_cache", "kv_cache_specs", "attn_decode", "init_mla",
+           "mla_specs", "mla_forward", "init_mla_cache", "mla_cache_specs",
            "mla_decode"]
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: a later slice of "
-                               "the port; see ROADMAP.md")
 
 
 # --------------------------------------------------------------------------
@@ -98,6 +109,21 @@ def init_attention(gen: torch.Generator,
         p["q_norm"] = const_init(gen, (hd,), 1.0, pd)
         p["k_norm"] = const_init(gen, (hd,), 1.0, pd)
     return nn.ParameterDict(p)
+
+
+def attention_specs(cfg: ModelConfig) -> dict:
+    tp = cfg.pad_heads_to
+    kv_ax = "model" if (tp > 1 and cfg.n_kv_heads_padded % tp == 0) else None
+    p = {"wq": P(None, "model", None), "wk": P(None, kv_ax, None),
+         "wv": P(None, kv_ax, None), "wo": P("model", None, None)}
+    if cfg.qkv_bias:
+        p["bq"] = P("model", None)
+        p["bk"] = P(kv_ax, None)
+        p["bv"] = P(kv_ax, None)
+    if cfg.qk_norm:
+        p["q_norm"] = P(None)
+        p["k_norm"] = P(None)
+    return p
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, cd) -> torch.Tensor:
@@ -196,12 +222,44 @@ def project_kv(p, x: torch.Tensor, cfg: ModelConfig, positions=None,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                   device=None) -> dict:
-    if cfg.kv_cache_dtype == "int8":
-        raise _later("the int8 KV cache")
     shape = (batch, max_len, cfg.n_kv_heads_padded, cfg.head_dim_)
+    if cfg.kv_cache_dtype == "int8":
+        # int8 payload + per-(token, kv head) float16 scales: about half
+        # a bf16 cache's bytes (the decode reads it into a float32 copy)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float16,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float16,
+                                       device=device)}
     dtype = dtype or dtype_of(cfg, "compute")
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_cache_specs(cfg: ModelConfig) -> dict:
+    # batch over data, sequence over model: the flash-decoding layout
+    p = {"k": P("data", "model", None, None),
+         "v": P("data", "model", None, None)}
+    if cfg.kv_cache_dtype == "int8":
+        p["k_scale"] = P("data", "model", None)
+        p["v_scale"] = P("data", "model", None)
+    return p
+
+
+def _quantize_kv(x: torch.Tensor):
+    """(B, 1, KV, hd) -> (int8 payload, float16 scale (B, 1, KV))."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def _dequantize_kv(payload: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """An int8 cache leaf and its scales -> float32 (B, L, KV, hd)."""
+    return payload.to(torch.float32) * scale.to(torch.float32)[..., None]
 
 
 def _per_slot(pos) -> bool:
@@ -259,8 +317,21 @@ def attn_decode(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *,
         q, k_new, v_new = _project_qkv(p, x.to(cd), cfg, positions,
                                        use_rope, mrope_positions,
                                        matmul=proj.get("qkv"))
-        k = _dus_seq(cache["k"], k_new, pos)
-        v = _dus_seq(cache["v"], v_new, pos)
+        if is_distributed(cache["k"]):
+            out = _seq_sharded_attention(q, k_new, v_new, cache, pos, cfg)
+            return _decode_out(p, out, cfg, proj), cache
+        if cfg.kv_cache_dtype == "int8":
+            k8, ks = _quantize_kv(k_new)
+            v8, vs = _quantize_kv(v_new)
+            _dus_seq(cache["k_scale"], ks, pos)
+            _dus_seq(cache["v_scale"], vs, pos)
+            k = _dequantize_kv(_dus_seq(cache["k"], k8, pos),
+                               cache["k_scale"])
+            v = _dequantize_kv(_dus_seq(cache["v"], v8, pos),
+                               cache["v_scale"])
+        else:
+            k = _dus_seq(cache["k"], k_new, pos)
+            v = _dus_seq(cache["v"], v_new, pos)
         span = torch.arange(k.shape[1], device=x.device)[None, :]
         valid = span <= (positions if _per_slot(pos) else int(pos))
 
@@ -273,10 +344,100 @@ def attn_decode(p, x: torch.Tensor, cache, pos, cfg: ModelConfig, *,
     s = s.masked_fill(~valid[:, None, None, :], -1e30)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", w, v.to(torch.float32))
-    out = out.reshape(b, 1, -1).to(cd)
+    return _decode_out(p, out.reshape(b, 1, -1).to(cd), cfg, proj), cache
+
+
+def _seq_dim(leaf) -> int:
+    """The mesh dim that shards the cache's sequence (tensor dim 1)."""
+    from torch.distributed.tensor import Shard
+    for mdim, pl in enumerate(leaf.placements):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            return mdim
+    raise ValueError(f"the cache's sequence dim is not sharded: "
+                     f"{leaf.placements}")
+
+
+def _seq_sharded_attention(q, k_new, v_new, cache: dict, pos,
+                           cfg: ModelConfig):
+    """One-token GQA attention against a cache whose sequence dim is
+    sharded over a mesh dim (``kv_cache_specs``: batch over ``data``,
+    sequence over ``model``), written in place.
+
+    q (B, 1, H, hd), k_new / v_new (B, 1, KV, hd): DTensors on the cache's
+    mesh, any placements.  Each rank gathers the new token's heads, writes
+    its row where ``pos`` falls in its slice (an int8 cache quantized by
+    ``_quantize_kv``), and computes its slice's scores
+    (float32, scale 1/sqrt(hd), softcap, positions past ``pos`` masked),
+    their max m_r, the sum l_r of exp(s - m_r) and o_r = sum exp(s - m_r)
+    v.  Then m = max_r m_r (an all-reduce) and out = sum_r e^(m_r - m) o_r
+    / sum_r e^(m_r - m) l_r (one all-reduce of [o | l]): the softmax over
+    the whole cache.  Returns out (B, 1, H hd) in the compute dtype, a
+    DTensor placed as the cache's batch and replicated over the sequence
+    dim's mesh axis.  ``pos`` is a scalar (per-slot positions belong to
+    the serve loop, which runs on one device)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if _per_slot(pos):
+        raise ValueError("the sequence-sharded decode takes a scalar pos")
+    leaf = cache["k"]
+    mesh = leaf.device_mesh
+    sdim = _seq_dim(leaf)
+    row_pl = tuple(Replicate() if m == sdim else pl
+                   for m, pl in enumerate(leaf.placements))
+
+    def local(t):
+        return t.redistribute(mesh, row_pl).to_local()
+
+    q_l, k_l, v_l = local(q), local(k_new), local(v_new)
+    b_l, l_loc = leaf.to_local().shape[:2]
+    offset = mesh.get_coordinate()[sdim] * l_loc
+    dev = q_l.device
+    at = int(pos) - offset                    # this rank's row, if it has it
+    local = {key: leaf_.to_local() for key, leaf_ in cache.items()}
+    if cfg.kv_cache_dtype == "int8":
+        k8, ks = _quantize_kv(k_l)
+        v8, vs = _quantize_kv(v_l)
+        if 0 <= at < l_loc:
+            for key, val in (("k", k8), ("v", v8), ("k_scale", ks),
+                             ("v_scale", vs)):
+                local[key][:, at] = val[:, 0]
+        k = _dequantize_kv(local["k"], local["k_scale"])
+        v = _dequantize_kv(local["v"], local["v_scale"])
+    else:
+        if 0 <= at < l_loc:
+            local["k"][:, at] = k_l[:, 0].to(local["k"].dtype)
+            local["v"][:, at] = v_l[:, 0].to(local["v"].dtype)
+        k, v = local["k"], local["v"]
+    kvh, hd = k.shape[2], q_l.shape[-1]
+    g = q_l.shape[2] // kvh
+    f32 = torch.float32
+    qg = q_l.reshape(b_l, kvh, g, hd).to(f32) / (hd ** 0.5)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k.to(f32))
+    if cfg.attn_logit_softcap:
+        s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    valid = (offset + torch.arange(l_loc, device=dev) <= int(pos))
+    valid = valid[None, None, None, :]
+    s = s.masked_fill(~valid, -1e30)
+    m_r = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m_r) * valid
+    l_r = e.sum(dim=-1, keepdim=True)
+    o_r = torch.einsum("bkgs,bskd->bkgd", e, v.to(f32))
+    group = mesh.get_group(sdim)
+    m = m_r.clone()
+    collectives.all_reduce(m, "max", group)
+    scale = torch.exp(m_r - m)
+    both = torch.cat([o_r * scale, l_r * scale], dim=-1)
+    collectives.all_reduce(both, "sum", group)
+    out = both[..., :hd] / both[..., hd:]
+    out = out.reshape(b_l, 1, -1).to(dtype_of(cfg, "compute"))
+    return DTensor.from_local(out, mesh, row_pl, run_check=False)
+
+
+def _decode_out(p, out: torch.Tensor, cfg: ModelConfig, proj: dict):
+    """The decode's output projection of out (B, 1, H hd)."""
     if proj.get("o") is not None:
-        return proj["o"](out), cache
-    return out @ p["wo"].to(cd).reshape(-1, cfg.d_model), cache
+        return proj["o"](out)
+    cd = dtype_of(cfg, "compute")
+    return out @ p["wo"].to(cd).reshape(-1, cfg.d_model)
 
 
 # --------------------------------------------------------------------------
@@ -295,6 +456,12 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
         "w_uk": dense_init(gen, (lora, h, nope), pd),
         "w_uv": dense_init(gen, (lora, h, vh), pd),
         "wo": dense_init(gen, (h, vh, d), pd)})
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    return {"wq": P(None, "model", None), "w_dkv": P(None, None),
+            "kv_norm": P(None), "w_uk": P(None, "model", None),
+            "w_uv": P(None, "model", None), "wo": P("model", None, None)}
 
 
 def _mla_qc(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
@@ -347,6 +514,10 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                                dtype=dtype, device=device)}
 
 
+def mla_cache_specs(cfg: ModelConfig) -> dict:
+    return {"ckv": P("data", "model", None), "kpe": P("data", "model", None)}
+
+
 def mla_decode(p, x: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
                proj=None, **_):
     """Absorbed-form one-token MLA decode.  x (B, 1, d); ``pos`` a scalar
@@ -360,6 +531,9 @@ def mla_decode(p, x: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
     -> (q (B, 1, H, nope + rope), dkv (B, 1, lora + rope))``) and wo
     (``fn(o (B, H * v)) -> (B, d)``).  Returns (y (B, 1, d), cache), the
     cache written in place at ``pos``."""
+    if is_distributed(cache["ckv"]):
+        raise ValueError("the sequence-sharded decode takes a GQA cache; "
+                         "an MLA cache decodes on one device")
     cd = dtype_of(cfg, "compute")
     b = x.shape[0]
     x = x.to(cd)

@@ -1,7 +1,8 @@
 """Encoder-decoder LM (whisper-small): forward, loss and decode.
 
 Ports ``repro/models/encdec.py``'s ``EncDecLM`` (``encode``, ``forward``,
-``loss_fn``, ``init_cache``, ``decode_step``) and ``CROSS_LEN``.
+``loss_fn``, ``init_cache``, ``decode_step``, ``param_specs``,
+``cache_specs``) and ``CROSS_LEN``.
 
 Encoder: precomputed frame embeddings (B, S_enc, d) (the conv frontend is
 a stub, as in the reference) plus sinusoidal positions, then bidirectional
@@ -38,10 +39,11 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import attention as attn
-from .layers import (apply_ffn, apply_norm, dtype_of, embed, init_embedding,
-                     init_ffn, init_norm, remat, sinusoidal_positions,
-                     unembed)
-from .transformer import softmax_xent
+from ..dist.sharding import P
+from .layers import (apply_ffn, apply_norm, dtype_of, embed, embedding_specs,
+                     ffn_specs, init_embedding, init_ffn, init_norm,
+                     norm_specs, remat, sinusoidal_positions, unembed)
+from .transformer import _prefixed, softmax_xent
 
 __all__ = ["EncDecLM", "CROSS_LEN"]
 
@@ -90,6 +92,17 @@ class CrossDecoderLayer(nn.Module):
         return x + apply_ffn(self.ffn, h3, cfg)
 
 
+def _enc_layer_specs(cfg: ModelConfig) -> dict:
+    return {"norm1": norm_specs(cfg), "attn": attn.attention_specs(cfg),
+            "norm2": norm_specs(cfg), "ffn": ffn_specs(cfg)}
+
+
+def _dec_layer_specs(cfg: ModelConfig) -> dict:
+    return {"norm1": norm_specs(cfg), "self_attn": attn.attention_specs(cfg),
+            "norm2": norm_specs(cfg), "cross_attn": attn.attention_specs(cfg),
+            "norm3": norm_specs(cfg), "ffn": ffn_specs(cfg)}
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
@@ -109,6 +122,18 @@ class EncDecLM(nn.Module):
                                      for _ in range(cfg.n_layers))
         self.enc_norm = init_norm(gen, cfg)
         self.final_norm = init_norm(gen, cfg)
+
+    def param_specs(self) -> dict:
+        """{parameter name: PartitionSpec}, the reference's by the port's
+        names (its stacked layer axis, unsharded, has no counterpart)."""
+        cfg = self.cfg
+        out = _prefixed("embedding.", embedding_specs(cfg), {})
+        for g in range(len(self.encoder)):
+            _prefixed(f"encoder.{g}.", _enc_layer_specs(cfg), out)
+        for g in range(len(self.decoder)):
+            _prefixed(f"decoder.{g}.", _dec_layer_specs(cfg), out)
+        _prefixed("enc_norm.", norm_specs(cfg), out)
+        return _prefixed("final_norm.", norm_specs(cfg), out)
 
     # ---- encoder ------------------------------------------------------
     def encode(self, frames: torch.Tensor, *,
@@ -165,6 +190,14 @@ class EncDecLM(nn.Module):
                  "cross": {"k": torch.zeros(shape, dtype=cd, device=dev),
                            "v": torch.zeros(shape, dtype=cd, device=dev)}}
                 for _ in self.decoder]
+
+    def cache_specs(self) -> List[dict]:
+        """One spec dict per decoder layer, congruent with
+        ``init_cache``."""
+        one = {"self": attn.kv_cache_specs(self.cfg),
+               "cross": {"k": P("data", "model", None, None),
+                         "v": P("data", "model", None, None)}}
+        return [one for _ in self.decoder]
 
     def decode_step(self, cache: List[dict], tokens: torch.Tensor, pos, *,
                     return_hidden: bool = False):

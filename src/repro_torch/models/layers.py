@@ -7,8 +7,9 @@ Ports ``repro/models/layers.py``: ``dtype_of``, ``dense_init``,
 ``init_embedding``/``embed``/``unembed``, the NeoX RoPE, Qwen2-VL's
 M-RoPE (``apply_mrope``), whisper's ``sinusoidal_positions`` and
 ``chunked_scan`` (the SSM mixers' recurrence); ``remat`` stands in for
-the reference's ``jax.checkpoint`` of its scanned layer bodies.  The
-sharding ``*_specs`` have no counterpart: the port runs on one device.
+the reference's ``jax.checkpoint`` of its scanned layer bodies.  Every
+``init_*`` has a sibling ``*_specs`` giving each leaf's PartitionSpec
+(``dist.sharding.P``) on a (data, model) mesh, as the reference's.
 
 Conventions, as in the reference: activations flow in
 ``cfg.compute_dtype`` (bf16 by default); parameters and norm math are
@@ -29,10 +30,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import P
 
-__all__ = ["dtype_of", "dense_init", "const_init", "init_norm", "apply_norm",
-           "rms_normalize", "init_ffn", "apply_ffn", "init_embedding",
-           "embed", "unembed", "apply_rope", "apply_mrope",
+__all__ = ["dtype_of", "dense_init", "const_init", "init_norm", "norm_specs",
+           "apply_norm", "rms_normalize", "init_ffn", "ffn_specs",
+           "apply_ffn", "init_embedding", "embedding_specs", "embed",
+           "unembed", "apply_rope", "apply_mrope",
            "sinusoidal_positions", "chunked_scan", "remat"]
 
 
@@ -73,6 +76,13 @@ def init_norm(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
     return nn.ParameterDict(p)
 
 
+def norm_specs(cfg: ModelConfig) -> dict:
+    p = {"scale": P(None)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = P(None)
+    return p
+
+
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """rmsnorm or layernorm in float32, cast back to x's dtype."""
     xf = x.to(torch.float32)
@@ -109,6 +119,13 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
                                  "w_down": dense_init(gen, (ff, d), pd)})
     return nn.ParameterDict({"w_up": dense_init(gen, (d, ff), pd),
                              "w_down": dense_init(gen, (ff, d), pd)})
+
+
+def ffn_specs(cfg: ModelConfig) -> dict:
+    if cfg.activation == "swiglu":
+        return {"w_gate": P(None, "model"), "w_up": P(None, "model"),
+                "w_down": P("model", None)}
+    return {"w_up": P(None, "model"), "w_down": P("model", None)}
 
 
 def apply_ffn(p, x: torch.Tensor, cfg: ModelConfig, *, matmul_up=None,
@@ -152,9 +169,22 @@ def init_embedding(gen: torch.Generator,
     return nn.ParameterDict(p)
 
 
+def embedding_specs(cfg: ModelConfig) -> dict:
+    p = {"table": P("model", None)}          # vocab-sharded
+    if not cfg.tie_embeddings:
+        p["unembed"] = P(None, "model")      # logits sharded over vocab
+    return p
+
+
 def embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Gather from the float32 table, then cast to the compute dtype."""
-    return p["table"][tokens].to(dtype_of(cfg, "compute"))
+    """Gather from the float32 table, then cast to the compute dtype.  A
+    vocab-sharded table (a DTensor on a mesh) gathers through
+    ``F.embedding``, whose sharding rule reads each rank's rows into a
+    masked partial sum (indexing would re-shard the table first)."""
+    table = p["table"]
+    if type(table).__name__ == "DTensor":
+        return F.embedding(tokens, table).to(dtype_of(cfg, "compute"))
+    return table[tokens].to(dtype_of(cfg, "compute"))
 
 
 def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -5,8 +5,9 @@ Ports ``repro/models/moe.py`` (``init_moe``, ``_router``, ``_shared_ffn``,
 ``_expert_apply``, ``moe_ffn``, ``moe_ffn_decode``).  Parameters keep the
 reference's leaves: ``router`` (d, E), ``w_gate``/``w_up`` (E, d, ff),
 ``w_down`` (E, ff, d) and, with shared experts, ``shared.w_gate``/
-``shared.w_up`` (d, E_s ff), ``shared.w_down`` (E_s ff, d).  The sharding
-specs and hints have no counterpart on one device.
+``shared.w_up`` (d, E_s ff), ``shared.w_down`` (E_s ff, d); ``moe_specs``
+places the experts over ``model``, and ``moe_ffn`` pins its expert
+buckets there (``shard_hint``, inert on one device), as the reference.
 
 The router runs in float32 (the package never turns TF32 on): softmax,
 top-k (``torch.topk``, sorted, as ``lax.top_k``), renormalised weights,
@@ -45,9 +46,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig, pad_to
+from ..dist.sharding import P, shard_hint
 from .layers import dense_init, dtype_of
 
-__all__ = ["init_moe", "moe_ffn", "moe_ffn_decode", "capacity"]
+__all__ = ["init_moe", "moe_specs", "moe_ffn", "moe_ffn_decode", "capacity"]
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
@@ -65,6 +67,18 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> nn.ParameterDict:
             "w_up": dense_init(gen, (d, sf), pd),
             "w_down": dense_init(gen, (sf, d), pd)})
     return nn.ParameterDict(p)
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    p = {"router": P(None, None)}
+    if cfg.activation == "swiglu":
+        p["w_gate"] = P("model", None, None)
+    p["w_up"] = P("model", None, None)
+    p["w_down"] = P("model", None, None)
+    if cfg.n_shared_experts:
+        p["shared"] = {"w_gate": P(None, "model"), "w_up": P(None, "model"),
+                       "w_down": P("model", None)}
+    return p
 
 
 def capacity(cfg: ModelConfig, seq: int) -> int:
@@ -138,9 +152,13 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig,
     fill[rows, slot.reshape(b, s * k)] = torch.arange(
         s, device=x.device).repeat_interleave(k)
     x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
-    buckets = x_pad[rows, fill[:, :e * cap]]              # (B, E cap, d)
-    xb = buckets.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    buckets = x_pad[rows, fill[:, :e * cap]].reshape(b, e, cap, d)
+    # experts over model; batch over data where it divides (the prefill)
+    b_ax = "data" if (b % 16 == 0) else None
+    buckets = shard_hint(buckets, P(b_ax, "model", None, None))
+    xb = buckets.transpose(0, 1).reshape(e, b * cap, d)
     ob = _expert_apply(p, xb, cfg).reshape(e, b, cap, d).transpose(0, 1)
+    ob = shard_hint(ob, P(b_ax, "model", None, None))
 
     # combine: each token gathers its k slots (the dump slot reads zeros)
     ob_pad = torch.cat([ob.reshape(b, e * cap, d), ob.new_zeros(b, 1, d)],

@@ -6,7 +6,8 @@ Ports ``repro/models/ssm.py``: ``init_rwkv_block``, ``init_rwkv_state``,
 ``rwkv_channel_mix``, ``rwkv_decode_step``, ``rwkv_channel_mix_decode``;
 ``_mamba_dims``, ``init_mamba_block``, ``init_mamba_state``, ``_rms``,
 ``_mamba_bcdt``, ``_ssm_step``, ``mamba_forward``, ``mamba_decode_step``.
-The sharding ``*_specs`` have no counterpart on one device.
+``rwkv_block_specs``, ``rwkv_state_specs``, ``mamba_block_specs`` and
+``mamba_state_specs`` give each leaf's PartitionSpec, as the reference.
 
 Parameters keep the reference's leaves and shapes (``nn.ParameterDict``s,
 float32 master weights cast to the compute dtype where used); the
@@ -41,12 +42,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import P
 from .layers import chunked_scan, const_init, dense_init, dtype_of
 
-__all__ = ["init_rwkv_block", "init_rwkv_state", "rwkv_time_mix",
-           "rwkv_channel_mix", "rwkv_decode_step", "rwkv_channel_mix_decode",
-           "init_mamba_block", "init_mamba_state", "mamba_forward",
-           "mamba_decode_step"]
+__all__ = ["init_rwkv_block", "rwkv_block_specs", "init_rwkv_state",
+           "rwkv_state_specs", "rwkv_time_mix", "rwkv_channel_mix",
+           "rwkv_decode_step", "rwkv_channel_mix_decode", "init_mamba_block",
+           "mamba_block_specs", "init_mamba_state", "mamba_state_specs",
+           "mamba_forward", "mamba_decode_step"]
 
 SCAN_CHUNK = 128
 RWKV_LORA = 64
@@ -93,6 +96,21 @@ def init_rwkv_block(gen: torch.Generator,
         "cm_wr": dense_init(gen, (d, d), pd)})
 
 
+def rwkv_block_specs(cfg: ModelConfig) -> dict:
+    return {
+        "mu": P(None, None), "w0": P("model"),
+        "w_lora_a": P(None, None), "w_lora_b": P(None, "model"),
+        "wr": P(None, "model"), "wk": P(None, "model"),
+        "wv": P(None, "model"), "wg": P(None, "model"),
+        "wo": P("model", None),
+        "u": P("model", None),
+        "ln_x_scale": P("model"), "ln_x_bias": P("model"),
+        "cm_mu": P(None, None),
+        "cm_wk": P(None, "model"), "cm_wv": P("model", None),
+        "cm_wr": P(None, "model"),
+    }
+
+
 def init_rwkv_state(cfg: ModelConfig, batch: int, device=None,
                     dtype=F32) -> dict:
     h, hd = _rwkv_heads(cfg)
@@ -101,6 +119,11 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device=None,
             "cm_x": torch.zeros((batch, d), dtype=dtype, device=device),
             "wkv": torch.zeros((batch, h, hd, hd), dtype=dtype,
                                device=device)}
+
+
+def rwkv_state_specs(cfg: ModelConfig) -> dict:
+    return {"tm_x": P("data", "model"), "cm_x": P("data", "model"),
+            "wkv": P("data", "model", None, None)}
 
 
 def _rwkv_projections(p, x: torch.Tensor, x_prev: torch.Tensor,
@@ -249,6 +272,18 @@ def init_mamba_block(gen: torch.Generator,
         "w_out": dense_init(gen, (din, d), pd)})
 
 
+def mamba_block_specs(cfg: ModelConfig) -> dict:
+    return {
+        "w_in": P(None, None, "model"),
+        "conv_w": P(None, None, "model"), "conv_b": P("model"),
+        "x_proj": P("model", None),
+        "dt_w": P(None, "model"), "dt_b": P("model"),
+        "A_log": P("model", None), "D": P("model"),
+        "dt_norm": P(None), "b_norm": P(None), "c_norm": P(None),
+        "w_out": P("model", None),
+    }
+
+
 def init_mamba_state(cfg: ModelConfig, batch: int, device=None,
                      dtype=F32) -> dict:
     din, _ = _mamba_dims(cfg)
@@ -256,6 +291,10 @@ def init_mamba_state(cfg: ModelConfig, batch: int, device=None,
                                 dtype=dtype, device=device),
             "ssm": torch.zeros((batch, din, cfg.d_state), dtype=dtype,
                                device=device)}
+
+
+def mamba_state_specs(cfg: ModelConfig) -> dict:
+    return {"conv": P("data", None, "model"), "ssm": P("data", "model", None)}
 
 
 def _rms(x: torch.Tensor, scale, eps: float = 1e-6) -> torch.Tensor:

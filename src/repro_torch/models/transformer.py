@@ -11,7 +11,9 @@ for any depth, ``jax.checkpoint`` on the group for training, and the FSDP
 and sequence-sharding hints ``fsdp_in_scan`` and ``seq_shard_activations``
 inside the scan).  Eager PyTorch has no scan, so the port holds an
 ``nn.ModuleList`` of all ``n_layers`` layers and loops over it;
-``fsdp_in_scan`` and ``seq_shard_activations`` have no counterpart here.
+``fsdp_in_scan`` has no counterpart here; ``seq_shard_activations``
+pins the residual stream between layers sequence-sharded over ``model``
+(``shard_hint``), as the reference's scan body.
 ``cfg.remat`` recomputes each layer (not each group of ``period``) in the
 backward: ``forward`` calls every ``DecoderLayer`` through
 ``layers.remat`` when grad is enabled, so a full-depth step keeps one
@@ -40,8 +42,18 @@ batch's ``mrope_positions``) and ``decode_step`` hand (3, B, S) position
 streams down to ``attention.attn_forward``/``attn_decode``; without them
 the layer takes plain RoPE, as the reference's does (and as its serve
 loop's decode does).  The encoder-decoder (whisper) is
-``models.encdec.EncDecLM``.  Still raising: the int8 KV cache
-(``init_cache`` of a config with ``kv_cache_dtype="int8"``).
+``models.encdec.EncDecLM``.
+
+On a device mesh (``dist.sharding.distribute_params`` places the
+parameters by ``param_specs``, keyed by parameter name; the reference's
+stacked ``groups`` axis, unsharded there, has no counterpart) the same
+code runs on DTensors under ``launch.mesh.use_mesh``: tensor parallel
+over heads, FFN width and vocabulary.  The residual stream is pinned
+replicated over ``model`` (batch over ``data``) at each norm's output and
+each residual sum (``_pin``): in the forward a partial sum is all-reduced
+there, and in the backward a partial gradient is (Megatron's f and g), so
+every weight gradient keeps its weight's placement.  On one device the
+pins are the identity.
 """
 
 from __future__ import annotations
@@ -54,14 +66,34 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..dist.sharding import P, gathered, shard_hint
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
-from .layers import (apply_ffn, apply_norm, dtype_of, embed, init_embedding,
-                     init_ffn, init_norm, remat, unembed)
+from .layers import (apply_ffn, apply_norm, dtype_of, embed, embedding_specs,
+                     ffn_specs, init_embedding, init_ffn, init_norm,
+                     norm_specs, remat, unembed)
 
-__all__ = ["LayerDesc", "layer_desc", "layer_pattern", "DecoderLayer",
-           "TransformerLM", "softmax_xent"]
+__all__ = ["LayerDesc", "layer_desc", "layer_pattern", "layer_specs",
+           "layer_cache_specs", "DecoderLayer", "TransformerLM",
+           "softmax_xent"]
+
+# the residual stream on a mesh: batch over data, replicated over model
+_RESIDUAL = P("data", None, None)
+
+
+def _pin(x):
+    return shard_hint(x, _RESIDUAL)
+
+
+def _prefixed(prefix: str, tree: dict, out: dict) -> dict:
+    """A nested spec dict flattened to {prefix + dotted path: P}."""
+    for key, value in tree.items():
+        if isinstance(value, P):
+            out[f"{prefix}{key}"] = value
+        else:
+            _prefixed(f"{prefix}{key}.", value, out)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -111,6 +143,35 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[int, int, List[LayerDesc]]:
             if layer_desc(cfg, n_pre + g * period + i) != descs[i]:
                 raise ValueError(f"{cfg.name}: non-periodic layer pattern")
     return n_pre, period, descs
+
+
+def layer_specs(cfg: ModelConfig, desc: LayerDesc) -> dict:
+    p = {"norm1": norm_specs(cfg)}
+    if desc.mixer == "attn":
+        p["mixer"] = attn.attention_specs(cfg)
+    elif desc.mixer == "mla":
+        p["mixer"] = attn.mla_specs(cfg)
+    elif desc.mixer == "mamba":
+        p["mixer"] = ssm.mamba_block_specs(cfg)
+    else:
+        p["mixer"] = ssm.rwkv_block_specs(cfg)
+    if desc.ffn != "none" or desc.mixer == "rwkv":
+        p["norm2"] = norm_specs(cfg)
+    if desc.ffn == "dense":
+        p["ffn"] = ffn_specs(cfg)
+    elif desc.ffn == "moe":
+        p["ffn"] = moe_mod.moe_specs(cfg)
+    return p
+
+
+def layer_cache_specs(cfg: ModelConfig, desc: LayerDesc) -> dict:
+    if desc.mixer == "rwkv":
+        return ssm.rwkv_state_specs(cfg)
+    if desc.mixer == "mamba":
+        return ssm.mamba_state_specs(cfg)
+    if desc.mixer == "mla":
+        return attn.mla_cache_specs(cfg)
+    return attn.kv_cache_specs(cfg)
 
 
 def layer_init_state(cfg: ModelConfig, desc: LayerDesc, batch: int,
@@ -166,14 +227,14 @@ class DecoderLayer(nn.Module):
         ``moe_drops`` is ``moe.moe_ffn``'s ``drops``."""
         cfg = self.cfg
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        h = apply_norm(self.norm1, x, cfg)
+        h = _pin(apply_norm(self.norm1, x, cfg))
         state = layer_init_state(cfg, self.desc, x.shape[0], x.device)
         if self.desc.mixer == "rwkv":
             y, state = ssm.rwkv_time_mix(self.mixer, h, state, cfg)
-            x = x + y
-            h2 = apply_norm(self.norm2, x, cfg)
+            x = _pin(x + y)
+            h2 = _pin(apply_norm(self.norm2, x, cfg))
             y2, _ = ssm.rwkv_channel_mix(self.mixer, h2, state, cfg)
-            return x + y2, (zero, zero)
+            return _pin(x + y2), (zero, zero)
         if self.desc.mixer == "mamba":
             y, _ = ssm.mamba_forward(self.mixer, h, state, cfg)
         elif self.desc.mixer == "mla":
@@ -185,13 +246,13 @@ class DecoderLayer(nn.Module):
                                   mrope_positions=mrope_positions,
                                   force_kernel=force_kernel)
         if cfg.parallel_block:
-            return x + y + apply_ffn(self.ffn, h, cfg), (zero, zero)
-        x = x + y
-        h2 = apply_norm(self.norm2, x, cfg)
+            return _pin(x + y + apply_ffn(self.ffn, h, cfg)), (zero, zero)
+        x = _pin(x + y)
+        h2 = _pin(apply_norm(self.norm2, x, cfg))
         if self.desc.ffn == "moe":
             f, lb, z = moe_mod.moe_ffn(self.ffn, h2, cfg, drops=moe_drops)
-            return x + f, (lb, z)
-        return x + apply_ffn(self.ffn, h2, cfg), (zero, zero)
+            return _pin(x + f), (lb, z)
+        return _pin(x + apply_ffn(self.ffn, h2, cfg)), (zero, zero)
 
     def decode(self, x: torch.Tensor, cache: dict, pos, *,
                mrope_positions=None, proj=None):
@@ -206,14 +267,14 @@ class DecoderLayer(nn.Module):
         step; each writes its new state into the cache."""
         cfg = self.cfg
         proj = proj or {}
-        h = apply_norm(self.norm1, x, cfg)
+        h = _pin(apply_norm(self.norm1, x, cfg))
         mix = {k: proj.get(k) for k in ("qkv", "o")}
         if self.desc.mixer == "rwkv":
             y, new = ssm.rwkv_decode_step(self.mixer, h, cache, cfg)
-            x = x + y
-            h2 = apply_norm(self.norm2, x, cfg)
+            x = _pin(x + y)
+            h2 = _pin(apply_norm(self.norm2, x, cfg))
             y2, new = ssm.rwkv_channel_mix_decode(self.mixer, h2, new, cfg)
-            return x + y2, _write_state(cache, new)
+            return _pin(x + y2), _write_state(cache, new)
         if self.desc.mixer == "mamba":
             y, new = ssm.mamba_decode_step(self.mixer, h, cache, cfg)
             cache = _write_state(cache, new)
@@ -228,12 +289,12 @@ class DecoderLayer(nn.Module):
         ffn_mm = {"matmul_up": proj.get("up"),
                   "matmul_down": proj.get("down")}
         if cfg.parallel_block:
-            return x + y + apply_ffn(self.ffn, h, cfg, **ffn_mm), cache
-        x = x + y
-        h2 = apply_norm(self.norm2, x, cfg)
+            return _pin(x + y + apply_ffn(self.ffn, h, cfg, **ffn_mm)), cache
+        x = _pin(x + y)
+        h2 = _pin(apply_norm(self.norm2, x, cfg))
         if self.desc.ffn == "moe":
-            return x + moe_mod.moe_ffn_decode(self.ffn, h2, cfg), cache
-        return x + apply_ffn(self.ffn, h2, cfg, **ffn_mm), cache
+            return _pin(x + moe_mod.moe_ffn_decode(self.ffn, h2, cfg)), cache
+        return _pin(x + apply_ffn(self.ffn, h2, cfg, **ffn_mm)), cache
 
     def init_cache(self, batch: int, max_len: int, device) -> dict:
         """This layer's decode cache (``layer_cache``): ``{k, v}`` for GQA
@@ -289,14 +350,18 @@ class TransformerLM(nn.Module):
         b, s = tokens.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
-        x = embed(self.embedding, tokens, cfg)
+        x = _pin(embed(self.embedding, tokens, cfg))
         lb_tot = z_tot = torch.zeros((), dtype=torch.float32,
                                      device=tokens.device)
         for layer in self.layers:
             x, (lb, z) = _layer_call(layer, x, positions, mrope_positions,
                                      force_kernel, moe_drops)
+            if cfg.seq_shard_activations:
+                # sequence parallelism: the layer-boundary residual (the
+                # remat-saved input) lives sequence-sharded over model
+                x = shard_hint(x, P(None, "model", None))
             lb_tot, z_tot = lb_tot + lb, z_tot + z
-        x = apply_norm(self.final_norm, x, cfg)
+        x = _pin(apply_norm(self.final_norm, x, cfg))
         logits = unembed(self.embedding, x, cfg)
         return logits, {"lb_loss": lb_tot, "z_loss": z_tot}
 
@@ -329,14 +394,29 @@ class TransformerLM(nn.Module):
         instead of logits (the serve loop's round mode runs the unembed as
         a coded round)."""
         cfg = self.cfg
-        x = embed(self.embedding, tokens, cfg)
+        x = _pin(embed(self.embedding, tokens, cfg))
         for i, layer in enumerate(self.layers):
             x, cache[i] = layer.decode(x, cache[i], pos,
                                        mrope_positions=mrope_positions)
-        x = apply_norm(self.final_norm, x, cfg)
+        x = _pin(apply_norm(self.final_norm, x, cfg))
         if return_hidden:
             return x, cache
         return unembed(self.embedding, x, cfg), cache
+
+    # ---- sharding specs --------------------------------------------------
+    def param_specs(self) -> dict:
+        """{parameter name: PartitionSpec}, the reference's
+        ``param_specs`` by the port's names (no stacked ``groups`` axis)."""
+        cfg = self.cfg
+        out = _prefixed("embedding.", embedding_specs(cfg), {})
+        for i, layer in enumerate(self.layers):
+            _prefixed(f"layers.{i}.", layer_specs(cfg, layer.desc), out)
+        return _prefixed("final_norm.", norm_specs(cfg), out)
+
+    def cache_specs(self) -> List[dict]:
+        """One spec dict per layer, congruent with ``init_cache``."""
+        return [layer_cache_specs(self.cfg, layer.desc)
+                for layer in self.layers]
 
 
 def _layer_call(layer: DecoderLayer, x, positions, mrope_positions,
@@ -358,7 +438,11 @@ def _layer_call(layer: DecoderLayer, x, positions, mrope_positions,
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean CE over targets >= 0 (targets == -1 are masked out)."""
+    """Mean CE over targets >= 0 (targets == -1 are masked out).  On a
+    mesh the vocab-sharded logits are gathered over ``model`` first (the
+    reference's partitioner inserts the reductions; DTensor's gather
+    cannot index a sharded dim); their gradient stays vocab-sharded."""
+    logits = gathered(logits, P("data", None, None))
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     tgt = targets.clamp(min=0).long()

@@ -94,7 +94,9 @@ def _lr_fn(lr):
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """float32 zeros placed as ``p`` (a DTensor's state keeps its
+    placements)."""
+    return torch.zeros_like(p, dtype=torch.float32)
 
 
 def _first_device(tree):

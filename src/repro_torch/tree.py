@@ -10,7 +10,7 @@ and the optimizer sums the global norm in the reference's leaf order.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 __all__ = ["leaves", "flatten", "unflatten", "tree_map"]
 
@@ -19,14 +19,18 @@ def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def flatten(tree) -> Tuple[List[Any], Any]:
-    """(leaves in jax order, the tree itself as its structure)."""
+def flatten(tree, is_leaf: Optional[Callable] = None
+            ) -> Tuple[List[Any], Any]:
+    """(leaves in jax order, the tree itself as its structure);
+    ``is_leaf`` stops the walk at a node, as ``jax.tree.flatten``'s."""
     out: List[Any] = []
 
     def walk(node):
         if node is None:
             return
-        if isinstance(node, dict):
+        if is_leaf is not None and is_leaf(node):
+            out.append(node)
+        elif isinstance(node, dict):
             for key in sorted(node):
                 walk(node[key])
         elif isinstance(node, (list, tuple)):
@@ -42,14 +46,17 @@ def leaves(tree) -> List[Any]:
     return flatten(tree)[0]
 
 
-def unflatten(structure, new_leaves) -> Any:
+def unflatten(structure, new_leaves,
+              is_leaf: Optional[Callable] = None) -> Any:
     """``structure`` (a tree) with its leaves replaced, in order, by
-    ``new_leaves``."""
+    ``new_leaves`` (``is_leaf`` as ``flatten``'s)."""
     it = iter(new_leaves)
 
     def build(node):
         if node is None:
             return None
+        if is_leaf is not None and is_leaf(node):
+            return next(it)
         if isinstance(node, dict):
             rebuilt = {key: build(node[key]) for key in sorted(node)}
             return {key: rebuilt[key] for key in node}

@@ -377,7 +377,10 @@ def test_berrut_gradient_code_matches_the_reference():
     grads = rng.standard_normal((2, 3, 4)).astype(np.float32)
     got = port.encode_local(_t(grads), 5)
     assert _rel(got, ref.encode_local(grads, 5)) <= TOL
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # coded_psum is ported (held against the reference's shard_map over
+    # gloo ranks in tests/test_torch_distributed.py); without a mesh it
+    # refuses
+    with pytest.raises(ValueError, match="runs on a mesh"):
         from repro_torch.core import coded_psum
         coded_psum(got, torch.ones(8), port, "dp")
 

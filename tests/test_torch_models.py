@@ -597,10 +597,20 @@ def test_every_arch_builds():
 
 
 def test_int8_kv_cache_still_raises():
+    """``init_cache`` of an int8 config no longer raises: it allocates
+    int8 payloads and float16 scales per (token, kv head)
+    (``tests/test_torch_kvint8.py`` holds them against the reference).
+    The name is kept from when the port refused the int8 cache."""
     cfg = dataclasses.replace(tiny_config("qwen2-7b"), kv_cache_dtype="int8")
     model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        model.init_cache(1, 4)
+    cache = model.init_cache(1, 4)
+    kv, hd = cfg.n_kv_heads_padded, cfg.head_dim_
+    for layer in cache:
+        assert layer["k"].dtype == layer["v"].dtype == torch.int8
+        assert layer["k_scale"].dtype == layer["v_scale"].dtype == \
+            torch.float16
+        assert tuple(layer["k"].shape) == (1, 4, kv, hd)
+        assert tuple(layer["k_scale"].shape) == (1, 4, kv)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -310,6 +310,21 @@ Phases, one JSON line each:
     Phases 6, 15 and 16 also print the model FLOP/s of their timed work
     (``launch.roofline_math``) and its share of the bf16 dense peak.
 
+17. The mesh's other paths (``mesh_paths_main_path``), in phase 16's
+    ranks after its part: (a) phi3-mini-3.8b (full width, 2 of 32 layers)
+    on a (2, 2, 2) (pod, data, model) mesh, 4 coded shards over (pod,
+    data): a float32 step with FSDP and a shard dropped, the uncoded one
+    with ZeRO-1 and the int8-compressed one with FSDP, each against the
+    one-process step on every leaf (the parameters after the first two
+    against the one-process update), 2 bf16 steps (wall, tokens/s,
+    collectives by kind, peak memory a rank); (b) deepseek-v2-lite's MLA
+    decode (4 of 27 layers) against a 4096-position cache over ``model``
+    and qwen2-7b's, at distinct per-slot positions; (c) rwkv6-1.6b over
+    8 of 24 layers and whole, its states over ``model``; (d) the
+    dry run (``launch.dryrun``: ``--list`` and four cells on a fake
+    process group of 256 or 512 ranks, in a background thread from the
+    script's start), nothing allocated on the card.
+
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
 code is then non-zero and no result line is printed.  The script imports
@@ -494,6 +509,7 @@ def main() -> int:
     print(smi, flush=True)
     dev = torch.device("cuda")
     build_s, ptxas = build_kernels(torch)
+    dryrun = start_dryrun()         # phase 17 (d), on the host meanwhile
     emit({"phase": "device_and_build", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -737,13 +753,24 @@ def main() -> int:
         launches[kname] += count
 
     # --- 16. the sharded path: a 2 x 4 mesh of gloo ranks on the card
-    p16_launches, p16_f32 = sharded_main_path(torch, dev)
+    # (phase 17's rank part runs in the same ranks, after phase 16's)
+    p16_launches, p16_f32, p17 = sharded_main_path(torch, dev, p17=True)
     for kname, count in p16_launches.items():
         launches[kname] += count
     F32_FLASH_LAUNCHES["16a_sharded_f32_step"] = p16_f32["flash_f32"]
     bwd_row["float32"]["launches"] += p16_f32["bwd_3xtf32"]
     launches["flash_attention"] += p16_f32["flash_f32"]
     launches["flash_attention_bwd"] += p16_f32["bwd_3xtf32"]
+
+    # -- 17. the mesh's other paths (FSDP, ZeRO-1, (pod, data), uncoded,
+    # int8, MLA and per-slot decodes, SSM states) and the dry run
+    p17_launches, p17_f32 = mesh_paths_main_path(torch, dev, *p17, dryrun)
+    for kname, count in p17_launches.items():
+        launches[kname] += count
+    F32_FLASH_LAUNCHES["17a_mesh_f32_steps"] = p17_f32["flash_f32"]
+    bwd_row["float32"]["launches"] += p17_f32["bwd_3xtf32"]
+    launches["flash_attention"] += p17_f32["flash_f32"]
+    launches["flash_attention_bwd"] += p17_f32["bwd_3xtf32"]
 
     # --------------------------------------------------------- summary
     n, j, (m, d, n_out) = 30, 27, FULL
@@ -6649,7 +6676,7 @@ P16_SERVE = dict(batch=4, prompt_len=8, gen=16, seed=0,
                  check_agreement=False)
 P16_LONG_CONTEXT = (16, 8192, 8)    # (c): batch, cache positions, steps
 P16_ROOM_GB = 70.0
-P16_TIMEOUT_S = 400.0
+P16_TIMEOUT_S = 700.0                # the ranks return after phase 17 too
 BF16_DENSE = 989e12                 # H100 SXM bf16 dense tensor-core peak
 
 
@@ -6736,7 +6763,7 @@ def _with_params(model, buf, index):
 
 
 def _phase16_rank(rank, world, model, ref_grads, ref_loss, batches, masks,
-                  decode_cfg, decode_cache, decode_tokens):
+                  decode_cfg, decode_cache, decode_tokens, p17=None):
     """One rank of phase 16 (a) and (b), in its own process on the card:
     the kernels loaded (the parent built them), the collectives probed,
     the (data, model) mesh, then (a) the float32 coded step held against
@@ -6748,7 +6775,8 @@ def _phase16_rank(rank, world, model, ref_grads, ref_loss, batches, masks,
     shards.  The decode model (8 GB in float32) does not cross: after
     (a) the ranks build it from ``decode_cfg`` and the parent's seed one
     at a time, each keeping its shards, so the parent holds no copy while
-    (a)'s ranks run."""
+    (a)'s ranks run.  With ``p17`` the rank then runs phase 17's part
+    (``_phase17_rank``) on the same process group."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6773,6 +6801,7 @@ def _phase16_rank(rank, world, model, ref_grads, ref_loss, batches, masks,
                                                          dev)}
     mesh = make_test_mesh(P16_MESH, ("data", "model"), device_type="cuda")
     out["coordinate"] = list(mesh.get_coordinate())
+    p17_buf = model[1]
     model = distribute_params(_with_params(*model), mesh["model"])
     ref_grads = _unflat(*ref_grads)
     params = dict(model.named_parameters())
@@ -6880,11 +6909,17 @@ def _phase16_rank(rank, world, model, ref_grads, ref_loss, batches, masks,
     out["decode_step_s"] = walls
     out["decode_logits"] = np.stack(logits) if rank == 0 else None
     out["rank_s"] = time.perf_counter() - t_start
+    if p17 is not None:
+        del cache, lg
+        held = [decode_model]          # phase 17 frees it when done
+        del decode_model
+        out["p17"] = _phase17_rank(rank, world, mesh, p17_buf, held,
+                                   decode_cache, p17)
     out["entered"], out["left"] = entered, time.time()
     return out
 
 
-def sharded_main_path(torch, dev) -> tuple:
+def sharded_main_path(torch, dev, p17: bool = False) -> tuple:
     """Phase 16: the sharded path on a 2 x 4 (data, model) mesh of 8 gloo
     ranks over the one card (``launch.mesh.run_ranks``; NCCL takes one
     rank a device).  Every rank first probes which gloo collectives serve
@@ -6910,7 +6945,11 @@ def sharded_main_path(torch, dev) -> tuple:
     bytes, step p50/p99 and tok/s of each, ``berrut_combine`` launches,
     the int8 decode's logits against the bf16 cache's (reported).
     Returns (the counted launches, the float32 flash forward and
-    backward launches of (a))."""
+    backward launches of (a), and with ``p17`` phase 17's part: (the
+    ranks' results, the parent's references), else None).  ``p17`` also
+    prepares phase 17's references here and runs its rank part in the
+    same ranks after phase 16's (``_phase17_rank``): one start for
+    both."""
     import gc
     import tempfile
 
@@ -7016,25 +7055,39 @@ def sharded_main_path(torch, dev) -> tuple:
     buf, index = _flat(torch, dict(model.named_parameters()))
     shared["model"] = (model.to("meta"), buf, index)   # new meta params
     shared["grads"] = _flat(torch, ref_grads)
-    del ref_grads, model, dmodel
+    del ref_grads
+    free()
+    p17_in = p17_parent = None
+    if p17:
+        p17_in, p17_parent = mesh_paths_prepare(
+            torch, dev, cfg, buf, index, dmodel, shared["cache"], gen)
+    del model, dmodel
     free()
     before_s = time.perf_counter() - phase_t0
     rdv = tempfile.mkdtemp(prefix="rdv_", dir=ROOT / "build")
     t = time.perf_counter()
     spawned = time.time()
+    # the ranks' allocators grow segments in place: 8 ranks' unused
+    # reserved blocks came to ~8 GB of the card with fixed segments
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         outs = run_ranks(_phase16_rank, P16_MESH[0] * P16_MESH[1],
                          (shared["model"], shared["grads"], ref_loss,
                           batches, masks, dcfg, shared["cache"],
-                          dtoks.cpu().numpy()),
+                          dtoks.cpu().numpy(), p17_in),
                          rdv_dir=rdv, device="cuda", timeout_s=P16_TIMEOUT_S)
     finally:
         shutil.rmtree(rdv, ignore_errors=True)
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     ranks_s = time.perf_counter() - t
     # process start to the rank program, and its end to the join
     start_s = min(o["entered"] for o in outs) - spawned
     end_s = ranks_s - (max(o["left"] for o in outs) - spawned)
-    del shared
+    del shared, p17_in
     free()
     probe = outs[0]["probe"]
     emit({"phase": phase, "check": "gloo_cuda_collectives",
@@ -7241,6 +7294,883 @@ def sharded_main_path(torch, dev) -> tuple:
            "long_context": long_row}
     emit(row)
     emit({"phase": phase, "check": "phase_total", "launches": total,
+          "phase_s": time.perf_counter() - phase_t0})
+    return total, {"flash_f32": f32_fwd, "bwd_3xtf32": f32_bwd}, \
+        ((outs, p17_parent) if p17 else None)
+
+
+# --------------------------------------------------------------------------
+# phase 17: the mesh's remaining paths and the dry run
+# --------------------------------------------------------------------------
+
+P17_SEED = 17
+P17_MESH = (2, 2, 2)                # (pod, data, model): phase 16's 8 ranks
+P17_SHARDS = 4                      # coded shards over (pod, data)
+P17_LAYERS = 2                      # of 32 (4 left 0.84 GB of the card)
+P17_SEQ = 1024                      # 4 shards x accum 1 x 1 x 1024 a step
+#                                   # (cut from 4096 for the time limit)
+# the float32 steps drop the third shard; then 2 bf16 steps (cut from 3
+# for the time limit; the first drops it too), the last with its
+# collectives timed
+P17_MASKS = ((1.0, 1.0, 0.0, 1.0), (1.0, 1.0, 0.0, 1.0),
+             (1.0, 1.0, 1.0, 1.0))
+# every parameter after the coded float32 step: the one-process AdamW on
+# this rank's shards of the start weights and of the mesh's gradient
+P17_PARAM_TOL = 1e-5                # of each leaf's max |p|
+P17_INT8_TOL = 1e-3                 # of a step: a compressed gradient's
+#                                   # elements off the group scale's grid
+P17_REFS = ROOT / "build" / "chip_smoke_p17"   # the one-process gradients
+P17_HOLD_CHUNK = 1 << 23            # elements a piece, holding on the card
+P17_MLA_ARCH = "deepseek-v2-lite-16b"
+P17_MLA_LAYERS = 4                  # of 27, float32, full width
+P17_DECODE_BATCH = 4                # 2 a data rank
+P17_DECODE_LEN = 4096               # the cache: 1024 positions a model rank
+P17_TOKENS = 16                     # a slot's tokens, drawn for every decode
+P17_DECODE_STEPS = 8                # MLA's and GQA's (cut from 16 for the
+#                                   # time limit); rwkv6's P17_RWKV_STEPS
+P17_BUILDS = 2                      # ranks building a decode model at once
+P17_SLOT_STARTS = (4080, 4071, 4052, 3990)   # each slot's first position
+P17_RWKV_ARCH = "rwkv6-1.6b"        # float32
+# rwkv6 is decoded twice on the mesh: over 8 of 24 layers within 1e-4,
+# and whole within twice its own float32 noise at that depth: at random
+# weights a rounding-sized change grows with depth (every weight jittered
+# by 2^-23 moves a width-1024 cut 2.7e-4 at 8 layers, 3.0e-3 at 24;
+# tools/rwkv_conditioning.py), so the whole model's one-process decode on
+# the host's CPU (the same weights, sums in another order) and with every
+# weight jittered are the witnesses it is held against
+P17_RWKV_LAYERS = 8
+P17_RWKV_STEPS = 4
+P17_LOGIT_TOL = 1e-4                # of max |logits|
+P17_DRYRUN = (("phi3-mini-3.8b", "train_4k", False),
+              ("qwen2-vl-72b", "train_4k", False),
+              ("deepseek-v2-lite-16b", "decode_32k", False),
+              ("jamba-v0.1-52b", "long_500k", True))
+P17_DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun():
+    """Phase 17 (d) in the background: ``python -m repro_torch.launch.
+    dryrun --list``, then one process a cell of ``P17_DRYRUN`` (a fake
+    process group is one per process), on the host's CPU with one thread
+    at the lowest priority, from the script's start so that it costs the
+    script no wall.  Returns
+    (the thread, its result dict: "list", and per cell "stdout", "rc",
+    "wall_s")."""
+    import threading
+    got = {"cells": []}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    # at the lowest priority: it takes the host's idle time, never the
+    # main path's (the socket mesh's 30 workers are host-bound)
+    base = [sys.executable, "-c",
+            "import os, runpy; os.nice(19); runpy.run_module("
+            "'repro_torch.launch.dryrun', run_name='__main__')"]
+
+    def run():
+        t0 = time.perf_counter()
+        got["list"] = subprocess.run(base + ["--list"], env=env,
+                                     capture_output=True, text=True,
+                                     timeout=P17_DRYRUN_TIMEOUT_S).stdout
+        for arch, shape, multi in P17_DRYRUN:
+            t = time.perf_counter()
+            proc = subprocess.run(
+                base + ["--arch", arch, "--shape", shape, "--device",
+                        "cuda", "--tag", "chip_smoke"]
+                + (["--multi-pod"] if multi else []),
+                env=env, capture_output=True, text=True,
+                timeout=P17_DRYRUN_TIMEOUT_S)
+            got["cells"].append({"arch": arch, "shape": shape,
+                                 "multi_pod": multi, "rc": proc.returncode,
+                                 "stdout": proc.stdout,
+                                 "stderr": proc.stderr[-3000:],
+                                 "wall_s": time.perf_counter() - t})
+        got["wall_s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, got
+
+
+def _leaf_stats(torch, grads: dict) -> dict:
+    """{leaf: (L2 norm, max |g|)} of a gradient tree (DTensors whole)."""
+    out = {}
+    with torch.no_grad():
+        for k, g in grads.items():
+            n = torch.linalg.vector_norm(g.float())
+            m = g.float().abs().amax()
+            if type(n).__name__ == "DTensor":
+                n, m = n.full_tensor(), m.full_tensor()
+            out[k] = (float(n), float(m))
+    return out
+
+
+def _int8_groups(model) -> dict:
+    """{leaf: its compression group's leaves} (``steps._stacked_leaves``)."""
+    from repro_torch.launch.steps import _stacked_leaves
+    return {n: names for names in _stacked_leaves(model).values()
+            for n in names}
+
+
+def _p17_adamw(max_grad_norm: float = 1.0):
+    """Phase 17's optimizer: AdamW at phase 16's schedule."""
+    from repro_torch.optim import adamw, warmup_cosine
+    return adamw(warmup_cosine(P16_LR, 20, 100), weight_decay=0.01,
+                 max_grad_norm=max_grad_norm)
+
+
+def _local_chunk(t, placements, mesh):
+    """This rank's shard of the global tensor ``t`` (on any device) as
+    ``NamedSharding.distribute`` cuts it: chunks by the mesh dims that
+    shard it, in their order."""
+    coord = mesh.get_coordinate()
+    for mdim, pl in enumerate(placements):
+        if pl.is_shard():
+            t = t.chunk(mesh.size(mdim), dim=pl.dim)[coord[mdim]]
+    return t
+
+
+def _phase17_rank(rank, world, mesh2, buf, qwen_held, qwen_cache,
+                  p17) -> dict:
+    """One rank of phase 17 (a)-(c), after phase 16 in the same process
+    (the parent built the kernels; the ranks loaded them).
+
+    (a) phi3 over ``P17_LAYERS`` layers on the (pod, data, model) mesh,
+    their weights views of ``buf`` (phase 16's start weights, by IPC)
+    through ``p17["model"]``, a (meta model, index) pair: the coded step
+    over (pod, data) with FSDP and ZeRO-1, a float32 step with a shard
+    dropped, then 2 bf16 steps timed; the uncoded float32 step with
+    ZeRO-1 alone and the compressed one with FSDP.  Each float32 step's
+    gradient is held on every leaf against the parent's (``P17_REFS``'
+    files, mapped: each rank's shards copied to the card in pieces);
+    after the coded and the uncoded steps every parameter is held
+    against the one-process AdamW update of this rank's shards of the
+    start weights and of the mesh's gradient; the compressed step's
+    group scales (max |g| of the group over 127, whole leaves) and each
+    element's distance from the scale's grid.  (b) deepseek's MLA decode
+    and phase 16's qwen2-7b decode on ``mesh2`` with per-slot positions,
+    the caches by IPC.  (c) rwkv6's decode with its states over
+    ``model``, over 8 layers and whole.  The decode models are built from
+    their seeds one rank at a time; each rank keeps its shards.
+    ``qwen_held`` holds phase 16's decode model, which this pops (and
+    frees once decoded)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import BerrutGradientCode
+    from repro_torch.dist import collectives
+    from repro_torch.dist.sharding import (P, distribute, distribute_params,
+                                           distribute_train_params,
+                                           train_specs)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    from repro_torch.launch.mesh import make_test_mesh, use_mesh
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import place_state
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    mesh3 = make_test_mesh(P17_MESH, ("pod", "data", "model"),
+                           device_type="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out = {"coordinate3": list(mesh3.get_coordinate()),
+           "start_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+           "start_card_free_gb": torch.cuda.mem_get_info()[0] / 1e9}
+    if rank == 0:
+        print(f"phase 17 rank 0 starts: {out['start_allocated_gb']:.2f} GB "
+              f"allocated, {out['start_card_free_gb']:.2f} GB free on the "
+              f"card", file=sys.stderr, flush=True)
+    meta, index = p17["model"]
+    dp = ("pod", "data")
+    gcode = BerrutGradientCode(P17_SHARDS, P17_SHARDS)
+
+    def launches():
+        return {**ops.kernel_launch_counts(),
+                "flash_f32": flash_attention_kernel.launches_by_dtype[
+                    "float32"],
+                "bwd_3xtf32": flash_attention_bwd_kernel.launches_by_route[
+                    "3xtf32"]}
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    def fresh(coded: bool, compress: bool, fsdp: bool):
+        import copy
+        m = _with_params(copy.deepcopy(meta), buf, index)
+        specs, mv = train_specs(m, fsdp=fsdp, zero1=True)
+        m = distribute_train_params(m, mesh3, specs)
+        params = dict(m.named_parameters())
+        opt = _p17_adamw()
+        state = place_state(opt.init(params), mesh3, mv)
+        step = build_train_step(m, opt, accum=1,
+                                gcode=gcode if coded else None,
+                                compress=compress, dp_axes=dp)
+        return m, params, state, step
+
+    def local(p, t):
+        """This rank's shard of the global ``t``, as ``p`` is placed."""
+        return _local_chunk(t, p.placements, p.device_mesh)
+
+    def chunks(t):
+        """``t`` split along its first dim into pieces of at most
+        ``P17_HOLD_CHUNK`` elements (elementwise holds, bounded memory)."""
+        rows = max(1, P17_HOLD_CHUNK * t.shape[0] // max(t.numel(), 1))
+        return t.split(rows) if t.dim() else (t,)
+
+    def held(params, ref: dict, scales=None) -> dict:
+        """Every leaf's gradient against the one-process one (``ref``:
+        its file, index, each leaf's max |g| and int8 steps), this rank's
+        shards, chunk by chunk on the card: {leaf: (max |mesh - ref| less
+        the leaf's int8 step, over max |ref|)}; with ``scales`` ({leaf:
+        its group's scale on the mesh}) also {leaf: its elements' largest
+        distance from the scale's grid, in steps}."""
+        flat = torch.from_numpy(np.load(ref["path"], mmap_mode="c"))
+        steps = ref.get("int8_step", {})
+        worst, grid = {}, {}
+        with torch.no_grad():
+            for name, off, shape in ref["index"]:
+                p = params[name]
+                want = local(p, flat[off:off + math.prod(shape)]
+                             .view(shape))
+                err = off_grid = 0.0
+                for mine, w in zip(chunks(p.grad.to_local()), chunks(want)):
+                    mine = mine.float()
+                    err = max(err, float((mine - w.to(dev)).abs().max()))
+                    if scales is not None:
+                        q = mine / scales[name]
+                        off_grid = max(off_grid,
+                                       float((q - q.round()).abs().max()))
+                worst[name] = (err - steps.get(name, 0.0)) / max(
+                    ref["amax"][name], 1e-30)
+                grid[name] = off_grid
+        del flat
+        return (worst, grid) if scales is not None else worst
+
+    def updated(params, start: dict, stats: dict) -> dict:
+        """Every parameter after a step against the one-process AdamW
+        (``optim.adamw`` on plain tensors, clipping by the mesh gradient's
+        global norm from ``stats``) of this rank's shards of the start
+        weights and of the mesh's gradient, chunk by chunk on the card:
+        {leaf: max |mesh - one process| over max |p|}."""
+        norm = math.sqrt(sum(n * n for n, _ in stats.values()))
+        clip = min(1.0, 1.0 / max(norm, 1e-9))
+        opt = _p17_adamw(max_grad_norm=0.0)
+        worst = {}
+        with torch.no_grad():
+            for name, p in params.items():
+                err = top = 0.0
+                for p0, g, mine in zip(chunks(local(p, start[name])),
+                                       chunks(p.grad.to_local()),
+                                       chunks(p.to_local())):
+                    p0 = p0.float()
+                    upd, _ = opt.update({name: g.float() * clip},
+                                        opt.init({name: p0}), {name: p0})
+                    want = p0 + upd[name]
+                    err = max(err, float((mine.float() - want).abs().max()))
+                    top = max(top, float(want.abs().max()))
+                worst[name] = err / max(top, 1e-30)
+        return worst
+
+    # ---- (b) phase 16's qwen2-7b decode with per-slot positions, first:
+    # its shards go before (a)
+    def decode(model_, cache, toks, positions, steps=None):
+        rows, walls = [], []
+        with torch.no_grad(), use_mesh(mesh2):
+            for t in range(steps or toks.shape[1]):
+                sync()
+                t1 = time.perf_counter()
+                tok = distribute(toks[:, t:t + 1], P("data", None), mesh2)
+                lg, cache = model_.decode_step(
+                    cache, tok, torch.as_tensor(positions[t], device=dev))
+                lg = lg.full_tensor()
+                sync()
+                walls.append(time.perf_counter() - t1)
+                if rank == 0:
+                    rows.append(lg[:, 0].float().cpu().numpy())
+        return (np.stack(rows) if rank == 0 else None), walls
+
+    def built(cfg, seed):
+        for r in range(0, world, P17_BUILDS):
+            if r <= rank < r + P17_BUILDS:
+                m = distribute_params(build_model(cfg, device=dev,
+                                                  seed=seed), mesh2)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return m
+
+    parts, mark = {}, [time.perf_counter()]
+
+    def part(name):
+        """The seconds since the last part ended, as ``parts[name]``."""
+        now = time.perf_counter()
+        parts[name], mark[0] = now - mark[0], now
+
+    toks = torch.as_tensor(p17["tokens"], device=dev)
+    positions = p17["positions"]
+    qwen_model = qwen_held.pop()
+    cache = distribute(_cache_tree(_unflat(*qwen_cache)),
+                       qwen_model.cache_specs(), mesh2)
+    out["gqa_logits"], out["gqa_step_s"] = decode(qwen_model, cache, toks,
+                                                  positions,
+                                                  P17_DECODE_STEPS)
+    del qwen_model, cache
+    torch.cuda.empty_cache()
+    part("b_gqa_decode")
+
+    batches, masks = p17["batches"], p17["masks"]
+    # ---- (a) coded, FSDP and ZeRO-1: the float32 step
+    m, params, state, step = fresh(True, False, True)
+    out["placements"] = {k: str(p.placements) for k, p in
+                         list(params.items())[:4]}
+    out["mu_placements"] = {k: str(v.placements) for k, v in
+                            list(state.mu.items())[:4]}
+    l0 = launches()
+    collectives.reset()
+    with use_mesh(mesh3):
+        t = time.perf_counter()
+        params, state, metrics = step(params, state, batches[0], masks[0])
+        loss = float(metrics["loss"])
+        sync()
+        f32_s = time.perf_counter() - t
+    out["f32_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:
+        print(f"phase 17 rank 0 f32 step: peak {out['f32_peak_gb']:.2f} GB, "
+              f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB free on the "
+              f"card", file=sys.stderr, flush=True)
+    t = time.perf_counter()
+    worst = held(params, p17["coded"])
+    leaf = max(worst, key=worst.get)
+    stats = _leaf_stats(torch, {k: p.grad for k, p in params.items()})
+    after = updated(params, _unflat(buf, index), stats)
+    after_leaf = max(after, key=after.get)
+    out["coded"] = {"loss": loss, "worst_leaf_rel": worst[leaf],
+                    "worst_leaf": leaf, "held_leaves": len(worst),
+                    "param_worst_rel": after[after_leaf],
+                    "param_worst_leaf": after_leaf,
+                    "params_held": len(after),
+                    "hold_s": time.perf_counter() - t, "step_s": f32_s,
+                    "launches": delta(l0, launches()),
+                    "collectives": collectives.stats(),
+                    "grad_placements_equal": all(
+                        str(p.grad.placements) == str(p.placements)
+                        for p in params.values())}
+    part("a_coded_f32")
+    # ---- (a) 2 bf16 steps, the last with its collectives timed
+    _set_cfg(m, compute_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    out["steps"] = []
+    for i in range(1, len(batches)):
+        timed = i == len(batches) - 1
+        l0 = launches()
+        collectives.reset()
+        with use_mesh(mesh3, timed=timed):
+            sync()
+            t = time.perf_counter()
+            params, state, metrics = step(params, state, batches[i],
+                                          masks[i])
+            loss = float(metrics["loss"])
+            sync()
+            wall = time.perf_counter() - t
+        out["steps"].append({"loss": loss, "wall_s": wall, "timed": timed,
+                             "mask": [float(x) for x in masks[i]],
+                             "launches": delta(l0, launches()),
+                             "collectives": collectives.stats()})
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del m, params, state, step, metrics
+    torch.cuda.empty_cache()
+    part("a_bf16")
+    # ---- (a) the uncoded float32 step with ZeRO-1 (FSDP off: the
+    # reference's rule shards the moments over data only then), the
+    # compressed one with FSDP
+    for name, coded, compress in (("uncoded", False, False),
+                                  ("compress", True, True)):
+        m, params, state, step = fresh(coded, compress, compress)
+        if not compress:
+            out["zero1_mu_placements"] = {k: str(v.placements) for k, v in
+                                          list(state.mu.items())[:4]}
+        l0 = launches()
+        with use_mesh(mesh3):
+            params, state, metrics = step(params, state, batches[0],
+                                          masks[0])
+            loss = float(metrics["loss"])
+        stats = _leaf_stats(torch, {k: p.grad for k, p in params.items()})
+        res = {"loss": loss, "launches": delta(l0, launches()),
+               "stats": stats}
+        if compress:
+            # the mesh's scale of each group: its whole leaves' max |g|
+            # is 127 steps of it
+            groups = _int8_groups(m)
+            scales = {k: max(stats[n][1] for n in groups[k]) / 127.0
+                      for k in stats}
+            worst, grid = held(params, p17[name], scales)
+            rel = {k: abs(scales[k] - s) / s
+                   for k, s in p17[name]["int8_step"].items()}
+            res.update(scale_worst_rel=max(rel.values()),
+                       scale_worst_leaf=max(rel, key=rel.get),
+                       grid_worst_steps=max(grid.values()),
+                       grid_worst_leaf=max(grid, key=grid.get))
+        else:
+            worst = held(params, p17[name])
+            after = updated(params, _unflat(buf, index), stats)
+            after_leaf = max(after, key=after.get)
+            res.update(param_worst_rel=after[after_leaf],
+                       param_worst_leaf=after_leaf, params_held=len(after))
+        leaf = max(worst, key=worst.get)
+        res.update(worst_leaf_rel=worst[leaf], worst_leaf=leaf,
+                   held_leaves=len(worst))
+        out[name] = res
+        del m, params, state, step, metrics
+        torch.cuda.empty_cache()
+        part(f"a_{name}_f32")
+
+    # ---- (b) deepseek's MLA decode with per-slot positions
+    l0 = launches()
+    collectives.reset()
+    mla = built(p17["mla_cfg"], P17_SEED)
+    cache = distribute(_cache_tree(_unflat(*p17["mla_cache"])),
+                       mla.cache_specs(), mesh2)
+    out["mla_cache_placements"] = str(cache[0]["ckv"].placements)
+    out["mla_logits"], out["mla_step_s"] = decode(mla, cache, toks,
+                                                  positions,
+                                                  P17_DECODE_STEPS)
+    out["mla_collectives"] = collectives.stats()
+    del mla, cache
+    torch.cuda.empty_cache()
+    part("b_mla_decode")
+    # ---- (c) rwkv6, its states over model: 8 layers, then whole
+    for key in ("rwkv", "rwkv_whole"):
+        rwkv = built(p17[f"{key}_cfg"], P17_SEED)
+        cache = distribute(rwkv.init_cache(P17_DECODE_BATCH, 1),
+                           rwkv.cache_specs(), mesh2)
+        out[f"{key}_state_placements"] = {k: str(v.placements)
+                                          for k, v in cache[0].items()}
+        out[f"{key}_logits"], out[f"{key}_step_s"] = decode(
+            rwkv, cache, toks, positions, P17_RWKV_STEPS)
+        out[f"{key}_layers"] = len(rwkv.layers)
+        del rwkv, cache
+        torch.cuda.empty_cache()
+        part(f"c_{key}_decode")
+    out["decode_launches"] = delta(l0, launches())
+    out["parts_s"] = parts
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_paths_prepare(torch, dev, cfg, buf, index, qwen_model,
+                       qwen_cache_buf, gen) -> tuple:
+    """Phase 17's one-process references, before phase 16's ranks start:
+    phi3's float32 coded step with a shard dropped, the uncoded and the
+    compressed steps, over ``P17_LAYERS`` of phase 16's layers (``cfg``'s
+    model cut so, its weights views of phase 16's ``_flat`` buffer
+    ``buf``, restored after): each step's gradients, every leaf, written
+    to ``P17_REFS`` (the ranks map the files: the card has no room for
+    them beside the ranks), with each leaf's max |g| and,
+    for the compressed step, the int8 scale of each leaf's group;
+    deepseek's MLA decode over 4 of 27 layers, rwkv6's over 8 of 24 layers
+    and whole, built here from ``P17_SEED`` and freed; phase 16's
+    qwen2-7b decode (``qwen_model``, from a copy of its filled cache) with
+    per-slot positions.  rwkv6's float32 noise: over 8 layers the decode
+    with the embedding jittered (phase 13's rule); whole, the decode on
+    the host's CPU and with every weight jittered.  Returns (the ranks'
+    inputs, the parent's: losses, logits, noise)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import BerrutGradientCode
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    shutil.rmtree(P17_REFS, ignore_errors=True)
+    P17_REFS.mkdir(parents=True)
+    cfg = dataclasses.replace(cfg, n_layers=P17_LAYERS)
+    meta = build_model(cfg, device="meta")
+    names = {n for n, _ in meta.named_parameters()}
+    index = [entry for entry in index if entry[0] in names]
+    model = _with_params(build_model(cfg, device="meta"), buf, index)
+    pipe = TokenPipeline(cfg.vocab_size, P17_SEQ, P17_SHARDS, seed=P17_SEED)
+    batches = [{k: v.numpy() for k, v in pipe.batch_at(i).items()}
+               for i in range(len(P17_MASKS))]
+    masks = [np.asarray(m, np.float32) for m in P17_MASKS]
+    params = dict(model.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items()}
+    ranks_in = {"batches": batches, "masks": masks, "model": (meta, index)}
+    parent = {}
+    groups = _int8_groups(model)
+    for name, coded, compress in (("coded", True, False),
+                                  ("uncoded", False, False),
+                                  ("compress", True, True)):
+        opt = _p17_adamw()
+        state = opt.init(params)
+        step = build_train_step(
+            model, opt, accum=1, compress=compress,
+            gcode=BerrutGradientCode(P17_SHARDS, P17_SHARDS) if coded
+            else None)
+        t = time.perf_counter()
+        _, state, metrics = step(params, state, batches[0], masks[0])
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        stats = _leaf_stats(torch, {k: p.grad for k, p in params.items()})
+        parent[name] = {"loss": loss, "step_s": time.perf_counter() - t,
+                        "stats": stats}
+        flat, findex = _flat(torch, {k: p.grad.detach()
+                                     for k, p in params.items()})
+        path = P17_REFS / f"{name}_grads.npy"
+        np.save(path, flat.cpu().numpy())
+        entry = {"path": str(path), "index": findex,
+                 "amax": {k: v[1] for k, v in stats.items()}}
+        if compress:
+            # each leaf's group scale; one int8 step is also the allowance
+            # of a gradient ~1e-6 off before the rounding
+            entry["int8_step"] = {k: max(stats[n][1] for n in groups[k])
+                                  / 127.0 for k in stats}
+        ranks_in[name] = entry
+        del flat, state, opt, step, metrics
+        with torch.no_grad():
+            for k, p in params.items():
+                p.grad = None
+                p.copy_(start[k])
+    del start, model, params
+    torch.cuda.empty_cache()
+    # the decodes: per-slot positions, the same tokens for all of them
+    b, n = P17_DECODE_BATCH, P17_DECODE_STEPS
+    positions = (np.arange(P17_TOKENS)[:, None] +
+                 np.asarray(P17_SLOT_STARTS)[None]).astype(np.int64)
+    mla_cfg = dataclasses.replace(get_config(P17_MLA_ARCH),
+                                  n_layers=P17_MLA_LAYERS,
+                                  compute_dtype="float32")
+    whole_cfg = dataclasses.replace(get_config(P17_RWKV_ARCH),
+                                    compute_dtype="float32")
+    rwkv_cfg = dataclasses.replace(whole_cfg, n_layers=P17_RWKV_LAYERS)
+    vocab = min(mla_cfg.vocab_size, rwkv_cfg.vocab_size,
+                qwen_model.cfg.vocab_size)
+    toks = torch.randint(0, vocab, (b, P17_TOKENS), generator=gen,
+                         device=dev)
+
+    def decode(m, cache, steps=n):
+        rows = []
+        d = next(m.parameters()).device
+        with torch.inference_mode():
+            for t in range(steps):
+                lg, cache = m.decode_step(
+                    cache, toks[:, t:t + 1].to(d),
+                    torch.as_tensor(positions[t], device=d))
+                rows.append(lg[:, 0].float().cpu().numpy())
+        return np.stack(rows)
+
+    qbuf, qindex = qwen_cache_buf
+    parent["gqa_logits"] = decode(qwen_model, _cache_tree(
+        _unflat(qbuf.clone(), qindex)))
+    torch.cuda.empty_cache()
+    mla = build_model(mla_cfg, seed=P17_SEED)
+    cache = _filled_cache(torch, mla, b, P17_DECODE_LEN,
+                          max(P17_SLOT_STARTS), gen)
+    ranks_in["mla_cache"] = _flat(torch, {f"{i}.{k}": t
+                                          for i, layer in enumerate(cache)
+                                          for k, t in layer.items()})
+    parent["mla_logits"] = decode(mla, cache)
+    parent["mla_params"] = sum(p.numel() for p in mla.parameters())
+    del mla, cache
+    torch.cuda.empty_cache()
+
+    def jittered(m, which) -> None:
+        """``which`` of ``m``'s parameters scaled by (1 + 2^-23 N)."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(99)
+        with torch.no_grad():
+            for k, p in m.named_parameters():
+                if k in which:
+                    p.mul_(1 + 2.0 ** -23 * torch.randn(
+                        p.shape, generator=g, device=dev))
+
+    for key, rcfg in (("rwkv", rwkv_cfg), ("rwkv_whole", whole_cfg)):
+        rwkv = build_model(rcfg, seed=P17_SEED)
+        parent[f"{key}_params"] = sum(p.numel() for p in rwkv.parameters())
+        want = decode(rwkv, rwkv.init_cache(b, 1), P17_RWKV_STEPS)
+        parent[f"{key}_logits"] = want
+        if key == "rwkv":
+            # its own float32 noise (phase 13's rule, ``jittered_rel``)
+            jittered(rwkv, {"embedding.table"})
+            parent["rwkv_noise"] = _rel_rows(
+                decode(rwkv, rwkv.init_cache(b, 1), P17_RWKV_STEPS), want)
+        else:
+            t = time.perf_counter()
+            rwkv.cpu()
+            parent["rwkv_whole_cpu_noise"] = _rel_rows(
+                decode(rwkv, rwkv.init_cache(b, 1), P17_RWKV_STEPS), want)
+            parent["rwkv_whole_cpu_s"] = time.perf_counter() - t
+            rwkv.to(dev)
+            jittered(rwkv, {k for k, _ in rwkv.named_parameters()})
+            parent["rwkv_whole_noise"] = _rel_rows(
+                decode(rwkv, rwkv.init_cache(b, 1), P17_RWKV_STEPS), want)
+        del rwkv
+        torch.cuda.empty_cache()
+    ranks_in.update(tokens=toks.cpu().numpy(), positions=positions,
+                    mla_cfg=mla_cfg, rwkv_cfg=rwkv_cfg,
+                    rwkv_whole_cfg=whole_cfg)
+    parent["prepare_s"] = time.perf_counter() - t0
+    return ranks_in, parent
+
+
+def _rel_rows(got, want) -> float:
+    import numpy as np
+    return max(float(np.abs(got[t] - want[t]).max())
+               / float(np.abs(want[t]).max()) for t in range(len(want)))
+
+
+def mesh_paths_main_path(torch, dev, outs, parent, dryrun) -> tuple:
+    """Phase 17: the mesh's paths that phase 16 did not drive, run in
+    phase 16's 8 ranks after its own part (``_phase17_rank``; no second
+    start), held here, and the dry run (``start_dryrun``'s background
+    thread, joined here).
+
+    (a) phi3-mini-3.8b at full width over 2 of 32 layers on a (2, 2, 2)
+    (pod, data, model) mesh, 4 coded shards of 1 x 1024 tokens over
+    (pod, data): a float32 step with FSDP and a shard dropped within 1e-4
+    of each leaf's max |g| (every leaf) and 1e-5 of the loss of the
+    one-process step, every parameter after it within 1e-5 of its max of
+    the one-process AdamW update of the mesh's gradient; 2 bf16 steps
+    (wall, tokens/s, collectives by kind, peak memory a rank); the
+    uncoded float32 step with ZeRO-1 (its parameters held so too) and the
+    int8-compressed one with FSDP within the same of theirs on every leaf
+    (plus one int8 step for the compressed), the
+    compressed step's group scales within 1e-4 of the one-process ones
+    and every element on its scale's grid; the flash forward and backward
+    launches of every rank.  (b) deepseek-v2-lite (4 of 27 layers,
+    float32) decoded on the (2, 4) mesh against a 4096-position MLA cache
+    over ``model``, 8 steps at distinct per-slot positions, within 1e-4
+    of max |logits| of one process; then phase 16's qwen2-7b decode at
+    the same per-slot positions.  (c) rwkv6-1.6b, float32, its states
+    over ``model``, 4 steps: over 8 of 24 layers within 1e-4 (or twice
+    its own float32 noise, phase 13's rule), and whole within twice its
+    own float32 noise at full depth (the one-process decode on the host's
+    CPU, and with every weight jittered, against the card's).  (d) the
+    dry run's ``--list`` (32 cells to run) and four cells, no byte
+    allocated on the card in any.  Returns the counted launches."""
+    import numpy as np
+    phase = "mesh_paths_main_path"
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(P17_REFS, ignore_errors=True)    # the ranks are done
+    kernels = ("coded_matmul", "berrut_combine", "mask_add",
+               "flash_attention", "flash_attention_bwd")
+    p = [o["p17"] for o in outs]
+    tokens = P17_SHARDS * P17_SEQ
+    layers = P17_LAYERS
+    # (a) the coded float32 step
+    row = {"phase": phase, "check": "a_coded_fsdp_zero1_f32_step",
+           "arch": P16_ARCH, "layers": layers, "mesh": list(P17_MESH),
+           "dp_axes": ["pod", "data"], "shards": P17_SHARDS,
+           "mask": list(P17_MASKS[0]),
+           "loss_mesh": p[0]["coded"]["loss"],
+           "loss_one_process": parent["coded"]["loss"],
+           "loss_rel": max(abs(x["coded"]["loss"] - parent["coded"]["loss"])
+                           / abs(parent["coded"]["loss"]) for x in p),
+           "held_leaves": p[0]["coded"]["held_leaves"],
+           "leaves": len(parent["coded"]["stats"]),
+           "worst_leaf_rel": max(x["coded"]["worst_leaf_rel"] for x in p),
+           "worst_leaf": max(p, key=lambda x: x["coded"]["worst_leaf_rel"])[
+               "coded"]["worst_leaf"],
+           "grad_tol": P16_GRAD_TOL, "loss_rtol": P16_LOSS_RTOL,
+           "params_held": p[0]["coded"]["params_held"],
+           "param_worst_rel": max(x["coded"]["param_worst_rel"] for x in p),
+           "param_worst_leaf": max(
+               p, key=lambda x: x["coded"]["param_worst_rel"])["coded"][
+               "param_worst_leaf"],
+           "param_tol": P17_PARAM_TOL,
+           "hold_s_max_rank": max(x["coded"]["hold_s"] for x in p),
+           "placements_rank0": p[0]["placements"],
+           "mu_placements_rank0": p[0]["mu_placements"],
+           "grad_placements_equal": all(x["coded"]["grad_placements_equal"]
+                                        for x in p),
+           "one_process_step_s": parent["coded"]["step_s"],
+           "mesh_step_s": max(x["coded"]["step_s"] for x in p),
+           "launches_rank0": p[0]["coded"]["launches"],
+           "collectives_rank0": p[0]["coded"]["collectives"]}
+    emit(row)
+    assert row["loss_rel"] <= P16_LOSS_RTOL, row
+    assert row["held_leaves"] == row["params_held"] == row["leaves"], row
+    assert row["worst_leaf_rel"] <= P16_GRAD_TOL, row
+    assert row["param_worst_rel"] <= P17_PARAM_TOL, row
+    assert row["grad_placements_equal"], row
+    # a layer's forward twice (remat), its backward once: one block a rank
+    for x in p:
+        got = x["coded"]["launches"]
+        assert got["flash_f32"] == 2 * layers and \
+            got["bwd_3xtf32"] == layers, got
+    f32_fwd = sum(x["coded"]["launches"]["flash_f32"] +
+                  x["uncoded"]["launches"]["flash_f32"] +
+                  x["compress"]["launches"]["flash_f32"] for x in p)
+    f32_bwd = sum(x["coded"]["launches"]["bwd_3xtf32"] +
+                  x["uncoded"]["launches"]["bwd_3xtf32"] +
+                  x["compress"]["launches"]["bwd_3xtf32"] for x in p)
+    # (a) the uncoded and the compressed steps
+    for name in ("uncoded", "compress"):
+        ref = parent[name]
+        norms = max(abs(x[name]["stats"][k][0] - ref["stats"][k][0])
+                    / max(ref["stats"][k][0], 1e-30)
+                    for x in p for k in ref["stats"])
+        row = {"phase": phase, "check": f"a_{name}_f32_step",
+               "arch": P16_ARCH, "layers": layers, "mesh": list(P17_MESH),
+               "loss_mesh": p[0][name]["loss"], "loss_one_process":
+               ref["loss"], "loss_rel": max(
+                   abs(x[name]["loss"] - ref["loss"]) / abs(ref["loss"])
+                   for x in p),
+               "held_leaves": min(x[name]["held_leaves"] for x in p),
+               "leaves": len(ref["stats"]),
+               "worst_leaf_rel": max(x[name]["worst_leaf_rel"] for x in p),
+               "worst_leaf": max(p, key=lambda x: x[name][
+                   "worst_leaf_rel"])[name]["worst_leaf"],
+               "worst_norm_rel_every_leaf": norms,
+               "launches_rank0": p[0][name]["launches"]}
+        if name == "compress":
+            row.update({k: max(x[name][k] for x in p) for k in (
+                "scale_worst_rel", "grid_worst_steps")},
+                scale_worst_leaf=p[0][name]["scale_worst_leaf"],
+                grid_worst_leaf=p[0][name]["grid_worst_leaf"],
+                scale_tol=P16_GRAD_TOL, grid_tol=P17_INT8_TOL)
+        else:
+            row.update(
+                zero1_mu_placements_rank0=p[0]["zero1_mu_placements"],
+                params_held=min(x[name]["params_held"] for x in p),
+                param_worst_rel=max(x[name]["param_worst_rel"] for x in p),
+                param_worst_leaf=max(p, key=lambda x: x[name][
+                    "param_worst_rel"])[name]["param_worst_leaf"],
+                param_tol=P17_PARAM_TOL)
+        emit(row)
+        assert row["loss_rel"] <= P16_LOSS_RTOL, row
+        assert row["held_leaves"] == row["leaves"], row
+        assert row["worst_leaf_rel"] <= P16_GRAD_TOL, row
+        # each leaf's norm: within the gradient's own tolerance
+        assert norms <= P16_GRAD_TOL, row
+        if name == "compress":
+            assert row["scale_worst_rel"] <= P16_GRAD_TOL, row
+            assert row["grid_worst_steps"] <= P17_INT8_TOL, row
+        else:
+            # ZeRO-1: the moments sharded over data where the parameter
+            # is not, each rank's slice updated, the parameter gathered
+            mu = row["zero1_mu_placements_rank0"]["embedding.table"]
+            assert mu.strip("()").split(", ")[1].startswith("Shard"), row
+            assert row["params_held"] == row["leaves"], row
+            assert row["param_worst_rel"] <= P17_PARAM_TOL, row
+    # (a) the bf16 steps
+    launched = {k: 0 for k in kernels}
+    for x in p:
+        for st in x["steps"]:
+            for k in kernels:
+                launched[k] += st["launches"][k]
+    n_steps = len(P17_MASKS) - 1
+    walls = [max(x["steps"][i]["wall_s"] for x in p) for i in range(n_steps)]
+    steps = []
+    for i in range(n_steps):
+        st = p[0]["steps"][i]
+        steps.append({"step": i + 1, "loss": st["loss"], "mask": st["mask"],
+                      "wall_s": walls[i], "tokens_per_s": tokens / walls[i],
+                      "collectives_timed": st["timed"],
+                      "collectives_rank0": st["collectives"]})
+    timed = [x["steps"][-1] for x in p]
+    steps[-1]["collective_s_mean_rank"] = float(np.mean(
+        [t["collectives"]["total"]["seconds"] for t in timed]))
+    steps[-1]["collective_share_of_wall_mean_rank"] = float(np.mean(
+        [t["collectives"]["total"]["seconds"] / t["wall_s"] for t in timed]))
+    med = float(np.median(walls[:-1]))
+    from repro_torch.configs import get_config
+    bcfg = dataclasses.replace(get_config(P16_ARCH), n_layers=layers,
+                               compute_dtype="bfloat16")
+    flops = model_flops_row(phase, bcfg, P17_SEQ, P17_SHARDS, "train", med)
+    want = {"flash_attention": 2 * layers * n_steps * len(p),
+            "flash_attention_bwd": layers * n_steps * len(p)}
+    row = {"phase": phase, "check": "a_bf16_coded_fsdp_zero1_steps",
+           "arch": P16_ARCH, "layers": layers, "mesh": list(P17_MESH),
+           "steps": steps, "median_step_s_untimed": med,
+           "median_tokens_per_s_untimed": tokens / med,
+           "model_tflop_per_s": flops["model_tflop_per_s"],
+           "launches": launched, "expected_launches": want,
+           "peak_memory_gb_per_rank": [x["peak_memory_gb"] for x in p],
+           "f32_step_peak_gb_per_rank": [x["f32_peak_gb"] for x in p],
+           "phase17_start_allocated_gb_rank0": p[0]["start_allocated_gb"],
+           "phase17_start_card_free_gb_rank0": p[0]["start_card_free_gb"],
+           "rank_s": [x["rank_s"] for x in p]}
+    emit(row)
+    assert all(np.isfinite(st["loss"]) for st in steps), row
+    assert all(launched[k] == v for k, v in want.items()), row
+    # (b), (c) the decodes
+    for key, check, arch in (("mla", "b_mla_decode_per_slot", P17_MLA_ARCH),
+                             ("gqa", "b_gqa_decode_per_slot", P16_DECODE_ARCH),
+                             ("rwkv", "c_rwkv6_states_on_mesh",
+                              P17_RWKV_ARCH),
+                             ("rwkv_whole", "c_rwkv6_whole_states_on_mesh",
+                              P17_RWKV_ARCH)):
+        got = p[0][f"{key}_logits"]
+        walls = p[0][f"{key}_step_s"]
+        rel = _rel_rows(got, parent[f"{key}_logits"])
+        # rwkv6 at random weights moves more than 1e-4 under float32
+        # rounding: held, as in phase 13, to twice its own noise; whole,
+        # the larger of two one-process witnesses of it
+        noise = max(parent.get(f"{key}_noise", 0.0),
+                    parent.get(f"{key}_cpu_noise", 0.0))
+        row = {"phase": phase, "check": check, "arch": arch,
+               "mesh": list(P16_MESH), "batch": P17_DECODE_BATCH,
+               "steps": len(got), "slot_starts": list(P17_SLOT_STARTS),
+               "max_rel_logits": rel, "own_float32_noise": noise,
+               "tol": max(P17_LOGIT_TOL, 2 * noise),
+               "finite": bool(np.isfinite(got).all()),
+               "step_ms_p50": float(np.percentile(walls, 50)) * 1e3}
+        if key == "mla":
+            row.update(layers=P17_MLA_LAYERS, params=parent["mla_params"],
+                       cache_len=P17_DECODE_LEN,
+                       cache_placements=p[0]["mla_cache_placements"],
+                       collectives_rank0=p[0]["mla_collectives"])
+        if key.startswith("rwkv"):
+            row.update(layers=p[0][f"{key}_layers"],
+                       params=parent[f"{key}_params"],
+                       state_placements=p[0][f"{key}_state_placements"],
+                       launches_rank0=p[0]["decode_launches"])
+        if key == "rwkv_whole":
+            row.update(cpu_vs_card_rel=parent["rwkv_whole_cpu_noise"],
+                       every_weight_jitter_rel=parent["rwkv_whole_noise"],
+                       cpu_decode_s=parent["rwkv_whole_cpu_s"])
+        emit(row)
+        assert row["finite"] and rel <= row["tol"], row
+    assert p[0]["mla_cache_placements"] == "(Shard(dim=0), Shard(dim=1))"
+    # (d) the dry run
+    thread, got = dryrun
+    thread.join(timeout=P17_DRYRUN_TIMEOUT_S)
+    assert not thread.is_alive(), "the dry run did not finish"
+    lines = got["list"].splitlines()
+    emit({"phase": phase, "check": "d_dryrun_list", "cells": len(lines),
+          "run": sum(" RUN" in line for line in lines)})
+    assert len(lines) == 40 and sum(" RUN" in line for line in lines) == 32
+    for cell in got["cells"]:
+        assert cell["rc"] == 0, cell
+        res = json.loads((ROOT / "build" / "dryrun_results" / (
+            f"{cell['arch']}__{cell['shape']}__"
+            f"{'2x16x16' if cell['multi_pod'] else '16x16'}"
+            "__chip_smoke.json")).read_text())
+        row = {"phase": phase, "check": "d_dryrun_cell",
+               "arch": cell["arch"], "shape": cell["shape"],
+               "mesh": res["mesh"], "fsdp": res["fsdp"],
+               "accum": res["accum"],
+               **{k: res[k] for k in (
+                   "hlo_flops_per_device", "hlo_hbm_bytes_per_device",
+                   "collective_bytes_per_device", "compute_term_s",
+                   "memory_term_s", "collective_term_s", "dominant_term",
+                   "useful_ratio", "device_type",
+                   "device_bytes_allocated")},
+               "collectives": res["collectives"], "memory": res["memory"],
+               "wall_s": cell["wall_s"]}
+        emit(row)
+        assert res["device_type"] == "cuda", row
+        assert res["device_bytes_allocated"] == 0, row
+        assert res["hlo_flops_per_device"] > 0, row
+    emit({"phase": phase, "check": "d_dryrun_total", "wall_s": got["wall_s"]})
+    total = dict(launched)
+    emit({"phase": phase, "check": "phase_total", "launches": total,
+          "f32_flash_launches": f32_fwd, "f32_bwd_launches": f32_bwd,
+          "ranks_s_max": max(x["rank_s"] for x in p),
+          "parts_s_max_rank": {k: max(x["parts_s"][k] for x in p)
+                               for k in p[0]["parts_s"]},
+          "prepare_s": parent["prepare_s"],
           "phase_s": time.perf_counter() - phase_t0})
     return total, {"flash_f32": f32_fwd, "bwd_3xtf32": f32_bwd}
 

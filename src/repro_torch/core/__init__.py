@@ -5,7 +5,8 @@ Ports ``repro/core``.  Importing this package registers every scheme the
 reference registers (``bacc``, ``berrut_grad``, ``conv``, ``glcc``,
 ``lcc``, ``matdot``, ``mds``, ``polynomial``, ``secpoly``, ``spacdc``), so
 ``repro_torch.core.registry.build(name, **cfg)`` is ready immediately.
-``coded_psum`` all-reduces over a mesh axis (``launch.mesh.use_mesh``).
+``coded_psum`` all-reduces over a mesh axis or a tuple of axes
+(``launch.mesh.use_mesh``), and reduce-scatters an FSDP leaf.
 """
 
 from .berrut import (berrut_weight_matrix, berrut_weights, chebyshev_points,

@@ -15,10 +15,12 @@ Ports ``repro/core/coded_training.py``:
    gradient decodes from any survivor set.  The coding matrices are host
    numpy, the decode weights and the per-shard combination tensors.
 
-3. ``coded_psum``: the coded all-reduce over a mesh axis.  The reference's
-   is a ``psum`` inside ``shard_map``; the port's scales this rank's
-   gradient by its decode weight and all-reduces it over the named mesh
-   dim's gloo group (``launch.mesh``, ``dist.collectives``).
+3. ``coded_psum``: the coded all-reduce over a mesh axis or a tuple of
+   axes.  The reference's is a ``psum`` inside ``shard_map``; the port's
+   scales this rank's gradient by its decode weight and all-reduces it
+   over the named mesh dims' gloo group (one group, the dims flattened
+   row-major; ``launch.mesh``, ``dist.collectives``), or, for an FSDP
+   leaf, reduce-scatters it so each rank keeps its parameter's slice.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 from . import registry
 
 __all__ = ["coded_backprop_encode", "coded_backprop_decode",
-           "BerrutGradientCode", "coded_psum"]
+           "BerrutGradientCode", "coded_psum", "dp_reduce"]
 
 
 def coded_backprop_encode(code, theta_t: torch.Tensor,
@@ -140,45 +142,92 @@ class BerrutGradientCode:
             block_grads.shape[1:])
 
 
-def coded_psum(encoded_grad, mask, gcode: BerrutGradientCode, axis_name):
+def coded_psum(encoded_grad, mask, gcode: BerrutGradientCode, axis_name,
+               *, like=None):
     """Coded all-reduce: Berrut-decode the mean gradient over survivors.
 
     ``encoded_grad``: a tree (dicts, lists) of this rank's encoded gradient
     contribution, tensors or DTensors; ``mask``: the (n_shards,) responder
-    mask, a runtime value.  This rank's index ``idx`` is its coordinate on
-    the mesh dim ``axis_name`` of the mesh ``launch.mesh.use_mesh``
-    installed; each leaf becomes ``g * decoder_weights(mask)[idx] *
-    mask[idx]`` in float32, summed over that dim (an all-reduce over its
-    group).  A DTensor leaf is reduced through its local shard and keeps
-    its placements.  Returns the tree of reduced leaves."""
-    from torch.distributed.tensor import DTensor
-    from ..dist import collectives
-    from ..dist.sharding import ambient_mesh
-    from ..tree import tree_map
+    mask, a runtime value.  ``axis_name`` is a mesh axis of the mesh
+    ``launch.mesh.use_mesh`` installed, or a tuple of axes: this rank's
+    index ``idx`` is then its row-major index over them, as
+    ``jax.lax.axis_index`` of a tuple.  Each leaf becomes ``g *
+    decoder_weights(mask)[idx] * mask[idx]`` in float32, summed over those
+    dims (``dp_reduce``).  Returns the tree of reduced leaves."""
+    from ..dist.sharding import ambient_mesh, dp_index
     mesh = ambient_mesh()
     if mesh is None:
         raise ValueError("coded_psum runs on a mesh: install one with "
                          "launch.mesh.use_mesh")
-    axis = axis_name[0] if isinstance(axis_name, (tuple, list)) and \
-        len(axis_name) == 1 else axis_name
-    if not isinstance(axis, str):
-        raise ValueError(f"coded_psum reduces over one mesh axis, got "
-                         f"{axis_name!r}")
-    idx = mesh.get_local_rank(axis)
-    group = mesh.get_group(axis)
+    idx = dp_index(mesh, axis_name)
     mask_t = torch.as_tensor(mask).to(torch.float32)
     coef = float(gcode.decoder_weights(mask_t)[idx]) * float(mask_t[idx])
+    return dp_reduce(encoded_grad, coef, axis_name, like=like)
+
+
+def dp_reduce(tree, coef: float, axis_name, *, like=None):
+    """Σ over the mesh dims ``axis_name`` of ``coef * g`` for every leaf
+    ``g`` of ``tree``, in float32: the sum behind ``coded_psum`` (and,
+    with ``coef`` = 1/n, the uncoded step's mean).
+
+    Several axes are summed through one group, their row-major flattening
+    (``dist.sharding.dp_group``).  A DTensor leaf is reduced through its
+    local shard and keeps its placements.  A leaf that is ``Partial`` over
+    the dp axes (the gradient of an FSDP leaf, ``dist.sharding.
+    gather_dp``: this rank's gradient of the whole leaf) takes the
+    placements of its counterpart in ``like`` (the parameters): summed
+    over the dp axes that do not shard the parameter, then
+    reduce-scattered over the one that does, so the rank keeps its slice.
+    """
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    from ..dist import collectives
+    from ..dist.sharding import ambient_mesh, dp_group
+    from ..tree import leaves, tree_map
+    mesh = ambient_mesh()
+    axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    like_of = dict(zip(map(id, leaves(tree)), leaves(like))) \
+        if like is not None else {}
+
+    def scatter_axis(g):
+        """(mesh dim, tensor dim) the FSDP leaf keeps its slice over."""
+        target = like_of.get(id(g))
+        if target is None:
+            raise ValueError("a Partial gradient needs its parameter "
+                             "(like=) to be reduce-scattered")
+        names = tuple(target.device_mesh.mesh_dim_names)
+        dims = [(m, pl.dim) for m, pl in enumerate(target.placements)
+                if isinstance(pl, Shard) and names[m] in axes]
+        if len(dims) != 1:
+            raise ValueError(f"an FSDP leaf is sharded over one dp axis: "
+                             f"{target.placements}")
+        return target, dims[0]
 
     def one(g):
         local = g.to_local() if isinstance(g, DTensor) else g
         out = local.to(torch.float32) * coef
-        collectives.all_reduce(out, "sum", group)
-        if isinstance(g, DTensor):
-            return DTensor.from_local(out, g.device_mesh, g.placements,
-                                      run_check=False)
-        return out
+        if not (isinstance(g, DTensor) and
+                any(isinstance(pl, Partial) for pl in g.placements)):
+            collectives.all_reduce(out, "sum", dp_group(mesh, axes))
+            if isinstance(g, DTensor):
+                return DTensor.from_local(out, g.device_mesh, g.placements,
+                                          run_check=False)
+            return out
+        target, (mdim, dim) = scatter_axis(g)
+        rest = tuple(a for a in axes
+                     if a != target.device_mesh.mesh_dim_names[mdim])
+        if rest:
+            collectives.all_reduce(out, "sum", dp_group(mesh, rest))
+        group = target.device_mesh.get_group(mdim)
+        n = dist.get_world_size(group)
+        moved = out.movedim(dim, 0).contiguous()
+        part = moved.new_empty((moved.shape[0] // n,) + moved.shape[1:])
+        dist.reduce_scatter_tensor(part, moved, group=group)
+        return DTensor.from_local(part.movedim(0, dim).contiguous(),
+                                  target.device_mesh, target.placements,
+                                  run_check=False)
 
-    return tree_map(one, encoded_grad)
+    return tree_map(one, tree)
 
 
 # Gradient codes live in the same registry as the data/pair codes so launch

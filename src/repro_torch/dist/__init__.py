@@ -2,8 +2,9 @@
 collectives, and gradient compression.
 
 ``sharding``     PartitionSpec surgery (pruning non-divisible dims, data-axis
-                 insertion, specs -> DTensor placements), ``shard_hint``
-                 and parameter placement.  Ports ``repro/dist/sharding.py``.
+                 insertion, specs -> DTensor placements), ``shard_hint``,
+                 parameter placement (FSDP's too, and its gather) and the
+                 dp axes' groups.  Ports ``repro/dist/sharding.py``.
                  (The sequence-sharded decode's attention is
                  ``models.attention._seq_sharded_attention``.)
 ``collectives``  the gloo collectives a mesh runs, in place and counted

@@ -104,6 +104,9 @@ def _in_place(base: str, args):
     if base in ("all_reduce", "all_reduce_"):
         x, op, group = args[0], args[1], _group(args[2])
         out = x if base == "all_reduce_" else x.clone()
+        if op.lower() == "avg":        # gloo has no AVG: a sum, divided
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+            return out.div_(dist.get_world_size(group))
         dist.all_reduce(out, op=_op(op), group=group)
         return out
     if base == "all_gather_into_tensor":

@@ -27,6 +27,14 @@ The port's additions for eager execution on a mesh, which the reference's
 compiler derives itself: ``distribute_params`` places a model's
 parameters by its ``param_specs`` (each rank keeps its local shard; no
 communication), and ``distribute`` places any tensor tree by specs.
+For training, ``distribute_train_params`` puts a leaf whose spec names no
+data-parallel axis on the mesh's non-dp submesh (``model``), where each
+data rank computes on its own blocks, and a leaf that does (FSDP) on the
+whole mesh; ``gather_dp`` all-gathers such a leaf over its dp axes for
+one use (the backward hands the rank's whole gradient back as a
+``Partial`` over them, for ``core.coded_psum`` to reduce-scatter);
+``dp_group`` is the process group of one dp axis or of several
+flattened row-major; ``zeros`` makes a placed zero tensor shard by shard.
 
 Specs may contain tuple entries (``P(("pod", "data"), None)``); a tuple is
 kept or dropped atomically.
@@ -48,8 +56,11 @@ __all__ = [
     "add_data_axis", "tree_add_data_axis", "shard_hint", "gathered",
     "ambient_mesh",
     "installed", "placements_of", "distribute", "distribute_params",
-    "is_distributed",
+    "is_distributed", "DP_AXES", "dp_group", "dp_index", "zeros",
+    "distribute_train_params", "gather_dp", "is_fsdp", "train_specs",
 ]
+
+DP_AXES = ("pod", "data")
 
 
 def _canonical(entry):
@@ -326,3 +337,163 @@ def distribute_params(model, mesh, specs: Optional[dict] = None):
             placed = sharding.distribute(p.detach())
         module[leaf] = nn.Parameter(placed, requires_grad=p.requires_grad)
     return model
+
+
+# --------------------------------------------------------------------------
+# the data-parallel axes: groups, FSDP placement and its gather
+# --------------------------------------------------------------------------
+
+def _axes(axis_name) -> tuple:
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+
+
+def dp_group(mesh, axis_name):
+    """The process group over the mesh dims ``axis_name`` (a name or a
+    tuple of names): the dim's own group for one, the row-major
+    flattening's for several (``DeviceMesh._flatten``, built once)."""
+    axes = _axes(axis_name)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def dp_index(mesh, axis_name) -> int:
+    """This rank's row-major index over the mesh dims ``axis_name``, as
+    ``jax.lax.axis_index`` over a tuple of axes."""
+    idx = 0
+    for a in _axes(axis_name):
+        idx = idx * mesh.size(mesh.mesh_dim_names.index(a)) + \
+            mesh.get_local_rank(a)
+    return idx
+
+
+def _local_shape(shape, mesh, placements) -> tuple:
+    from torch.distributed.tensor import Shard
+    out = list(shape)
+    for mdim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            out[pl.dim] //= mesh.size(mdim)
+    return tuple(out)
+
+
+def zeros(shape, sharding: NamedSharding, dtype, device):
+    """A zero DTensor of global ``shape`` placed by ``sharding``, made
+    shard by shard (no global tensor, no communication)."""
+    from torch.distributed.tensor import DTensor
+    local = torch.zeros(_local_shape(shape, sharding.mesh,
+                                     sharding.placements),
+                        dtype=dtype, device=device)
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False)
+
+
+def _dp_mesh_dims(x) -> list:
+    """(mesh dim, tensor dim) of each dp axis that shards DTensor ``x``."""
+    from torch.distributed.tensor import Shard
+    names = tuple(x.device_mesh.mesh_dim_names)
+    return [(m, pl.dim) for m, pl in enumerate(x.placements)
+            if isinstance(pl, Shard) and names[m] in DP_AXES]
+
+
+def is_fsdp(x) -> bool:
+    """A DTensor sharded over a data-parallel mesh axis."""
+    return is_distributed(x) and bool(_dp_mesh_dims(x))
+
+
+def _non_dp(mesh, placements):
+    """(the submesh of ``mesh``'s non-dp dims, the placements there)."""
+    keep = [m for m, a in enumerate(mesh.mesh_dim_names) if a not in DP_AXES]
+    names = tuple(mesh.mesh_dim_names[m] for m in keep)
+    sub = mesh[names] if names != tuple(mesh.mesh_dim_names) else mesh
+    return sub, tuple(placements[m] for m in keep)
+
+
+def distribute_train_params(model, mesh, specs: Optional[dict] = None):
+    """``distribute_params`` for the data-parallel train step: a leaf
+    whose resolved spec names a dp axis (FSDP: ``tree_add_data_axis`` on
+    the layers) is placed on ``mesh``; every other leaf on the submesh of
+    ``mesh``'s non-dp dims (``mesh["model"]``), where each data rank
+    computes on its own blocks.  Returns the model."""
+    from torch import nn
+    specs = model.param_specs() if specs is None else specs
+    names = dict(model.named_parameters())
+    if set(specs) != set(names):
+        raise ValueError(f"specs and parameters differ: "
+                         f"{sorted(set(specs) ^ set(names))}")
+    for name, p in names.items():
+        spec = resolve_spec(specs[name], tuple(p.shape), mesh)
+        pl = placements_of(spec, mesh)
+        target = mesh
+        if not any(a in DP_AXES for e in spec for a in _entry_axes(e)):
+            target, pl = _non_dp(mesh, pl)
+        owner, _, leaf = name.rpartition(".")
+        with torch.no_grad():
+            placed = NamedSharding(target, spec, pl).distribute(p.detach())
+        model.get_submodule(owner)[leaf] = nn.Parameter(
+            placed, requires_grad=p.requires_grad)
+    return model
+
+
+def train_specs(model, *, fsdp: bool, zero1: bool) -> tuple:
+    """(parameter specs, moment specs) of the data-parallel train step, by
+    the reference dry run's rule: FSDP adds the data axis to every
+    ``layers.<i>`` leaf (the port has no stacked layer axis to skip;
+    embeddings, norms and the unembed stay TP-only) and the moments are
+    placed as their parameters; without FSDP, ZeRO-1 adds it to every
+    moment leaf (``tree_add_data_axis``).  With both asked for, FSDP
+    wins and ZeRO-1 adds nothing, as in the reference."""
+    shapes = dict(model.named_parameters())
+    specs = dict(model.param_specs())
+    if fsdp:
+        layers = {k: v for k, v in specs.items() if k.startswith("layers.")}
+        specs.update(tree_add_data_axis(layers,
+                                        {k: shapes[k] for k in layers}))
+    moments = tree_add_data_axis(specs, shapes) if zero1 and not fsdp \
+        else specs
+    return specs, moments
+
+
+def _all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ``group``'s shards of ``t`` concatenated along ``dim``."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    buf = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(buf, t.contiguous(), group=group)
+    if dim == 0:
+        return buf
+    return torch.cat(buf.view((n,) + tuple(t.shape)).unbind(0), dim=dim)
+
+
+class _GatherDP(torch.autograd.Function):
+    """An FSDP leaf all-gathered over its dp axes onto the non-dp submesh;
+    the backward returns the rank's gradient of the whole leaf unreduced,
+    a ``Partial`` over those axes (``core.coded_psum`` weights and
+    reduce-scatters it once a step)."""
+
+    @staticmethod
+    def forward(ctx, p):
+        from torch.distributed.tensor import DTensor
+        mesh = p.device_mesh
+        local = p.to_local()
+        for mdim, dim in _dp_mesh_dims(p):
+            local = _all_gather_dim(local, dim, mesh.get_group(mdim))
+        sub, pl = _non_dp(mesh, p.placements)
+        ctx.mesh, ctx.placements, ctx.sub, ctx.pl = mesh, p.placements, \
+            sub, pl
+        return DTensor.from_local(local, sub, pl, run_check=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial
+        local = grad.redistribute(ctx.sub, ctx.pl).to_local()
+        names = tuple(ctx.mesh.mesh_dim_names)
+        pl = tuple(Partial() if names[m] in DP_AXES else p
+                   for m, p in enumerate(ctx.placements))
+        return DTensor.from_local(local, ctx.mesh, pl, run_check=False)
+
+
+def gather_dp(x):
+    """An FSDP leaf (``is_fsdp``) whole over its dp axes, on the non-dp
+    submesh, for one use (a layer's forward, or its recompute); anything
+    else as it is."""
+    return _GatherDP.apply(x) if is_fsdp(x) else x

@@ -37,7 +37,7 @@ from ..dist import collectives, sharding
 __all__ = ["make_production_mesh", "make_test_mesh", "use_mesh", "dp_axes",
            "DP_AXES", "run_ranks"]
 
-DP_AXES = ("pod", "data")
+DP_AXES = sharding.DP_AXES
 JOIN_S = 15.0       # run_ranks: a finished rank's exit, before the kill
 
 

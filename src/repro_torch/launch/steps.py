@@ -22,20 +22,34 @@ erow[i, j]`` where ``asn[i, j] = n``) and runs one backward per block.
 Every block's backward runs, a masked one (w = 0) too, as every block's
 gradient is computed in the reference's ``vmap``.
 
-On a device mesh (``dp_axes`` names the data axis of the mesh that
-``launch.mesh.use_mesh`` installed) each data rank is one coded shard, as
-the reference's ``vmap`` with ``spmd_axis_name=dp_axes`` places one block
-per data device: rank ``idx`` runs the backward of its own blocks (with
-``redundancy > 1`` its ``assignment()`` row, each weighted by its
-``encode_local`` encoder row), its gradient's local shards are settled on
-``model`` (a partial sum all-reduced, then split locally) and decoded
-over ``data`` by ``core.coded_psum``: Σ_idx w_idx mask_idx g_idx, the
-same weighted sum the single-device step takes by the weighted-loss
-identity, here as a real collective.  The parameters are DTensors on the
-``model`` submesh (``dist.sharding.distribute_params`` by
-``param_specs``).  The reference's ``shard_hint`` on the duplicated blocks
-has no counterpart: each rank reads its own blocks from the batch every
-rank holds.
+On a device mesh (``dp_axes`` names the data axis, or the tuple of
+axes such as ("pod", "data"), of the mesh that ``launch.mesh.use_mesh``
+installed) each dp rank is one coded shard, as the reference's ``vmap``
+with ``spmd_axis_name=dp_axes`` places one block per data device: rank
+``idx`` (its row-major index over the dp axes) runs the backward of its
+own blocks (with ``redundancy > 1`` its ``assignment()`` row, each
+weighted by its ``encode_local`` encoder row), its gradient's local
+shards are settled on ``model`` (a partial sum all-reduced, then split
+locally) and decoded over the dp axes by ``core.coded_psum``: Σ_idx
+w_idx mask_idx g_idx, the same weighted sum the single-device step takes
+by the weighted-loss identity, here as a real collective.  Uncoded
+(``gcode=None``, the reference's ``uncoded_grads``) rank ``idx`` takes
+its 1/n of each micro-batch's rows and the mean gradient is an
+all-reduce over the dp axes.  ``compress`` rounds each decoded gradient
+through int8, its scale the max over the whole leaf (a DTensor
+reduction over every rank that holds a part of it).
+
+The parameters are placed by ``dist.sharding.distribute_train_params``:
+DTensors on the ``model`` submesh (``param_specs``), and, for FSDP, the
+layer leaves whose specs name ``data`` on the whole mesh, gathered for
+each use of their layer (``models.transformer``); their gradients come
+back as this rank's whole-leaf ``Partial`` and ``coded_psum`` scatters
+them (a coded reduce-scatter), so every gradient keeps its parameter's
+placement.  ZeRO-1 follows from the optimizer state's placement
+(``optim.place_state``).  ``build_train_step`` takes no argument for
+either: both follow from where the parameters and the moments lie.  The
+reference's ``shard_hint`` on the duplicated blocks has no counterpart:
+each rank reads its own blocks from the batch every rank holds.
 """
 
 from __future__ import annotations
@@ -138,15 +152,16 @@ def build_train_step(model, optimizer: Optimizer, *, accum: int = 1,
                   port shares one scale over the layers of one reference
                   leaf (``dist.int8_compress_shared``), so its numbers are
                   the reference's.
-    dp_axes    -> the mesh's data axis (``"data"``).  While a mesh with
-                  that axis is installed (``launch.mesh.use_mesh``) the
-                  step runs sharded: ``gcode`` is required, its
-                  ``n_shards`` must equal the axis size, and ``params``
-                  are the model's DTensors on ``mesh["model"]``.  Every
-                  rank passes the same global ``batch`` and ``mask``; the
-                  loss is the mean over ranks.  ``compress`` is not taken
-                  there.  Without a mesh the step is the single-device
-                  one.
+    dp_axes    -> the mesh's data axis (``"data"``) or axes
+                  (``("pod", "data")``).  While a mesh with them is
+                  installed (``launch.mesh.use_mesh``) the step runs
+                  sharded: a ``gcode``'s ``n_shards`` must equal the
+                  product of the axes' sizes, and ``params`` are the
+                  model's DTensors placed by ``dist.sharding.
+                  distribute_train_params``.  Every rank passes the same
+                  global ``batch`` and ``mask``; the loss is the mean
+                  over ranks.  Without a mesh the step is the
+                  single-device one.
     """
     if isinstance(gcode, dict):
         spec = dict(gcode)
@@ -188,44 +203,59 @@ def build_train_step(model, optimizer: Optimizer, *, accum: int = 1,
                             ].mean(dim=1)
         return losses.mean()
 
-    def mesh_axis():
-        """The data axis when a mesh that has it is installed, else
-        None."""
+    def mesh_axes():
+        """(the installed mesh, the dp axes as a tuple) when a mesh that
+        has them is installed, else (None, None)."""
         from ..dist.sharding import ambient_mesh
         mesh = ambient_mesh()
-        axis = dp_axes[0] if isinstance(dp_axes, (tuple, list)) and \
-            len(dp_axes) == 1 else dp_axes
-        if mesh is None or axis is None:
+        if mesh is None or dp_axes is None:
             return None, None
-        if not isinstance(axis, str) or axis not in mesh.mesh_dim_names:
-            raise ValueError(f"dp_axes {dp_axes!r} is not one axis of the "
+        axes = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes)
+        if not axes or any(not isinstance(a, str) or
+                           a not in mesh.mesh_dim_names for a in axes):
+            raise ValueError(f"dp_axes {dp_axes!r} are not axes of the "
                              f"mesh {mesh.mesh_dim_names}")
-        return mesh, axis
+        return mesh, axes
 
-    def sharded_step(mesh, axis, params, opt_state, batch, mask):
-        from ..core import coded_psum
+    def rank_rows(micro: dict, idx: int, n: int) -> dict:
+        """Rank ``idx``'s 1/n of a merged micro-batch's rows (the
+        uncoded step's batch over the dp axes)."""
+        def rows(k, v):
+            d = 1 if k == "mrope_positions" else 0
+            m = v.shape[d] // n
+            return v.narrow(d, idx * m, m)
+        return {k: rows(k, v) for k, v in micro.items()}
+
+    def sharded_step(mesh, axes, params, opt_state, batch, mask):
+        from ..core.coded_training import coded_psum, dp_reduce
         from ..dist import collectives
-        if gcode is None or compress:
-            raise ValueError("the sharded step is the coded one: pass gcode "
-                             "and no compress")
-        n_data = mesh.size(mesh.mesh_dim_names.index(axis))
-        if gcode.n_shards != n_data:
+        from ..dist.sharding import dp_group, dp_index, is_fsdp
+        n_data = 1
+        for a in axes:
+            n_data *= mesh.size(mesh.mesh_dim_names.index(a))
+        if gcode is not None and gcode.n_shards != n_data:
             raise ValueError(f"gcode.n_shards {gcode.n_shards} != the "
-                             f"{axis} axis size {n_data}")
-        idx = mesh.get_local_rank(axis)
-        if gcode.redundancy > 1:
+                             f"{'x'.join(axes)} axis size {n_data}")
+        idx = dp_index(mesh, axes)
+        if gcode is None:
+            rows, ew = [0], [1.0]
+        elif gcode.redundancy > 1:
             rows, ew = asn[idx], erow[idx]
         else:
             rows, ew = [idx], [1.0]
         dev = next(iter(params.values())).device
         blocks = reshape_for_blocks(
             {k: torch.as_tensor(v).to(dev) for k, v in batch.items()},
-            gcode.n_shards, accum)
+            gcode.n_shards if gcode is not None else 1, accum)
         for p in params.values():
             p.grad = None
         total = torch.zeros((), dtype=torch.float32, device=dev)
         for a in range(accum):
             micro = _micro(blocks, a)
+            if gcode is None:
+                micro = {k: v[:, None] if k == "mrope_positions" else
+                         v[None] for k, v in
+                         rank_rows(_merged(micro), idx, n_data).items()}
             losses = []
             for j, n in enumerate(rows):
                 loss, _ = model.loss_fn(_block(micro, int(n)))
@@ -233,25 +263,47 @@ def build_train_step(model, optimizer: Optimizer, *, accum: int = 1,
                 losses.append(loss.detach().to_local().to(torch.float32))
             total = total + torch.stack(losses).mean()
         with torch.no_grad():
-            local = {}
+            # leaf by leaf, each gradient freed as its reduction is made,
+            # so one leaf's temporaries at a time
             for name, p in params.items():
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
-                local[name] = (g / accum).redistribute(p.device_mesh,
-                                                       p.placements)
-            grads = coded_psum(local, mask, gcode, axis)
-            for name, p in params.items():
-                p.grad = grads[name].to(p.dtype)
+                p.grad = None
+                # an FSDP leaf's gradient stays this rank's whole one (a
+                # Partial over the dp axes) for the reduce-scatter below
+                g = g / accum if is_fsdp(p) else \
+                    (g / accum).redistribute(p.device_mesh, p.placements)
+                if gcode is None:
+                    g = dp_reduce({name: g}, 1.0 / n_data, axes,
+                                  like={name: p})[name]
+                else:
+                    g = coded_psum({name: g}, mask, gcode, axes,
+                                   like={name: p})[name]
+                p.grad = g.to(p.dtype)
+                del g
+            if compress:
+                _compress_grads(params)
             mean = (total / accum).reshape(1)
-            collectives.all_reduce(mean, "sum", mesh.get_group(axis))
+            collectives.all_reduce(mean, "sum", dp_group(mesh, axes))
         opt_state = optimizer.update_in_place(
             {name: p.grad for name, p in params.items()}, opt_state, params)
         return params, opt_state, {"loss": mean[0] / n_data,
                                    "step": opt_state.step}
 
+    def _compress_grads(params) -> None:
+        """Every gradient through int8 and back, one scale per reference
+        leaf (``_stacked_leaves``); on a mesh the scale's max runs over
+        the whole leaf (a DTensor reduction)."""
+        for names in stacked.values():
+            qs, scale = int8_compress_shared(
+                [params[n].grad for n in names])
+            for n, q in zip(names, qs):
+                params[n].grad = int8_decompress(q, scale).to(
+                    params[n].dtype)
+
     def train_step(params, opt_state, batch, mask):
-        mesh, axis = mesh_axis()
+        mesh, axes = mesh_axes()
         if mesh is not None:
-            return sharded_step(mesh, axis, params, opt_state, batch, mask)
+            return sharded_step(mesh, axes, params, opt_state, batch, mask)
         if params.keys() != model_params.keys() or any(
                 params[k] is not model_params[k] for k in params):
             raise ValueError("params must be dict(model.named_parameters()): "
@@ -278,12 +330,7 @@ def build_train_step(model, optimizer: Optimizer, *, accum: int = 1,
                 p.grad = (p.grad / accum if p.grad is not None
                           else torch.zeros_like(p))
             if compress:
-                for names in stacked.values():
-                    qs, scale = int8_compress_shared(
-                        [params[n].grad for n in names])
-                    for n, q in zip(names, qs):
-                        params[n].grad = int8_decompress(q, scale).to(
-                            params[n].dtype)
+                _compress_grads(params)
         grads = {name: p.grad for name, p in params.items()}
         opt_state = optimizer.update_in_place(grads, opt_state, params)
         return params, opt_state, {"loss": total / accum,
@@ -309,7 +356,8 @@ def build_mask_fn(gcode: BerrutGradientCode | dict, straggler,
 
 def build_serve_step(model, *, return_hidden: bool = False):
     """serve_step(params, cache, tokens, pos[, mrope_positions]) ->
-    (next_tokens (B, 1) int32, cache), under ``torch.inference_mode()``.
+    (next_tokens (B, 1) int32, cache), under ``torch.inference_mode()``
+    (``torch.no_grad()`` while a mesh is installed).
 
     ``params`` is accepted for the reference's signature and not read: the
     model holds its parameters.  The cache is written in place.
@@ -317,7 +365,12 @@ def build_serve_step(model, *, return_hidden: bool = False):
     tokens (the coded serving path runs the unembed as a round)."""
 
     def serve_step(params, cache, tokens, pos, mrope_positions=None):
-        with torch.inference_mode():
+        from ..dist.sharding import ambient_mesh
+        # on a mesh under no_grad: DTensor's view rules (unflatten) fail
+        # under inference_mode
+        grad_free = torch.no_grad() if ambient_mesh() is not None \
+            else torch.inference_mode()
+        with grad_free:
             if model.cfg.encoder_decoder:
                 out, cache = model.decode_step(cache, tokens, pos,
                                                return_hidden=return_hidden)
@@ -327,7 +380,13 @@ def build_serve_step(model, *, return_hidden: bool = False):
                     return_hidden=return_hidden)
             if return_hidden:
                 return out, cache
-            nxt = torch.argmax(out[:, -1:], dim=-1).to(torch.int32)
+            last = out[:, -1:]
+            if ambient_mesh() is not None:
+                # the vocabulary whole on each rank first: DTensor's own
+                # argmax over a sharded dim fails on a 3-d mesh
+                from ..dist.sharding import DP_AXES, P, gathered
+                last = gathered(last, P(DP_AXES, None, None))
+            nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt, cache
 
     return serve_step

@@ -67,7 +67,10 @@ cache's batch over ``data`` and its sequence over ``model``.  A decode
 against a sequence-sharded cache is flash decoding
 (``_seq_sharded_attention``): each rank attends over its slice of the
 cache, and the partial softmaxes combine by an all-reduce of their maxima
-and one of their sums.
+and one of their sums.  An MLA cache decodes the same way over its
+latent scores (``_seq_sharded_mla``), and both take a scalar ``pos`` or
+(B,) per-slot positions (each rank writes the rows whose position falls
+in its slice and masks per batch row).
 """
 
 from __future__ import annotations
@@ -357,6 +360,86 @@ def _seq_dim(leaf) -> int:
                      f"{leaf.placements}")
 
 
+class _Slice:
+    """This rank's slice of a sequence-sharded cache leaf (``leaf``): the
+    placements with the sequence's mesh dim replicated (``row_pl``), the
+    local batch rows and positions, each local row's decode position
+    (``pos`` a scalar or (B,) per-slot), where this rank writes the new
+    token (``write``: the local position or None for a scalar ``pos``;
+    (rows, clamped local positions, rows inside the slice) per slot) and
+    the valid mask (local batch, local positions)."""
+
+    def __init__(self, leaf, pos):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh = mesh = leaf.device_mesh
+        self.sdim = sdim = _seq_dim(leaf)
+        self.row_pl = tuple(Replicate() if m == sdim else pl
+                            for m, pl in enumerate(leaf.placements))
+        b_l, self.l_loc = leaf.to_local().shape[:2]
+        coord = mesh.get_coordinate()
+        self.offset = coord[sdim] * self.l_loc
+        dev = leaf.to_local().device
+        if _per_slot(pos):
+            row = 0                 # this rank's batch block, row-major
+            for m, pl in enumerate(leaf.placements):
+                if isinstance(pl, Shard) and pl.dim == 0:
+                    row = row * mesh.size(m) + coord[m]
+            p = pos.to(device=dev, dtype=torch.long)[row * b_l:
+                                                     (row + 1) * b_l]
+            at = p - self.offset
+            # (rows, local positions clamped, rows that hold their token)
+            self.write = (torch.arange(b_l, device=dev),
+                          at.clamp(0, self.l_loc - 1),
+                          (at >= 0) & (at < self.l_loc))
+        else:
+            p = torch.full((b_l,), int(pos), dtype=torch.long, device=dev)
+            at = int(pos) - self.offset
+            self.write = at if 0 <= at < self.l_loc else None
+        span = self.offset + torch.arange(self.l_loc, device=dev)
+        self.valid = span[None, :] <= p[:, None]
+
+    def local(self, t):
+        """DTensor ``t`` with the sequence's mesh dim replicated, as its
+        local tensor."""
+        return t.redistribute(self.mesh, self.row_pl).to_local()
+
+    def put(self, leaf: torch.Tensor, new: torch.Tensor) -> None:
+        """Write ``new`` (local B, ...) rows into the local cache leaf: at
+        one position (a scalar ``pos``), or each row at its own where its
+        position falls in the slice (the others keep their value; no
+        data-dependent shape, so it runs on meta tensors too)."""
+        new = new.to(leaf.dtype)
+        if isinstance(self.write, tuple):
+            rows, at, inside = self.write
+            keep = inside.reshape((-1,) + (1,) * (new.dim() - 1))
+            leaf[rows, at] = torch.where(keep, new, leaf[rows, at])
+        elif self.write is not None:
+            leaf[:, self.write] = new
+
+    def combine(self, s, valid, values, width: int):
+        """The softmax over the whole cache of this rank's float32 scores
+        ``s`` (..., L_loc), masked by ``valid``, against ``values``:
+        ``values(e)`` is this rank's exp-weighted sum, (..., width).
+        m = max_r m_r (an all-reduce), then one all-reduce of [o | l]."""
+        s = s.masked_fill(~valid, -1e30)
+        m_r = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m_r) * valid
+        l_r = e.sum(dim=-1, keepdim=True)
+        o_r = values(e)
+        group = self.mesh.get_group(self.sdim)
+        m = m_r.clone()
+        collectives.all_reduce(m, "max", group)
+        scale = torch.exp(m_r - m)
+        both = torch.cat([o_r * scale, l_r * scale], dim=-1)
+        collectives.all_reduce(both, "sum", group)
+        return both[..., :width] / both[..., width:]
+
+    def placed(self, out):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(out, self.mesh, self.row_pl,
+                                  run_check=False)
+
+
 def _seq_sharded_attention(q, k_new, v_new, cache: dict, pos,
                            cfg: ModelConfig):
     """One-token GQA attention against a cache whose sequence dim is
@@ -364,48 +447,32 @@ def _seq_sharded_attention(q, k_new, v_new, cache: dict, pos,
     sequence over ``model``), written in place.
 
     q (B, 1, H, hd), k_new / v_new (B, 1, KV, hd): DTensors on the cache's
-    mesh, any placements.  Each rank gathers the new token's heads, writes
-    its row where ``pos`` falls in its slice (an int8 cache quantized by
-    ``_quantize_kv``), and computes its slice's scores
-    (float32, scale 1/sqrt(hd), softcap, positions past ``pos`` masked),
-    their max m_r, the sum l_r of exp(s - m_r) and o_r = sum exp(s - m_r)
-    v.  Then m = max_r m_r (an all-reduce) and out = sum_r e^(m_r - m) o_r
-    / sum_r e^(m_r - m) l_r (one all-reduce of [o | l]): the softmax over
+    mesh, any placements; ``pos`` a scalar or (B,) per-slot positions.
+    Each rank gathers the new token's heads, writes each local batch row
+    whose position falls in its slice (an int8 cache quantized by
+    ``_quantize_kv``), and computes its slice's scores (float32, scale
+    1/sqrt(hd), softcap, positions past each row's ``pos`` masked), their
+    max m_r, the sum l_r of exp(s - m_r) and o_r = sum exp(s - m_r) v.
+    Then m = max_r m_r (an all-reduce) and out = sum_r e^(m_r - m) o_r /
+    sum_r e^(m_r - m) l_r (one all-reduce of [o | l]): the softmax over
     the whole cache.  Returns out (B, 1, H hd) in the compute dtype, a
     DTensor placed as the cache's batch and replicated over the sequence
-    dim's mesh axis.  ``pos`` is a scalar (per-slot positions belong to
-    the serve loop, which runs on one device)."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if _per_slot(pos):
-        raise ValueError("the sequence-sharded decode takes a scalar pos")
-    leaf = cache["k"]
-    mesh = leaf.device_mesh
-    sdim = _seq_dim(leaf)
-    row_pl = tuple(Replicate() if m == sdim else pl
-                   for m, pl in enumerate(leaf.placements))
-
-    def local(t):
-        return t.redistribute(mesh, row_pl).to_local()
-
-    q_l, k_l, v_l = local(q), local(k_new), local(v_new)
-    b_l, l_loc = leaf.to_local().shape[:2]
-    offset = mesh.get_coordinate()[sdim] * l_loc
-    dev = q_l.device
-    at = int(pos) - offset                    # this rank's row, if it has it
+    dim's mesh axis."""
+    sl = _Slice(cache["k"], pos)
+    q_l, k_l, v_l = sl.local(q), sl.local(k_new), sl.local(v_new)
+    b_l = q_l.shape[0]
     local = {key: leaf_.to_local() for key, leaf_ in cache.items()}
     if cfg.kv_cache_dtype == "int8":
         k8, ks = _quantize_kv(k_l)
         v8, vs = _quantize_kv(v_l)
-        if 0 <= at < l_loc:
-            for key, val in (("k", k8), ("v", v8), ("k_scale", ks),
-                             ("v_scale", vs)):
-                local[key][:, at] = val[:, 0]
+        for key, val in (("k", k8), ("v", v8), ("k_scale", ks),
+                         ("v_scale", vs)):
+            sl.put(local[key], val[:, 0])
         k = _dequantize_kv(local["k"], local["k_scale"])
         v = _dequantize_kv(local["v"], local["v_scale"])
     else:
-        if 0 <= at < l_loc:
-            local["k"][:, at] = k_l[:, 0].to(local["k"].dtype)
-            local["v"][:, at] = v_l[:, 0].to(local["v"].dtype)
+        sl.put(local["k"], k_l[:, 0])
+        sl.put(local["v"], v_l[:, 0])
         k, v = local["k"], local["v"]
     kvh, hd = k.shape[2], q_l.shape[-1]
     g = q_l.shape[2] // kvh
@@ -414,22 +481,10 @@ def _seq_sharded_attention(q, k_new, v_new, cache: dict, pos,
     s = torch.einsum("bkgd,bskd->bkgs", qg, k.to(f32))
     if cfg.attn_logit_softcap:
         s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
-    valid = (offset + torch.arange(l_loc, device=dev) <= int(pos))
-    valid = valid[None, None, None, :]
-    s = s.masked_fill(~valid, -1e30)
-    m_r = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m_r) * valid
-    l_r = e.sum(dim=-1, keepdim=True)
-    o_r = torch.einsum("bkgs,bskd->bkgd", e, v.to(f32))
-    group = mesh.get_group(sdim)
-    m = m_r.clone()
-    collectives.all_reduce(m, "max", group)
-    scale = torch.exp(m_r - m)
-    both = torch.cat([o_r * scale, l_r * scale], dim=-1)
-    collectives.all_reduce(both, "sum", group)
-    out = both[..., :hd] / both[..., hd:]
+    out = sl.combine(s, sl.valid[:, None, None, :], lambda e: torch.einsum(
+        "bkgs,bskd->bkgd", e, v.to(f32)), hd)
     out = out.reshape(b_l, 1, -1).to(dtype_of(cfg, "compute"))
-    return DTensor.from_local(out, mesh, row_pl, run_check=False)
+    return sl.placed(out)
 
 
 def _decode_out(p, out: torch.Tensor, cfg: ModelConfig, proj: dict):
@@ -531,9 +586,6 @@ def mla_decode(p, x: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
     -> (q (B, 1, H, nope + rope), dkv (B, 1, lora + rope))``) and wo
     (``fn(o (B, H * v)) -> (B, d)``).  Returns (y (B, 1, d), cache), the
     cache written in place at ``pos``."""
-    if is_distributed(cache["ckv"]):
-        raise ValueError("the sequence-sharded decode takes a GQA cache; "
-                         "an MLA cache decodes on one device")
     cd = dtype_of(cfg, "compute")
     b = x.shape[0]
     x = x.to(cd)
@@ -541,6 +593,10 @@ def mla_decode(p, x: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
     positions = _decode_positions(b, pos, x.device)
     q_nope, q_rope, ckv_new, k_rope_new = _mla_qc(p, x, cfg, positions,
                                                   matmul=proj.get("qkv"))
+    if is_distributed(cache["ckv"]):
+        o_lat = _seq_sharded_mla(p, q_nope, q_rope, ckv_new, k_rope_new,
+                                 cache, pos, cfg)
+        return _mla_out(p, o_lat, b, cfg, proj), cache
     ckv = _dus_seq(cache["ckv"], ckv_new, pos)
     kpe = _dus_seq(cache["kpe"], k_rope_new[:, 0], pos)
 
@@ -553,9 +609,43 @@ def mla_decode(p, x: torch.Tensor, cache: dict, pos, cfg: ModelConfig, *,
     valid = span <= (positions[:, :, None] if _per_slot(pos) else int(pos))
     w = torch.softmax(s.masked_fill(~valid, -1e30), dim=-1)
     o_lat = torch.einsum("bhs,bsl->bhl", w, ckv.to(f32)).to(cd)
+    return _mla_out(p, o_lat, b, cfg, proj), cache
+
+
+def _mla_out(p, o_lat, b: int, cfg: ModelConfig, proj: dict):
+    """The latent output (B, H, lora) through ``w_uv`` and ``wo`` ->
+    (B, 1, d)."""
+    cd = dtype_of(cfg, "compute")
     o = torch.einsum("bhl,lhk->bhk", o_lat, p["w_uv"].to(cd)).reshape(b, -1)
     if proj.get("o") is not None:
         y = proj["o"](o)
     else:
         y = o @ p["wo"].to(cd).reshape(-1, cfg.d_model)
-    return y[:, None, :], cache
+    return y[:, None, :]
+
+
+def _seq_sharded_mla(p, q_nope, q_rope, ckv_new, k_rope_new, cache: dict,
+                     pos, cfg: ModelConfig):
+    """The absorbed MLA decode against a cache whose sequence is sharded
+    (``mla_cache_specs``: ``ckv``/``kpe`` batch over ``data``, sequence
+    over ``model``): the two-collective softmax of
+    ``_seq_sharded_attention`` over the latent scores.  Each rank writes
+    its rows of ``ckv``/``kpe``, scores q_eff . ckv + q_rope . kpe over
+    its slice, and forms m_r, l_r and its latent sum o_r; one all-reduce
+    takes the max and one [o | l].  Returns the latent output (B, H,
+    lora), a DTensor placed as the cache's batch, in the compute dtype."""
+    cd = dtype_of(cfg, "compute")
+    f32 = torch.float32
+    sl = _Slice(cache["ckv"], pos)
+    q_eff = torch.einsum("bshk,lhk->bhl", q_nope, p["w_uk"].to(cd))
+    q_eff, q_r = sl.local(q_eff), sl.local(q_rope)
+    local = {key: leaf.to_local() for key, leaf in cache.items()}
+    sl.put(local["ckv"], sl.local(ckv_new)[:, 0])
+    sl.put(local["kpe"], sl.local(k_rope_new)[:, 0, 0])
+    ckv, kpe = local["ckv"].to(f32), local["kpe"].to(f32)
+    s = (torch.einsum("bhl,bsl->bhs", q_eff.to(f32), ckv)
+         + torch.einsum("bshr,btr->bht", q_r.to(f32), kpe)) \
+        / (cfg.head_dim_ ** 0.5)
+    o_lat = sl.combine(s, sl.valid[:, None, :], lambda e: torch.einsum(
+        "bhs,bsl->bhl", e, ckv), ckv.shape[-1])
+    return sl.placed(o_lat.to(cd))

@@ -53,6 +53,9 @@ def dense_init(gen: torch.Generator, shape, dtype,
     """N(0, 1) * scale on the generator's device; ``scale`` defaults to
     1/sqrt(fan_in) with fan_in = shape[0], as the reference."""
     scale = scale if scale is not None else 1.0 / math.sqrt(max(shape[0], 1))
+    if gen.device.type == "meta":
+        return nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                        device="meta"))
     w = torch.randn(tuple(shape), generator=gen, device=gen.device)
     return nn.Parameter(w.mul_(scale).to(dtype))
 

@@ -183,8 +183,11 @@ def moe_ffn_decode(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         h = F.gelu(torch.matmul(x2, p["w_up"].to(cd)), approximate="tanh")
     all_out = torch.bmm(h, p["w_down"].to(cd))            # (E, B, d)
-    gates = torch.zeros((x2.shape[0], cfg.n_experts), dtype=cd,
-                        device=x.device).scatter_add_(1, idx, w.to(cd))
+    # each row's k weights at their experts' columns (a sum of one-hots,
+    # which runs on DTensors as it does on one device)
+    experts = torch.arange(cfg.n_experts, device=x.device)
+    gates = ((idx[..., None] == experts).to(cd) *
+             w.to(cd)[..., None]).sum(dim=1)               # (B, E)
     out = torch.einsum("ebd,be->bd", all_out, gates)
     if cfg.n_shared_experts:
         out = out + _shared_ffn(p, x2, cfg)

@@ -28,7 +28,10 @@ Two spellings differ from the reference's, with the same values:
   weights and ``feature_group_count=din``) is ``F.conv1d(..., groups=din)``
   with the weights permuted to (din, 1, cw); both are cross-correlations,
   so the kernel is not flipped.  The decode runs the same conv over its
-  (cw)-token window, where the reference writes the window's einsum.
+  (cw)-token window, where the reference writes the window's einsum.  On
+  a mesh (states placed by ``mamba_state_specs``) each rank convolves its
+  own channels through ``local_map`` (``_conv_on_mesh``): DTensor's own
+  convolution rule shards the sequence, not the groups.
 * ``jax.nn.softplus`` is ``logaddexp(x, 0)``; ``F.softplus`` returns x
   itself above 20, where the two differ by under 2e-9.
 """
@@ -58,6 +61,9 @@ F32 = torch.float32
 
 def _uniform(gen: torch.Generator, shape, dtype) -> nn.Parameter:
     """U[0, 1) on the generator's device (``jax.random.uniform``)."""
+    if gen.device.type == "meta":
+        return nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                        device="meta"))
     return nn.Parameter(torch.rand(tuple(shape), generator=gen,
                                    device=gen.device).to(dtype))
 
@@ -148,10 +154,40 @@ def _wkv_step(state: torch.Tensor, inp):
     """state (B, H, hd, hd) float32; inp: r, k, v, w (B, H, hd), u (H, hd).
     out = r . (state + u * k v^T); new state = w * state + k v^T."""
     r, k, v, w, u = inp
+    if type(r).__name__ == "DTensor":
+        return _wkv_on_mesh(state, inp)
     kv = k[..., :, None] * v[..., None, :]                # outer product
     bonus = torch.addcmul(state, u[None, :, :, None], kv)
     out = (r[..., None, :] @ bonus)[..., 0, :]
     return torch.addcmul(kv, w[..., None], state), out
+
+
+def _wkv_on_mesh(state, inp):
+    """``_wkv_step`` of DTensors: each (batch row, head) is independent,
+    so each rank steps its own through ``local_map`` (DTensor's rule for
+    the 4-d ``r @ bonus`` would flatten two sharded dims).  The batch and
+    head placements are r's; a plain state (a forward's zero one) is
+    replicated first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    r = inp[0]
+    mesh = r.device_mesh
+    row_pl = [pl if pl in (Shard(0), Shard(1)) else Replicate()
+              for pl in r.placements]
+    u_pl = [Shard(0) if pl == Shard(1) else Replicate() for pl in row_pl]
+
+    def placed(t, pl):
+        if type(t).__name__ != "DTensor":
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pl)
+
+    args = [placed(state, row_pl)] + [placed(t, row_pl) for t in inp[:4]] \
+        + [placed(inp[4], u_pl)]
+    return local_map(lambda st, *x: _wkv_step(st, x),
+                     out_placements=(row_pl, row_pl),
+                     in_placements=(row_pl,) * 5 + (u_pl,),
+                     device_mesh=mesh)(*args)
 
 
 def _group_norm(x: torch.Tensor, scale, bias, n_heads: int,
@@ -334,20 +370,48 @@ def _causal_conv(x_pad: torch.Tensor, conv_w, conv_b,
     """silu(depthwise conv + bias) of x_pad (B, cw - 1 + S, din) ->
     (B, S, din): ``conv_general_dilated`` with "WIO" weights (cw, 1, din)
     and ``feature_group_count=din``."""
+    if type(x_pad).__name__ == "DTensor":
+        return _conv_on_mesh(x_pad, conv_w, conv_b, cd)
     weight = conv_w.to(cd).permute(2, 1, 0)               # (din, 1, cw)
     y = F.conv1d(x_pad.transpose(1, 2), weight, groups=x_pad.shape[-1])
     return F.silu(y.transpose(1, 2) + conv_b.to(cd))
 
 
+def _conv_on_mesh(x_pad, conv_w, conv_b, cd):
+    """``_causal_conv`` of DTensors: the channels are independent, so
+    each rank convolves its own (channels where ``conv_w``'s are sharded,
+    batch rows where ``x_pad``'s are) through ``local_map``.  DTensor's
+    own convolution rule shards the sequence, not the groups."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = conv_w.device_mesh
+    chan = [pl == Shard(2) for pl in conv_w.placements]
+    x_pl = [Shard(2) if c else (pl if pl == Shard(0) else Replicate())
+            for c, pl in zip(chan, x_pad.placements)]
+    w_pl = [Shard(2) if c else Replicate() for c in chan]
+    b_pl = [Shard(0) if c else Replicate() for c in chan]
+    x_pad = x_pad.redistribute(mesh, x_pl)
+    conv_w = conv_w.redistribute(mesh, w_pl)
+    conv_b = conv_b.redistribute(mesh, b_pl)
+    return local_map(lambda x, w, b: _causal_conv(x, w, b, cd),
+                     out_placements=x_pl,
+                     in_placements=(x_pl, w_pl, b_pl),
+                     device_mesh=mesh)(x_pad, conv_w, conv_b)
+
+
+def _in_proj(x: torch.Tensor, w_in: torch.Tensor) -> tuple:
+    """(x1, z) = x @ w_in[:, 0], x @ w_in[:, 1], w_in (d, 2, din): one
+    matmul a half, each over a strided view (no copy; on a mesh DTensor
+    cannot flatten (2, din) with din sharded over ``model``)."""
+    return x @ w_in[:, 0], x @ w_in[:, 1]
+
+
 def mamba_forward(p, x: torch.Tensor, state: dict, cfg: ModelConfig):
     """x (B, S, d) -> (out (B, S, d), new state)."""
     cd = dtype_of(cfg, "compute")
-    b, s, d = x.shape
-    din, _ = _mamba_dims(cfg)
+    s = x.shape[1]
     cw = cfg.conv_width
-    xz = (x.to(cd) @ p["w_in"].to(cd).reshape(d, 2 * din)) \
-        .unflatten(-1, (2, din))                          # bsd,dtc->bstc
-    x1, z = xz[:, :, 0], xz[:, :, 1]
+    x1, z = _in_proj(x.to(cd), p["w_in"].to(cd))          # bsd,dtc->bstc
     x_pad = torch.cat([state["conv"].to(cd), x1], dim=1)
     x1c = _causal_conv(x_pad, p["conv_w"], p["conv_b"], cd)
     dt, bb, cc = _mamba_bcdt(p, x1c, cfg)
@@ -372,11 +436,7 @@ def mamba_decode_step(p, x: torch.Tensor, state: dict, cfg: ModelConfig):
     """Single-token Mamba step.  x (B, 1, d) -> (out (B, 1, d), new
     state)."""
     cd = dtype_of(cfg, "compute")
-    d = x.shape[-1]
-    din, _ = _mamba_dims(cfg)
-    xz = (x[:, 0].to(cd) @ p["w_in"].to(cd).reshape(d, 2 * din)) \
-        .unflatten(-1, (2, din))                          # bd,dtc->btc
-    x1, z = xz[:, 0], xz[:, 1]
+    x1, z = _in_proj(x[:, 0].to(cd), p["w_in"].to(cd))    # bd,dtc->btc
     window = torch.cat([state["conv"].to(cd), x1[:, None]], dim=1)
     x1c = _causal_conv(window, p["conv_w"], p["conv_b"], cd)[:, 0]
     dt, bb, cc = _mamba_bcdt(p, x1c, cfg)

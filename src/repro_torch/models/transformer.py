@@ -10,10 +10,16 @@ The reference scans over stacked groups of ``period`` layers (one XLA body
 for any depth, ``jax.checkpoint`` on the group for training, and the FSDP
 and sequence-sharding hints ``fsdp_in_scan`` and ``seq_shard_activations``
 inside the scan).  Eager PyTorch has no scan, so the port holds an
-``nn.ModuleList`` of all ``n_layers`` layers and loops over it;
-``fsdp_in_scan`` has no counterpart here; ``seq_shard_activations``
-pins the residual stream between layers sequence-sharded over ``model``
-(``shard_hint``), as the reference's scan body.
+``nn.ModuleList`` of all ``n_layers`` layers and loops over it.
+``fsdp_in_scan``'s counterpart is the placement: a layer leaf sharded
+over a data-parallel axis (``dist.sharding.distribute_train_params``
+with ``tree_add_data_axis`` on the ``layers.<i>`` specs) is all-gathered
+over it for each call of its layer (``gather_dp``, inside the remat
+boundary, so again in the recompute) and freed after; its gradient comes
+back unreduced for the step's coded reduce-scatter.
+``seq_shard_activations`` pins the residual stream between layers
+sequence-sharded over ``model`` (``shard_hint``), as the reference's scan
+body.
 ``cfg.remat`` recomputes each layer (not each group of ``period``) in the
 backward: ``forward`` calls every ``DecoderLayer`` through
 ``layers.remat`` when grad is enabled, so a full-depth step keeps one
@@ -66,7 +72,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..dist.sharding import P, gathered, shard_hint
+from ..dist.sharding import P, gather_dp, gathered, is_fsdp, shard_hint
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm
@@ -78,8 +84,9 @@ __all__ = ["LayerDesc", "layer_desc", "layer_pattern", "layer_specs",
            "layer_cache_specs", "DecoderLayer", "TransformerLM",
            "softmax_xent"]
 
-# the residual stream on a mesh: batch over data, replicated over model
-_RESIDUAL = P("data", None, None)
+# the residual stream on a mesh: batch over the dp axes (pod and data, as
+# the inputs are placed), replicated over model
+_RESIDUAL = P(("pod", "data"), None, None)
 
 
 def _pin(x):
@@ -190,7 +197,12 @@ def _write_state(cache: dict, new: dict) -> dict:
     views of a larger cache); returns the cache."""
     for key, value in new.items():
         if value is not cache[key]:
-            cache[key].copy_(value)
+            leaf = cache[key]
+            if type(leaf).__name__ == "DTensor":
+                # the new state placed as the cache first: copy_ between
+                # DTensors placed apart is not exact on every torch
+                value = value.redistribute(leaf.device_mesh, leaf.placements)
+            leaf.copy_(value)
     return cache
 
 
@@ -425,11 +437,20 @@ def _layer_call(layer: DecoderLayer, x, positions, mrope_positions,
     counts of its first run reach ``moe_drops``, the recomputation's do
     not."""
     recorded = []
+    fsdp = {name: p for name, p in layer.named_parameters() if is_fsdp(p)}
 
     def run(x):
         drops = None if moe_drops is None else []
-        out = layer(x, positions, mrope_positions=mrope_positions,
-                    force_kernel=force_kernel, moe_drops=drops)
+        kw = dict(mrope_positions=mrope_positions,
+                  force_kernel=force_kernel, moe_drops=drops)
+        if fsdp:
+            # FSDP: the layer's leaves gathered over the dp axes for this
+            # call only (again in the recompute), freed after it
+            out = torch.func.functional_call(
+                layer, {n: gather_dp(p) for n, p in fsdp.items()},
+                (x, positions), kw, strict=False)
+        else:
+            out = layer(x, positions, **kw)
         if drops is not None and not recorded:
             moe_drops.extend(drops)
             recorded.append(True)

@@ -32,13 +32,24 @@ def build_model(cfg: ModelConfig, *, device=None,
     reference's ``init``.
 
     ``device=None`` means the card, and raises without one; the tests pass
-    ``"cpu"``.  An ``encoder_decoder`` config builds an ``EncDecLM``.
+    ``"cpu"``.  ``device="meta"`` builds empty parameters (shapes and
+    dtypes only, no draw: the dry run's).  An ``encoder_decoder`` config
+    builds an ``EncDecLM``.
     """
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if dev.type == "meta":
+        gen = _MetaGenerator()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     return EncDecLM(cfg, gen) if cfg.encoder_decoder else \
         TransformerLM(cfg, gen)
+
+
+class _MetaGenerator:
+    """What the initializers read of a generator on the meta device, which
+    has none: its device (they then make empty tensors)."""
+    device = torch.device("meta")
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:

@@ -22,6 +22,17 @@ update the trainer runs, applies one leaf at a time under
 parameter, written into their own tensors.  It runs the functional
 update's arithmetic leaf for leaf (the same per-leaf function), so its
 numbers are the functional update's bit for bit.
+
+On a device mesh (``dist.sharding``) the leaves are DTensors.  The
+global norm sums each group of equally placed leaves as DTensors and
+adds the groups' totals as plain scalars (a sum of leaves on two meshes
+is no DTensor op).  ZeRO-1: ``place_state`` re-places ``mu`` and ``nu``
+by specs with a data axis added (``dist.sharding.tree_add_data_axis``);
+where a state leaf is sharded over a dp axis that its parameter is not,
+the in-place update runs on this rank's slice of the gradient and the
+parameter only, then all-gathers the parameter's slices over that axis.
+The arithmetic is the same per element, so the numbers are those of the
+unsharded update.
 """
 
 from __future__ import annotations
@@ -35,7 +46,8 @@ import torch
 from .. import tree as tree_util
 
 __all__ = ["OptState", "Optimizer", "adamw", "sgdm", "apply_updates",
-           "clip_by_global_norm", "warmup_cosine", "global_norm"]
+           "clip_by_global_norm", "warmup_cosine", "global_norm",
+           "place_state"]
 
 
 class OptState(NamedTuple):
@@ -54,9 +66,19 @@ class Optimizer:
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum, over the leaves in jax order, of each leaf's sum of
     squares (float32)."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in tree_util.leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    groups: dict = {}
+    for x in tree_util.leaves(tree):
+        key = (x.device_mesh, tuple(x.placements)) \
+            if type(x).__name__ == "DTensor" else None
+        groups.setdefault(key, []).append(
+            torch.sum(torch.square(x.to(torch.float32))))
+    total = None
+    for key, sums in groups.items():
+        part = torch.sum(torch.stack(sums))
+        if key is not None:
+            part = part.full_tensor()
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 def _clip_scale(tree, max_norm: float):
@@ -120,6 +142,9 @@ def _run(leaf_fn, grads, state, params, clip: float, in_place: bool):
         raise ValueError("grads, state and params differ in structure")
     ms, vs, us = [], [], []
     for g, m, v, p in zip(g_l, m_l, v_l, p_l):
+        if in_place and _zero_axis(m, p) is not None:
+            _zero_update(leaf_fn, g, m, v, p, consts, scale)
+            continue
         if scale is not None:
             g = g * scale
         m_new, v_new, upd = leaf_fn(g, m, v, p, consts)
@@ -138,6 +163,79 @@ def _run(leaf_fn, grads, state, params, clip: float, in_place: bool):
     mu = tree_util.unflatten(state.mu, ms)
     nu = tree_util.unflatten(state.nu, vs) if state.nu is not None else None
     return tree_util.unflatten(params, us), OptState(step, mu, nu)
+
+
+def _zero_axis(m, p):
+    """(mesh dim, tensor dim) of the dp axis that shards state leaf ``m``
+    and not its parameter ``p`` (ZeRO-1), else None."""
+    if type(m).__name__ != "DTensor":
+        return None
+    from ..dist.sharding import DP_AXES
+    names = tuple(m.device_mesh.mesh_dim_names)
+    p_pl = dict(zip(p.device_mesh.mesh_dim_names, p.placements)) \
+        if type(p).__name__ == "DTensor" else {}
+    for mdim, pl in enumerate(m.placements):
+        if pl.is_shard() and names[mdim] in DP_AXES and \
+                p_pl.get(names[mdim]) != pl:
+            return mdim, pl.dim
+    return None
+
+
+def _plain(x):
+    return x.full_tensor() if type(x).__name__ == "DTensor" else x
+
+
+def _zero_update(leaf_fn, g, m, v, p, consts, scale) -> None:
+    """One ZeRO-1 leaf in place: ``leaf_fn`` on this rank's dp slice of
+    the gradient and the parameter (the local shards, plain tensors), the
+    state's shards written, the parameter's slices all-gathered."""
+    from ..dist.sharding import _all_gather_dim
+    mdim, dim = _zero_axis(m, p)
+    mesh = m.device_mesh
+    n, idx = mesh.size(mdim), mesh.get_local_rank(mesh.mesh_dim_names[mdim])
+    g_l = g.to_local() if type(g).__name__ == "DTensor" else g
+    p_l = p.to_local() if type(p).__name__ == "DTensor" else p
+    g_s = g_l.chunk(n, dim)[idx]
+    if scale is not None:
+        g_s = g_s * _plain(scale)
+    p_s = p_l.chunk(n, dim)[idx]
+    m_l = m.to_local()
+    v_l = v.to_local() if v is not None else None
+    m_new, v_new, upd = leaf_fn(g_s, m_l, v_l, p_s,
+                                tuple(_plain(c) for c in consts))
+    m_l.copy_(m_new)
+    if v_l is not None:
+        v_l.copy_(v_new)
+    p_s = p_s + upd
+    p_l.copy_(_all_gather_dim(p_s, dim, mesh.get_group(mdim)))
+
+
+def place_state(state: OptState, mesh, specs: dict) -> OptState:
+    """ZeRO-1: ``state`` (fresh from ``init``, its ``mu``/``nu`` dicts
+    keyed as the parameters) with every moment leaf re-placed as zeros by
+    ``specs`` on ``mesh`` (``tree_add_data_axis`` of the parameters'
+    specs).  A leaf whose resolved spec names no dp axis keeps its
+    placement."""
+    from ..dist.sharding import (DP_AXES, NamedSharding, _entry_axes,
+                                 placements_of, resolve_spec, zeros)
+
+    def place(tree):
+        if tree is None:
+            return None
+        out = {}
+        for name, leaf in tree.items():
+            spec = resolve_spec(specs[name], tuple(leaf.shape), mesh)
+            if not any(a in DP_AXES for e in spec for a in _entry_axes(e)):
+                out[name] = leaf
+                continue
+            local = leaf.to_local() if type(leaf).__name__ == "DTensor" \
+                else leaf
+            out[name] = zeros(tuple(leaf.shape), NamedSharding(
+                mesh, spec, placements_of(spec, mesh)), leaf.dtype,
+                local.device)
+        return out
+
+    return OptState(state.step, place(state.mu), place(state.nu))
 
 
 def adamw(lr: Callable | float, b1=0.9, b2=0.95, eps=1e-8,

@@ -6,7 +6,7 @@ CUDA toolkit (``nvcc``)::
 
     python3 chip_smoke.py
 
-Thirteen main paths.  Two are SPACDC coded rounds through
+Fourteen main paths.  Two are SPACDC coded rounds through
 ``repro_torch.api.Session`` at ``ClusterSpec.paper_fig3()`` (N=30 workers,
 K=24 blocks, T=3 noise blocks, S=7 stragglers):
 
@@ -95,6 +95,13 @@ the mesh (each rank's attention through the flash forward and backward
 kernels on its local heads, the gradient decoded over ``data`` by
 ``coded_psum``), the sequence-sharded decode, and the int8 KV cache in a
 coded serve through ``berrut_combine``.
+
+The fourteenth is the paper's approximated coded computing of an
+arbitrary, non-polynomial f (``SPACDCCode.run``, what
+``examples/quickstart_torch.py`` does by hand): the data encoded into N
+coded shards by ``berrut_combine``, f on every worker's shard
+(``torch.func.vmap``), the result decoded from whichever workers answered
+by ``berrut_combine``.
 
 Phases, one JSON line each:
 
@@ -250,9 +257,12 @@ Phases, one JSON line each:
     and decode equal to threads fed the mesh's arrival orders and
     liveness write-offs; (c) phase 9 (e)'s serve over an 8-worker mesh at
     full width (gen cut from 4 to 2), its tokens equal to the first two of
-    phase 9 (e)'s threads tokens, step walls and the framing share.  Only the master's launches are counted; the
-    workers' happen in their own processes and come back in their
-    RESULTs.
+    phase 9 (e)'s threads tokens, step walls and the framing share.
+    (a)'s plain and sealed rounds share one mesh (the sealed rounds'
+    session takes the plain rounds' over); every mesh's start seconds,
+    liveness write-offs and longest silence go into the phase's total.
+    Only the master's launches are counted; the workers' happen in their
+    own processes and come back in their RESULTs.
 
 12. deepseek-v2-lite-16b at full width and depth (``deepseek_main_path``):
     flash at MLA's 192/128 shape, the forward, coded serving.
@@ -307,6 +317,8 @@ Phases, one JSON line each:
     rank; (b) qwen2-7b over 4 of 28 layers, 16 float32 decode steps with
     the cache's sequence over ``model``, against the one-process decode;
     (c) phase 9 (c)'s coded serve with the bf16 and the int8 KV cache.
+    The 8 ranks start during phase 15 (c) and (d)
+    (``start_sharded_ranks``) and wait for this phase's job.
     Phases 6, 15 and 16 also print the model FLOP/s of their timed work
     (``launch.roofline_math``) and its share of the bf16 dense peak.
 
@@ -324,6 +336,16 @@ Phases, one JSON line each:
     dry run (``launch.dryrun``: ``--list`` and four cells on a fake
     process group of 256 or 512 ranks, in a background thread from the
     script's start), nothing allocated on the card.
+
+18. Coded computing of a non-polynomial f (``acc_main_path``): (a) the
+    paper's §V-A example at full width (N=8, K=2, T=1, worker 5 dropped,
+    f(X) = X Xᵀ on X (4096, 3584)); (b) ``paper_fig3()``'s spacdc
+    without its 7 slowest workers, f qwen2-7b's SwiGLU FFN hidden (W_gate,
+    W_up (3584, 18944)); each run exactly two ``berrut_combine`` launches,
+    against the kernels-off run on the same noise and every call within
+    float32's bound, its error against the exact f beside the same code's
+    at a small size on the CPU; then ``examples/quickstart_torch.py`` on
+    the card.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check raises: the exit
@@ -747,14 +769,20 @@ def main() -> int:
         launches[kname] += count
 
     # ------- 15. LM training: phi3-mini-3.8b, the flash backward kernel
-    p15_launches, bwd_row = train_main_path(torch, dev)
+    # (phase 16's 8 ranks start during its (c) and (d): their contexts,
+    # the gloo group and the kernels, then they wait for phase 16's job)
+    p16_ranks = {}
+    p15_launches, bwd_row = train_main_path(
+        torch, dev, start_ranks=lambda: p16_ranks.update(
+            start_sharded_ranks(torch)))
     launches["flash_attention_bwd"] = 0
     for kname, count in p15_launches.items():
         launches[kname] += count
 
     # --- 16. the sharded path: a 2 x 4 mesh of gloo ranks on the card
     # (phase 17's rank part runs in the same ranks, after phase 16's)
-    p16_launches, p16_f32, p17 = sharded_main_path(torch, dev, p17=True)
+    p16_launches, p16_f32, p17 = sharded_main_path(torch, dev, p17=True,
+                                                   ranks=p16_ranks or None)
     for kname, count in p16_launches.items():
         launches[kname] += count
     F32_FLASH_LAUNCHES["16a_sharded_f32_step"] = p16_f32["flash_f32"]
@@ -771,6 +799,10 @@ def main() -> int:
     bwd_row["float32"]["launches"] += p17_f32["bwd_3xtf32"]
     launches["flash_attention"] += p17_f32["flash_f32"]
     launches["flash_attention_bwd"] += p17_f32["bwd_3xtf32"]
+
+    # ----- 18. coded computing of a non-polynomial f (SPACDCCode.run)
+    for kname, count in acc_main_path(torch, dev).items():
+        launches[kname] += count
 
     # --------------------------------------------------------- summary
     n, j, (m, d, n_out) = 30, 27, FULL
@@ -3742,12 +3774,34 @@ def socket_spec(backend: str, *, encrypt=None, **transport):
             spec.code, fused=False if backend == "virtual" else None))
 
 
+def device_maps(pid: int) -> dict:
+    """What ``/proc/<pid>/maps`` shows of the CUDA driver: ``libcuda``
+    (mapped by ``import torch`` on the card, before any context) and the
+    ``/dev/nvidia*`` device files (mapped once a context is made: the fork
+    server that imported torch for the workers maps none)."""
+    maps = Path(f"/proc/{pid}/maps").read_text()
+    return {"libcuda": "libcuda" in maps, "nvidia_device_files":
+            len(set(re.findall(r"/dev/nvidia[\w-]*", maps)))}
+
+
 def worker_maps(mesh) -> dict:
-    """Per live worker: whether ``/proc/<pid>/maps`` has ``libcuda``, i.e.
-    whether the process made a CUDA context.  (Which path its tasks took is
-    what their RESULTs report: ``record_round_handles``.)"""
-    return {w: "libcuda" in Path(f"/proc/{mesh.worker_pid(w)}/maps")
-            .read_text() for w in range(mesh.n)}
+    """Per live worker: whether the process made a CUDA context
+    (``device_maps``: ``libcuda`` and the device files mapped).  (Which
+    path its tasks took is what their RESULTs report:
+    ``record_round_handles``.)"""
+    return {w: all(device_maps(mesh.worker_pid(w)).values())
+            for w in range(mesh.n)}
+
+
+def fork_server_maps(mesh) -> dict:
+    """The process the mesh's workers were forked from (their parent, the
+    fork server that imported torch for them, no context made): its pid
+    and ``device_maps``, beside worker 0's."""
+    status = Path(f"/proc/{mesh.worker_pid(0)}/status").read_text()
+    ppid = int(re.search(r"^PPid:\s+(\d+)", status, re.M).group(1))
+    return {"pid": ppid, "is_master": ppid == os.getpid(),
+            **device_maps(ppid),
+            "worker_0": device_maps(mesh.worker_pid(0))}
 
 
 def record_round_handles(mesh) -> list:
@@ -3928,7 +3982,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
     its every ``mask_add`` call exact (``hold_sealed_round``: the master's
     calls one by one, the workers' through their replies), no live worker
     written off at ``TransportSpec``'s default liveness deadline, every
-    worker with ``libcuda`` mapped, mesh start, wire bytes, framing seconds, device
+    worker with a CUDA context (``libcuda`` and the device files mapped:
+    ``worker_maps``), mesh start, wire bytes, framing seconds, device
     memory and a bounded close; (b) OS-level faults: (i)
     bench_transport's SIGKILL point (real kills, respawns, the defended
     decode equal to the plan simulated on threads), (ii) bench_faults'
@@ -3963,6 +4018,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                "flash_attention": flash_attention_kernel}
     total = {k: 0 for k in kernels}
     phase_t0 = time.perf_counter()
+    # per mesh: its start seconds, liveness write-offs, longest silence
+    meshes = {}
 
     def free():
         gc.collect()
@@ -3977,180 +4034,211 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
     exact_norm = float(torch.linalg.vector_norm(exact))
     plain_scheme = _use_plain(socket_spec("socket")).build_scheme()
     n_workers, _, _, n_slow = SOCKET_FIG3
-    for encrypt in (None, "real"):
-        spec = socket_spec("socket", encrypt=encrypt)
-        assert (spec.code.n_workers, spec.code.k_blocks,
-                spec.privacy.t_colluding, spec.straggler.n_stragglers) == \
-            SOCKET_FIG3
-        wire_name = "sealed" if encrypt else "plain"
-        free()
-        dev_used0 = torch.cuda.mem_get_info(dev)
-        s = Session(spec, device=dev)
-        try:
-            mesh = s.engine.pool.transport
-            t_mesh = t0 = time.perf_counter()
-            mesh.start()
-            start_s = time.perf_counter() - t0
-            handles = record_round_handles(mesh)
-            free_b, total_b = torch.cuda.mem_get_info(dev)
-            mem = {"device_used_gb_before": (dev_used0[1] - dev_used0[0])
-                   / 1e9,
-                   "device_used_gb_with_mesh": (total_b - free_b) / 1e9,
-                   "master_allocated_gb": torch.cuda.memory_allocated(dev)
-                   / 1e9}
-            mem["per_worker_context_gb"] = (
-                mem["device_used_gb_with_mesh"] -
-                mem["device_used_gb_before"]) / n_workers
-            t_comp = s.engine._round_compute_time(a.shape, b.shape)[1]
-            rows = []
-            for r in range(SOCKET_ROUNDS):
-                c0 = mesh_counters(mesh)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                (out, st), launched = counted(
-                    kernels, total, lambda: s.matmul(a, b, round_idx=r))
-                torch.cuda.synchronize()
-                wall_s = time.perf_counter() - t0
-                io = counter_delta(c0, mesh_counters(mesh))
-                vout, vst = replay_round(torch, "virtual", st, a, b, r)
-                want = threads_plain_decode(torch, plain_scheme, a, b, st)
-                torch.cuda.synchronize()
-                resp = sorted(w for _, w in st.arrivals[:st.n_waited])
-                vresp = sorted(w for _, w in vst.arrivals[:vst.n_waited])
-                delays = s.engine.straggler.delays(r)
-                plan_resp = sorted(np.argsort(delays + t_comp,
-                                              kind="stable")[:st.n_waited]
-                                   .tolist())
-                lag = [t - (float(delays[w]) + t_comp)
-                       for t, w in st.arrivals]
-                # a sealed task opens its shard and seals its product: two
-                # mask_add launches in the worker; a plain task launches none
-                w_launches = responder_launches(handles[-1], st)
-                err, rel = rel_diff(torch, out, want)
-                rel_x = rel_to(torch, out, exact, exact_norm)
-                row = {"phase": "socket_main_path",
-                       "check": f"a_{wire_name}_round", "round": r,
-                       "A": [m, d], "B": [d, n_out],
-                       "n_waited": st.n_waited, "responders": resp,
-                       "same_responders_as_spec_virtual_plan":
-                           resp == plan_resp,
-                       "bit_identical_to_virtual_replay":
-                           bool(torch.equal(out, vout)),
-                       "virtual_replay_responders_equal": resp == vresp,
-                       "vs_plain_decode_max_abs": err,
-                       "vs_plain_decode_rel": rel,
-                       "rel_err_vs_f64": rel_x,
-                       "round_wall_s": wall_s, "encode_s": st.encode_s,
-                       "crypto_s": st.crypto_s, "decode_s": st.decode_s,
-                       "compute_wait_s": st.compute_wait_s,
-                       "arrival_lag_behind_virtual_clock_ms": {
-                           "median": 1e3 * statistics.median(lag),
-                           "max": 1e3 * max(lag)},
-                       "wire": io, "launches": launched,
-                       "worker_launches_per_responder": sorted(
-                           {json.dumps(v) for v in w_launches.values()}),
-                       "dispatches": st.dispatches}
-                if r == 0:
-                    tout, tst = replay_round(torch, "threads", st, a, b, r)
-                    row["bit_identical_to_threads_replay"] = bool(
-                        torch.equal(out, tout))
-                    row["threads_replay_responders"] = sorted(
-                        w for _, w in tst.arrivals[:tst.n_waited])
-                    del tout
-                emit(row)
-                rows.append(row)
-                assert out.device == a.device and out.shape == (m, n_out)
-                assert bool(torch.isfinite(out).all()), row
-                assert st.n_waited == n_workers - n_slow, row
-                assert resp == vresp, row
-                assert row["bit_identical_to_virtual_replay"], row
-                if r == 0:
-                    assert row["bit_identical_to_threads_replay"], row
-                    assert row["threads_replay_responders"] == resp, row
-                assert rel <= ROUND_TOL, row
-                assert launched["berrut_combine"] == 2, row
-                assert launched["coded_matmul"] == \
-                    launched["flash_attention"] == 0, row
-                assert all(v == ({"mask_add": 2} if encrypt else {})
-                           for v in w_launches.values()), row
-                if encrypt:
-                    # one mask_add per shard sealed and per result opened;
-                    # a session's first round adds the cipher's rate probe
-                    probe = 4 if r == 0 else 0
-                    assert launched["mask_add"] == \
-                        n_workers + st.n_waited + probe, row
-                    assert st.crypto_s > 0, row
-                else:
-                    assert launched["mask_add"] == 0, row
-                    assert st.crypto_s == 0, row
-                del out, vout, want
-            maps = worker_maps(mesh)
-            # one more round with every berrut_combine call held and, sealed,
-            # every mask_add call of the master and the workers (outside the
-            # timed rounds: the float64 bound is not the round's work)
-            ratios = []
-            hold_combines(torch, s.engine.scheme, ratios)
-            undo_seal, check_seal = (hold_sealed_round(torch, s.engine, b)
-                                     if encrypt else (lambda: None, dict))
+    # one mesh of 30 worker processes for both wires: the plain rounds'
+    # session starts it, the sealed rounds' session takes it over (its
+    # workers hold no session state: a sealed task carries its keys) and
+    # closes it
+    mesh = None
+    try:
+        for encrypt in (None, "real"):
+            spec = socket_spec("socket", encrypt=encrypt)
+            assert (spec.code.n_workers, spec.code.k_blocks,
+                    spec.privacy.t_colluding, spec.straggler.n_stragglers) == \
+                SOCKET_FIG3
+            wire_name = "sealed" if encrypt else "plain"
+            last = encrypt is not None
+            free()
+            s = Session(spec, device=dev)
             try:
-                (out, st), launched = counted(
-                    kernels, total,
-                    lambda: s.matmul(a, b, round_idx=SOCKET_ROUNDS))
+                if mesh is None:
+                    dev_used0 = torch.cuda.mem_get_info(dev)
+                    mesh = s.engine.pool.transport
+                    t_mesh = t0 = time.perf_counter()
+                    mesh.start()
+                    start_s = time.perf_counter() - t0
+                    handles = record_round_handles(mesh)
+                    free_b, total_b = torch.cuda.mem_get_info(dev)
+                    mem = {"device_used_gb_before": (dev_used0[1] - dev_used0[0])
+                           / 1e9,
+                           "device_used_gb_with_mesh": (total_b - free_b) / 1e9,
+                           "master_allocated_gb":
+                               torch.cuda.memory_allocated(dev) / 1e9}
+                    mem["per_worker_context_gb"] = (
+                        mem["device_used_gb_with_mesh"] -
+                        mem["device_used_gb_before"]) / n_workers
+                else:
+                    assert s.engine.pool._socket is None
+                    s.engine.pool._socket = mesh
+                    start_s = 0.0
+                assert s.engine.pool.transport is mesh
+                t_comp = s.engine._round_compute_time(a.shape, b.shape)[1]
+                rows = []
+                for r in range(SOCKET_ROUNDS):
+                    c0 = mesh_counters(mesh)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    (out, st), launched = counted(
+                        kernels, total, lambda: s.matmul(a, b, round_idx=r))
+                    torch.cuda.synchronize()
+                    wall_s = time.perf_counter() - t0
+                    io = counter_delta(c0, mesh_counters(mesh))
+                    vout, vst = replay_round(torch, "virtual", st, a, b, r)
+                    want = threads_plain_decode(torch, plain_scheme, a, b, st)
+                    torch.cuda.synchronize()
+                    resp = sorted(w for _, w in st.arrivals[:st.n_waited])
+                    vresp = sorted(w for _, w in vst.arrivals[:vst.n_waited])
+                    delays = s.engine.straggler.delays(r)
+                    plan_resp = sorted(np.argsort(delays + t_comp,
+                                                  kind="stable")[:st.n_waited]
+                                       .tolist())
+                    lag = [t - (float(delays[w]) + t_comp)
+                           for t, w in st.arrivals]
+                    # a sealed task opens its shard and seals its product: two
+                    # mask_add launches in the worker; a plain task launches none
+                    w_launches = responder_launches(handles[-1], st)
+                    err, rel = rel_diff(torch, out, want)
+                    rel_x = rel_to(torch, out, exact, exact_norm)
+                    row = {"phase": "socket_main_path",
+                           "check": f"a_{wire_name}_round", "round": r,
+                           "A": [m, d], "B": [d, n_out],
+                           "n_waited": st.n_waited, "responders": resp,
+                           "same_responders_as_spec_virtual_plan":
+                               resp == plan_resp,
+                           "bit_identical_to_virtual_replay":
+                               bool(torch.equal(out, vout)),
+                           "virtual_replay_responders_equal": resp == vresp,
+                           "vs_plain_decode_max_abs": err,
+                           "vs_plain_decode_rel": rel,
+                           "rel_err_vs_f64": rel_x,
+                           "round_wall_s": wall_s, "encode_s": st.encode_s,
+                           "crypto_s": st.crypto_s, "decode_s": st.decode_s,
+                           "compute_wait_s": st.compute_wait_s,
+                           "arrival_lag_behind_virtual_clock_ms": {
+                               "median": 1e3 * statistics.median(lag),
+                               "max": 1e3 * max(lag)},
+                           "wire": io, "launches": launched,
+                           "worker_launches_per_responder": sorted(
+                               {json.dumps(v) for v in w_launches.values()}),
+                           "dispatches": st.dispatches}
+                    if r == 0:
+                        tout, tst = replay_round(torch, "threads", st, a, b, r)
+                        row["bit_identical_to_threads_replay"] = bool(
+                            torch.equal(out, tout))
+                        row["threads_replay_responders"] = sorted(
+                            w for _, w in tst.arrivals[:tst.n_waited])
+                        del tout
+                    emit(row)
+                    rows.append(row)
+                    assert out.device == a.device and out.shape == (m, n_out)
+                    assert bool(torch.isfinite(out).all()), row
+                    assert st.n_waited == n_workers - n_slow, row
+                    assert resp == vresp, row
+                    assert row["bit_identical_to_virtual_replay"], row
+                    if r == 0:
+                        assert row["bit_identical_to_threads_replay"], row
+                        assert row["threads_replay_responders"] == resp, row
+                    assert rel <= ROUND_TOL, row
+                    assert launched["berrut_combine"] == 2, row
+                    assert launched["coded_matmul"] == \
+                        launched["flash_attention"] == 0, row
+                    assert all(v == ({"mask_add": 2} if encrypt else {})
+                               for v in w_launches.values()), row
+                    if encrypt:
+                        # one mask_add per shard sealed and per result opened;
+                        # a session's first round adds the cipher's rate probe
+                        probe = 4 if r == 0 else 0
+                        assert launched["mask_add"] == \
+                            n_workers + st.n_waited + probe, row
+                        assert st.crypto_s > 0, row
+                    else:
+                        assert launched["mask_add"] == 0, row
+                        assert st.crypto_s == 0, row
+                    del out, vout, want
+                maps = worker_maps(mesh)
+                forked_from = fork_server_maps(mesh)
+                # one more round with every berrut_combine call held and, sealed,
+                # every mask_add call of the master and the workers (outside the
+                # timed rounds: the float64 bound is not the round's work)
+                ratios = []
+                hold_combines(torch, s.engine.scheme, ratios)
+                undo_seal, check_seal = (hold_sealed_round(torch, s.engine, b)
+                                         if encrypt else (lambda: None, dict))
+                try:
+                    (out, st), launched = counted(
+                        kernels, total,
+                        lambda: s.matmul(a, b, round_idx=SOCKET_ROUNDS))
+                finally:
+                    undo_seal()
+                held = {"calls": len(ratios), "worst_bound_ratio": max(ratios),
+                        "mask_add": check_seal(), "n_waited": st.n_waited}
+                del out
+                if encrypt:
+                    ct = s.engine._mea.encrypt(
+                        torch.zeros((m // 24, d), device=dev),
+                        s.engine._worker_kps[0].pk, sender=s.engine._master_kp,
+                        nonce=1 << 40)
+                    enc_b, limb_b = wire.ciphertext_wire_overhead(ct)
+                    held["ciphertext_wire_overhead_bytes"] = enc_b - limb_b
+                    del ct
             finally:
-                undo_seal()
-            held = {"calls": len(ratios), "worst_bound_ratio": max(ratios),
-                    "mask_add": check_seal(), "n_waited": st.n_waited}
-            del out
-            if encrypt:
-                ct = s.engine._mea.encrypt(
-                    torch.zeros((m // 24, d), device=dev),
-                    s.engine._worker_kps[0].pk, sender=s.engine._master_kp,
-                    nonce=1 << 40)
-                enc_b, limb_b = wire.ciphertext_wire_overhead(ct)
-                held["ciphertext_wire_overhead_bytes"] = enc_b - limb_b
-                del ct
-        finally:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.close()
-            close_s = time.perf_counter() - t0
-        summary = {"phase": "socket_main_path",
-                   "check": f"a_{wire_name}_mesh", "workers": n_workers,
-                   "mesh_start_s": start_s, "close_s": close_s,
-                   "join_timeout_s": mesh.join_timeout_s,
-                   "liveness_timeout_s": mesh.liveness_timeout_s,
-                   "liveness_expired": mesh.stats["liveness_expired"],
-                   "max_silence_s": mesh.stats["max_silence_s"],
-                   "silences": silences(mesh, t_mesh),
-                   "memory": mem, "held": held,
-                   "workers_with_libcuda": sum(maps.values()),
-                   "mesh_stats": dict(mesh.stats),
-                   "build_count": _build.build_count,
-                   "t_compute_virtual_s": t_comp}
-        emit(summary)
-        assert all(maps.values()), summary
-        assert held["calls"] == 2 and held["worst_bound_ratio"] <= 1.0, \
-            summary
-        # TransportSpec's default liveness deadline: no live worker is
-        # written off
-        assert summary["liveness_expired"] == 0, summary
-        seal = held["mask_add"]
-        if encrypt:
-            rows_k = m // SOCKET_FIG3[1]
-            assert seal["master_calls"] == seal["master_calls_exact"] == \
-                n_workers + held["n_waited"], summary
-            assert [[rows_k * d, 8], [rows_k * n_out, 8]] == sorted(
-                [list(x) for x in seal["master_shapes"]], reverse=True), \
+                torch.cuda.synchronize()
+                if not last:
+                    s.engine.pool._socket = None    # the mesh stays up
+                t0 = time.perf_counter()
+                s.close()
+                close_s = time.perf_counter() - t0
+            summary = {"phase": "socket_main_path",
+                       "check": f"a_{wire_name}_mesh", "workers": n_workers,
+                       "mesh_start_s": start_s,
+                       "mesh": "started here" if start_s else
+                       "the plain rounds' mesh, taken over",
+                       "close_s": close_s if last else None,
+                       "session_close_s": close_s,
+                       "join_timeout_s": mesh.join_timeout_s,
+                       "liveness_timeout_s": mesh.liveness_timeout_s,
+                       "liveness_expired": mesh.stats["liveness_expired"],
+                       "max_silence_s": mesh.stats["max_silence_s"],
+                       "silences": silences(mesh, t_mesh),
+                       "memory": mem, "held": held,
+                       "workers_with_libcuda": sum(maps.values()),
+                       "workers_forked_from": forked_from,
+                       "mesh_stats": dict(mesh.stats),
+                       "build_count": _build.build_count,
+                       "t_compute_virtual_s": t_comp}
+            emit(summary)
+            meshes[f"a_{wire_name}"] = {
+                "workers": n_workers, "start_s": start_s,
+                "liveness_expired": summary["liveness_expired"],
+                "max_silence_s": summary["max_silence_s"]}
+            assert all(maps.values()), summary
+            assert held["calls"] == 2 and held["worst_bound_ratio"] <= 1.0, \
                 summary
-            assert seal["rounds"] == 1, summary
-            assert seal["shards_sealed"] == n_workers, summary
-            assert seal["worker_replies"] == seal["worker_replies_exact"] \
-                == held["n_waited"], summary
-            assert held["ciphertext_wire_overhead_bytes"] < 256, summary
-        assert close_s <= mesh.join_timeout_s + 1.5, summary
-        assert all(p.poll() is not None for p in mesh._procs.values())
-        assert _build.build_count == 1, _build.build_count
-        del s
+            # TransportSpec's default liveness deadline: no live worker is
+            # written off
+            assert summary["liveness_expired"] == 0, summary
+            seal = held["mask_add"]
+            if encrypt:
+                rows_k = m // SOCKET_FIG3[1]
+                assert seal["master_calls"] == seal["master_calls_exact"] == \
+                    n_workers + held["n_waited"], summary
+                assert [[rows_k * d, 8], [rows_k * n_out, 8]] == sorted(
+                    [list(x) for x in seal["master_shapes"]], reverse=True), \
+                    summary
+                assert seal["rounds"] == 1, summary
+                assert seal["shards_sealed"] == n_workers, summary
+                assert seal["worker_replies"] == seal["worker_replies_exact"] \
+                    == held["n_waited"], summary
+                assert held["ciphertext_wire_overhead_bytes"] < 256, summary
+            assert close_s <= mesh.join_timeout_s + 1.5, summary
+            if last:
+                assert all(p.poll() is not None for p in mesh._procs.values())
+            else:
+                assert all(p.poll() is None for p in mesh._procs.values())
+            assert _build.build_count == 1, _build.build_count
+            del s
+    finally:
+        if mesh is not None:    # closed already, unless a check failed
+            mesh.close()        # while the plain rounds' session held it
     # the sealed rounds decode the plain rounds' bits: each matched the
     # plain virtual loop round of its own responders
     free()
@@ -4195,6 +4283,7 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
             t_mesh = time.perf_counter()
             if on_mesh:
                 mesh.start()
+                start_s = time.perf_counter() - t_mesh
                 if orders is not None:
                     record_arrival_orders(mesh, orders, offs)
             for r in range(rounds):
@@ -4207,8 +4296,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                 if on_mesh and mesh.stats["kills"] > kills:
                     mesh.start()            # waits for the respawns
                     whole_s.append(time.perf_counter() - t0)
-            ms = (dict(mesh.stats, silences=silences(mesh, t_mesh))
-                  if on_mesh else {})
+            ms = (dict(mesh.stats, silences=silences(mesh, t_mesh),
+                       mesh_start_s=start_s) if on_mesh else {})
             health = eng.health.snapshot()
         finally:
             undo()
@@ -4231,6 +4320,7 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                torch.equal(out, outs_t[0])),
            "threads_retries": st_t[0].retries,
            "round_start_to_mesh_whole_s": respawn_k,
+           "mesh_start_s": ms_k["mesh_start_s"],
            "liveness_timeout_s": TransportSpec().liveness_timeout_s,
            "liveness_expired": ms_k.get("liveness_expired", 0),
            "max_silence_s": ms_k.get("max_silence_s", 0.0),
@@ -4240,6 +4330,10 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
            "crashed_in_health": [w for w, n in enumerate(
                health_k.get("n_crash", [])) if n]}
     emit(row)
+    meshes["b_i"] = {"workers": KILL_OP["n_workers"],
+                     "start_s": row["mesh_start_s"],
+                     "liveness_expired": row["liveness_expired"],
+                     "max_silence_s": row["max_silence_s"]}
     assert row["kills"] >= 1 and row["respawns"] >= 1, row
     assert st.retries >= 1 and not st.degraded, row
     assert rel_x <= DEFENDED_REL_MAX, row
@@ -4295,6 +4389,7 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
     op = dict(FAULT_OP, drop_rate=MESH_DROP_RATE)
     row = {"phase": "socket_main_path", "check": "b_ii_os_level_faults",
            "spec": op, "A": [m, d], "B": [d, n_out], "rounds": rounds,
+           "mesh_start_s": ms_s["mesh_start_s"],
            "kills": ms_s.get("kills", 0),
            "crc_failures": ms_s.get("crc_failures", 0),
            "respawns": ms_s.get("respawns", 0),
@@ -4308,6 +4403,10 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                                        sorted(orders.items())},
            "health_latency_fixed_s": 1e-3, "mesh_stats": ms_s}
     emit(row)
+    meshes["b_ii"] = {"workers": FAULT_OP["n_workers"],
+                      "start_s": row["mesh_start_s"],
+                      "liveness_expired": row["liveness_expired"],
+                      "max_silence_s": row["max_silence_s"]}
     emit({"phase": "socket_main_path", "check": "b_ii_stall_dumps",
           "after_silent_s": STALL_DUMP_S, "dir": str(stall_dir),
           "dumps": stall_dumps(stall_dir)})
@@ -4349,7 +4448,9 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
     s = Session(serve_spec("socket"), device=dev)
     try:
         mesh = s.engine.pool.transport
+        t0 = time.perf_counter()
         mesh.start()
+        start_s = time.perf_counter() - t0
         c0 = mesh_counters(mesh)
         rep, launched = counted(kernels, total, lambda: s.serve(
             arch=SERVE_ARCH, tiny=False, requests=cut,
@@ -4373,7 +4474,7 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
            "step_wall_s": [float(w) for w in rep.step_wall_s],
            "bytes_sent_per_step": io["bytes_sent"] / max(len(
                rep.step_stats), 1),
-           "launches": launched, "close_s": close_s,
+           "launches": launched, "close_s": close_s, "mesh_start_s": start_s,
            "join_timeout_s": mesh.join_timeout_s, "phase_c_s": serve_s,
            "liveness_timeout_s": mesh.liveness_timeout_s,
            "liveness_expired": mesh.stats["liveness_expired"],
@@ -4383,6 +4484,9 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
                                if k.startswith("worker_launches_")},
            "workers_with_libcuda": sum(maps.values())}
     emit(row)
+    meshes["c"] = {"workers": mesh.n, "start_s": start_s,
+                   "liveness_expired": row["liveness_expired"],
+                   "max_silence_s": row["max_silence_s"]}
     assert rep.mode == "round" and same, row
     assert all(maps.values()), row
     assert close_s <= mesh.join_timeout_s + 1.5, row
@@ -4391,6 +4495,8 @@ def socket_main_path(torch, dev, serve_tokens=None) -> dict:
 
     emit({"phase": "socket_main_path", "check": "phase_total",
           "launches_master": total, "build_count": _build.build_count,
+          "meshes": meshes,
+          "mesh_start_s_sum": sum(v["start_s"] for v in meshes.values()),
           "phase_s": time.perf_counter() - phase_t0})
     assert _build.build_count == 1, _build.build_count
     return total
@@ -6332,7 +6438,7 @@ def grads_of_step(torch, model, tokens, targets, force_kernel):
                                   for k, p in model.named_parameters()}
 
 
-def train_main_path(torch, dev) -> tuple:
+def train_main_path(torch, dev, start_ranks=None) -> tuple:
     """Phase 15: LM training on the card, the path of ``python -m
     repro_torch.launch.train``.  (a) ``flash_attention_bwd`` against its
     plain version (``check_flash_bwd``), then a 2-layer full-width
@@ -6357,7 +6463,11 @@ def train_main_path(torch, dev) -> tuple:
     one full-width layer's attention leaves, restored bit-identical, with
     every ``mask_add`` call held exactly.  Returns (the counted launches,
     the timed backward rows of (a) by dtype, the float32 step's backward
-    launches under "float32", "launches").  Phase 15 alone:
+    launches under "float32", "launches").  ``start_ranks``, when given,
+    is called once (b)'s timed steps are done and their memory freed
+    (``main`` starts phase 16's ranks there, so that their start
+    overlaps (c) and (d), and the steps run as without them).  Phase 15
+    alone:
     ``build_kernels(torch)`` then ``train_main_path(torch,
     torch.device("cuda"))``."""
     import contextlib
@@ -6513,6 +6623,8 @@ def train_main_path(torch, dev) -> tuple:
     assert peak_gb <= LM_PEAK_LIMIT_GB, row
     del model, params, state, step_fn, opt
     free()
+    if start_ranks is not None:
+        start_ranks()
 
     # ---- (c) launch.train.main, killed after its step-2 checkpoint
     class Killed(Exception):
@@ -6919,7 +7031,51 @@ def _phase16_rank(rank, world, model, ref_grads, ref_loss, batches, masks,
     return out
 
 
-def sharded_main_path(torch, dev, p17: bool = False) -> tuple:
+def _phase16_warm(rank, world):
+    """A phase 16 rank's start, ahead of its job: its CUDA context, the
+    kernel libraries the parent built, the modules its program uses."""
+    import torch
+    import repro_torch.core  # noqa: F401
+    import repro_torch.dist.sharding  # noqa: F401
+    import repro_torch.launch.steps  # noqa: F401
+    import repro_torch.models  # noqa: F401
+    import repro_torch.optim  # noqa: F401
+    from repro_torch.kernels import _build
+    torch.zeros(1, device="cuda")
+    _build.load_prebuilt()
+
+
+def start_sharded_ranks(torch) -> dict:
+    """Spawn phase 16's 8 ranks ahead of their job
+    (``launch.mesh.RankGroup``, ``_phase16_warm``): they join the gloo
+    group, make their contexts and load the kernels, then wait.  ``main``
+    starts them while phase 15 runs.  Returns the group with what phase
+    16 reads of the start: the card's free memory just before the spawn
+    and the parent's reserved memory then (so phase 16 can tell the
+    ranks' resident memory from its own)."""
+    import tempfile
+    from repro_torch.launch.mesh import RankGroup
+    torch.cuda.synchronize()
+    free_b, _ = torch.cuda.mem_get_info()
+    rdv = tempfile.mkdtemp(prefix="rdv_", dir=ROOT / "build")
+    # the ranks' allocators grow segments in place: 8 ranks' unused
+    # reserved blocks came to ~8 GB of the card with fixed segments
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        group = RankGroup(P16_MESH[0] * P16_MESH[1], rdv_dir=rdv,
+                          device="cuda", warm=_phase16_warm)
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    return {"group": group, "rdv": rdv, "free_before_gb": free_b / 1e9,
+            "reserved_before_gb": torch.cuda.memory_reserved() / 1e9,
+            "spawned_at": time.perf_counter()}
+
+
+def sharded_main_path(torch, dev, p17: bool = False, ranks=None) -> tuple:
     """Phase 16: the sharded path on a 2 x 4 (data, model) mesh of 8 gloo
     ranks over the one card (``launch.mesh.run_ranks``; NCCL takes one
     rank a device).  Every rank first probes which gloo collectives serve
@@ -6949,9 +7105,10 @@ def sharded_main_path(torch, dev, p17: bool = False) -> tuple:
     ranks' results, the parent's references), else None).  ``p17`` also
     prepares phase 17's references here and runs its rank part in the
     same ranks after phase 16's (``_phase17_rank``): one start for
-    both."""
+    both.  ``ranks``: the group ``start_sharded_ranks`` spawned earlier
+    (``main`` spawns it during phase 15); None spawns it here, once the
+    parent's references are ready."""
     import gc
-    import tempfile
 
     import numpy as np
     from repro_torch.api import ClusterSpec, Session
@@ -6964,7 +7121,6 @@ def sharded_main_path(torch, dev, p17: bool = False) -> tuple:
     from repro_torch.kernels.flash_attention_bwd import \
         flash_attention_bwd_kernel
     from repro_torch.kernels.mask_add import mask_add_kernel
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.launch.steps import build_train_step
     from repro_torch.models import attention, build_model
     from repro_torch.optim import adamw, warmup_cosine
@@ -6984,11 +7140,21 @@ def sharded_main_path(torch, dev, p17: bool = False) -> tuple:
 
     free()
     free_b, total_b = torch.cuda.mem_get_info()
+    # ranks started earlier hold their contexts already: the room asked
+    # for is the card's free memory without them, as when they started
+    # here (their share: the drop in free memory since their spawn less
+    # the parent's own growth in reserved memory)
+    resident = 0.0 if ranks is None else max(
+        0.0, ranks["free_before_gb"] - free_b / 1e9 -
+        (torch.cuda.memory_reserved() / 1e9 - ranks["reserved_before_gb"]))
     room = {"phase": phase, "check": "room", "free_gb": free_b / 1e9,
             "card_gb": total_b / 1e9, "asked_gb": P16_ROOM_GB,
-            "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "ranks_started_earlier": ranks is not None,
+            "ranks_resident_gb": resident,
+            "free_gb_without_ranks": free_b / 1e9 + resident}
     emit(room)
-    assert free_b / 1e9 >= P16_ROOM_GB, \
+    assert room["free_gb_without_ranks"] >= P16_ROOM_GB, \
         f"phase 16 needs {P16_ROOM_GB} GB free on the card: {room}"
 
     # ---- (a) the one-process float32 step, its gradients kept
@@ -7064,29 +7230,29 @@ def sharded_main_path(torch, dev, p17: bool = False) -> tuple:
     del model, dmodel
     free()
     before_s = time.perf_counter() - phase_t0
-    rdv = tempfile.mkdtemp(prefix="rdv_", dir=ROOT / "build")
-    t = time.perf_counter()
-    spawned = time.time()
-    # the ranks' allocators grow segments in place: 8 ranks' unused
-    # reserved blocks came to ~8 GB of the card with fixed segments
-    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    if ranks is None:
+        ranks = start_sharded_ranks(torch)
     try:
-        outs = run_ranks(_phase16_rank, P16_MESH[0] * P16_MESH[1],
-                         (shared["model"], shared["grads"], ref_loss,
-                          batches, masks, dcfg, shared["cache"],
-                          dtoks.cpu().numpy(), p17_in),
-                         rdv_dir=rdv, device="cuda", timeout_s=P16_TIMEOUT_S)
+        t = time.perf_counter()
+        rank_starts = ranks["group"].ready(timeout_s=P16_TIMEOUT_S)
+        wait_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sent = time.time()
+        outs = ranks["group"].run(
+            _phase16_rank, (shared["model"], shared["grads"], ref_loss,
+                            batches, masks, dcfg, shared["cache"],
+                            dtoks.cpu().numpy(), p17_in),
+            timeout_s=P16_TIMEOUT_S)
     finally:
-        shutil.rmtree(rdv, ignore_errors=True)
-        if alloc_conf is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        ranks["group"].close()
+        shutil.rmtree(ranks["rdv"], ignore_errors=True)
     ranks_s = time.perf_counter() - t
-    # process start to the rank program, and its end to the join
-    start_s = min(o["entered"] for o in outs) - spawned
-    end_s = ranks_s - (max(o["left"] for o in outs) - spawned)
+    # the ranks' start (spawn to ready: context, group, kernels), what
+    # this phase still waited of it, the job's hand-over to the rank
+    # program, and the program's end to the join
+    start_s = max(rank_starts)
+    job_start_s = min(o["entered"] for o in outs) - sent
+    end_s = ranks_s - (max(o["left"] for o in outs) - sent)
     del shared, p17_in
     free()
     probe = outs[0]["probe"]
@@ -7174,7 +7340,8 @@ def sharded_main_path(torch, dev, p17: bool = False) -> tuple:
            "launches": launched, "expected_launches": want,
            "peak_memory_gb_per_rank": [o["peak_memory_gb"] for o in outs],
            "rank_s": [o["rank_s"] for o in outs], "ranks_call_s": ranks_s,
-           "ranks_start_s": start_s, "ranks_end_s": end_s,
+           "ranks_start_s": start_s, "ranks_start_waited_s": wait_s,
+           "ranks_job_start_s": job_start_s, "ranks_end_s": end_s,
            "before_ranks_s": before_s}
     emit(row)
     assert all(np.isfinite(s_["loss"]) for s_ in steps), row
@@ -7294,6 +7461,8 @@ def sharded_main_path(torch, dev, p17: bool = False) -> tuple:
            "long_context": long_row}
     emit(row)
     emit({"phase": phase, "check": "phase_total", "launches": total,
+          "ranks_start_s": start_s, "ranks_start_waited_s": wait_s,
+          "ranks_call_s": ranks_s, "before_ranks_s": before_s,
           "phase_s": time.perf_counter() - phase_t0})
     return total, {"flash_f32": f32_fwd, "bwd_3xtf32": f32_bwd}, \
         ((outs, p17_parent) if p17 else None)
@@ -8173,6 +8342,226 @@ def mesh_paths_main_path(torch, dev, outs, parent, dryrun) -> tuple:
           "prepare_s": parent["prepare_s"],
           "phase_s": time.perf_counter() - phase_t0})
     return total, {"flash_f32": f32_fwd, "bwd_3xtf32": f32_bwd}
+
+
+# --------------------------------------------------------------------------
+# phase 18: approximated coded computing of a non-polynomial f
+# --------------------------------------------------------------------------
+
+# (a) the paper's §V-A illustrating example: N=8, K=2, S=T=1, f(X) = X Xᵀ,
+# worker 5 dropped, at qwen2-7b's width: X (4096, 3584), shards (8, 2048,
+# 3584), results (8, 2048, 2048)
+ACC_EXAMPLE = dict(n_workers=8, k_blocks=2, t_colluding=1, noise_scale=1.0)
+ACC_EXAMPLE_DROPPED = (5,)
+ACC_X = (4096, 3584)
+# (b) paper_fig3()'s spacdc (N=30, K=24, T=3) without its 7 slowest
+# workers (its straggler model's round 0), each worker's f qwen2-7b's
+# SwiGLU FFN hidden silu(Z W_gate) * (Z W_up), W (3584, 18944): blocks of
+# 171 rows (4096 zero-padded to 24 x 171), results 30 x 171 x 18944
+ACC_D_FF = 18944
+ACC_SEED = 18
+# the same codes at tests/test_torch_acc.py's size on the CPU: X (40, 16)
+# standard normal from numpy seed 0, (b)'s d_ff 64
+ACC_SMALL = (40, 16, 64)
+ACC_QUICKSTART_TIMEOUT_S = 120
+
+
+def acc_functions(torch, wg, wu) -> dict:
+    """The workers' f of phase 18: X Xᵀ, and the SwiGLU FFN hidden of
+    (W_gate, W_up)."""
+    import torch.nn.functional as F
+    return {"xxT": lambda z: z @ z.T,
+            "swiglu": lambda z: F.silu(z @ wg) * (z @ wu)}
+
+
+def acc_errors(torch, approx, exact) -> dict:
+    """An approximation of f on the K blocks against the exact f: max
+    |error| over max |exact| (the reference tests' measure) and the
+    relative RMS error (the quickstart's), in float64."""
+    diff = (approx.double() - exact.double())
+    exact = exact.double()
+    return {"max_abs_over_max_exact": float(diff.abs().max()
+                                            / exact.abs().max()),
+            "rel_rmse": float(diff.pow(2).mean().sqrt()
+                              / exact.pow(2).mean().sqrt())}
+
+
+def acc_small_figure(torch, cfg, dropped, fname: str) -> dict:
+    """The error of ``SPACDCCode(cfg).run`` against the exact f at
+    ``ACC_SMALL`` on the CPU (the plain versions), with every worker and
+    without ``dropped``, beside which the full-width error is printed."""
+    import numpy as np
+    from repro_torch.core.spacdc import SPACDCCode
+    m, d, d_ff = ACC_SMALL
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32))
+    w = [torch.from_numpy((rng.standard_normal((d, d_ff)) / math.sqrt(d))
+                          .astype(np.float32)) for _ in range(2)]
+    f = acc_functions(torch, *w)[fname]
+    code = SPACDCCode(cfg)
+    exact = torch.func.vmap(f)(code.split_blocks(x))
+    resp = [i for i in range(cfg.n_workers) if i not in dropped]
+    return {"size": [m, d] + ([d_ff] if fname == "swiglu" else []),
+            "all_workers": acc_errors(torch, code.run(x, f), exact),
+            "without_dropped": acc_errors(torch, code.run(x, f, resp),
+                                          exact)}
+
+
+def acc_main_path(torch, dev) -> dict:
+    """Phase 18: the paper's approximated coded computing of an arbitrary,
+    non-polynomial f on the card, through ``SPACDCCode.run``: encode (one
+    ``berrut_combine`` launch), f on every worker's shard
+    (``torch.func.vmap``), decode from the responders (one more).  (a)
+    the §V-A illustrating example at full width (N=8, K=2, T=1, worker 5
+    dropped, f(X) = X Xᵀ on X (4096, 3584)); (b) ``paper_fig3()``'s
+    spacdc without its 7 slowest workers, f the SwiGLU FFN hidden of
+    qwen2-7b (W_gate, W_up (3584, 18944)).  Each run counted from zero
+    (exactly two ``berrut_combine`` launches, ``build_count`` 1), held
+    against the same run with the kernels forced off on the same explicit
+    noise (``ROUND_TOL``) and, call by call, within float32's bound of the
+    plain version (``hold_combines``); its error against the exact f on
+    the K blocks, with every worker and without the dropped ones, beside
+    the same code's error at ``ACC_SMALL`` on the CPU; the run's and the
+    kernels-off run's ms.  Then ``examples/quickstart_torch.py`` on the
+    card, which must exit 0.  Returns the counted launches.  Phase 18
+    alone: ``build_kernels(torch)`` then ``acc_main_path(torch,
+    torch.device("cuda"))``."""
+    import gc
+
+    import numpy as np
+    from repro_torch.api import ClusterSpec
+    from repro_torch.core.spacdc import SPACDCCode, SPACDCConfig
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.berrut_encode import berrut_encode_kernel
+    from repro_torch.kernels.coded_matmul import coded_matmul_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention_bwd import \
+        flash_attention_bwd_kernel
+    from repro_torch.kernels.mask_add import mask_add_kernel
+    kernels = {"coded_matmul": coded_matmul_kernel,
+               "berrut_combine": berrut_encode_kernel,
+               "mask_add": mask_add_kernel,
+               "flash_attention": flash_attention_kernel,
+               "flash_attention_bwd": flash_attention_bwd_kernel}
+    total = dict.fromkeys(kernels, 0)
+    phase = "acc_main_path"
+    phase_t0 = time.perf_counter()
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    m, d = ACC_X
+    x = gaussian(torch, dev, ACC_X, ACC_SEED)
+    w = [gaussian(torch, dev, (d, ACC_D_FF), ACC_SEED + 1 + i) / math.sqrt(d)
+         for i in range(2)]
+    fns = acc_functions(torch, *w)
+    fig3 = ClusterSpec.paper_fig3()
+    n3 = fig3.code.n_workers
+    delays = fig3.straggler.build(n3, fig3.seed).delays(0)
+    slowest = sorted(np.argsort(delays, kind="stable")[
+        n3 - fig3.straggler.n_stragglers:].tolist())
+    cases = (("a_paper_example_xxT", SPACDCCode(SPACDCConfig(**ACC_EXAMPLE)),
+              ACC_EXAMPLE_DROPPED, "xxT"),
+             ("b_fig3_qwen2_swiglu", fig3.build_scheme(), tuple(slowest),
+              "swiglu"))
+    rows = {}
+    for name, code, dropped, fname in cases:
+        cfg = code.cfg
+        plain = SPACDCCode(cfg, use_kernel=False)
+        f = fns[fname]
+        blk = -(-m // cfg.k_blocks)
+        noise = code.make_noise((blk, d), device=dev)
+        resp = [i for i in range(cfg.n_workers) if i not in dropped]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launched = counted(kernels, total,
+                                lambda: code.run(x, f, resp, noise))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        # outside the count: the kernels-off run, a held run, every worker
+        plain_out, plain_launched = counted(
+            kernels, dict.fromkeys(kernels, 0),
+            lambda: plain.run(x, f, resp, noise))
+        err, rel = rel_diff(torch, out, plain_out)
+        ratios = []
+        hold_combines(torch, code, ratios)
+        try:
+            held = code.run(x, f, resp, noise)
+        finally:
+            del code._combine                 # the class's own again
+        held_same = bool(torch.equal(held, out))
+        del held, plain_out
+        all_out = code.run(x, f, None, noise)
+        exact = torch.func.vmap(f)(code.split_blocks(x))
+        errs = {"without_dropped": acc_errors(torch, out, exact),
+                "all_workers": acc_errors(torch, all_out, exact)}
+        del all_out, exact
+        kernel_ms = timed_ms(torch, lambda: code.run(x, f, resp, noise),
+                             max_iters=10)
+        plain_ms = timed_ms(torch, lambda: plain.run(x, f, resp, noise),
+                            max_iters=10)
+        row = {"phase": phase, "check": name,
+               "code": {"n_workers": cfg.n_workers, "k_blocks": cfg.k_blocks,
+                        "t_colluding": cfg.t_colluding,
+                        "noise_scale": cfg.noise_scale},
+               "f": fname, "X": [m, d],
+               "W": [d, ACC_D_FF] if fname == "swiglu" else None,
+               "dropped": list(dropped), "n_responders": len(resp),
+               "shards": [cfg.n_workers, blk, d],
+               "out_shape": list(out.shape), "out_device": out.device.type,
+               "launches": launched, "plain_launches": plain_launched,
+               "kernel_vs_plain_max_abs": err, "kernel_vs_plain_rel": rel,
+               "tol": ROUND_TOL, "combine_bound_ratios": ratios,
+               "held_run_bit_identical": held_same,
+               "error_vs_exact_f": errs,
+               "error_vs_exact_f_cpu_small": acc_small_figure(
+                   torch, cfg, dropped, fname),
+               "first_run_s": run_s, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "build_count": _build.build_count,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        emit(row)
+        rows[name] = row
+        assert launched == dict(dict.fromkeys(kernels, 0),
+                                berrut_combine=2), row
+        assert not any(plain_launched.values()), row
+        assert _build.build_count == 1, row
+        assert out.device.type == "cuda", row
+        assert tuple(out.shape) == (cfg.k_blocks, blk,
+                                    blk if fname == "xxT" else ACC_D_FF), row
+        assert bool(torch.isfinite(out).all()), row
+        assert rel <= ROUND_TOL, row
+        assert len(ratios) == 2 and max(ratios) <= 1.0, row
+        assert held_same, row
+        del out, code, plain
+        free()
+    del x, w, fns
+    free()
+
+    # ---- the quickstart on the card
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=ACC_QUICKSTART_TIMEOUT_S)
+    row = {"phase": phase, "check": "quickstart_torch_on_the_card",
+           "returncode": proc.returncode,
+           "seconds": time.perf_counter() - t0,
+           "stdout": proc.stdout.splitlines(),
+           "stderr_tail": proc.stderr[-2000:]}
+    emit(row)
+    assert proc.returncode == 0, row
+    emit({"phase": phase, "check": "phase_total", "launches": total,
+          "build_count": _build.build_count,
+          "phase_s": time.perf_counter() - phase_t0})
+    return total
 
 
 def _build_ptxas(torch, stem: str) -> dict:

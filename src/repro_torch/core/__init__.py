@@ -10,8 +10,9 @@ reference registers (``bacc``, ``berrut_grad``, ``conv``, ``glcc``,
 """
 
 from .berrut import (berrut_weight_matrix, berrut_weights, chebyshev_points,
-                     combine, default_alpha_beta)
+                     combine, default_alpha_beta, interpolate)
 from . import registry
+from .registry import AnytimeDecode, CodingScheme
 from .spacdc import SPACDCCode, SPACDCConfig, pad_to_blocks
 from .coded_training import (BerrutGradientCode, coded_backprop_decode,
                              coded_backprop_encode, coded_psum)
@@ -19,8 +20,8 @@ from . import baselines, privacy
 
 __all__ = [
     "berrut_weight_matrix", "berrut_weights", "chebyshev_points", "combine",
-    "default_alpha_beta",
-    "registry",
+    "default_alpha_beta", "interpolate",
+    "registry", "AnytimeDecode", "CodingScheme",
     "SPACDCCode", "SPACDCConfig", "pad_to_blocks",
     "BerrutGradientCode", "coded_backprop_decode", "coded_backprop_encode",
     "coded_psum",

@@ -31,6 +31,7 @@ __all__ = [
     "berrut_weights",
     "berrut_weight_matrix",
     "combine",
+    "interpolate",
 ]
 
 
@@ -156,3 +157,20 @@ def combine(weights: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
     return out.reshape((out.shape[0],) + tuple(blocks.shape[1:])).to(
         blocks.dtype)
 
+
+
+def interpolate(x, nodes, values, signs=None) -> torch.Tensor:
+    """Evaluate the Berrut interpolant of (nodes, values) at x.
+
+    values: (n, ...).  Returns (Q, ...) for x of shape (Q,), and a single
+    value block for scalar x.  The weights are :func:`berrut_weights`; the
+    contraction is ``kernels.ops.berrut_combine`` on the values' device
+    (the ``berrut_combine`` kernel for CUDA values, the plain version for
+    CPU ones), in the values' dtype.
+    """
+    from ..kernels.ops import berrut_combine
+    values = torch.as_tensor(values)
+    w = berrut_weights(x, nodes, signs)
+    if w.ndim == 1:
+        return berrut_combine(w[None], values)[0]
+    return berrut_combine(w, values)

@@ -39,13 +39,13 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
-__all__ = ["AnytimeDecode", "SchemeDefaults", "register", "build", "get",
-           "names"]
+__all__ = ["AnytimeDecode", "CodingScheme", "SchemeDefaults", "register",
+           "build", "get", "names"]
 
 
 @dataclasses.dataclass
@@ -60,6 +60,56 @@ class AnytimeDecode:
     ready: bool
     decoded: Optional[Any]
     n_responders: int
+
+
+@runtime_checkable
+class CodingScheme(Protocol):
+    """What the runtime and the benchmarks rely on (the reference's
+    protocol, with the port's explicit ``noise`` tensor in place of a JAX
+    key).  Every registered scheme is an instance."""
+
+    name: str
+    n_workers: int
+    recovery_threshold: int
+    pair_coded: bool
+    rateless: bool
+    use_kernel: Optional[bool]
+
+    def encode(self, x, noise=None):
+        """(m, ...) data -> (N, ...) coded shards, one per worker."""
+
+    def encode_pair(self, a, b):
+        """(A, B) -> ((N, ...), (N, ...)) coded factor shards for A @ B."""
+
+    def decode(self, results, responders):
+        """Worker results (|F|, ...) in responder order -> decoded blocks."""
+
+    def decode_masked(self, results, mask):
+        """results (N, ...) + boolean/float responder mask (N,) -> blocks."""
+
+    def decode_matrix_masked(self, mask):
+        """(K, N) decode weights for a runtime responder mask."""
+
+    def fused_round(self, a, b, mask, noise=None):
+        """Encode, the batched worker matmul and the masked decode of the
+        job A @ B in one pass (linear data-coded schemes only,
+        ``supports_fused``), through ``kernels.ops.coded_matmul`` and
+        ``kernels.ops.berrut_combine``."""
+
+    def anytime_decode(self, results_so_far, mask) -> "AnytimeDecode":
+        """Decode an arbitrary in-flight responder prefix, or report
+        ``ready=False`` when the prefix is below the scheme's minimum."""
+
+    def decode_residuals(self, results, mask):
+        """(N,) leave-one-out consistency scores for Byzantine screening
+        (0 for non-responders and unscoreable ones)."""
+
+    def wait_policy(self, n_stragglers: int = 0) -> int:
+        """How many responders a master should wait for per round."""
+
+    def reconstruct_matmul(self, decoded, m: int, n: int):
+        """Decoded blocks -> the (m, n) product (undo block layout and
+        padding)."""
 
 
 def _host(x) -> np.ndarray:

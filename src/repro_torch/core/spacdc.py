@@ -15,16 +15,21 @@ Noise: the reference draws its T noise blocks with
 ``jax.random.normal(PRNGKey(seed))`` on every draw, so every round of a
 session sees the same noise.  The port keeps that behaviour with a
 ``torch.Generator`` on the payload's device, re-seeded from ``cfg.seed`` on
-each draw.  Torch's numbers differ from JAX's, so :meth:`encode` and
-:meth:`fused_blocks` take an explicit ``noise`` tensor: the parity tests
-hand in the JAX-drawn noise.
+each draw.  Torch's numbers differ from JAX's, so :meth:`encode`,
+:meth:`fused_blocks` and :meth:`run` take an explicit ``noise`` tensor:
+the parity tests hand in the JAX-drawn noise.
+
+:meth:`run` is the paper's approximated coded computing of an arbitrary,
+non-polynomial f end to end: encode (one ``berrut_combine`` launch on the
+card), f on every worker's shard (``torch.func.vmap``, as the reference
+uses ``jax.vmap``), decode from whichever workers answered (one more).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -281,6 +286,27 @@ class SPACDCCode(registry.SchemeDefaults):
             weights[a, cols] = self._loo_weights_cached(int(i), others)
         return registry._loo_scores(results, mask, resp, weights,
                                     np.ones(resp.size, bool))
+
+    # ------------------------------------------------------------ end-to-end
+    def run(self, x: torch.Tensor, f: Callable[[torch.Tensor], torch.Tensor],
+            responders: Optional[Sequence[int]] = None,
+            noise=None) -> torch.Tensor:
+        """End-to-end execution with the N workers vmapped: Y_i ≈ f(X_i).
+
+        ``x`` (m, ...) is split into K blocks and encoded with T noise
+        blocks (drawn, or ``noise`` when given) into N shards, ``f`` runs
+        on every shard (``torch.func.vmap(f)``), and the results of
+        ``responders`` (every worker when None) are decoded.  Returns the
+        (K, *f(block).shape) stacked approximations of f on the K blocks,
+        on ``x``'s device.
+        """
+        shards = self.encode(x, noise)                    # (N, m/K, ...)
+        results = torch.func.vmap(f)(shards)              # (N, ...)
+        if responders is None:
+            responders = np.arange(self.cfg.n_workers)
+        resp = np.asarray(responders, dtype=np.int64)
+        idx = torch.from_numpy(resp).to(results.device)
+        return self.decode(results[idx], resp)
 
 
 registry.register(

@@ -19,6 +19,11 @@ through gloo's in-place API, counted (``dist.collectives.InPlace``;
 gloo group through a file rendezvous, runs ``fn(rank, world_size, *args)``
 and sends its return value back; every process is stopped before it
 returns, and a failure in any rank raises with that rank's traceback.
+``RankGroup`` is the same group started ahead of its work: the ranks join
+the group and make their device ready (and run an optional ``warm``)
+while the caller does something else, then ``run(fn, args)`` hands them
+the job (``args`` then cross a queue, CUDA tensors by IPC handle as
+spawn arguments do).
 """
 
 from __future__ import annotations
@@ -28,14 +33,14 @@ import os
 import queue
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 import torch
 
 from ..dist import collectives, sharding
 
 __all__ = ["make_production_mesh", "make_test_mesh", "use_mesh", "dp_axes",
-           "DP_AXES", "run_ranks"]
+           "DP_AXES", "run_ranks", "RankGroup"]
 
 DP_AXES = sharding.DP_AXES
 JOIN_S = 15.0       # run_ranks: a finished rank's exit, before the kill
@@ -93,23 +98,117 @@ def dp_axes(mesh) -> tuple:
     return tuple(a for a in mesh.mesh_dim_names if a in DP_AXES)
 
 
-def _rank_entry(fn, rank: int, world: int, init_method: str, device: str,
-                results, args) -> None:
+def _rank_entry(rank: int, world: int, init_method: str, device: str,
+                jobs, results, warm) -> None:
     import torch.distributed as dist
     try:
         if device == "cuda":
             torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=init_method, rank=rank,
                                 world_size=world)
-        out = fn(rank, world, *args)
-        results.put((rank, True, out))
+        if warm is not None:
+            warm(rank, world)
+        results.put(("ready", rank, True, time.time()))
+        job = jobs.get()
+        if job is not None:             # None: the group closed unused
+            fn, args = job
+            results.put(("result", rank, True, fn(rank, world, *args)))
     except BaseException:  # sent to the parent, which raises
-        results.put((rank, False, traceback.format_exc()))
+        results.put(("result", rank, False, traceback.format_exc()))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
         results.close()
         results.join_thread()       # the result is in the pipe
+
+
+class RankGroup:
+    """``world_size`` spawned processes joined to one gloo group (file
+    rendezvous under ``rdv_dir``), started at construction and ahead of
+    their work: each sets its device, joins the group and runs
+    ``warm(rank, world_size)`` when given (a module-level function, as
+    ``fn``), then waits for :meth:`run`.  One job a group: ``run`` stops
+    every process before it returns, as ``close`` does."""
+
+    def __init__(self, world_size: int, *, rdv_dir: str,
+                 device: str = "cuda", warm: Optional[Callable] = None):
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.world_size = world_size
+        self._results = ctx.Queue()
+        self._jobs = [ctx.Queue() for _ in range(world_size)]
+        init_method = f"file://{os.path.join(rdv_dir, 'rdv')}"
+        self._procs = [ctx.Process(target=_rank_entry,
+                                   args=(r, world_size, init_method, device,
+                                         self._jobs[r], self._results, warm),
+                                   daemon=True)
+                       for r in range(world_size)]
+        self.spawned = time.time()
+        for p in self._procs:
+            p.start()
+        self._ready: dict = {}
+        self._got: dict = {}
+        self._sent = False
+        self._closed = False
+
+    def _take(self, timeout_s: float, waiting: str) -> None:
+        try:
+            kind, rank, ok, value = self._results.get(timeout=timeout_s)
+        except queue.Empty:
+            pending = sorted(set(range(self.world_size)) - set(
+                self._ready if waiting == "ready" else self._got))
+            raise RuntimeError(f"ranks {pending} sent nothing in "
+                               f"{timeout_s} s") from None
+        if not ok:
+            self.close()
+            raise RuntimeError(f"rank {rank} of {self.world_size} failed:\n"
+                               f"{value}")
+        (self._ready if kind == "ready" else self._got)[rank] = value
+
+    def ready(self, timeout_s: float = 600.0) -> list:
+        """Wait until every rank has joined the group and warmed up;
+        returns each rank's seconds from the spawn to that point."""
+        while len(self._ready) < self.world_size:
+            self._take(timeout_s, "ready")
+        return [self._ready[r] - self.spawned
+                for r in range(self.world_size)]
+
+    def run(self, fn: Callable, args: tuple = (), *,
+            timeout_s: float = 600.0) -> List[Any]:
+        """Run ``fn(rank, world_size, *args)`` in every rank; returns the
+        return values in rank order (see :func:`run_ranks`)."""
+        if self._closed:
+            raise RuntimeError("the rank group is closed")
+        try:
+            self._sent = True
+            for q in self._jobs:
+                q.put((fn, args))
+            while len(self._got) < self.world_size:
+                self._take(timeout_s, "result")
+            # every result is in: a process still tearing down (its CUDA
+            # context, another's IPC memory) gets JOIN_S, then is killed
+            deadline = time.monotonic() + JOIN_S
+            for p in self._procs:
+                p.join(timeout=max(0.0, deadline - time.monotonic()))
+        finally:
+            self.close()
+        return [self._got[r] for r in range(self.world_size)]
+
+    def close(self) -> None:
+        """Stop every process: ranks still waiting for a job leave at once,
+        any other is killed.  Idempotent."""
+        if not self._closed:
+            self._closed = True
+            if not self._sent:
+                for q in self._jobs:
+                    q.put(None)
+                deadline = time.monotonic() + JOIN_S
+                for p in self._procs:
+                    p.join(timeout=max(0.0, deadline - time.monotonic()))
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
 
 
 def run_ranks(fn: Callable, world_size: int, args: tuple = (), *,
@@ -122,40 +221,5 @@ def run_ranks(fn: Callable, world_size: int, args: tuple = (), *,
     them alive until this returns).  Every process is joined or killed
     before it returns; a rank's exception, or no result within
     ``timeout_s``, raises ``RuntimeError``."""
-    import torch.multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    init_method = f"file://{os.path.join(rdv_dir, 'rdv')}"
-    procs = [ctx.Process(target=_rank_entry,
-                         args=(fn, r, world_size, init_method, device,
-                               results, args), daemon=True)
-             for r in range(world_size)]
-    for p in procs:
-        p.start()
-    got, failed = {}, {}
-    try:
-        while len(got) + len(failed) < world_size:
-            try:
-                rank, ok, value = results.get(timeout=timeout_s)
-            except queue.Empty:
-                raise RuntimeError(
-                    f"ranks {sorted(set(range(world_size)) - set(got))} "
-                    f"sent nothing in {timeout_s} s") from None
-            (got if ok else failed)[rank] = value
-            if failed:
-                break
-        if failed:
-            rank = min(failed)
-            raise RuntimeError(f"rank {rank} of {world_size} failed:\n"
-                               f"{failed[rank]}")
-        # every result is in: a process still tearing down (its CUDA
-        # context, another's IPC memory) gets JOIN_S, then is killed
-        deadline = time.monotonic() + JOIN_S
-        for p in procs:
-            p.join(timeout=max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-    return [got[r] for r in range(world_size)]
+    return RankGroup(world_size, rdv_dir=rdv_dir, device=device).run(
+        fn, args, timeout_s=timeout_s)

@@ -7,6 +7,7 @@ converter and the coded serving step (``models.coded``).  Ports
 from .convert import load_jax_params
 from .encdec import EncDecLM
 from .transformer import TransformerLM
-from .zoo import build_model
+from .zoo import build_model, input_shardings, input_specs
 
-__all__ = ["build_model", "load_jax_params", "EncDecLM", "TransformerLM"]
+__all__ = ["build_model", "input_specs", "input_shardings", "load_jax_params",
+           "EncDecLM", "TransformerLM"]

@@ -20,12 +20,13 @@ from .wait_policy import (ArrivalEvent, Deadline, ErrorTarget, FirstK,
                           FixedQuantile, WaitPolicy, resolve_policy)
 from .scheduler import (AnytimePoint, EncodePipeline, RoundPlan,
                         assemble_curve, observed_delays, plan_round,
-                        retry_backoff, screen_responders, virtual_events)
+                        policy_mask_fn, retry_backoff, screen_responders,
+                        virtual_events)
 from .adaptive import (AdaptiveController, Decision, FittedModel,
                        OnlineStragglerEstimator, error_profile)
-from .transport import (ThreadTransport, VirtualClockTransport,
-                        available_backends, build_transport,
-                        virtual_timeline)
+from .transport import (TRANSPORTS, RoundHandle, ThreadTransport, Transport,
+                        VirtualClockTransport, available_backends,
+                        build_transport, virtual_timeline)
 from .faults import (DegradedRoundError, FaultInjectingTransport,
                      ResultDropped, WorkerHealth, plan_faults)
 from .tasks import (EnvelopeMatmulTask, MatmulTask, PairMatmulTask,
@@ -37,10 +38,11 @@ __all__ = [
     "StragglerModel", "ArrivalEvent", "Deadline", "ErrorTarget", "FirstK",
     "FixedQuantile", "WaitPolicy", "resolve_policy", "EncodePipeline",
     "RoundPlan", "plan_round", "virtual_events", "AnytimePoint",
-    "assemble_curve", "observed_delays", "retry_backoff",
+    "assemble_curve", "observed_delays", "policy_mask_fn", "retry_backoff",
     "screen_responders", "AdaptiveController", "Decision", "FittedModel",
-    "OnlineStragglerEstimator", "error_profile", "VirtualClockTransport",
-    "ThreadTransport", "available_backends", "build_transport",
+    "OnlineStragglerEstimator", "error_profile", "Transport",
+    "RoundHandle", "VirtualClockTransport", "ThreadTransport", "TRANSPORTS",
+    "available_backends", "build_transport",
     "virtual_timeline", "DegradedRoundError", "FaultInjectingTransport",
     "ResultDropped", "WorkerHealth", "plan_faults", "EnvelopeMatmulTask",
     "MatmulTask", "PairMatmulTask", "SealedMatmulTask", "RoundEngine",

@@ -49,11 +49,23 @@ make its device ready fails the start loudly (its ERROR frame is raised
 here), never quietly computing on the CPU.  On CUDA the N workers are N
 contexts time-sharing one card (no MPS), each holding its own context
 memory.
+
+**Starting workers.**  A worker is ``repro_torch.launch.worker``'s main
+loop in a process of its own.  The transport forks it from
+``multiprocessing``'s fork server, which imports torch and the worker
+module once (and makes no CUDA context), so a worker's start is its
+context, not an interpreter and a torch import: on the H100 machine's
+host, 30 workers each started as ``python -m repro_torch.launch.worker``
+took 54.3 s to register (``import torch`` alone 35 s each with 30 at
+once), forked ones 17.4 s.  Respawns are forked the same way.  Given
+``python=``, each worker is ``python -m repro_torch.launch.worker`` under
+that interpreter instead.
 """
 
 from __future__ import annotations
 
 import collections
+import io
 import itertools
 import os
 import pickle
@@ -64,6 +76,11 @@ import subprocess
 import sys
 import threading
 import time
+from multiprocessing import forkserver, popen_forkserver, spawn
+from multiprocessing import process as mp_process
+from multiprocessing import util as mp_util
+from multiprocessing.context import (ForkServerProcess, reduction,
+                                     set_spawning_popen)
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -184,13 +201,123 @@ class _SocketRoundHandle:
         return self._finished_at
 
 
+# what the fork server imports once, so that a forked worker starts
+# without importing them (torch alone took 7.2 s of a worker's start on
+# the H100 machine's host, and 35 s each with 30 workers starting at once)
+_FORK_PRELOAD = ("torch", "repro_torch.launch.worker")
+
+
+def _forked_worker_main(argv, env, quiet: bool) -> None:
+    """A worker forked from the fork server: the master's environment as
+    it was at the spawn, stdout and stderr to /dev/null unless
+    ``SPACDC_WORKER_DEBUG`` is set, then the worker's main loop."""
+    os.environ.clear()
+    os.environ.update(env)
+    if quiet:
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, 1)
+        os.dup2(devnull, 2)
+    from ..launch import worker
+    sys.exit(worker.main(argv))
+
+
+class _NoMainPopen(popen_forkserver.Popen):
+    """The standard library's fork-server launch (Python 3.12) with the
+    preparation data's main-module entries left out: a forked worker runs
+    a function of this package and needs nothing of the program that
+    started it, whose main script need not guard itself with ``if
+    __name__ == "__main__"``."""
+
+    def _launch(self, process_obj):
+        prep_data = spawn.get_preparation_data(process_obj._name)
+        prep_data.pop("init_main_from_name", None)
+        prep_data.pop("init_main_from_path", None)
+        buf = io.BytesIO()
+        set_spawning_popen(self)
+        try:
+            reduction.dump(prep_data, buf)
+            reduction.dump(process_obj, buf)
+        finally:
+            set_spawning_popen(None)
+        self.sentinel, w = forkserver.connect_to_new_process(self._fds)
+        _parent_w = os.dup(w)
+        self.finalizer = mp_util.Finalize(self, mp_util.close_fds,
+                                          (_parent_w, self.sentinel))
+        with open(w, "wb", closefd=True) as f:
+            f.write(buf.getbuffer())
+        self.pid = forkserver.read_signed(self.sentinel)
+
+
+class _WorkerProcess(ForkServerProcess):
+    """A process of the fork server launched by ``_NoMainPopen``."""
+
+    @staticmethod
+    def _Popen(process_obj):
+        return _NoMainPopen(process_obj)
+
+
+class _ForkedWorker:
+    """A worker process forked from ``multiprocessing``'s fork server
+    (``_FORK_PRELOAD`` imported in it once, no CUDA initialized there),
+    behind the part of ``subprocess.Popen`` the transport uses.  The
+    process is kept out of ``multiprocessing``'s own list of children, so
+    that only this handle, under its lock, ever reads its exit status."""
+
+    _lock_start = threading.Lock()
+
+    def __init__(self, proc):
+        self._proc = proc
+        self._lock = threading.Lock()
+        self.pid = proc.pid
+
+    @classmethod
+    def start(cls, argv, env, quiet: bool) -> "_ForkedWorker":
+        with cls._lock_start:
+            # read when the fork server starts (the first worker's start)
+            forkserver.set_forkserver_preload(list(_FORK_PRELOAD))
+            proc = _WorkerProcess(target=_forked_worker_main,
+                                  args=(list(argv), dict(env), quiet),
+                                  name="spacdc-worker")
+            proc.start()
+            mp_process._children.discard(proc)
+        return cls(proc)
+
+    def poll(self):
+        with self._lock:
+            return self._proc._popen.poll()
+
+    def wait(self, timeout=None):
+        deadline = None if timeout is None else time.perf_counter() + timeout
+        while True:
+            code = self.poll()
+            if code is not None:
+                return code
+            if deadline is not None and time.perf_counter() >= deadline:
+                raise subprocess.TimeoutExpired("spacdc-worker", timeout)
+            time.sleep(0.01)
+
+    def send_signal(self, sig) -> None:
+        if self.poll() is None:
+            os.kill(self.pid, sig)
+
+    def terminate(self) -> None:
+        self.send_signal(signal.SIGTERM)
+
+    def kill(self) -> None:
+        self.send_signal(signal.SIGKILL)
+
+
 class SocketTransport:
     """Master side of the process mesh (see the module docstring).
 
     Construction is cheap: the listener and the N worker processes come up
     on the first ``submit_round`` (or an explicit ``start()``), so a
     Session with ``TransportSpec(backend="socket")`` costs nothing until a
-    round runs.  With ``spawn_workers=False`` the transport only listens:
+    round runs.  Spawned workers (and their respawns) are forked from
+    ``multiprocessing``'s fork server, which imports torch and the worker
+    module once for every worker; ``python=`` starts each as ``python -m
+    repro_torch.launch.worker`` under that interpreter instead.  With
+    ``spawn_workers=False`` the transport only listens:
     start the workers yourself, with ``python -m repro_torch.launch.worker
     --connect HOST:PORT --worker-id I --device cuda`` (other terminals, or
     other machines with a routable ``bind``).
@@ -234,7 +361,7 @@ class SocketTransport:
         self._lock = threading.RLock()
         self._conns: dict = {}               # wid -> _WorkerConn
         self._rounds: dict = {}              # submission id -> handle
-        self._procs: dict = {}               # wid -> Popen
+        self._procs: dict = {}               # wid -> _ForkedWorker or Popen
         self._respawns: collections.Counter = collections.Counter()
         self._os_plans: dict = {}            # round_idx -> (plan, fault, seed)
         self._start_errors: dict = {}        # wid -> the worker's message
@@ -317,23 +444,26 @@ class SocketTransport:
 
     def _spawn(self, wid: int) -> None:
         """Launch one worker process on the transport's device (the accept
-        loop registers it)."""
+        loop registers it): forked from the fork server, or, with
+        ``python`` given, a fresh interpreter."""
         import repro_torch
         env = dict(os.environ)
         pkg_root = str(Path(next(iter(repro_torch.__path__))).resolve()
                        .parent)
         env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
-        cmd = [self.python or sys.executable, "-m",
-               "repro_torch.launch.worker",
-               "--connect", f"{self.host}:{self.port}",
-               "--worker-id", str(wid),
-               "--heartbeat-s", str(self.heartbeat_s),
-               "--connect-timeout-s", str(self.connect_timeout_s),
-               "--device", str(self.device)]
+        argv = ["--connect", f"{self.host}:{self.port}",
+                "--worker-id", str(wid),
+                "--heartbeat-s", str(self.heartbeat_s),
+                "--connect-timeout-s", str(self.connect_timeout_s),
+                "--device", str(self.device)]
         quiet = not os.environ.get("SPACDC_WORKER_DEBUG")
-        sink = subprocess.DEVNULL if quiet else None
-        self._procs[wid] = subprocess.Popen(cmd, env=env, stdout=sink,
-                                            stderr=sink)
+        if self.python is None:
+            self._procs[wid] = _ForkedWorker.start(argv, env, quiet)
+        else:
+            sink = subprocess.DEVNULL if quiet else None
+            self._procs[wid] = subprocess.Popen(
+                [self.python, "-m", "repro_torch.launch.worker", *argv],
+                env=env, stdout=sink, stderr=sink)
         self.stats["spawns"] += 1
 
     def worker_pid(self, wid: int) -> Optional[int]:

@@ -1,8 +1,13 @@
 """The transport seam: how one coded round's work reaches N workers and
 how their completions stream back.
 
-Ports ``repro/runtime/transport.py``: its registry and its in-process
-backends:
+Ports ``repro/runtime/transport.py``: its protocols, its registry and
+its in-process backends.  A :class:`Transport`'s ``submit_round(...)``
+returns a :class:`RoundHandle` whose ``events()`` iterator streams
+timestamped :class:`~.wait_policy.ArrivalEvent` completions in arrival
+order and whose ``result(worker)`` fetches that worker's output; the
+consumer drains as many events as its wait policy wants and then calls
+``finish()``.  The backends:
 
 * :class:`VirtualClockTransport` — the analytic clock: per-worker latency
   = representative compute time + injected straggler delay, the arrival
@@ -46,7 +51,8 @@ import functools
 import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
-from typing import Iterator, List, Optional
+from typing import (Callable, Iterator, List, Optional, Protocol, Sequence,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -54,8 +60,9 @@ import torch
 from .straggler import StragglerModel
 from .wait_policy import ArrivalEvent
 
-__all__ = ["VirtualClockTransport", "ThreadTransport", "TRANSPORTS",
-           "available_backends", "build_transport", "virtual_timeline"]
+__all__ = ["RoundHandle", "Transport", "VirtualClockTransport",
+           "ThreadTransport", "TRANSPORTS", "available_backends",
+           "build_transport", "virtual_timeline"]
 
 
 def virtual_timeline(delays: np.ndarray, t_compute: float) -> List[ArrivalEvent]:
@@ -68,6 +75,41 @@ def virtual_timeline(delays: np.ndarray, t_compute: float) -> List[ArrivalEvent]
     lat = np.asarray(delays, dtype=np.float64) + float(t_compute)
     order = np.argsort(lat)
     return [ArrivalEvent(t=float(lat[i]), worker=int(i)) for i in order]
+
+
+@runtime_checkable
+class RoundHandle(Protocol):
+    """One in-flight round: stream its completions, fetch its results."""
+
+    def events(self) -> Iterator[ArrivalEvent]:
+        """Completions in arrival order.  Stops early when the round's
+        deadline budget fires (after ``min_ready`` arrivals)."""
+
+    def result(self, worker: int):
+        """The worker's output (computed lazily on the virtual clock)."""
+
+    def finish(self) -> float:
+        """Stop consuming: drop or cancel stragglers, return the elapsed
+        wall seconds (real transports) or 0.0 (virtual: the event times
+        are the clock).  Idempotent; always call it when done draining."""
+
+
+@runtime_checkable
+class Transport(Protocol):
+    """A backend that can carry rounds.  Implementations own whatever
+    long-lived resources rounds share (executors, CUDA streams, sockets,
+    worker processes) and release them in ``close()``."""
+
+    name: str
+
+    def submit_round(self, shards: Sequence, f: Callable, round_idx: int, *,
+                     t_compute: Optional[float] = None,
+                     budget: Optional[float] = None,
+                     min_ready: int = 1) -> RoundHandle:
+        ...
+
+    def close(self) -> None:
+        ...
 
 
 class _VirtualRoundHandle:

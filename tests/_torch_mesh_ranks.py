@@ -258,3 +258,20 @@ def coded_psum_axes_rank(rank, world, grads: list, mask, n_shards: int,
     with use_mesh(mesh):
         out = coded_psum(tree, mask, gcode, dp)
     return {"idx": idx, **{k: v.numpy() for k, v in out.items()}}
+
+
+def warm_rank(rank, world):
+    """A ``RankGroup`` warm-up: a collective over the joined group, before
+    any job arrives."""
+    import torch.distributed as dist
+    x = torch.ones(1)
+    dist.all_reduce(x)
+    assert int(x.item()) == world
+
+
+def sum_rank(rank, world, t):
+    """All-reduce ``(rank + 1) * t`` over the group."""
+    import torch.distributed as dist
+    x = t.clone() * (rank + 1)
+    dist.all_reduce(x)
+    return x.numpy()

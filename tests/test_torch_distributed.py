@@ -42,7 +42,7 @@ import torch
 import _torch_mesh_ranks as ranks
 from repro_torch.configs import tiny_config
 from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.launch.mesh import run_ranks
+from repro_torch.launch.mesh import RankGroup, run_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT_S = 240.0
@@ -418,3 +418,27 @@ def test_cuda_sharded_step_runs_the_flash_kernels_in_every_rank(tmp_path,
         w = m.cpu().numpy()
         diff = float(np.abs(out[0]["mu1"][name] - w).max())
         assert diff <= GRAD_TOL * float(np.abs(w).max()), name
+
+
+def test_rank_group_starts_ahead_of_its_job(tmp_path):
+    """``RankGroup``: the ranks join the group and warm up before any job
+    (``ready``), then run the one job handed to them (its arguments cross
+    a queue) and are all stopped when it returns."""
+    group = RankGroup(4, rdv_dir=_rdv(tmp_path), device="cpu",
+                      warm=ranks.warm_rank)
+    starts = group.ready(timeout_s=TIMEOUT_S)
+    assert len(starts) == 4 and all(s > 0 for s in starts)
+    got = group.run(ranks.sum_rank, (torch.ones(2),), timeout_s=TIMEOUT_S)
+    for r in range(4):
+        np.testing.assert_array_equal(got[r], np.full(2, 10.0))
+    assert not any(p.is_alive() for p in group._procs)
+    with pytest.raises(RuntimeError, match="closed"):
+        group.run(ranks.sum_rank, (torch.ones(2),))
+
+
+def test_rank_group_closed_unused_stops_its_ranks(tmp_path):
+    group = RankGroup(2, rdv_dir=_rdv(tmp_path), device="cpu")
+    group.ready(timeout_s=TIMEOUT_S)
+    group.close()
+    assert not any(p.is_alive() for p in group._procs)
+    assert all(p.exitcode == 0 for p in group._procs)     # left, not killed

@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``src/repro_torch`` (and not
-``chip_smoke.py``) imports JAX or anything of the JAX package ``repro``, at
+``chip_smoke.py`` or the port's ``examples/*_torch.py``) imports JAX or anything of the JAX package ``repro``, at
 any depth — imports inside functions included — and importing the public
 surface leaves both out of ``sys.modules``.
 """
@@ -14,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -72,7 +72,11 @@ def test_the_scan_sees_every_port_module():
                  "src/repro_torch/dist/compression.py",
                  "src/repro_torch/kernels/flash_attention_bwd.py",
                  "src/repro_torch/tree.py",
-                 "chip_smoke.py"):
+                 "chip_smoke.py", "examples/quickstart_torch.py",
+                 "examples/anytime_decode_torch.py",
+                 "examples/spacdc_dl_mnist_torch.py",
+                 "examples/serve_demo_torch.py",
+                 "examples/coded_lm_training_torch.py"):
         assert must in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")

@@ -355,6 +355,34 @@ def _wait_for(cond, timeout_s: float) -> bool:
     return bool(cond())
 
 
+def _parent(pid: int) -> int:
+    status = Path(f"/proc/{pid}/status").read_text()
+    return int(next(line.split()[1] for line in status.splitlines()
+                    if line.startswith("PPid:")))
+
+
+@pytest.mark.parametrize("python", [None, sys.executable])
+def test_spawned_workers_forked_or_fresh(python):
+    """Spawned workers are forked from one fork server that imported torch
+    for them (not children of the master), unless ``python=`` asks for a
+    fresh interpreter each; either way they register, compute and stop."""
+    tr = _mesh(3, python=python)
+    try:
+        tr.start()
+        parents = {_parent(tr.worker_pid(w)) for w in range(3)}
+        if python is None:
+            assert len(parents) == 1 and os.getpid() not in parents
+        else:
+            assert parents == {os.getpid()}
+        h = tr.submit_round(_shards(3), MatmulTask(_B), 0)
+        assert sorted(ev.worker for ev in h.events()) == [0, 1, 2]
+        torch.testing.assert_close(h.result(1), _shards(3)[1] @ _B)
+        h.finish()
+    finally:
+        tr.close()
+    assert all(p.poll() is not None for p in tr._procs.values())
+
+
 def test_clean_round_all_respond():
     tr = _mesh(3)
     try:
